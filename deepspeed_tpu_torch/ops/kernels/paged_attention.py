@@ -1,0 +1,95 @@
+"""Paged decode attention for the v2 serving engine.
+
+Replaces the Pallas TPU kernel ``paged_decode_attention``
+(``_paged_kernel``) of ``deepspeed_tpu/ops/pallas/paged_attention.py``; the
+CUDA kernel is ``deepspeed_tpu_torch/csrc/decode_attention.cu`` (entry point
+``ds_paged_decode_attention``), hand-written for Hopper.  The head-sharded
+``paged_decode_attention_tp`` is not ported yet.
+
+Bound on the card: the K/V bytes of the live pages, read once per call.
+The kernel shares its design with the padded-cache kernel (one thread block
+per sequence and kv head, holding the whole GQA group; 16-byte loads; fp32
+online softmax); each key's page comes from ``block_tables[b, pos // bs]``,
+and with a window the walk starts at the window's first key, so pages before
+it are never read.
+
+On a CPU tensor the wrapper runs :func:`paged_decode_attention_plain`; on a
+CUDA tensor it launches the kernel and raises on any failure.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .. import op_builder
+from .common import DTYPE_CODES, check_decode_args, check_kernel_args
+
+
+def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor,
+                                 block_tables: torch.Tensor,
+                                 lengths: torch.Tensor,
+                                 window: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Transcription of the JAX reference ``paged_decode_reference``:
+    gather each sequence's pages into a padded ``[B, max_blocks*bs, kv_h,
+    d]`` cache, repeat over GQA, fp32 scores times the scale, -1e30 masking,
+    and p cast to q's dtype before p·V."""
+    B = q.shape[0]
+    _, bs, kv_h, d = k_pool.shape
+    max_blocks = block_tables.shape[1]
+    idx = block_tables.to(torch.int64)
+    k = k_pool[idx].reshape(B, max_blocks * bs, kv_h, d)
+    v = v_pool[idx].reshape(B, max_blocks * bs, kv_h, d)
+    n_rep = q.shape[1] // kv_h
+    if n_rep > 1:
+        k = k.repeat_interleave(n_rep, dim=2)
+        v = v.repeat_interleave(n_rep, dim=2)
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bhd,bkhd->bhk", q, k).float() * scale
+    pos = torch.arange(max_blocks * bs, device=q.device)[None, None, :]
+    lens = lengths.to(torch.int64)[:, None, None]
+    mask = pos < lens
+    if window is not None:
+        mask = mask & (pos >= lens - window)
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhk,bkhd->bhd", p, v)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """One-token queries ``q [B, h, d]`` over a shared page pool
+    ``[N, block_size, kv_h, d]`` addressed by int32 ``block_tables [B,
+    max_blocks]``, with int32 ``lengths [B]`` counting the key just written
+    and an optional sliding ``window``."""
+    check_decode_args(q, k_pool, v_pool, lengths, window, tables=block_tables)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
+                                            lengths, window)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"paged_decode_attention: unsupported device {q.device}")
+    check_kernel_args(q, k_pool, v_pool, block_tables, lengths)
+    lib = op_builder.load_library()
+    B, h, d = q.shape
+    num_pages, bs, kv_h, _ = k_pool.shape
+    out = torch.empty_like(q)
+    status = lib.ds_paged_decode_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, h,
+        kv_h, d, num_pages, bs, block_tables.shape[1],
+        int(window) if window is not None else 0, DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    op_builder.check(status, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (CPU calls never count)
+paged_decode_attention.launches = 0

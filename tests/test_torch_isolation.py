@@ -1,0 +1,86 @@
+"""The port stands alone: no JAX, no JAX package, no silent CPU fallback.
+
+Every ``.py`` under ``deepspeed_tpu_torch/`` and ``chip_smoke.py`` is parsed
+with ``ast``; an import of ``jax``, ``jaxlib`` or ``deepspeed_tpu`` (other
+than ``deepspeed_tpu_torch``) fails the test.  The entry points, called
+without a device while CUDA is absent, raise instead of running on the CPU.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch import (KVCacheConfig, LlamaConfig, LlamaModel,
+                                 build_engine_v2, build_serving_frontend,
+                                 init_inference)
+from deepspeed_tpu_torch.utils.device import check_module_device
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    assert path.is_file(), path
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_forbidden_rule_catches_the_jax_package():
+    assert _forbidden("deepspeed_tpu.models.llama")
+    assert _forbidden("jax.numpy") and _forbidden("jaxlib")
+    assert not _forbidden("deepspeed_tpu_torch.ops")
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    cfg = LlamaConfig.tiny(num_layers=1, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaModel(cfg)
+    model = LlamaModel(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_inference(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine_v2(model, cache_config=KVCacheConfig(
+            num_blocks=8, block_size=4, max_seq_len=64), prefill_chunk=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_serving_frontend(model, cache_config=KVCacheConfig(
+            num_blocks=8, block_size=4, max_seq_len=64), prefill_chunk=8)
+
+
+def test_engine_refuses_a_model_on_another_device():
+    model = LlamaModel(LlamaConfig.tiny(num_layers=1), device="cpu")
+    with pytest.raises(ValueError, match="is on cpu"):
+        check_module_device(model, torch.device("cuda"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        build_engine_v2(model, device="meta")
+
+
+def test_package_exports():
+    for name in deepspeed_tpu_torch.__all__:
+        assert hasattr(deepspeed_tpu_torch, name), name
