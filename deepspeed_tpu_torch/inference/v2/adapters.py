@@ -95,7 +95,7 @@ class LlamaV2Adapter(ModelAdapterV2):
 
     def embed(self, tokens, positions):
         del positions  # rotary: positions enter at qkv time
-        return self.model.embed(tokens.long())
+        return self.model.embed_tokens(tokens)
 
     def qkv(self, layer, x, positions):
         return self.model.qkv(layer, x, positions)

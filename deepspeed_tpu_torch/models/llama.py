@@ -1,31 +1,41 @@
-"""Llama-family decoder, inference half, in PyTorch.
+"""Llama-family decoder in PyTorch: inference and training.
 
 Counterpart of ``deepspeed_tpu/models/llama.py``: the config and its
-presets, the seeded init, RMSNorm, RoPE, the SwiGLU FFN, the LM head, and
-the KV-cache path (``init_cache`` / ``prefill`` / ``decode_step``) that
-``init_inference(...).generate`` runs, plus a no-grad ``forward``.
+presets, the seeded init, RMSNorm, RoPE, the SwiGLU FFN, the LM head, the
+KV-cache path (``init_cache`` / ``prefill`` / ``decode_step``) that
+``init_inference(...).generate`` runs, a no-grad ``forward``, and the
+training loss (``loss``, ``batch_labels``, :func:`masked_cross_entropy`)
+with per-layer remat.
 
-The JAX model keeps stacked ``[L, ...]`` fp32 masters and casts them to
-``config.dtype`` at every use; this port stores each weight once, already in
-``config.dtype``, in per-layer modules (``nn.Linear`` weights are ``[out,
-in]``).  ``models/convert.py`` carries a JAX parameter tree across.  The
-decode attention is the hand-written CUDA kernel
-(``ops/kernels/decode_attention.py``); everything else is plain PyTorch, as
-the JAX package left it to XLA.  The training half (loss, remat, sharding,
-flash attention) is not ported yet.
+Weights live in per-layer modules (``nn.Linear`` weights are ``[out, in]``)
+stored in ``config.param_dtype`` (default: ``config.dtype``) and are cast to
+``config.dtype`` at every use, as the JAX model casts its fp32 masters.
+Serving stores bf16 weights (the cast is then a no-op); training builds the
+model with ``param_dtype=torch.float32`` so the engine updates fp32 masters
+while the model computes in ``config.dtype``.  ``models/convert.py`` carries
+a JAX parameter tree across.  The attention kernels are hand-written CUDA:
+decode attention (``ops/kernels/decode_attention.py``) on the KV-cache path
+and flash attention (``ops/kernels/flash_attention.py``) in the training
+loss under ``attn_impl="flash"``; everything else is plain PyTorch, as the
+JAX package left it to XLA.  Sharding, pipeline and sequence parallelism
+and ``loss_tiles`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.kernels.decode_attention import decode_attention
+from ..ops.kernels.flash_attention import flash_attention
 from ..ops.masks import local_attention_mask
 from ..utils.device import DeviceLike, resolve_device
 
@@ -46,12 +56,28 @@ class LlamaConfig:
     #: Mistral-style sliding window: each token attends at most this many
     #: positions back (None = full causal)
     sliding_window: Optional[int] = None
+    #: compute dtype: every weight is cast to it at use
     dtype: torch.dtype = torch.bfloat16
+    #: storage dtype of the weights (None: ``dtype``); training keeps fp32
+    #: masters
+    param_dtype: Optional[torch.dtype] = None
+    #: recompute each layer in the backward, saving only the weight
+    #: matmuls' outputs (JAX: ``jax.checkpoint`` with
+    #: ``dots_with_no_batch_dims_saveable``)
+    remat: bool = True
+    #: training attention: "flash" runs the CUDA flash kernels, "xla" the
+    #: plain einsum + softmax (the JAX config's flash block sizes have no
+    #: counterpart: the Hopper kernels fix their own 64 x 64 tile)
+    attn_impl: str = "xla"
 
     @property
     def hd(self) -> int:
         return self.head_dim if self.head_dim is not None else (
             self.hidden_size // self.num_heads)
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        return self.param_dtype if self.param_dtype is not None else self.dtype
 
     # presets (sizes follow the public Llama/Llama-3/Mistral configs)
 
@@ -97,11 +123,34 @@ class LlamaConfig:
 
 
 def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """Normalise in fp32, cast back to x's dtype, then scale by ``w``."""
+    """Normalise in fp32, cast back to x's dtype, then scale by ``w`` (cast
+    to x's dtype at use)."""
     dt = x.dtype
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(dt) * w
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
+
+
+def masked_cross_entropy(logits: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross entropy in fp32 with -100 ignore positions (HF
+    convention)."""
+    valid = labels != -100
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None].long())[..., 0]
+    return (torch.where(valid, nll, torch.zeros_like(nll)).sum()
+            / valid.sum().clamp(min=1))
+
+
+#: forward ops whose outputs remat keeps: the weight matmuls (F.linear lowers
+#: to mm/addmm); the attention's batched products are recomputed
+_SAVED_UNDER_REMAT = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_weight_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_UNDER_REMAT
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor,
@@ -140,22 +189,29 @@ class LlamaDecoderLayer(nn.Module):
     def __init__(self, c: LlamaConfig, device: DeviceLike):
         super().__init__()
         H, I, hd = c.hidden_size, c.intermediate_size, c.hd
-        kw = dict(bias=False, device=device, dtype=c.dtype)
+        self.compute_dtype = c.dtype
+        kw = dict(bias=False, device=device, dtype=c.storage_dtype)
         self.attn_norm = nn.Parameter(torch.empty(H, device=device,
-                                                  dtype=c.dtype))
+                                                  dtype=c.storage_dtype))
         self.q_proj = nn.Linear(H, c.num_heads * hd, **kw)
         self.k_proj = nn.Linear(H, c.num_kv_heads * hd, **kw)
         self.v_proj = nn.Linear(H, c.num_kv_heads * hd, **kw)
         self.o_proj = nn.Linear(c.num_heads * hd, H, **kw)
         self.mlp_norm = nn.Parameter(torch.empty(H, device=device,
-                                                 dtype=c.dtype))
+                                                 dtype=c.storage_dtype))
         self.gate_proj = nn.Linear(H, I, **kw)
         self.up_proj = nn.Linear(H, I, **kw)
         self.down_proj = nn.Linear(I, H, **kw)
 
+    def proj(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """``x @ W.T`` with the weight cast to the compute dtype at use."""
+        return F.linear(x, lin.weight.to(self.compute_dtype))
+
     def ffn(self, h: torch.Tensor) -> torch.Tensor:
         """Dense SwiGLU."""
-        return self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
+        return self.proj(self.down_proj,
+                         F.silu(self.proj(self.gate_proj, h))
+                         * self.proj(self.up_proj, h))
 
 
 class LlamaModel(nn.Module):
@@ -171,15 +227,15 @@ class LlamaModel(nn.Module):
         # built on the meta device and materialised once: the init below
         # writes every weight, so a default init would be wasted work
         self.embed = nn.Embedding(c.vocab_size, c.hidden_size,
-                                  device="meta", dtype=c.dtype)
+                                  device="meta", dtype=c.storage_dtype)
         self.layers = nn.ModuleList(LlamaDecoderLayer(c, "meta")
                                     for _ in range(c.num_layers))
         self.final_norm = nn.Parameter(torch.empty(c.hidden_size,
                                                    device="meta",
-                                                   dtype=c.dtype))
+                                                   dtype=c.storage_dtype))
         self.lm_head = (None if c.tie_embeddings else
                         nn.Linear(c.hidden_size, c.vocab_size, bias=False,
-                                  device="meta", dtype=c.dtype))
+                                  device="meta", dtype=c.storage_dtype))
         self.to_empty(device=dev)
         self.init_params(seed)
 
@@ -191,8 +247,8 @@ class LlamaModel(nn.Module):
     def init_params(self, seed: int = 0) -> None:
         """Norms at one; every matrix ``N(0, 1/fan_in)``, drawn in fp32 from a
         seeded generator on the model's device and stored in
-        ``config.dtype`` (the JAX model's init distribution; its numbers
-        differ, since the two generators differ)."""
+        ``config.storage_dtype`` (the JAX model's init distribution; its
+        numbers differ, since the two generators differ)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
 
         def normal_(w: torch.Tensor, fan_in: int) -> None:
@@ -219,9 +275,14 @@ class LlamaModel(nn.Module):
         return (self.embed.weight if self.config.tie_embeddings
                 else self.lm_head.weight)
 
+    def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
+        """``ids [...]`` → ``[..., H]`` in the compute dtype."""
+        return F.embedding(ids.long(),
+                           self.embed.weight.to(self.config.dtype))
+
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """LM head in the model dtype, returned as fp32."""
-        return F.linear(x, self.head_weight()).float()
+        return F.linear(x, self.head_weight().to(self.config.dtype)).float()
 
     def qkv(self, layer: LlamaDecoderLayer, x: torch.Tensor,
             positions: torch.Tensor
@@ -231,9 +292,9 @@ class LlamaModel(nn.Module):
         c = self.config
         h = _rms_norm(x, layer.attn_norm, c.rms_norm_eps)
         shape = x.shape[:-1]
-        q = layer.q_proj(h).view(*shape, c.num_heads, c.hd)
-        k = layer.k_proj(h).view(*shape, c.num_kv_heads, c.hd)
-        v = layer.v_proj(h).view(*shape, c.num_kv_heads, c.hd)
+        q = layer.proj(layer.q_proj, h).view(*shape, c.num_heads, c.hd)
+        k = layer.proj(layer.k_proj, h).view(*shape, c.num_kv_heads, c.hd)
+        v = layer.proj(layer.v_proj, h).view(*shape, c.num_kv_heads, c.hd)
         return (_rope(q, positions, c.rope_theta),
                 _rope(k, positions, c.rope_theta), v)
 
@@ -241,7 +302,7 @@ class LlamaModel(nn.Module):
                   attn: torch.Tensor) -> torch.Tensor:
         """Output projection + residual + FFN block + residual;
         ``attn [..., h, d]``."""
-        x = x + layer.o_proj(attn.flatten(-2))
+        x = x + layer.proj(layer.o_proj, attn.flatten(-2))
         h = _rms_norm(x, layer.mlp_norm, self.config.rms_norm_eps)
         return x + layer.ffn(h)
 
@@ -259,7 +320,7 @@ class LlamaModel(nn.Module):
         mask = local_attention_mask(pos, pos, causal=True,
                                     window=c.sliding_window)
         n_rep = c.num_heads // c.num_kv_heads
-        x = self.embed(input_ids.long())
+        x = self.embed_tokens(input_ids)
         for layer in self.layers:
             q, k, v = self.qkv(layer, x, pos[None])
             attn = _attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
@@ -291,7 +352,7 @@ class LlamaModel(nn.Module):
         pos = torch.arange(S, device=self.device)
         mask = local_attention_mask(pos, pos, causal=True,
                                     window=c.sliding_window)
-        x = self.embed(input_ids.long())
+        x = self.embed_tokens(input_ids)
         for li, layer in enumerate(self.layers):
             q, k, v = self.qkv(layer, x, pos[None])
             cache["k"][li, :, :S] = k
@@ -316,7 +377,7 @@ class LlamaModel(nn.Module):
         lengths = cache["lengths"]
         rows = torch.arange(B, device=self.device)
         wpos = lengths.long()
-        x = self.embed(tokens.long())  # [B, H]
+        x = self.embed_tokens(tokens)  # [B, H]
         for li, layer in enumerate(self.layers):
             q, k, v = self.qkv(layer, x[:, None], lengths[:, None])
             k_cache, v_cache = cache["k"][li], cache["v"][li]
@@ -328,3 +389,63 @@ class LlamaModel(nn.Module):
         x = self.finalize(x)
         cache["lengths"] = lengths + 1
         return self.logits(x), cache
+
+    # -- training (loss with a gradient) -----------------------------------
+
+    def _train_layer(self, layer: LlamaDecoderLayer, x: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+        """One decoder layer over ``x [B, S, H]``: GQA K/V repeated to the
+        query heads before attention, as the JAX model does (the gradient
+        of the repeat sums back into the kv heads)."""
+        c = self.config
+        q, k, v = self.qkv(layer, x, pos[None])
+        n_rep = c.num_heads // c.num_kv_heads
+        k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+        if c.attn_impl == "flash":
+            attn = flash_attention(q, k, v, True, window=c.sliding_window)
+        elif c.attn_impl == "xla":
+            attn = _attention(q, k, v, local_attention_mask(
+                pos, pos, causal=True, window=c.sliding_window))
+        else:
+            raise ValueError(f"attn_impl {c.attn_impl!r} is not ported "
+                             "(use 'flash' or 'xla')")
+        return self.post_attn(layer, x, attn)
+
+    def hidden_states(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """``[B, S]`` ids → final-norm'd ``[B, S, H]``, with a gradient.
+        Under ``config.remat`` each layer is recomputed in the backward,
+        keeping only its weight matmuls' outputs."""
+        c = self.config
+        pos = torch.arange(input_ids.shape[1], device=self.device)
+        x = self.embed_tokens(input_ids)
+        remat = c.remat and torch.is_grad_enabled()
+        for layer in self.layers:
+            if remat:
+                x = checkpoint(self._train_layer, layer, x, pos,
+                               use_reentrant=False, preserve_rng_state=False,
+                               context_fn=functools.partial(
+                                   create_selective_checkpoint_contexts,
+                                   _save_weight_matmuls))
+            else:
+                x = self._train_layer(layer, x, pos)
+        return self.finalize(x)
+
+    @staticmethod
+    def batch_labels(batch: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(input_ids, labels)`` from ``{"input_ids"[, "labels"]}`` or an
+        ids tensor; labels default to the inputs shifted left, -100 at the
+        end (HF convention: -100 is ignored)."""
+        if isinstance(batch, dict):
+            input_ids, labels = batch["input_ids"], batch.get("labels")
+        else:
+            input_ids, labels = batch, None
+        if labels is None:
+            labels = torch.cat([input_ids[:, 1:],
+                                torch.full_like(input_ids[:, :1], -100)], 1)
+        return input_ids, labels
+
+    def loss(self, batch: Any) -> torch.Tensor:
+        """Next-token cross entropy (fp32 scalar) with a gradient."""
+        input_ids, labels = self.batch_labels(batch)
+        return masked_cross_entropy(
+            self.logits(self.hidden_states(input_ids)), labels)

@@ -1,4 +1,5 @@
-"""Argument checks shared by the two decode-attention wrappers."""
+"""Argument checks shared by the two decode-attention wrappers, and the
+dtype codes and head dims every CUDA kernel of the port takes."""
 
 from __future__ import annotations
 

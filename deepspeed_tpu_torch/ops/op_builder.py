@@ -3,8 +3,8 @@
 Role of ``deepspeed_tpu/ops/op_builder/builder.py``: compile the repo's own
 native sources once and load them.  Here the sources are the ``.cu`` files
 of ``deepspeed_tpu_torch/csrc/``, compiled for Hopper (``sm_90a``) into a
-shared library with a plain C interface and loaded with ``ctypes``, by one
-``nvcc`` command.
+shared library with a plain C interface and loaded with ``ctypes``: one
+``nvcc -c`` per source, all started together, then one link.
 
 The library lives in ``build/deepspeed_tpu_torch/`` beside the package
 (``.gitignore`` lists ``build/``) and is keyed by a hash of the sources and
@@ -23,7 +23,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
@@ -77,9 +77,31 @@ def _run(cmd: List[str]) -> str:
     return proc.stdout + proc.stderr
 
 
+def _compile_all(nvcc: str, tmp: Path) -> Tuple[List[Path], str]:
+    """One ``nvcc -c`` per source, all started together."""
+    jobs = []
+    for src in sources():
+        obj = tmp / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, obj, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [obj for _, obj, _ in jobs], "".join(logs)
+
+
 def build() -> Path:
-    """Compile the sources into the shared library with one ``nvcc``; a
-    no-op when the keyed library exists."""
+    """Compile the sources into the shared library (one ``nvcc`` per
+    source, in parallel, then one link); a no-op when the keyed library
+    exists."""
     global build_log
     target = library_path()
     if target.exists():
@@ -87,9 +109,10 @@ def build() -> Path:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, log = _compile_all(nvcc, Path(tmp))
         tmp_lib = Path(tmp) / target.name
-        log = _run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib),
-                    *map(str, sources())])
+        log += _run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_lib),
+                     *map(str, objs)])
         os.replace(tmp_lib, target)  # atomic: a reader never sees half a file
     build_log = log
     return target
@@ -108,6 +131,15 @@ def load_library() -> ctypes.CDLL:
             lib.ds_paged_decode_attention.argtypes = ([ptr] * 6 + [i32] * 9
                                                       + [ptr])
             lib.ds_paged_decode_attention.restype = i32
+            # flash attention: q, k, v, seg, out, lse | B, S, H, d, causal,
+            # window, dtype | stream; the backward passes take do, lse,
+            # delta before seg and one (dq) or two (dk, dv) outputs
+            lib.ds_flash_fwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+            lib.ds_flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+            lib.ds_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+            for fn in (lib.ds_flash_fwd, lib.ds_flash_bwd_dq,
+                       lib.ds_flash_bwd_dkv):
+                fn.restype = i32
             _lib = lib
         return _lib
 

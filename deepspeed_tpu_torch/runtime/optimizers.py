@@ -1,0 +1,178 @@
+"""Optimizer factory: the ds_config ``optimizer`` block to an update rule on
+fp32 master parameters.
+
+Counterpart of ``deepspeed_tpu/runtime/optimizers.py``, which maps the
+block onto optax.  The port follows optax's formulas exactly, with
+``torch._foreach_*`` over all parameters at once:
+
+* Adam: weight decay is L2 added to the gradient before the moments
+  (``add_decayed_weights`` chained before ``adam``); AdamW decays the
+  parameters decoupled from the moments;
+* ``update = m_hat / (sqrt(v_hat) + eps)``: eps outside the root, bias
+  correction from the count of applied steps;
+* Lion, SGD (``trace`` momentum) and Adagrad (``scale_by_rss``, initial
+  accumulator 0.1) as optax has them.
+
+The learning rate is passed to :meth:`step`; the engine evaluates
+``schedule(step)`` before the step is counted, as optax's
+``scale_by_learning_rate`` does.  Lamb, Muon and the 1-bit family raise
+"not ported yet".  A fused Adam kernel (``kernels.fused_adam``) is a later
+slice and takes :class:`Adam`'s place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from .config import DeepSpeedConfig, OptimizerConfig
+from .config_utils import is_auto
+
+_NOT_PORTED = ("lamb", "fusedlamb", "onebitlamb", "onebitadam",
+               "zerooneadam", "muon")
+
+
+class Optimizer:
+    """In-place update of ``params`` from their ``.grad``; the gradients
+    are already unscaled and clipped by the engine."""
+
+    def __init__(self, params: List[torch.Tensor]):
+        self.params = list(params)
+        self.count = 0  # applied steps
+
+    def _grads(self) -> List[torch.Tensor]:
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in self.params]
+
+    def _state(self, fill: float = 0.0) -> List[torch.Tensor]:
+        return [torch.full_like(p, fill, dtype=torch.float32)
+                for p in self.params]
+
+    @torch.no_grad()
+    def step(self, lr: float) -> None:
+        self.count += 1
+        self._update(self._grads(), lr)
+
+    def _update(self, grads: List[torch.Tensor], lr: float) -> None:
+        raise NotImplementedError
+
+
+class Adam(Optimizer):
+    """optax ``adam`` (``decoupled=False``: L2 weight decay added to the
+    gradient first) or ``adamw`` (decoupled weight decay)."""
+
+    def __init__(self, params, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, decoupled: bool = True):
+        super().__init__(params)
+        self.b1, self.b2 = float(betas[0]), float(betas[1])
+        self.eps, self.weight_decay = float(eps), float(weight_decay)
+        self.decoupled = decoupled
+        self.m, self.v = self._state(), self._state()
+
+    def _update(self, grads, lr):
+        p, m, v = self.params, self.m, self.v
+        if self.weight_decay and not self.decoupled:
+            grads = torch._foreach_add(grads, p, alpha=self.weight_decay)
+        torch._foreach_mul_(m, self.b1)
+        torch._foreach_add_(m, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(v, self.b2)
+        torch._foreach_addcmul_(v, grads, grads, value=1.0 - self.b2)
+        bc1 = 1.0 - self.b1 ** self.count
+        bc2 = 1.0 - self.b2 ** self.count
+        denom = torch._foreach_div(v, bc2)       # sqrt(v_hat) + eps
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        if self.weight_decay and self.decoupled:
+            torch._foreach_mul_(p, 1.0 - lr * self.weight_decay)
+        torch._foreach_addcdiv_(p, m, denom, value=-lr / bc1)
+
+
+class Lion(Optimizer):
+    """optax ``lion``: ``sign((1-b1) g + b1 m)``, then decoupled decay."""
+
+    def __init__(self, params, betas=(0.9, 0.99), weight_decay: float = 0.0):
+        super().__init__(params)
+        self.b1, self.b2 = float(betas[0]), float(betas[1])
+        self.weight_decay = float(weight_decay)
+        self.m = self._state()
+
+    def _update(self, grads, lr):
+        upd = torch._foreach_mul(self.m, self.b1)
+        torch._foreach_add_(upd, grads, alpha=1.0 - self.b1)
+        torch._foreach_sign_(upd)
+        if self.weight_decay:
+            torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
+        torch._foreach_add_(self.params, upd, alpha=-lr)
+        torch._foreach_mul_(self.m, self.b2)
+        torch._foreach_add_(self.m, grads, alpha=1.0 - self.b2)
+
+
+class SGD(Optimizer):
+    """optax ``sgd``: ``t = g + momentum t``, ``p -= lr t``."""
+
+    def __init__(self, params, momentum: float = 0.0):
+        super().__init__(params)
+        self.momentum = float(momentum)
+        self.trace = self._state()
+
+    def _update(self, grads, lr):
+        torch._foreach_mul_(self.trace, self.momentum)
+        torch._foreach_add_(self.trace, grads)
+        torch._foreach_add_(self.params, self.trace, alpha=-lr)
+
+
+class Adagrad(Optimizer):
+    """optax ``adagrad``: ``s += g^2``, ``p -= lr g / sqrt(s + eps)``."""
+
+    def __init__(self, params, eps: float = 1e-7,
+                 initial_accumulator_value: float = 0.1):
+        super().__init__(params)
+        self.eps = float(eps)
+        self.sum_sq = self._state(initial_accumulator_value)
+
+    def _update(self, grads, lr):
+        torch._foreach_addcmul_(self.sum_sq, grads, grads)
+        scale = torch._foreach_add(self.sum_sq, self.eps)
+        torch._foreach_rsqrt_(scale)
+        torch._foreach_mul_(scale, grads)
+        torch._foreach_add_(self.params, scale, alpha=-lr)
+
+
+def _clean_params(cfg: OptimizerConfig) -> Dict[str, Any]:
+    return {k: v for k, v in cfg.params.items() if not is_auto(v)}
+
+
+def build_optimizer(config: DeepSpeedConfig,
+                    params: List[torch.Tensor]) -> Optimizer:
+    """The base optimizer (no clipping: the engine clips, so the reported
+    grad norm is the one before clipping)."""
+    opt_cfg = config.optimizer or OptimizerConfig()
+    name = opt_cfg.type.lower().replace("_", "")
+    p = _clean_params(opt_cfg)
+    betas = p.get("betas", [0.9, 0.999])
+    eps = float(p.get("eps", 1e-8))
+    wd = float(p.get("weight_decay", 0.0))
+    if name in ("adam", "fusedadam"):
+        return Adam(params, betas, eps, wd, decoupled=False)
+    if name in ("adamw", "deepspeedcpuadam"):
+        return Adam(params, betas, eps, wd, decoupled=True)
+    if name in ("lion", "deepspeedcpulion"):
+        # Adam's default betas are not Lion's: only explicit betas count
+        return Lion(params, betas if "betas" in p else (0.9, 0.99), wd)
+    if name == "sgd":
+        return SGD(params, float(p.get("momentum", 0.0)))
+    if name in ("adagrad", "deepspeedcpuadagrad"):
+        return Adagrad(params, eps)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"optimizer {opt_cfg.type!r} is not ported "
+                                  "yet")
+    raise ValueError(f"Unknown optimizer type '{opt_cfg.type}'")
+
+
+def base_lr(config: DeepSpeedConfig) -> float:
+    """``optimizer.params.lr`` (1e-3 without an optimizer block or with
+    "auto"), the constant rate without a scheduler."""
+    lr = (config.optimizer.params.get("lr", 1e-3)
+          if config.optimizer is not None else 1e-3)
+    return 1e-3 if is_auto(lr) else float(lr)

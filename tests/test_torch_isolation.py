@@ -15,7 +15,7 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch import (KVCacheConfig, LlamaConfig, LlamaModel,
                                  build_engine_v2, build_serving_frontend,
-                                 init_inference)
+                                 init_inference, initialize)
 from deepspeed_tpu_torch.utils.device import check_module_device
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -71,6 +71,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_serving_frontend(model, cache_config=KVCacheConfig(
             num_blocks=8, block_size=4, max_seq_len=64), prefill_chunk=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize(model=model, config={"train_micro_batch_size_per_gpu": 1})
 
 
 def test_engine_refuses_a_model_on_another_device():

@@ -1,4 +1,5 @@
-"""The CUDA decode-attention kernels against their plain PyTorch versions.
+"""The CUDA kernels (decode attention, flash attention) against their plain
+PyTorch versions.
 
 These tests need an NVIDIA GPU (``-m cuda``) and skip without one: a CUDA
 kernel has no CPU mode.  They import no JAX, so they run on a machine that
@@ -78,3 +79,82 @@ def test_cuda_kernel_refuses_unsupported_head_dim(cuda):
     with pytest.raises(ValueError, match="head dim"):
         decode_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
                          v[..., :32].contiguous(), lens)
+
+
+# -- flash attention (training): forward, dq pass, dk/dv pass ---------------
+#
+# Tolerances: fp32 1e-4; bf16 2e-2 (the plain forward rounds q·k and p to
+# bf16, the kernel keeps fp32; the backward passes differ only in the final
+# rounding).  S 200 leaves a tail tile of 8 rows; the masks cover causal,
+# causal with a window, a bidirectional window and packed segments.
+
+FLASH_MASKS = {"causal": (True, None, False), "window": (True, 48, False),
+               "bidir_window": (False, 70, False),
+               "segments": (True, None, True), "bidir": (False, None, False)}
+
+
+def _flash_case(B, S, h, d, dtype, seed, device, with_seg):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(B, S, h, d, generator=g) for _ in range(4))
+    seg = None
+    if with_seg:  # two packed sequences per row, split at a ragged point
+        cut = torch.randint(1, S, (B, 1), generator=g)
+        seg = (torch.arange(S)[None, :] >= cut).to(torch.int32).to(device)
+    to = dict(device=device, dtype=dtype)
+    return q.to(**to), k.to(**to), v.to(**to), do.to(**to), seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("S", [128, 200])
+@pytest.mark.parametrize("mask", sorted(FLASH_MASKS))
+def test_cuda_flash_kernels_match_plain(cuda, dtype, d, S, mask):
+    from deepspeed_tpu_torch.ops.kernels import (flash_attention_bwd_plain,
+                                                 flash_attention_fwd_plain,
+                                                 flash_bwd_dkv, flash_bwd_dq,
+                                                 flash_fwd)
+    causal, window, with_seg = FLASH_MASKS[mask]
+    q, k, v, do, seg = _flash_case(2, S, 3, d, dtype, S + d, cuda, with_seg)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    before = (flash_fwd.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    out, lse = flash_fwd(q, k, v, causal, window, seg)
+    want_out, want_lse = flash_attention_fwd_plain(q, k, v, causal, window,
+                                                   seg)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+    dq = flash_bwd_dq(q, k, v, want_out, want_lse, do, causal, window, seg)
+    dk, dv = flash_bwd_dkv(q, k, v, want_out, want_lse, do, causal, window,
+                           seg)
+    want = flash_attention_bwd_plain(q, k, v, want_out, want_lse, do, causal,
+                                     window, seg)
+    for got, ref in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches - before[0], flash_bwd_dq.launches - before[1],
+            flash_bwd_dkv.launches - before[2]) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_autograd_matches_plain(cuda):
+    """The autograd Function on the card against plain autograd."""
+    from deepspeed_tpu_torch.ops.kernels import (flash_attention,
+                                                 flash_attention_fwd_plain)
+    q, k, v, do, _ = _flash_case(2, 96, 2, 64, torch.float32, 7, cuda, False)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves, causal=True, window=40).backward(do)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention_fwd_plain(*ref, True, 40)[0].backward(do)
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_unsupported_head_dim(cuda):
+    from deepspeed_tpu_torch.ops.kernels import flash_fwd
+    q, k, v, *_ = _flash_case(1, 64, 1, 32, torch.float32, 0, cuda, False)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_fwd(q, k, v)
