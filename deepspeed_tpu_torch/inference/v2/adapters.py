@@ -4,7 +4,8 @@ Counterpart of ``deepspeed_tpu/inference/v2/adapters.py``: the engine owns
 paging, scheduling and the two programs (chunked prefill, decode burst);
 an adapter owns the architecture deltas.  Every hook works on flat token
 batches ``[N, ...]`` with positions ``[N]``.  Only the Llama family is
-ported; the OPT adapter waits for ``models/opt.py``.
+ported (Llama and Mixtral, whose routed FFN runs inside ``post_attn``);
+the OPT adapter waits for ``models/opt.py``.
 """
 
 from __future__ import annotations
@@ -110,4 +111,5 @@ class LlamaV2Adapter(ModelAdapterV2):
         return self.model.logits(x)
 
 
-_REGISTRY = {"LlamaModel": LlamaV2Adapter}
+_REGISTRY = {"LlamaModel": LlamaV2Adapter,
+             "MixtralModel": LlamaV2Adapter}

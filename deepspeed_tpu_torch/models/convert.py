@@ -1,12 +1,15 @@
-"""Carry a JAX Llama parameter tree across to the PyTorch port, and the
-port's parameters or gradients back into the JAX tree's layout.
+"""Carry a JAX Llama or Mixtral parameter tree across to the PyTorch port,
+and the port's parameters or gradients back into the JAX tree's layout.
 
-The JAX model (``deepspeed_tpu/models/llama.py``, ``init_params``) keeps
-stacked ``[L, ...]`` layers with einsum layouts: ``wq [H, nh, hd]``,
-``wo [nh, hd, H]``, ``w_gate [H, I]``, ``lm_head [H, V]``.  The port keeps
-one module per layer with ``nn.Linear`` weights ``[out, in]``.  The input is
-the JAX tree with every leaf already a numpy array (``jax.device_get``), so
-this module needs neither JAX nor the JAX package.
+The JAX models (``deepspeed_tpu/models/llama.py`` and ``mixtral.py``,
+``init_params``) keep stacked ``[L, ...]`` layers with einsum layouts:
+``wq [H, nh, hd]``, ``wo [nh, hd, H]``, ``w_gate [H, I]``, ``lm_head [H,
+V]``; Mixtral replaces ``layers.mlp`` with ``layers.moe``: ``wg [L, H, E]``,
+``w_gate / w_up [L, E, H, I]``, ``w_down [L, E, I, H]``.  The port keeps one
+module per layer with ``nn.Linear`` weights ``[out, in]`` and the expert
+stacks in the JAX orientation.  The input is the JAX tree with every leaf
+already a numpy array (``jax.device_get``), so this module needs neither JAX
+nor the JAX package.
 """
 
 from __future__ import annotations
@@ -21,11 +24,16 @@ def _t(a: Any) -> torch.Tensor:
     return torch.tensor(np.asarray(a))  # a copy: JAX host arrays are read-only
 
 
+#: the expert-stacked FFN leaves of a Mixtral layer, in both layouts
+MOE_LEAVES = ("wg", "w_gate", "w_up", "w_down")
+
+
 def llama_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX Llama pytree of numpy arrays → the port's ``state_dict`` (fp32;
-    ``load_state_dict`` casts into the model's dtype)."""
+    """JAX Llama (or Mixtral) pytree of numpy arrays → the port's
+    ``state_dict`` (fp32; ``load_state_dict`` casts into the model's
+    dtype)."""
     layers = params["layers"]
-    attn, mlp = layers["attn"], layers["mlp"]
+    attn = layers["attn"]
     L, H, nh, hd = np.shape(attn["wq"])
     nkv = np.shape(attn["wk"])[2]
     sd: Dict[str, torch.Tensor] = {
@@ -42,12 +50,27 @@ def llama_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         sd[p + "v_proj.weight"] = _t(np.reshape(attn["wv"][i],
                                                 (H, nkv * hd)).T)
         sd[p + "o_proj.weight"] = _t(np.reshape(attn["wo"][i], (nh * hd, H)).T)
-        sd[p + "gate_proj.weight"] = _t(np.asarray(mlp["w_gate"][i]).T)
-        sd[p + "up_proj.weight"] = _t(np.asarray(mlp["w_up"][i]).T)
-        sd[p + "down_proj.weight"] = _t(np.asarray(mlp["w_down"][i]).T)
+        if "moe" in layers:
+            for name in MOE_LEAVES:
+                sd[p + name] = _t(layers["moe"][name][i])
+        else:
+            mlp = layers["mlp"]
+            sd[p + "gate_proj.weight"] = _t(np.asarray(mlp["w_gate"][i]).T)
+            sd[p + "up_proj.weight"] = _t(np.asarray(mlp["w_up"][i]).T)
+            sd[p + "down_proj.weight"] = _t(np.asarray(mlp["w_down"][i]).T)
     if "lm_head" in params:
         sd["lm_head.weight"] = _t(np.asarray(params["lm_head"]).T)
     return sd
+
+
+def mixtral_params_from_jax(params: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX Mixtral pytree → the port's ``state_dict``: the backbone as
+    Llama's, ``layers.moe`` split into each layer's ``wg``, ``w_gate``,
+    ``w_up`` and ``w_down``."""
+    if "moe" not in params["layers"]:
+        raise ValueError("not a Mixtral tree: layers has no 'moe'")
+    return llama_params_from_jax(params)
 
 
 def llama_tree_to_jax_layout(tensors: Dict[str, torch.Tensor],
@@ -55,8 +78,9 @@ def llama_tree_to_jax_layout(tensors: Dict[str, torch.Tensor],
                              ) -> Dict[str, Any]:
     """The inverse of :func:`llama_params_from_jax`: a ``state_dict``-keyed
     map (parameters, or their gradients) → the JAX tree's nested dict of
-    fp32 numpy arrays with stacked ``[L, ...]`` layers, so the port's
-    per-leaf gradients compare with ``jax.grad`` leaf by leaf."""
+    fp32 numpy arrays with stacked ``[L, ...]`` layers (``layers.moe`` for
+    a Mixtral map), so the port's per-leaf gradients compare with
+    ``jax.grad`` leaf by leaf."""
     def a(name: str) -> np.ndarray:
         return tensors[name].detach().float().cpu().numpy()
 
@@ -87,13 +111,17 @@ def llama_tree_to_jax_layout(tensors: Dict[str, torch.Tensor],
                 "wo": stack(lambda p: a(p + "o_proj.weight").T.reshape(
                     num_heads, -1, H)),
             },
-            "mlp": {
-                "w_gate": stack(lambda p: a(p + "gate_proj.weight").T),
-                "w_up": stack(lambda p: a(p + "up_proj.weight").T),
-                "w_down": stack(lambda p: a(p + "down_proj.weight").T),
-            },
         },
     }
+    if "layers.0.wg" in tensors:
+        tree["layers"]["moe"] = {name: stack(lambda p, n=name: a(p + n))
+                                 for name in MOE_LEAVES}
+    else:
+        tree["layers"]["mlp"] = {
+            "w_gate": stack(lambda p: a(p + "gate_proj.weight").T),
+            "w_up": stack(lambda p: a(p + "up_proj.weight").T),
+            "w_down": stack(lambda p: a(p + "down_proj.weight").T),
+        }
     if "lm_head.weight" in tensors:
         tree["lm_head"] = a("lm_head.weight").T
     return tree

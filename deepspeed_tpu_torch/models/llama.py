@@ -5,7 +5,10 @@ presets, the seeded init, RMSNorm, RoPE, the SwiGLU FFN, the LM head, the
 KV-cache path (``init_cache`` / ``prefill`` / ``decode_step``) that
 ``init_inference(...).generate`` runs, a no-grad ``forward``, and the
 training loss (``loss``, ``batch_labels``, :func:`masked_cross_entropy`)
-with per-layer remat.
+with per-layer remat.  The FFN is a hook (``_ffn``) that returns its
+output and an aux loss: the dense SwiGLU here, the routed experts in
+``models/mixtral.py``; ``loss`` adds ``aux_loss_coef`` times the layers'
+summed aux losses, as the JAX model does.
 
 Weights live in per-layer modules (``nn.Linear`` weights are ``[out, in]``)
 stored in ``config.param_dtype`` (default: ``config.dtype``) and are cast to
@@ -26,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +41,9 @@ from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.masks import local_attention_mask
 from ..utils.device import DeviceLike, resolve_device
+
+#: a layer's router aux loss: a 0-dim fp32 tensor, or 0.0 without a router
+AuxLoss = Union[torch.Tensor, float]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +75,9 @@ class LlamaConfig:
     #: plain einsum + softmax (the JAX config's flash block sizes have no
     #: counterpart: the Hopper kernels fix their own 64 x 64 tile)
     attn_impl: str = "xla"
+    #: weight of the routers' load-balancing loss in ``loss`` (the JAX
+    #: model's ``aux_loss_coef``; a dense model has no router)
+    aux_loss_coef: float = 0.0
 
     @property
     def hd(self) -> int:
@@ -185,10 +194,14 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     return x.repeat_interleave(n_rep, dim=-2) if n_rep > 1 else x
 
 
+#: ``normal_(weight, fan_in)``: draw ``N(0, 1/fan_in)`` into ``weight``
+Init = Callable[[torch.Tensor, int], None]
+
+
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, c: LlamaConfig, device: DeviceLike):
         super().__init__()
-        H, I, hd = c.hidden_size, c.intermediate_size, c.hd
+        H, hd = c.hidden_size, c.hd
         self.compute_dtype = c.dtype
         kw = dict(bias=False, device=device, dtype=c.storage_dtype)
         self.attn_norm = nn.Parameter(torch.empty(H, device=device,
@@ -199,9 +212,28 @@ class LlamaDecoderLayer(nn.Module):
         self.o_proj = nn.Linear(c.num_heads * hd, H, **kw)
         self.mlp_norm = nn.Parameter(torch.empty(H, device=device,
                                                  dtype=c.storage_dtype))
+        self._build_ffn(c, device)
+
+    def _build_ffn(self, c: LlamaConfig, device: DeviceLike) -> None:
+        """The dense SwiGLU's three projections."""
+        H, I = c.hidden_size, c.intermediate_size
+        kw = dict(bias=False, device=device, dtype=c.storage_dtype)
         self.gate_proj = nn.Linear(H, I, **kw)
         self.up_proj = nn.Linear(H, I, **kw)
         self.down_proj = nn.Linear(I, H, **kw)
+
+    def reset_parameters(self, normal_: Init) -> None:
+        """Every matrix from ``normal_`` (attention first, then the FFN, one
+        tensor at a time), the norms at one."""
+        for lin in (self.q_proj, self.k_proj, self.v_proj, self.o_proj):
+            normal_(lin.weight, lin.in_features)
+        self._reset_ffn(normal_)
+        self.attn_norm.fill_(1.0)
+        self.mlp_norm.fill_(1.0)
+
+    def _reset_ffn(self, normal_: Init) -> None:
+        for lin in (self.gate_proj, self.up_proj, self.down_proj):
+            normal_(lin.weight, lin.in_features)
 
     def proj(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         """``x @ W.T`` with the weight cast to the compute dtype at use."""
@@ -219,6 +251,8 @@ class LlamaModel(nn.Module):
     and raises without a CUDA device; weights are drawn from a
     ``torch.Generator`` seeded with ``seed`` (see :meth:`init_params`)."""
 
+    layer_cls = LlamaDecoderLayer
+
     def __init__(self, config: LlamaConfig, device: DeviceLike = "cuda",
                  seed: int = 0):
         super().__init__()
@@ -228,7 +262,7 @@ class LlamaModel(nn.Module):
         # writes every weight, so a default init would be wasted work
         self.embed = nn.Embedding(c.vocab_size, c.hidden_size,
                                   device="meta", dtype=c.storage_dtype)
-        self.layers = nn.ModuleList(LlamaDecoderLayer(c, "meta")
+        self.layers = nn.ModuleList(self.layer_cls(c, "meta")
                                     for _ in range(c.num_layers))
         self.final_norm = nn.Parameter(torch.empty(c.hidden_size,
                                                    device="meta",
@@ -253,17 +287,12 @@ class LlamaModel(nn.Module):
 
         def normal_(w: torch.Tensor, fan_in: int) -> None:
             w.copy_(torch.randn(w.shape, generator=gen, device=w.device,
-                                dtype=torch.float32) / math.sqrt(fan_in))
+                                dtype=torch.float32).div_(math.sqrt(fan_in)))
 
         c = self.config
         normal_(self.embed.weight, c.hidden_size)
         for layer in self.layers:
-            for lin in (layer.q_proj, layer.k_proj, layer.v_proj,
-                        layer.o_proj, layer.gate_proj, layer.up_proj,
-                        layer.down_proj):
-                normal_(lin.weight, lin.in_features)
-            layer.attn_norm.fill_(1.0)
-            layer.mlp_norm.fill_(1.0)
+            layer.reset_parameters(normal_)
         self.final_norm.fill_(1.0)
         if self.lm_head is not None:
             normal_(self.lm_head.weight, c.hidden_size)
@@ -298,13 +327,26 @@ class LlamaModel(nn.Module):
         return (_rope(q, positions, c.rope_theta),
                 _rope(k, positions, c.rope_theta), v)
 
-    def post_attn(self, layer: LlamaDecoderLayer, x: torch.Tensor,
-                  attn: torch.Tensor) -> torch.Tensor:
-        """Output projection + residual + FFN block + residual;
-        ``attn [..., h, d]``."""
+    def _ffn(self, layer: LlamaDecoderLayer, h: torch.Tensor
+             ) -> Tuple[torch.Tensor, AuxLoss]:
+        """The FFN over ``h [..., H]``: ``(out, aux loss)``.  Dense SwiGLU
+        here, with no aux loss; Mixtral routes it through its experts."""
+        return layer.ffn(h), 0.0
+
+    def _post_attn(self, layer: LlamaDecoderLayer, x: torch.Tensor,
+                   attn: torch.Tensor) -> Tuple[torch.Tensor, AuxLoss]:
+        """Output projection + residual + FFN block + residual, and the
+        FFN's aux loss; ``attn [..., h, d]``."""
         x = x + layer.proj(layer.o_proj, attn.flatten(-2))
         h = _rms_norm(x, layer.mlp_norm, self.config.rms_norm_eps)
-        return x + layer.ffn(h)
+        out, l_aux = self._ffn(layer, h)
+        return x + out, l_aux
+
+    def post_attn(self, layer: LlamaDecoderLayer, x: torch.Tensor,
+                  attn: torch.Tensor) -> torch.Tensor:
+        """:meth:`_post_attn` for the serving paths, which drop the aux
+        loss."""
+        return self._post_attn(layer, x, attn)[0]
 
     def finalize(self, x: torch.Tensor) -> torch.Tensor:
         return _rms_norm(x, self.final_norm, self.config.rms_norm_eps)
@@ -393,10 +435,10 @@ class LlamaModel(nn.Module):
     # -- training (loss with a gradient) -----------------------------------
 
     def _train_layer(self, layer: LlamaDecoderLayer, x: torch.Tensor,
-                     pos: torch.Tensor) -> torch.Tensor:
-        """One decoder layer over ``x [B, S, H]``: GQA K/V repeated to the
-        query heads before attention, as the JAX model does (the gradient
-        of the repeat sums back into the kv heads)."""
+                     pos: torch.Tensor) -> Tuple[torch.Tensor, AuxLoss]:
+        """One decoder layer over ``x [B, S, H]`` → ``(x, aux loss)``: GQA
+        K/V repeated to the query heads before attention, as the JAX model
+        does (the gradient of the repeat sums back into the kv heads)."""
         c = self.config
         q, k, v = self.qkv(layer, x, pos[None])
         n_rep = c.num_heads // c.num_kv_heads
@@ -409,26 +451,31 @@ class LlamaModel(nn.Module):
         else:
             raise ValueError(f"attn_impl {c.attn_impl!r} is not ported "
                              "(use 'flash' or 'xla')")
-        return self.post_attn(layer, x, attn)
+        return self._post_attn(layer, x, attn)
 
-    def hidden_states(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """``[B, S]`` ids → final-norm'd ``[B, S, H]``, with a gradient.
-        Under ``config.remat`` each layer is recomputed in the backward,
-        keeping only its weight matmuls' outputs."""
+    def hidden_states(self, input_ids: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``[B, S]`` ids → (final-norm'd ``[B, S, H]``, the layers' aux
+        losses summed, fp32), with a gradient.  Under ``config.remat`` each
+        layer is recomputed in the backward, keeping only its weight
+        matmuls' outputs."""
         c = self.config
         pos = torch.arange(input_ids.shape[1], device=self.device)
         x = self.embed_tokens(input_ids)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         remat = c.remat and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:
-                x = checkpoint(self._train_layer, layer, x, pos,
-                               use_reentrant=False, preserve_rng_state=False,
-                               context_fn=functools.partial(
-                                   create_selective_checkpoint_contexts,
-                                   _save_weight_matmuls))
+                x, l_aux = checkpoint(
+                    self._train_layer, layer, x, pos, use_reentrant=False,
+                    preserve_rng_state=False,
+                    context_fn=functools.partial(
+                        create_selective_checkpoint_contexts,
+                        _save_weight_matmuls))
             else:
-                x = self._train_layer(layer, x, pos)
-        return self.finalize(x)
+                x, l_aux = self._train_layer(layer, x, pos)
+            aux = aux + l_aux
+        return self.finalize(x), aux
 
     @staticmethod
     def batch_labels(batch: Any) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -445,7 +492,9 @@ class LlamaModel(nn.Module):
         return input_ids, labels
 
     def loss(self, batch: Any) -> torch.Tensor:
-        """Next-token cross entropy (fp32 scalar) with a gradient."""
+        """Next-token cross entropy plus ``aux_loss_coef`` times the summed
+        router aux losses (fp32 scalar), with a gradient."""
         input_ids, labels = self.batch_labels(batch)
-        return masked_cross_entropy(
-            self.logits(self.hidden_states(input_ids)), labels)
+        hidden, aux = self.hidden_states(input_ids)
+        ce = masked_cross_entropy(self.logits(hidden), labels)
+        return ce + self.config.aux_loss_coef * aux

@@ -8,7 +8,9 @@ from typing import Optional
 import torch
 
 #: dtype → the code the C entry points take
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: dtypes the attention kernels are instantiated for
+ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
 #: head dims the CUDA kernel is instantiated for
 KERNEL_HEAD_DIMS = (64, 128)
 
@@ -25,7 +27,7 @@ def check_decode_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
     if v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
-    if q.dtype not in DTYPE_CODES:
+    if q.dtype not in ATTENTION_DTYPES:
         raise TypeError(f"q dtype {q.dtype} not supported (bf16 or fp32)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q {q.dtype}, k {k.dtype}, v {v.dtype} must match")

@@ -42,7 +42,7 @@ import torch
 
 from .. import op_builder
 from ..masks import local_attention_mask
-from .common import DTYPE_CODES, KERNEL_HEAD_DIMS
+from .common import ATTENTION_DTYPES, DTYPE_CODES, KERNEL_HEAD_DIMS
 
 Tensor = torch.Tensor
 
@@ -140,7 +140,7 @@ def _check(q: Tensor, k: Tensor, v: Tensor,
         raise ValueError(f"q, k, v must be [B, S, h, d] of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or \
+    if q.dtype not in ATTENTION_DTYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share a dtype of bf16 or fp32, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")

@@ -137,8 +137,21 @@ def load_library() -> ctypes.CDLL:
             lib.ds_flash_fwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
             lib.ds_flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
             lib.ds_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+            # MoE: tokens, src_idx, out | T, rows, row bytes | stream;
+            # expert_out, flat_idx, gates, y | T, K, E*C, H, dtype | stream
+            lib.ds_moe_dispatch.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+            lib.ds_moe_combine.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+            # fused Adam: pointer table, chunk table, counts, scalars, the
+            # hyperparameters as fp32 | stream
+            f32 = ctypes.c_float
+            lib.ds_multi_tensor_sqsum.argtypes = ([ptr, ptr, i32, ptr, ptr,
+                                                   ptr])
+            lib.ds_fused_adam.argtypes = ([ptr, i32, ptr, i32, ptr]
+                                          + [f32] * 6 + [i32, ptr])
             for fn in (lib.ds_flash_fwd, lib.ds_flash_bwd_dq,
-                       lib.ds_flash_bwd_dkv):
+                       lib.ds_flash_bwd_dkv, lib.ds_moe_dispatch,
+                       lib.ds_moe_combine, lib.ds_multi_tensor_sqsum,
+                       lib.ds_fused_adam):
                 fn.restype = i32
             _lib = lib
         return _lib

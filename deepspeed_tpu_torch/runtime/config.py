@@ -10,11 +10,12 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` for the keys
 * ``bf16.enabled``, ``fp16.{enabled, loss_scale, initial_scale_power,
   loss_scale_window, hysteresis, min_loss_scale, consecutive_hysteresis}``;
 * ``zero_optimization.stage`` (0 only), ``kernels.{flash_attention,
-  flash_block_q, flash_block_k}``.
+  flash_block_q, flash_block_k, fused_adam}`` (``fused_adam``: the engine's
+  two-kernel Adam step, for the Adam family).
 
 What the port cannot do yet raises ``NotImplementedError`` ("not ported
 yet"): ZeRO stage above 0, optimizer or parameter offload, a parallel
-dimension above 1, ``kernels.fused_adam``.  The groups of
+dimension above 1.  The groups of
 :data:`ACCEPTED_WITHOUT_EFFECT` (telemetry, tuning, comms_logger, ...) are
 accepted and have no effect; ``ROADMAP.md`` lists them.
 """
@@ -95,6 +96,7 @@ class KernelsConfig:
     flash_attention: bool = False
     flash_block_q: int = 0
     flash_block_k: int = 0
+    #: the fused step: one gradient-norm kernel and one Adam kernel
     fused_adam: bool = False
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
@@ -173,9 +175,6 @@ class DeepSpeedConfig:
                                       "ported yet")
         if int(z.extra.get("mics_shard_size", -1) or -1) > 0:
             raise NotImplementedError("MiCS sharding is not ported yet")
-        if self.kernels.fused_adam:
-            raise NotImplementedError("kernels.fused_adam is not ported yet "
-                                      "(the optimizer step is plain PyTorch)")
 
     def resolve_batch_sizes(self, world_size: int = 1) -> None:
         """Infer the missing members of (train batch, micro batch, grad

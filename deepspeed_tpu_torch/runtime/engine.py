@@ -14,6 +14,18 @@ Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``):
    after;
 5. return ``{loss, grad_norm, lr, loss_scale, overflow}``.
 
+Under ``kernels.fused_adam`` (an Adam-family optimizer from the config;
+anything else logs and keeps the plain step, as the JAX engine's
+``fused_ok`` gate does) steps 2-4 are the two CUDA kernels of
+``ops/kernels/fused_adam.py``, counterparts of ``_grad_core(fused_prep=
+True)`` and ``_build_fused_train_step``: one ``tree_sqsum`` over the
+still-scaled gradients gives the raw norm, an fp16 overflow is a raw norm
+that is not finite, the clip factor comes from the finite part, and
+unscale × clip × overflow zero fold into one multiplier on the device that
+the one ``fused_adam`` launch applies; an fp16 overflow skips the launch
+and the count.  No gradient is rescaled in place, and a bf16 or fp32 step
+never reads the norm on the host.
+
 The DeepSpeed-style ``forward`` / ``backward`` / ``step`` are the same
 three stages driven by the caller: ``forward`` returns the microbatch's
 loss with its graph, ``backward`` scales it and accumulates its gradient,
@@ -28,16 +40,18 @@ ZeRO above 0, offload and the telemetry plane are not ported yet.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..ops.kernels.fused_adam import (MultiTensorPlan, fused_adam,
+                                      tree_sqsum)
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import log_dist
 from .config import DeepSpeedConfig
 from .lr_schedules import (LRScheduler, Schedule, constant_lr,
                            get_lr_schedule)
-from .optimizers import base_lr, build_optimizer
+from .optimizers import Adam, base_lr, build_optimizer
 from .precision import (DynamicLossScaler, clip_grads_by_global_norm,
                         global_grad_norm, has_overflow)
 
@@ -89,6 +103,18 @@ class DeepSpeedEngine:
             self._schedule = constant_lr(base_lr(config))
         self.lr_scheduler = LRScheduler(self._schedule)
         self.optimizer = build_optimizer(config, self.params)
+        self.fused_adam_enabled = False
+        self._fused_plan: Optional[MultiTensorPlan] = None
+        if config.kernels.fused_adam:
+            # the config's adam | fusedadam | adamw | deepspeedcpuadam
+            if isinstance(self.optimizer, Adam):
+                self.fused_adam_enabled = True
+                log_dist("kernels.fused_adam: two-kernel Adam step active "
+                         f"({self.optimizer.fused_config()})")
+            else:
+                log_dist("kernels.fused_adam requested but the optimizer is "
+                         f"{type(self.optimizer).__name__}, not Adam or "
+                         "AdamW: keeping the plain step")
         self.loss_scaler = (DynamicLossScaler.from_config(config.fp16)
                             if self.fp16_enabled else None)
 
@@ -154,26 +180,17 @@ class DeepSpeedEngine:
                  for p in self.params]
         mean_loss = self._loss_sum
         scale = self.loss_scale
-        # 1/scale (fp16) and gas/n (a forced partial boundary) in one pass
+        # 1/scale (fp16) and gas/n (a forced partial boundary) in one factor
         unscale = (1.0 / scale if self.fp16_enabled else 1.0) * gas / n
         if unscale != 1.0:
-            torch._foreach_mul_(grads, unscale)
             mean_loss = mean_loss * unscale
-        overflow = bool(has_overflow(grads)) if self.fp16_enabled else False
-        if overflow:
-            torch._foreach_zero_(grads)
-        if self.gradient_clipping > 0:
-            grad_norm = clip_grads_by_global_norm(grads,
-                                                  self.gradient_clipping)
-        else:
-            grad_norm = global_grad_norm(grads)
         lr = self._schedule(self.optimizer.count)
+        if self.fused_adam_enabled:
+            overflow, grad_norm = self._fused_step(grads, unscale, lr)
+        else:
+            overflow, grad_norm = self._plain_step(grads, unscale, lr)
         if overflow:
             self._skipped_steps += 1
-        else:
-            for p, g in zip(self.params, grads):
-                p.grad = g
-            self.optimizer.step(lr)
         if self.loss_scaler is not None:
             self.loss_scaler.update(overflow)
         self.zero_grad()
@@ -189,6 +206,49 @@ class DeepSpeedEngine:
                      f"lr={lr:.3e} grad_norm={float(grad_norm):.3f} "
                      f"loss_scale={scale:.0f}")
         return self.last_metrics
+
+    def _plain_step(self, grads: List[torch.Tensor], unscale: float,
+                    lr: float) -> Tuple[bool, torch.Tensor]:
+        """Unscale, overflow test, clip, then the optimizer's own step."""
+        if unscale != 1.0:
+            torch._foreach_mul_(grads, unscale)
+        overflow = bool(has_overflow(grads)) if self.fp16_enabled else False
+        if overflow:
+            torch._foreach_zero_(grads)
+        if self.gradient_clipping > 0:
+            grad_norm = clip_grads_by_global_norm(grads,
+                                                  self.gradient_clipping)
+        else:
+            grad_norm = global_grad_norm(grads)
+        if not overflow:
+            for p, g in zip(self.params, grads):
+                p.grad = g
+            self.optimizer.step(lr)
+        return overflow, grad_norm
+
+    def _fused_step(self, grads: List[torch.Tensor], unscale: float,
+                    lr: float) -> Tuple[bool, torch.Tensor]:
+        """The norm of the still-scaled gradients, then one fused Adam
+        launch with ``mult = clip factor x unscale``, updating the
+        optimizer's ``m``, ``v`` and ``count``."""
+        if self._fused_plan is None and self.device.type == "cuda":
+            self._fused_plan = MultiTensorPlan(self.params)
+        raw_norm = tree_sqsum(grads, self._fused_plan).sqrt()
+        finite = torch.isfinite(raw_norm)
+        # fp16 only: the host reads the overflow flag to skip the step
+        overflow = (not bool(finite)) if self.fp16_enabled else False
+        grad_norm = torch.where(finite, raw_norm,
+                                torch.zeros_like(raw_norm)) * unscale
+        mult: Any = unscale
+        if self.gradient_clipping > 0:
+            mult = torch.clamp(self.gradient_clipping / (grad_norm + 1e-6),
+                               max=1.0) * unscale
+        if not overflow:
+            opt = self.optimizer
+            fused_adam(self.params, grads, opt.m, opt.v, opt.count + 1, lr,
+                       mult, opt.fused_config(), self._fused_plan)
+            opt.count += 1
+        return overflow, grad_norm
 
     def train_step(self, batch: Any) -> Dict[str, Any]:
         """One optimizer step over the global batch (its leading dim split

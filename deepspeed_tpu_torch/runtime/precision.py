@@ -12,6 +12,7 @@ from typing import List, Optional
 
 import torch
 
+from ..ops.kernels.fused_adam import reference_sqsum
 from .config import FP16Config
 
 
@@ -76,10 +77,9 @@ def has_overflow(grads: List[torch.Tensor]) -> torch.Tensor:
 
 
 def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """0-dim fp32 ``sqrt(sum g^2)`` over every gradient."""
-    if not grads:
-        return torch.zeros((), dtype=torch.float32)
-    return torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    """0-dim fp32 ``sqrt(sum g^2)`` over every gradient (the plain version
+    of the fused step's Σg² kernel)."""
+    return reference_sqsum(grads).sqrt()
 
 
 def clip_grads_by_global_norm(grads: List[torch.Tensor], max_norm: float,

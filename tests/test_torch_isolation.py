@@ -14,6 +14,7 @@ import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch import (KVCacheConfig, LlamaConfig, LlamaModel,
+                                 MixtralConfig, MixtralModel,
                                  build_engine_v2, build_serving_frontend,
                                  init_inference, initialize)
 from deepspeed_tpu_torch.utils.device import check_module_device
@@ -59,10 +60,18 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_raise_without_cuda(no_cuda):
-    cfg = LlamaConfig.tiny(num_layers=1, dtype=torch.float32)
+    _check_entry_points_raise(LlamaModel, LlamaConfig)
+
+
+def test_mixtral_entry_points_raise_without_cuda(no_cuda):
+    _check_entry_points_raise(MixtralModel, MixtralConfig)
+
+
+def _check_entry_points_raise(model_cls, cfg_cls):
+    cfg = cfg_cls.tiny(num_layers=1, dtype=torch.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        LlamaModel(cfg)
-    model = LlamaModel(cfg, device="cpu")
+        model_cls(cfg)
+    model = model_cls(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_inference(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,4 +1,5 @@
-"""The CUDA kernels (decode attention, flash attention) against their plain
+"""The CUDA kernels (decode attention, flash attention, MoE dispatch and
+combine, the multi-tensor gradient norm and fused Adam) against their plain
 PyTorch versions.
 
 These tests need an NVIDIA GPU (``-m cuda``) and skip without one: a CUDA
@@ -158,3 +159,161 @@ def test_cuda_flash_refuses_unsupported_head_dim(cuda):
     q, k, v, *_ = _flash_case(1, 64, 1, 32, torch.float32, 0, cuda, False)
     with pytest.raises(ValueError, match="head dim"):
         flash_fwd(q, k, v)
+
+
+# -- MoE dispatch and combine -----------------------------------------------
+#
+# Dispatch is a copy: exact in every dtype.  Combine accumulates in fp32 in
+# the kernel; the plain version rounds the gate-weighted rows to the
+# expert output's dtype first: fp32 1e-4, bf16 2e-2.  The routing is
+# capacity-stressed, so empty slots and dropped assignments are present.
+
+def _moe_case(T, E, C, H, k, dtype, seed, device):
+    from deepspeed_tpu_torch.moe import top_k_gating_indices
+    from deepspeed_tpu_torch.ops.kernels.moe_dispatch import \
+        routing_to_indices
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(T, E, generator=g)
+    logits[:, 0] += 1.5  # expert 0 overflows, the others leave slots empty
+    gi, _, _ = top_k_gating_indices(logits, k, C)
+    src, flat = routing_to_indices(gi.expert_idx, gi.slot, gi.keep, E, C)
+    tokens = torch.randn(T, H, generator=g).to(device=device, dtype=dtype)
+    eo = torch.randn(E, C, H, generator=g).to(device=device, dtype=dtype)
+    return (tokens, eo, src.to(device), flat.to(device),
+            gi.gate.t().contiguous().to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", [(64, 8, 20, 128, 2), (200, 8, 40, 256, 2),
+                                   (37, 4, 12, 64, 1)],
+                         ids=["k2", "k2_wide", "k1_odd_T"])
+def test_cuda_moe_kernels_match_plain(cuda, dtype, shape):
+    from deepspeed_tpu_torch.ops.kernels import (combine_reference,
+                                                 dispatch_reference,
+                                                 moe_combine_fwd,
+                                                 moe_dispatch_fwd)
+    T, E, C, H, k = shape
+    tokens, eo, src, flat, gates = _moe_case(T, E, C, H, k, dtype, T + C,
+                                             cuda)
+    assert (src < 0).any() and (flat == E * C).any()
+    before = (moe_dispatch_fwd.launches, moe_combine_fwd.launches)
+    got = moe_dispatch_fwd(tokens, src)
+    torch.testing.assert_close(got, dispatch_reference(tokens, src),
+                               rtol=0, atol=0)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    y = moe_combine_fwd(eo, flat, gates)
+    want = combine_reference(eo, flat, gates)
+    assert y.dtype == dtype
+    torch.testing.assert_close(y.float(), want.float(), rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    assert (moe_dispatch_fwd.launches - before[0],
+            moe_combine_fwd.launches - before[1]) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_autograd_matches_plain(cuda):
+    """The autograd Functions on the card against plain autograd."""
+    from deepspeed_tpu_torch.ops.kernels import (combine_reference,
+                                                 dispatch_reference,
+                                                 moe_combine, moe_dispatch)
+    tokens, eo, src, flat, gates = _moe_case(64, 8, 20, 128, 2,
+                                             torch.float32, 3, cuda)
+    runs = []
+    for disp, comb in ((moe_dispatch, moe_combine),
+                       (dispatch_reference, combine_reference)):
+        t = tokens.clone().requires_grad_()
+        g = gates.clone().requires_grad_()
+        buf = disp(t, src)
+        comb(buf * 1.5, flat, g).square().sum().backward()
+        runs.append((t.grad, g.grad))
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_kernels_refuse_unaligned_rows(cuda):
+    from deepspeed_tpu_torch.ops.kernels import moe_dispatch_fwd
+    tokens, _, src, *_ = _moe_case(16, 4, 8, 64, 1, torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        moe_dispatch_fwd(tokens[:, :3].contiguous(), src)
+
+
+# -- multi-tensor gradient norm and fused Adam -------------------------------
+#
+# The Adam kernel rounds where the plain version rounds (no FMA
+# contraction), so the moments and the parameters are bit-equal, from a
+# fresh state and from random moments alike.  The norm sums in another
+# order: 1e-5.
+
+ADAM_SHAPES = [(300, 7), (13,), (1,), (16384 + 5,), (2, 3, 4), (4096, 33)]
+
+
+def _adam_lists(seed, device, fresh):
+    g = torch.Generator().manual_seed(seed)
+    p = [torch.randn(s, generator=g) for s in ADAM_SHAPES]
+    gr = [torch.randn(s, generator=g) for s in ADAM_SHAPES]
+    if fresh:
+        m = [torch.zeros(s) for s in ADAM_SHAPES]
+        v = [torch.zeros(s) for s in ADAM_SHAPES]
+    else:
+        m = [0.1 * torch.randn(s, generator=g) for s in ADAM_SHAPES]
+        v = [(0.1 * torch.randn(s, generator=g)).abs() for s in ADAM_SHAPES]
+    return [[t.to(device) for t in xs] for xs in (p, gr, m, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd,decoupled", [(0.0, True), (0.01, True),
+                                          (0.02, False)],
+                         ids=["adam", "adamw", "adam_l2"])
+@pytest.mark.parametrize("step", [1, 7])
+def test_cuda_fused_adam_matches_plain(cuda, wd, decoupled, step):
+    from deepspeed_tpu_torch.ops.kernels import (FusedAdamConfig,
+                                                 MultiTensorPlan, fused_adam,
+                                                 reference_adam)
+    cfg = FusedAdamConfig(weight_decay=wd, decoupled_wd=decoupled)
+    kern = _adam_lists(step, cuda, fresh=step == 1)
+    plain = [[t.clone() for t in xs] for xs in kern]
+    mult = torch.tensor(0.37, device=cuda)
+    before = fused_adam.launches
+    fused_adam(*kern, step, 1e-3, mult, cfg, MultiTensorPlan(kern[0]))
+    reference_adam(*plain, step, 1e-3, mult, cfg)
+    torch.cuda.synchronize()
+    assert fused_adam.launches - before == 1
+    for i in range(len(ADAM_SHAPES)):
+        for j in (0, 2, 3):  # p, m, v
+            assert torch.equal(kern[j][i], plain[j][i]), (i, j)
+
+
+@pytest.mark.cuda
+def test_cuda_sqsum_matches_plain_and_repeats(cuda):
+    from deepspeed_tpu_torch.ops.kernels import (MultiTensorPlan,
+                                                 reference_sqsum, tree_sqsum)
+    _, grads, _, _ = _adam_lists(3, cuda, fresh=True)
+    plan = MultiTensorPlan(grads)
+    before = tree_sqsum.launches
+    a = tree_sqsum(grads, plan)
+    b = tree_sqsum(grads)  # a plan built on the spot
+    want = reference_sqsum(grads)
+    torch.cuda.synchronize()
+    assert tree_sqsum.launches - before == 2
+    assert torch.equal(a, b)  # two fixed-order stages: no atomics
+    torch.testing.assert_close(a, want, rtol=1e-5, atol=0)
+    for bad in (float("inf"), float("nan")):
+        poisoned = [g.clone() for g in grads]
+        poisoned[3][7] = bad
+        assert not torch.isfinite(tree_sqsum(poisoned, plan))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_adam_refuses_what_the_kernel_cannot_take(cuda):
+    from deepspeed_tpu_torch.ops.kernels import MultiTensorPlan, fused_adam
+    p, g, m, v = _adam_lists(0, cuda, fresh=True)
+    plan = MultiTensorPlan(p)
+    with pytest.raises(TypeError, match="fp32"):
+        fused_adam(p, [x.half() for x in g], m, v, 1, 1e-3, plan=plan)
+    with pytest.raises(ValueError, match="shapes"):
+        fused_adam(p[:-1], g[:-1], m[:-1], v[:-1], 1, 1e-3, plan=plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_adam([p[5].t()], [g[5].t()], [m[5].t()], [v[5].t()], 1, 1e-3)

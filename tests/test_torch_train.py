@@ -340,13 +340,16 @@ def test_initialize_refuses_what_is_not_ported():
                 {"zero_optimization": {"offload_optimizer":
                                        {"device": "cpu"}}},
                 {"tensor_parallel": {"autotp_size": 2}},
-                {"kernels": {"fused_adam": True}},
                 {"optimizer": {"type": "Lamb", "params": {}}}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             dst.initialize(model=tm, config=dict(BASE, **bad), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         dst.initialize(model=tm, config=BASE, training_data=[1],
                        device="cpu")
+    # the fused Adam step is ported (tests/test_torch_fused_adam.py)
+    engine, *_ = dst.initialize(model=tm, config=dict(
+        BASE, kernels={"fused_adam": True}), device="cpu")
+    assert engine.fused_adam_enabled
     # groups whose planes are not ported are accepted without effect
     engine, *_ = dst.initialize(model=tm, config=dict(
         BASE, telemetry={"enabled": True}, comms_logger={"enabled": True},
