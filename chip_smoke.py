@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and hold its CUDA kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's serving, training and block-sparse attention
+paths on one NVIDIA GPU and hold its CUDA kernels against their plain
+PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -68,11 +69,33 @@ The Mixtral slice adds:
   steps: a finite, falling loss; per step dispatch and combine 2 L times,
   the norm and Adam once each; MFU counts the top-2 experts.
 
+The block-sparse slice adds:
+
+- ``sparse_kernels``: one ``kernels`` line per block-sparse kernel
+  (forward, dq pass, dk/dv pass), against its plain version over a grid of
+  every layout family (BigBird, Fixed, BSLongformer, Variable, EmptyTail
+  with rows that attend nothing), cells of 16 to 256 tokens, shared and
+  per-head layouts, causal and not, d 64 and 128, S 272 (a ragged tile) to
+  4096, bf16 and fp32; then timed at the training shape (B 2, S 4096, h
+  16, d 64, BigBird cells of 128, causal, bf16) beside its plain version,
+  SDPA with the boolean token mask and its bound (the live token pairs'
+  flops over 989 TFLOP/s against the bytes over 3.35 TB/s);
+- ``sparse``: ``sparse_attention(impl="auto")`` forward and backward
+  through autograd at bench.py's shapes (S 4096 to 8192), a per-head layout
+  at Llama-3-8B's attention width (h 32, d 128), S 32768 and a Fixed layout
+  whose route is the dense path: one line per case with its route, coarse
+  and token live fractions, launches (the forward kernel once a kernel-route
+  call, each backward kernel once a backward; none on the dense route),
+  errors against the plain versions (in chunks of query rows), and its
+  times beside the dense masked path (the H100's crossover) and, for the
+  S 8192 window sweep, the port's flash attention.
+
 Then a ``kernels`` line (every kernel's launches on the main paths: the
 decode kernels' from ``serve`` and ``generate``, the flash kernels' from
 ``train``, the MoE kernels' from ``serve_moe``, ``generate_moe`` and
-``train_moe``, the norm and Adam kernels' from ``train_moe``; times at the
-main paths' shapes), the card's name and power limit, and the result line.
+``train_moe``, the norm and Adam kernels' from ``train_moe``, the
+block-sparse kernels' from ``sparse``; times at the main paths' shapes),
+the card's name and power limit, and the result line.
 ``--only build,moe_kernels,...`` runs the named phases alone and prints
 neither of the last two lines.  TF32 is off for matmuls and cuDNN.  Length 0
 is not tested: the TPU kernel gives 0 there and its reference the mean of
@@ -132,6 +155,9 @@ def kernel_wrappers() -> dict:
             "paged_decode_attention": k.paged_decode_attention,
             "flash_fwd": k.flash_fwd, "flash_bwd_dq": k.flash_bwd_dq,
             "flash_bwd_dkv": k.flash_bwd_dkv,
+            "block_sparse_fwd": k.block_sparse_fwd,
+            "block_sparse_bwd_dq": k.block_sparse_bwd_dq,
+            "block_sparse_bwd_dkv": k.block_sparse_bwd_dkv,
             "moe_dispatch": k.moe_dispatch_fwd,
             "moe_combine": k.moe_combine_fwd,
             "multi_tensor_sqsum": k.tree_sqsum, "fused_adam": k.fused_adam}
@@ -161,7 +187,9 @@ def phase_build() -> dict:
         if entry:
             compiled += 1
             name = re.search(r"(gqa_decode|flash_fwd|flash_bwd_dq|"
-                             r"flash_bwd_dkv|dispatch|combine|sqsum_partial|"
+                             r"flash_bwd_dkv|block_sparse_fwd|"
+                             r"block_sparse_bwd_dq|block_sparse_bwd_dkv|"
+                             r"dispatch|combine|sqsum_partial|"
                              r"sqsum_final|adam)_kernel", entry.group(1))
             fam = name.group(1) if name else entry.group(1)
             families.setdefault(fam, [0, 0])
@@ -394,24 +422,26 @@ def flash_inputs(case, dtype, gen, dev):
     return q, k, v, do, seg
 
 
-def flash_bound_ms(case, el: int, pairs: int) -> dict:
-    """Least time per kernel for one call: ``pairs`` live (q, k) pairs (all
-    heads and rows, counted from this run's mask) times the kernel's flops
-    per pair (forward 4d: q·k and p·V; dq pass 6d: q·k, do·V, ds·K; dk/dv
-    pass 8d: q·k, do·V, pᵀ·do, dsᵀ·q) over the peak rate of the inputs'
-    type, against the bytes it must move (each input read once, each output
-    written once, lse and delta fp32) over the memory rate."""
-    _, B, h, d, S, _, _, _ = case
+def attention_bounds(B: int, S: int, h: int, d: int, el: int, pairs: int,
+                     names=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                     extra_bytes=(0, 0, 0)) -> dict:
+    """Least time per kernel (forward, dq pass, dk/dv pass) for one call:
+    ``pairs`` live (q, k) pairs (all heads and rows, counted from this run's
+    mask) times the kernel's flops per pair (forward 4d: q·k and p·V; dq
+    pass 6d: q·k, do·V, ds·K; dk/dv pass 8d: q·k, do·V, pᵀ·do, dsᵀ·q) over
+    the peak rate of the inputs' type, against the bytes it must move (each
+    input read once, each output written once, lse and delta fp32, plus
+    ``extra_bytes`` of plan) over the memory rate."""
     n = B * S * h * d * el              # one [B, S, h, d] tensor
     stats = B * h * S * 4               # one fp32 [B, h, S] row statistic
-    work = {"flash_fwd": (4 * d, 4 * n + stats),
-            "flash_bwd_dq": (6 * d, 5 * n + 2 * stats),
-            "flash_bwd_dkv": (8 * d, 6 * n + 2 * stats)}
+    work = ((4 * d, 4 * n + stats), (6 * d, 5 * n + 2 * stats),
+            (8 * d, 6 * n + 2 * stats))
     peak = PEAK_FLOPS[torch.bfloat16 if el == 2 else torch.float32]
     out = {}
-    for name, (flops_per_pair, nbytes) in work.items():
+    for name, (flops_per_pair, nbytes), extra in zip(names, work,
+                                                     extra_bytes):
         t_ops = flops_per_pair * pairs / peak * 1e3
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_bytes = (nbytes + extra) / PEAK_BYTES_PER_S * 1e3
         out[name] = (max(t_ops, t_bytes),
                      "operations" if t_ops >= t_bytes else "bytes")
     return out
@@ -512,8 +542,8 @@ def phase_flash_kernels(dev) -> dict:
                               lambda q, k, v, do, o, l, dl:
                               flash_attention_bwd_plain(q, k, v, o, l, do,
                                                         causal))}
-        bounds = flash_bound_ms(case, 2, h * live_pairs(S, causal, window)
-                                * B)
+        bounds = attention_bounds(B, S, h, d, 2,
+                                  h * live_pairs(S, causal, window) * B)
         for kernel, (fn, plain) in run.items():
             library = (sdpa_fwd if kernel == "flash_fwd" else None)
             timing[kernel][name] = dict(
@@ -876,6 +906,386 @@ def phase_adam_kernels(dev, shapes, seed: int) -> dict:
     del params, grads, ms, vs, counts, steps, plan
     torch.cuda.empty_cache()
     return timing
+
+
+# -- block-sparse attention ---------------------------------------------------
+
+SPARSE_KERNELS = ("block_sparse_fwd", "block_sparse_bwd_dq",
+                  "block_sparse_bwd_dkv")
+
+
+def sparse_config(family: str, h: int, **kw):
+    """A sparsity config of the port with ``num_heads=h``: a class of
+    ``ops/sparse_attention.py``, or ``EmptyTail`` (the JAX tests' Fixed
+    layout whose last 4 cell rows attend nothing)."""
+    import importlib
+    sa = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
+    if family != "EmptyTail":
+        return getattr(sa, family)(num_heads=h, **kw)
+
+    class EmptyTail(sa.FixedSparsityConfig):
+        def _head_layout(self, seq_len, head):
+            lay = super()._head_layout(seq_len, head)
+            lay[-4:, :] = 0
+            return lay
+    return EmptyTail(num_heads=h, **kw)
+
+
+#: (case, B, S, h, d, family, config, causal): the kernels' check grid —
+#: every layout family, cells of 16 to 256 tokens, shared and per-head
+#: layouts, causal and not, rows with no live key and keys nothing attends
+#: (EmptyTail), an S that is not a multiple of the 64-row tile, and the
+#: ``sparse`` phase's training shape (bench.py:1496-1506), which is timed
+SPARSE_CHECKS = [
+    ("bigbird_cb16_perhead", 2, 1024, 4, 64, "BigBirdSparsityConfig",
+     dict(block=16, different_layout_per_head=True), True),
+    ("bigbird_cb32", 2, 1024, 4, 128, "BigBirdSparsityConfig",
+     dict(block=32), False),
+    ("fixed_cb64", 1, 2048, 4, 64, "FixedSparsityConfig", dict(block=64),
+     False),
+    ("fixed_uni_cb16", 1, 1024, 4, 128, "FixedSparsityConfig",
+     dict(block=16, attention="unidirectional"), True),
+    ("longformer_cb128", 1, 2048, 4, 128, "BSLongformerSparsityConfig",
+     dict(block=128), True),
+    ("variable_cb256", 1, 4096, 2, 64, "VariableSparsityConfig",
+     dict(block=256, num_local_blocks=2), True),
+    ("bigbird_cb256_perhead", 1, 4096, 4, 128, "BigBirdSparsityConfig",
+     dict(block=256, different_layout_per_head=True), False),
+    ("empty_tail", 1, 256, 2, 64, "EmptyTail",
+     dict(block=16, num_local_blocks=2, num_global_blocks=0), False),
+    ("ragged_272", 2, 272, 4, 64, "BigBirdSparsityConfig",
+     dict(block=16, different_layout_per_head=True), True),
+    ("train", 2, 4096, 16, 64, "BigBirdSparsityConfig", dict(block=128),
+     True),
+]
+SPARSE_TIMED = "train"
+
+
+def sparse_inputs(B, S, h, d, dtype, gen, dev) -> list:
+    """q, k, v, do ``[B, S, h, d]``."""
+    return [torch.randn(B, S, h, d, generator=gen, device=dev).to(dtype)
+            for _ in range(4)]
+
+
+def sparse_plan(cfg, S: int, h: int, causal: bool) -> tuple:
+    """(layout ``[H, nb, nb]``, the kernels' tile plan) of ``cfg``."""
+    from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import (
+        _norm_layout, tile_plan)
+    layout = _norm_layout(cfg.make_layout(S), h)
+    return layout, tile_plan(layout, cfg.block, S, causal)
+
+
+def sparse_pairs(plan, B: int, h: int) -> int:
+    """Live (q, k) token pairs of one call, over every batch row and head,
+    counted from the layout's cells after causality."""
+    per_head = plan.token_pairs()
+    return int(B * (per_head.sum() if plan.heads == h else per_head[0] * h))
+
+
+def plan_bytes(plan, column_major: bool = False) -> int:
+    arrays = ((plan.col_ptr, plan.row_idx, plan.masks_t, plan.col_order)
+              if column_major else
+              (plan.row_ptr, plan.col_idx, plan.masks, plan.row_order))
+    return sum(a.nbytes for a in arrays)
+
+
+def walk_lengths(plan) -> dict:
+    """The longest and the mean live list of the row walk (forward, dq
+    pass) and of the column walk (dk/dv pass): the kernels' load balance."""
+    rows, cols = np.diff(plan.row_ptr), np.diff(plan.col_ptr)
+    return {"tiles_per_side": plan.nt, "live_tiles": plan.live_tiles,
+            "max_row_tiles": int(rows.max()),
+            "mean_row_tiles": float(rows.mean()),
+            "max_col_tiles": int(cols.max()),
+            "mean_col_tiles": float(cols.mean())}
+
+
+def check_close(what: str, got, want, dtype) -> float:
+    """``got`` within ``TOL[dtype] x (1 + |want|)`` of ``want``, finite, of
+    its shape and dtype; returns the largest error."""
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{what}: wrong dtype/shape")
+    require(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+    err = (got.float() - want.float()).abs()
+    require(bool((err <= TOL[dtype] * (1 + want.float().abs())).all()),
+            f"{what}: max error {err.max().item()} over tolerance "
+            f"{TOL[dtype]} x (1 + |plain|)")
+    return err.max().item()
+
+
+def phase_sparse_kernels(dev) -> dict:
+    """The three block-sparse kernels against their plain versions at every
+    ``SPARSE_CHECKS`` case, bf16 and fp32 (the backward passes start from
+    the plain forward's out and lse, so each kernel is held alone); then
+    timed at the training shape in bf16 beside the plain versions, SDPA with
+    the boolean token mask, and the bound."""
+    from deepspeed_tpu_torch.ops.kernels import (block_sparse_bwd_dkv,
+                                                 block_sparse_bwd_dq,
+                                                 block_sparse_bwd_plain,
+                                                 block_sparse_fwd,
+                                                 block_sparse_fwd_plain)
+    from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import \
+        token_mask
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import \
+        attention_delta
+
+    gen = torch.Generator(device=dev).manual_seed(8642)
+    errs = {name: {} for name in SPARSE_KERNELS}
+    for case, dtype in itertools.product(SPARSE_CHECKS,
+                                         (torch.bfloat16, torch.float32)):
+        name, B, S, h, d, family, kw, causal = case
+        cfg = sparse_config(family, h, **kw)
+        layout, plan = sparse_plan(cfg, S, h, causal)
+        q, k, v, do = sparse_inputs(B, S, h, d, dtype, gen, dev)
+        out, lse = block_sparse_fwd(q, k, v, plan)
+        want_out, want_lse = block_sparse_fwd_plain(q, k, v, layout,
+                                                    cfg.block, causal)
+        dq = block_sparse_bwd_dq(q, k, v, want_out, want_lse, do, plan)
+        dk, dv = block_sparse_bwd_dkv(q, k, v, want_out, want_lse, do, plan)
+        want = block_sparse_bwd_plain(q, k, v, want_out, want_lse, do,
+                                      layout, cfg.block, causal)
+        torch.cuda.synchronize()
+        key = f"{name}_{str(dtype).split('.')[-1]}"
+        for kernel, outputs in (
+                ("block_sparse_fwd", ((out, want_out), (lse, want_lse))),
+                ("block_sparse_bwd_dq", ((dq, want[0]),)),
+                ("block_sparse_bwd_dkv", ((dk, want[1]), (dv, want[2])))):
+            errs[kernel][key] = max(check_close(f"{kernel} {key}", g, w,
+                                                dtype) for g, w in outputs)
+        if family == "EmptyTail":  # the last 4 cells: no key, unattended
+            require(bool((out[:, -64:] == 0).all())
+                    and bool((lse[..., -64:] == 1e30).all())
+                    and all(bool((t[:, -64:] == 0).all())
+                            for t in (dq, dk, dv)),
+                    f"{key}: a row with no key or an unattended key is "
+                    "not zero")
+        del q, k, v, do, out, lse, want_out, want_lse, dq, dk, dv, want
+        torch.cuda.empty_cache()
+
+    name, B, S, h, d, family, kw, causal = next(
+        c for c in SPARSE_CHECKS if c[0] == SPARSE_TIMED)
+    cfg = sparse_config(family, h, **kw)
+    layout, plan = sparse_plan(cfg, S, h, causal)
+    cb = cfg.block
+    mask = token_mask(layout, cb, causal, S, device=dev)[None]
+    sets, graphs = [], []
+    for _ in range(3):  # 3 x 67 MB of q, k, v, do: past the 50 MB L2
+        q, k, v, do = sparse_inputs(B, S, h, d, torch.bfloat16, gen, dev)
+        out, lse = block_sparse_fwd_plain(q, k, v, layout, cb, causal)
+        sets.append((q, k, v, do, out, lse, attention_delta(out, do)))
+        leaves = [t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v)]
+        graphs.append((leaves, do.transpose(1, 2)))
+
+    def sdpa(q, k, v):  # [B, h, S, d] operands
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    held = [(leaves, sdpa(*leaves), g) for leaves, g in graphs]
+
+    def sdpa_bwd(i):
+        leaves, o, g = held[i]
+        return torch.autograd.grad(o, leaves, g, retain_graph=True)
+
+    def sdpa_fwd_bwd(i):
+        leaves, g = graphs[i]
+        return torch.autograd.grad(sdpa(*leaves), leaves, g)
+
+    lib_err = (sdpa(*(t.transpose(1, 2) for t in sets[0][:3]))
+               .transpose(1, 2).float() - sets[0][4].float()
+               ).abs().max().item()
+    run = {
+        "block_sparse_fwd": (
+            lambda s: block_sparse_fwd(s[0], s[1], s[2], plan),
+            lambda s: block_sparse_fwd_plain(s[0], s[1], s[2], layout, cb,
+                                             causal)),
+        "block_sparse_bwd_dq": (
+            lambda s: block_sparse_bwd_dq(s[0], s[1], s[2], s[4], s[5], s[3],
+                                          plan, s[6]),
+            lambda s: block_sparse_bwd_plain(s[0], s[1], s[2], s[4], s[5],
+                                             s[3], layout, cb, causal)),
+        "block_sparse_bwd_dkv": (
+            lambda s: block_sparse_bwd_dkv(s[0], s[1], s[2], s[4], s[5],
+                                           s[3], plan, s[6]),
+            lambda s: block_sparse_bwd_plain(s[0], s[1], s[2], s[4], s[5],
+                                             s[3], layout, cb, causal))}
+    pairs = sparse_pairs(plan, B, h)
+    bounds = attention_bounds(
+        B, S, h, d, 2, pairs, SPARSE_KERNELS,
+        (plan_bytes(plan), plan_bytes(plan), plan_bytes(plan, True)))
+    cycles = sleep_cycles_per_ms()
+    library = {
+        "fwd": time_ms([lambda s=s: sdpa(*(t.transpose(1, 2)
+                                           for t in s[:3]))
+                        for s in sets], cycles),
+        "bwd": time_ms([lambda i=i: sdpa_bwd(i) for i in range(3)], cycles),
+        "fwd_bwd": time_ms([lambda i=i: sdpa_fwd_bwd(i) for i in range(3)],
+                           cycles)}
+    out = {}
+    for kernel, (fn, plain) in run.items():
+        fwd = kernel == "block_sparse_fwd"
+        out[kernel] = dict(
+            kernel_time=time_ms([lambda s=s: fn(s) for s in sets], cycles),
+            plain_time=time_ms([lambda s=s: plain(s) for s in sets], cycles,
+                               per_rep=5),
+            library_time=library["fwd" if fwd else "bwd"],
+            library_fwd_bwd_time=library["fwd_bwd"],
+            library_call=("F.scaled_dot_product_attention(attn_mask=the "
+                          "[1, 1, S, S] bool token mask)" if fwd else
+                          "torch.autograd.grad of that call: dq, dk and dv "
+                          "in one backward"),
+            library_max_abs_err_vs_plain=lib_err,
+            bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1],
+            live_pairs=pairs, max_abs_err=max(errs[kernel].values()),
+            max_abs_err_by_case=errs[kernel],
+            checked_at={c[0]: dict(zip(("B", "S", "h", "d", "family",
+                                        "config", "causal"), c[1:]))
+                        for c in SPARSE_CHECKS},
+            tolerance={"float32": TOL[torch.float32],
+                       "bfloat16": TOL[torch.bfloat16]},
+            timed_at=f"bf16, {name}: B {B}, S {S}, h {h}, d {d}, {family} "
+                     f"{kw}, causal {causal}", **walk_lengths(plan),
+            tf32=torch.backends.cuda.matmul.allow_tf32)
+    del sets, graphs, held, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+#: (case, B, S, h, d, family, config, causal, backward, dense timed): the
+#: ``sparse`` phase's calls of ``sparse_attention(impl="auto")`` in bf16:
+#: bench.py's training shape (1496-1506), its cb-16 (1378-1385) and S 8192
+#: cb-64 (1427-1434) forwards, its S 8192 window sweep (1519-1533, timed
+#: beside the port's causal flash attention and the dense masked path), a
+#: per-head layout at Llama-3-8B's attention width, S 32768 (past the dense
+#: limit), and the Fixed layout that is dense at the JAX blocks
+SPARSE_PATH = [
+    ("train", 2, 4096, 16, 64, "BigBirdSparsityConfig", dict(block=128),
+     True, True, True),
+    ("cb16_s4096", 1, 4096, 8, 64, "BigBirdSparsityConfig",
+     dict(block=16, num_random_blocks=2, num_sliding_window_blocks=5),
+     False, False, False),
+    ("cb64_s8192", 1, 8192, 8, 64, "BigBirdSparsityConfig", dict(block=64),
+     True, False, False),
+] + [(f"win{w}_s8192", 1, 8192, 16, 64, "BigBirdSparsityConfig",
+      dict(block=128, num_sliding_window_blocks=w), True, True, True)
+     for w in (3, 7, 15)] + [
+    ("8b_width_per_head", 1, 8192, 32, 128, "BigBirdSparsityConfig",
+     dict(block=64, different_layout_per_head=True), True, True, False),
+    ("bigbird_s32768", 1, 32768, 16, 64, "BigBirdSparsityConfig",
+     dict(block=128), True, True, False),
+    ("fixed_s4096", 1, 4096, 8, 64, "FixedSparsityConfig",
+     dict(block=16, num_local_blocks=4, num_global_blocks=1), False, True,
+     True),
+]
+
+
+def phase_sparse(dev) -> tuple:
+    """``sparse_attention(impl="auto")`` forward (and backward through
+    autograd) at every ``SPARSE_PATH`` case, the launch counts read from 0
+    around them; each output (and gradient, on the kernel route) against the
+    plain versions, in chunks of query rows; then each case timed, forward
+    and forward plus backward, beside the dense masked path (the H100's
+    crossover) and, in the window sweep, the port's flash attention."""
+    import importlib
+    from deepspeed_tpu_torch.ops.kernels import (block_sparse_bwd_plain,
+                                                 block_sparse_fwd_plain,
+                                                 block_sparse_kernel_attention,
+                                                 flash_attention)
+    from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import \
+        config_entry
+    sa = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
+
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    rows, held = [], []
+    reset_counts()
+    for case in SPARSE_PATH:
+        name, B, S, h, d, family, kw, causal, backward, _ = case
+        cfg = sparse_config(family, h, **kw)
+        q, k, v, do = sparse_inputs(B, S, h, d, torch.bfloat16, gen, dev)
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        before = read_counts()
+        out = sa.sparse_attention(*leaves, cfg, causal=causal)
+        grads = (torch.autograd.grad(out, leaves, do) if backward else ())
+        torch.cuda.synchronize()
+        after = read_counts()
+        launches = {kn: after[kn] - before[kn] for kn in after}
+        entry = config_entry(cfg, S, h, causal)
+        kernel = entry.route.impl == "kernel"
+        want = {kn: 0 for kn in after}
+        if kernel:
+            want.update(block_sparse_fwd=1,
+                        block_sparse_bwd_dq=int(backward),
+                        block_sparse_bwd_dkv=int(backward))
+        require(launches == want, f"sparse {name}: launches {launches}, "
+                                  f"want {want}")
+        require(all(bool(torch.isfinite(g).all()) for g in grads),
+                f"sparse {name}: a non-finite gradient")
+        layout, cb = entry.layout, cfg.block
+        with torch.no_grad():
+            p_out, p_lse = block_sparse_fwd_plain(q, k, v, layout, cb, causal)
+            err = {"out": check_close(f"sparse {name} out", out.detach(),
+                                      p_out, torch.bfloat16)}
+            if kernel and backward:
+                for g, w, nm in zip(grads, block_sparse_bwd_plain(
+                        q, k, v, p_out, p_lse, do, layout, cb, causal),
+                        ("dq", "dk", "dv")):
+                    err[nm] = check_close(f"sparse {name} {nm}", g, w,
+                                          torch.bfloat16)
+        plan = entry.plan
+        pairs = (sparse_pairs(plan, B, h) if kernel else
+                 sparse_pairs(sparse_plan(cfg, S, h, causal)[1], B, h))
+        achievable = S * (S + 1) // 2 if causal else S * S
+        rows.append(dict(
+            case=name, B=B, S=S, h=h, d=d, family=family, config=kw,
+            causal=causal, backward=backward, route=entry.route.impl,
+            jax_blocks=[entry.route.block_q, entry.route.block_k],
+            coarse_live_fraction=entry.route.live_fraction,
+            token_live_fraction=pairs / (B * h * achievable),
+            live_pairs=pairs, launches=launches, max_abs_err_vs_plain=err,
+            **(walk_lengths(plan) if kernel else {})))
+        held.append((case, cfg, [t.detach().requires_grad_()
+                                 for t in (q, k, v)], do, entry))
+        del out, grads, p_out, p_lse, leaves
+        torch.cuda.empty_cache()
+    total = read_counts()
+
+    cycles = sleep_cycles_per_ms()
+    flash_ms = {}
+    for row, (case, cfg, leaves, do, entry) in zip(rows, held):
+        name, B, S, h, d, family, kw, causal, backward, dense = case
+        per_rep = 30 if S <= 4096 else (10 if S <= 8192 else 3)
+
+        def fwd():
+            with torch.no_grad():
+                return sa.sparse_attention(*leaves, cfg, causal=causal)
+
+        def fwd_bwd(fn=lambda *t: sa.sparse_attention(*t, cfg,
+                                                      causal=causal)):
+            return torch.autograd.grad(fn(*leaves), leaves, do)
+
+        row["fwd_time"] = time_ms([fwd], cycles, per_rep=per_rep)
+        if backward:
+            row["fwd_bwd_time"] = time_ms([fwd_bwd], cycles, per_rep=per_rep)
+        if dense:  # the other route at the same inputs: the crossover
+            other = ((lambda *t: sa.sparse_attention(*t, cfg, causal=causal,
+                                                     impl="dense"))
+                     if entry.route.impl == "kernel" else
+                     (lambda *t: block_sparse_kernel_attention(
+                         *t, entry.layout, cfg.block, causal)))
+            key = ("dense" if entry.route.impl == "kernel" else "kernel")
+            row[f"{key}_fwd_bwd_time"] = time_ms(
+                [lambda: fwd_bwd(other)], cycles, per_rep=per_rep)
+        if name.startswith("win"):  # bench.py's vs_flash, one flash a shape
+            if (B, S, h, d) not in flash_ms:
+                flash_ms[(B, S, h, d)] = time_ms(
+                    [lambda: fwd_bwd(lambda *t: flash_attention(
+                        *t, causal=True))], cycles, per_rep=per_rep)
+            row["flash_fwd_bwd_time"] = flash_ms[(B, S, h, d)]
+            row["vs_flash"] = (flash_ms[(B, S, h, d)]["ms"]
+                               / row["fwd_bwd_time"]["ms"])
+        torch.cuda.empty_cache()
+    del held
+    torch.cuda.empty_cache()
+    return rows, {kn: total[kn] for kn in SPARSE_KERNELS}
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -1296,8 +1706,9 @@ def main() -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run alone (build, "
                          "kernels, flash_kernels, moe_kernels, adam_kernels, "
-                         "serve, agree, serve_moe, agree_moe, train, "
-                         "train_8b_width, train_moe, train_agree)")
+                         "sparse_kernels, serve, agree, serve_moe, "
+                         "agree_moe, train, train_8b_width, train_moe, "
+                         "train_agree, sparse)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU path "
@@ -1333,6 +1744,17 @@ def main() -> int:
                                          args.seed)
         for name, row in res["adam"].items():
             emit(dict(phase="kernels", kernel=name, **row))
+
+    def sparse_kernels():
+        res["sparse_kernels"] = phase_sparse_kernels(dev)
+        for name, row in res["sparse_kernels"].items():
+            emit(dict(phase="kernels", kernel=name, **row))
+
+    def sparse():
+        rows, res["sparse"] = phase_sparse(dev)
+        for row in rows:  # one line per case
+            emit(dict(phase="sparse", dtype="bfloat16", **row))
+        emit(dict(phase="sparse", launches=res["sparse"]))
 
     def serving(moe: bool):
         cfg = (MixtralConfig.mixtral_8x7b(num_layers=MOE_SERVE_LAYERS)
@@ -1385,6 +1807,7 @@ def main() -> int:
         "build": lambda: emit(phase_build()),
         "kernels": kernels, "flash_kernels": flash_kernels,
         "moe_kernels": moe_kernels, "adam_kernels": adam_kernels,
+        "sparse_kernels": sparse_kernels,
         "serve": lambda: serving(False),
         "agree": lambda: emit(dict(phase="agree", **agree(dev, args.seed))),
         "serve_moe": lambda: serving(True),
@@ -1394,7 +1817,8 @@ def main() -> int:
         "train_8b_width": lambda: training("train_8b_width"),
         "train_moe": lambda: training("train_moe"),
         "train_agree": lambda: emit(dict(phase="train_agree",
-                                         **train_agree(dev, args.seed)))}
+                                         **train_agree(dev, args.seed))),
+        "sparse": sparse}
     only = [p for p in args.only.split(",") if p]
     unknown = set(only) - set(phases)
     if unknown:
@@ -1409,11 +1833,12 @@ def main() -> int:
     flash_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
     moe_src = "deepspeed_tpu_torch/csrc/moe_dispatch.cu"
     adam_src = "deepspeed_tpu_torch/csrc/fused_adam.cu"
+    sparse_src = "deepspeed_tpu_torch/csrc/block_sparse_attention.cu"
     pallas = "deepspeed_tpu/ops/pallas/"
     (s, g), (sm, gm), t, tm = (res["serve"], res["serve_moe"], res["train"],
                                res["train_moe"])
-    timing, flash, moe, adam = (res["timing"], res["flash"], res["moe"],
-                                res["adam"])
+    timing, flash, moe, adam, bs = (res["timing"], res["flash"], res["moe"],
+                                    res["adam"], res["sparse_kernels"])
 
     def moe_launches(kernel):  # every MoE main path
         return sum(x["launches"][kernel] for x in (sm, gm, tm))
@@ -1442,7 +1867,20 @@ def main() -> int:
                                tm["launches"]["multi_tensor_sqsum"],
                                adam["multi_tensor_sqsum"]),
         "fused_adam": (adam_src, pallas + "fused_optimizer.py:158",
-                       tm["launches"]["fused_adam"], adam["fused_adam"])}
+                       tm["launches"]["fused_adam"], adam["fused_adam"]),
+        # the forward replaces the gather (:335) and resident (:523) forwards
+        "block_sparse_fwd": (sparse_src,
+                             pallas + "block_sparse_attention.py:335",
+                             res["sparse"]["block_sparse_fwd"],
+                             bs["block_sparse_fwd"]),
+        "block_sparse_bwd_dq": (sparse_src,
+                                pallas + "block_sparse_attention.py:990",
+                                res["sparse"]["block_sparse_bwd_dq"],
+                                bs["block_sparse_bwd_dq"]),
+        "block_sparse_bwd_dkv": (sparse_src,
+                                 pallas + "block_sparse_attention.py:1037",
+                                 res["sparse"]["block_sparse_bwd_dkv"],
+                                 bs["block_sparse_bwd_dkv"])}
 
     def kernel_row(name, source, replaces, launches, m):
         m = m["timed"]["headline"] if "timed" in m else m

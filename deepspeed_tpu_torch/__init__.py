@@ -9,7 +9,9 @@ attention); the training path, from :func:`initialize` through
 ``engine.train_step`` down to three hand-written CUDA flash-attention
 kernels (forward, dq pass, dk/dv pass) and, under ``kernels.fused_adam``,
 a multi-tensor gradient norm and a fused Adam step; and Mixtral on both
-paths, with hand-written CUDA MoE dispatch and combine kernels.  Every
+paths, with hand-written CUDA MoE dispatch and combine kernels; and
+block-sparse attention with its gradient (:mod:`.ops.sparse_attention`),
+down to three hand-written CUDA kernels over the live tiles.  Every
 entry point runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run.
 """

@@ -1,5 +1,11 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version."""
 
+from .block_sparse_attention import (block_sparse_attention,
+                                     block_sparse_bwd_dkv,
+                                     block_sparse_bwd_dq,
+                                     block_sparse_bwd_plain, block_sparse_fwd,
+                                     block_sparse_fwd_plain,
+                                     block_sparse_kernel_attention)
 from .decode_attention import decode_attention, decode_attention_plain
 from .flash_attention import (flash_attention, flash_attention_bwd,
                               flash_attention_bwd_plain,
@@ -13,7 +19,11 @@ from .moe_dispatch import (combine_reference, dispatch_reference,
 from .paged_attention import (paged_decode_attention,
                               paged_decode_attention_plain)
 
-__all__ = ["FusedAdamConfig", "MultiTensorPlan", "combine_reference",
+__all__ = ["FusedAdamConfig", "MultiTensorPlan", "block_sparse_attention",
+           "block_sparse_bwd_dkv", "block_sparse_bwd_dq",
+           "block_sparse_bwd_plain", "block_sparse_fwd",
+           "block_sparse_fwd_plain", "block_sparse_kernel_attention",
+           "combine_reference",
            "decode_attention", "decode_attention_plain",
            "dispatch_reference", "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_fwd_plain",

@@ -129,9 +129,9 @@ def flash_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
 
 # -- the kernels' wrappers --------------------------------------------------
 
-def _check(q: Tensor, k: Tensor, v: Tensor,
-           segment_ids: Optional[Tensor], window: Optional[int],
-           *more: Tensor) -> None:
+def check_attention_args(q: Tensor, k: Tensor, v: Tensor,
+                         segment_ids: Optional[Tensor], window: Optional[int],
+                         *more: Tensor) -> None:
     """Raise on anything the two paths do not take: q, K, V ``[B, S, h,
     d]`` of one shape and one dtype (bf16 or fp32; GQA is repeated to the
     query heads before the call), int32 ``segment_ids [B, S]``, a window of
@@ -157,7 +157,7 @@ def _check(q: Tensor, k: Tensor, v: Tensor,
         raise ValueError("all arguments must be on one device, got "
                          f"{sorted({str(t.device) for t in tensors})}")
     if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash attention: unsupported device {q.device}")
+        raise ValueError(f"attention: unsupported device {q.device}")
     if q.device.type == "cuda":
         if q.shape[-1] not in KERNEL_HEAD_DIMS:
             raise ValueError(f"head dim {q.shape[-1]} has no CUDA kernel "
@@ -191,7 +191,7 @@ def flash_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
               ) -> Tuple[Tensor, Tensor]:
     """``(out [B, S, h, d], lse [B, h, S] fp32)``: the forward kernel on a
     CUDA tensor, :func:`flash_attention_fwd_plain` on a CPU tensor."""
-    _check(q, k, v, segment_ids, window)
+    check_attention_args(q, k, v, segment_ids, window)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, window,
                                          segment_ids)
@@ -214,7 +214,7 @@ def attention_delta(out: Tensor, do: Tensor) -> Tensor:
                         out.float()).contiguous()
 
 
-def _bwd_args(q, k, v, out, lse, do, delta, segment_ids, window):
+def check_bwd_args(q, k, v, out, lse, do, delta, segment_ids, window):
     """Check the backward's arguments; returns delta (computed from out and
     do when not given; the kernels read delta, never out)."""
     if out.shape != q.shape or do.shape != q.shape or out.device != q.device:
@@ -222,7 +222,7 @@ def _bwd_args(q, k, v, out, lse, do, delta, segment_ids, window):
     if q.device.type == "cuda" and delta is None:
         delta = attention_delta(out, do)
     stats = (lse,) if delta is None else (lse, delta)
-    _check(q, k, v, segment_ids, window, do, *stats)
+    check_attention_args(q, k, v, segment_ids, window, do, *stats)
     for name, t in zip(("lse", "delta"), stats):
         if t.shape != (q.shape[0], q.shape[2], q.shape[1]) or \
                 t.dtype != torch.float32:
@@ -238,7 +238,7 @@ def flash_bwd_dq(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
                  delta: Optional[Tensor] = None) -> Tensor:
     """``dq``: the dq-pass kernel on a CUDA tensor (``delta`` computed if
     not given), the plain backward's dq on a CPU tensor."""
-    delta = _bwd_args(q, k, v, out, lse, do, delta, segment_ids, window)
+    delta = check_bwd_args(q, k, v, out, lse, do, delta, segment_ids, window)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                          window, segment_ids)[0]
@@ -261,7 +261,7 @@ def flash_bwd_dkv(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
                   delta: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """``(dk, dv)``: the dk/dv-pass kernel on a CUDA tensor, the plain
     backward's dk, dv on a CPU tensor."""
-    delta = _bwd_args(q, k, v, out, lse, do, delta, segment_ids, window)
+    delta = check_bwd_args(q, k, v, out, lse, do, delta, segment_ids, window)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                          window, segment_ids)[1:]
@@ -291,7 +291,7 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     """``(dq, dk, dv)``: delta once, then the dq and dk/dv kernels on a
     CUDA tensor; the plain backward once on a CPU tensor."""
     if q.device.type == "cpu":
-        _bwd_args(q, k, v, out, lse, do, None, segment_ids, window)
+        check_bwd_args(q, k, v, out, lse, do, None, segment_ids, window)
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                          window, segment_ids)
     delta = attention_delta(out, do)

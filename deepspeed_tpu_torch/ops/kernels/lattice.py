@@ -2,7 +2,8 @@
 pairs hold a live token pair, and the token mask inside one tile.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/lattice.py`` (``live_lattice``,
-``kv_block_bounds``, ``q_block_bounds``, ``tile_keep``).  The CUDA kernels
+``apply_lattice``, ``kv_block_bounds``, ``q_block_bounds``, ``tile_keep``).
+The CUDA kernels
 of ``csrc/flash_attention.cu`` compute the same bounds in-kernel
 (``kv_bounds`` / ``q_bounds`` there); these host versions are the
 reference the tests hold against the JAX lattice, and what
@@ -52,6 +53,21 @@ def live_lattice(S: int, block_q: int, block_k: int, causal: bool,
         if not causal:
             live &= (k_lo - q_hi) < window
     return live
+
+
+def apply_lattice(layout: np.ndarray, causal: bool,
+                  window: Optional[int] = None, cb: int = 1) -> np.ndarray:
+    """Intersect an ``[H, nb, nb]`` sparsity-cell layout with the causal and
+    window lattice at cell granularity (cells of ``cb`` tokens, ``window``
+    in tokens): a cell the lattice kills holds no live token pair.  The
+    block-sparse planner's skip source, as in the JAX lattice."""
+    lay = np.asarray(layout)
+    if not causal and window is None:
+        return lay
+    cb = max(int(cb), 1)
+    nb = lay.shape[-1]
+    lat = live_lattice(nb * cb, cb, cb, causal, window)
+    return lay * lat[None].astype(lay.dtype)
 
 
 def kv_block_bounds(qi: int, block_q: int, block_k: int, nk: int,

@@ -148,8 +148,18 @@ def load_library() -> ctypes.CDLL:
                                                    ptr])
             lib.ds_fused_adam.argtypes = ([ptr, i32, ptr, i32, ptr]
                                           + [f32] * 6 + [i32, ptr])
+            # block-sparse attention: q, k, v (do, lse, delta), the plan's
+            # ptr, idx, masks, order, the outputs | B, S, H, d, layout
+            # heads, causal, mask shift, dtype | stream
+            lib.ds_block_sparse_fwd.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
+            lib.ds_block_sparse_bwd_dq.argtypes = ([ptr] * 11 + [i32] * 8
+                                                   + [ptr])
+            lib.ds_block_sparse_bwd_dkv.argtypes = ([ptr] * 12 + [i32] * 8
+                                                    + [ptr])
             for fn in (lib.ds_flash_fwd, lib.ds_flash_bwd_dq,
-                       lib.ds_flash_bwd_dkv, lib.ds_moe_dispatch,
+                       lib.ds_flash_bwd_dkv, lib.ds_block_sparse_fwd,
+                       lib.ds_block_sparse_bwd_dq,
+                       lib.ds_block_sparse_bwd_dkv, lib.ds_moe_dispatch,
                        lib.ds_moe_combine, lib.ds_multi_tensor_sqsum,
                        lib.ds_fused_adam):
                 fn.restype = i32

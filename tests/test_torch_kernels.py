@@ -1,6 +1,6 @@
 """The CUDA kernels (decode attention, flash attention, MoE dispatch and
-combine, the multi-tensor gradient norm and fused Adam) against their plain
-PyTorch versions.
+combine, the multi-tensor gradient norm and fused Adam, block-sparse
+attention) against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU (``-m cuda``) and skip without one: a CUDA
 kernel has no CPU mode.  They import no JAX, so they run on a machine that
@@ -317,3 +317,127 @@ def test_cuda_fused_adam_refuses_what_the_kernel_cannot_take(cuda):
         fused_adam(p[:-1], g[:-1], m[:-1], v[:-1], 1, 1e-3, plan=plan)
     with pytest.raises(ValueError, match="contiguous"):
         fused_adam([p[5].t()], [g[5].t()], [m[5].t()], [v[5].t()], 1, 1e-3)
+
+
+# -- block-sparse attention: forward, dq pass, dk/dv pass --------------------
+#
+# Tolerances as for flash attention: fp32 1e-4; bf16 2e-2 (the plain forward
+# rounds q·k and p to bf16, the kernel keeps fp32).  The cases cover the
+# layout families, cells of 1 to 256 tokens (sub-tile masks, whole tiles,
+# cells spanning tiles), shared and per-head layouts, causal and not, rows
+# with no live key (EmptyTail) and S that is not a multiple of the 64-row
+# tile (272 with cells of 16, 200 with cells of 8 and of 2).
+
+def _bs_config(family, h, cb, per_head):
+    import importlib
+    sa = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
+    kw = dict(num_heads=h, block=cb, different_layout_per_head=per_head)
+    if family == "empty_tail":
+        class EmptyTail(sa.FixedSparsityConfig):
+            def _head_layout(self, seq_len, head):
+                lay = super()._head_layout(seq_len, head)
+                lay[-4:, :] = 0
+                return lay
+        return EmptyTail(num_local_blocks=2, num_global_blocks=0, **kw)
+    if family == "fixed_unidirectional":
+        return sa.FixedSparsityConfig(attention="unidirectional", **kw)
+    return getattr(sa, family)(**kw)
+
+
+#: (case, config family, S, cells, per-head layout, causal)
+BS_CASES = [
+    ("bigbird_cb16_perhead", "BigBirdSparsityConfig", 512, 16, True, True),
+    ("bigbird_cb32", "BigBirdSparsityConfig", 512, 32, False, False),
+    ("fixed_cb64", "FixedSparsityConfig", 1024, 64, False, False),
+    ("fixed_uni_cb16", "fixed_unidirectional", 512, 16, False, True),
+    ("longformer_cb128", "BSLongformerSparsityConfig", 1024, 128, False,
+     True),
+    ("variable_cb256", "VariableSparsityConfig", 1024, 256, False, True),
+    ("dense_cb64", "SparsityConfig", 256, 64, False, True),
+    ("empty_tail", "empty_tail", 256, 16, False, False),
+    ("ragged_272", "BigBirdSparsityConfig", 272, 16, True, True),
+    ("ragged_cb8", "BigBirdSparsityConfig", 200, 8, True, False),
+    ("cb4_perhead", "BigBirdSparsityConfig", 256, 4, True, True),
+    ("cb2_ragged", "BigBirdSparsityConfig", 200, 2, False, True),
+    ("cb1", "BSLongformerSparsityConfig", 128, 1, False, False),
+]
+
+
+def _bs_case(case, d, dtype, device):
+    from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import (
+        _norm_layout, tile_plan)
+    _, family, S, cb, per_head, causal = case
+    h = 3
+    layout = _norm_layout(_bs_config(family, h, cb, per_head).make_layout(S),
+                          h)
+    q, k, v, do, _ = _flash_case(2, S, h, d, dtype, S + cb + d, device,
+                                 False)
+    return q, k, v, do, layout, cb, causal, tile_plan(layout, cb, S, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", BS_CASES, ids=[c[0] for c in BS_CASES])
+def test_cuda_block_sparse_kernels_match_plain(cuda, dtype, d, case):
+    from deepspeed_tpu_torch.ops.kernels import (block_sparse_bwd_dkv,
+                                                 block_sparse_bwd_dq,
+                                                 block_sparse_bwd_plain,
+                                                 block_sparse_fwd,
+                                                 block_sparse_fwd_plain)
+    q, k, v, do, layout, cb, causal, plan = _bs_case(case, d, dtype, cuda)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    before = (block_sparse_fwd.launches, block_sparse_bwd_dq.launches,
+              block_sparse_bwd_dkv.launches)
+    out, lse = block_sparse_fwd(q, k, v, plan)
+    want_out, want_lse = block_sparse_fwd_plain(q, k, v, layout, cb, causal)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+    dq = block_sparse_bwd_dq(q, k, v, want_out, want_lse, do, plan)
+    dk, dv = block_sparse_bwd_dkv(q, k, v, want_out, want_lse, do, plan)
+    want = block_sparse_bwd_plain(q, k, v, want_out, want_lse, do, layout,
+                                  cb, causal)
+    for got, ref in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+    torch.cuda.synchronize()
+    assert (block_sparse_fwd.launches - before[0],
+            block_sparse_bwd_dq.launches - before[1],
+            block_sparse_bwd_dkv.launches - before[2]) == (1, 1, 1)
+    if case[0] == "empty_tail":  # no key for the last 64 rows; keys unread
+        assert (out[:, -64:] == 0).all() and (dq[:, -64:] == 0).all()
+        assert (dk[:, -64:] == 0).all() and (dv[:, -64:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_block_sparse_autograd_matches_plain(cuda):
+    """``sparse_attention`` on the card (the kernel route) against plain
+    autograd of the dense path."""
+    import importlib
+    sa = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_fwd
+    cfg = sa.BSLongformerSparsityConfig(num_heads=2, block=64,
+                                        global_block_indices=())
+    q, k, v, do, _ = _flash_case(1, 1024, 2, 64, torch.float32, 5, cuda,
+                                 False)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = block_sparse_fwd.launches
+    sa.sparse_attention(*leaves, cfg, causal=True).backward(do)
+    assert block_sparse_fwd.launches - before == 1
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    sa.sparse_attention(*ref, cfg, causal=True, impl="dense").backward(do)
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_block_sparse_refuses_what_the_kernels_cannot_take(cuda):
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_fwd
+    q, k, v, _, _, _, _, plan = _bs_case(BS_CASES[1], 64, torch.float32,
+                                         cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        block_sparse_fwd(*(t[..., :32].contiguous() for t in (q, k, v)),
+                         plan)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        block_sparse_fwd(q.half(), k.half(), v.half(), plan)
