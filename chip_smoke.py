@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and block-sparse attention
-paths on one NVIDIA GPU and hold its CUDA kernels against their plain
-PyTorch versions.
+"""Drive the PyTorch port's serving, training, block-sparse attention and
+tensor-parallel serving paths on one NVIDIA GPU and hold its CUDA kernels
+against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -90,11 +90,37 @@ The block-sparse slice adds:
   times beside the dense masked path (the H100's crossover) and, for the
   S 8192 window sweep, the port's flash attention.
 
-Then a ``kernels`` line (every kernel's launches on the main paths: the
-decode kernels' from ``serve`` and ``generate``, the flash kernels' from
-``train``, the MoE kernels' from ``serve_moe``, ``generate_moe`` and
-``train_moe``, the norm and Adam kernels' from ``train_moe``, the
-block-sparse kernels' from ``sparse``; times at the main paths' shapes),
+The tensor-parallel slice adds:
+
+- ``quant_kernels``: the int8 quantizer against its plain version,
+  exactly, at the CPU tests' shapes and a Llama-3-8B FFN weight, in fp32,
+  bf16 and fp16; timed at ``[14336, 4096]`` bf16 beside its plain version
+  and its bound (bytes); then its path: the weight matrices of a one-layer
+  Llama-3-8B quantized through ``quantize_int8`` and back, within
+  bench.py's round-trip bound;
+- ``tp_kernels``: #2b in one process: each rank's head block (``tp`` 2)
+  of the paged kernel's serving shapes through
+  ``paged_decode_attention_tp``, bit-equal to those heads of the unsharded
+  kernel; timed beside its plain version and half of #2's bound;
+- ``serve_tp`` and ``generate_tp`` (one launch): Llama-3-8B at full width
+  and depth, bf16, ``tp=2``: two ranks that share card 0 over gloo through
+  the host (NCCL needs one card per rank), spawned by
+  ``launcher.local.launch``; every budget returned, both ranks' tokens
+  equal, #2b ``32`` times a decode step and the decode kernel ``32 x 31``
+  times on each rank.  Their times are gloo through the host, two ranks
+  on one card: not a TP speed;
+- ``agree_tp``: Llama-3-8B widths at 4 layers, ``tp=2`` against ``tp=1``:
+  fp32 greedy tokens (v2 and v1) equal and logits within 1e-4; bf16
+  logits no further from the fp32 ones than ``BF16_TP_SLACK`` times the
+  bf16 ``tp=1`` logits are, the token agreement reported.
+
+Ranks report to this process through a queue; only it prints.  Then a
+``kernels`` line (every kernel's launches on the main paths: the
+decode kernels' from ``serve`` and ``generate``, #2b's per rank from
+``serve_tp``, the flash kernels' from ``train``, the MoE kernels' from
+``serve_moe``, ``generate_moe`` and ``train_moe``, the norm and Adam
+kernels' from ``train_moe``, the block-sparse kernels' from ``sparse``,
+the quantizer's from its path; times at the main paths' shapes),
 the card's name and power limit, and the result line.
 ``--only build,moe_kernels,...`` runs the named phases alone and prints
 neither of the last two lines.  TF32 is off for matmuls and cuDNN.  Length 0
@@ -153,6 +179,8 @@ def kernel_wrappers() -> dict:
     from deepspeed_tpu_torch.ops import kernels as k
     return {"decode_attention": k.decode_attention,
             "paged_decode_attention": k.paged_decode_attention,
+            "paged_decode_attention_tp": k.paged_decode_attention_tp,
+            "quantize_int8": k.quantize_int8,
             "flash_fwd": k.flash_fwd, "flash_bwd_dq": k.flash_bwd_dq,
             "flash_bwd_dkv": k.flash_bwd_dkv,
             "block_sparse_fwd": k.block_sparse_fwd,
@@ -1305,7 +1333,8 @@ SERVE_REQUESTS = [  # (prompt length, max_new_tokens, class); the first two
 def serve(model, rng, *, cache_config, header_len, requests, **engine) -> dict:
     """Serve ``requests`` through ``build_serving_frontend``; the first two
     share a ``header_len`` header, and the second is submitted once the
-    first's prefill is done so the prefix cache can hit."""
+    first's prefill is done so the prefix cache can hit.  ``tokens`` holds
+    every request's tokens (the callers drop it from their lines)."""
     from deepspeed_tpu_torch import build_serving_frontend
 
     V = model.config.vocab_size
@@ -1355,15 +1384,19 @@ def serve(model, rng, *, cache_config, header_len, requests, **engine) -> dict:
             "decode_tokens_per_s": st["decode_tokens"] / st["decode_s"],
             "prefill_tokens_per_s": st["prefill_tokens"] / st["prefill_s"],
             "total_tokens_per_s": (st["prefill_tokens"] + generated) / wall,
-            "launches": launches}
+            "launches": launches,
+            "tokens": [results[i] for i in range(len(requests))]}
 
 
 # -- phase 5 ---------------------------------------------------------------
 
 def generate_v1(model, ids: torch.Tensor, n_new: int) -> dict:
+    """``init_inference(...).generate`` (over the model's tensor-parallel
+    split, if it has one); ``tokens`` holds the generated ids."""
     from deepspeed_tpu_torch import init_inference
 
-    eng = init_inference(model, device=model.device)
+    eng = init_inference(model, tensor_parallel={"tp_size": model.tp},
+                         device=model.device)
     reset_counts()
     t0 = time.perf_counter()
     out = eng.generate(ids, max_new_tokens=n_new)
@@ -1377,7 +1410,8 @@ def generate_v1(model, ids: torch.Tensor, n_new: int) -> dict:
     require(bool(((out_host >= 0) & (out_host < model.config.vocab_size))
                  .all()), "generate: ids outside the vocabulary")
     return {"wall_s": wall, "batch": B, "prompt_len": S, "new_tokens": n_new,
-            "tokens_per_s": B * n_new / wall, "launches": launches}
+            "tokens_per_s": B * n_new / wall, "launches": launches,
+            "tokens": out_host[:, S:].tolist()}
 
 
 # -- phase 6 ---------------------------------------------------------------
@@ -1638,6 +1672,380 @@ def train_agree(dev, seed: int) -> dict:
     return out
 
 
+# -- the tensor-parallel slice ------------------------------------------------
+
+#: (case, shape): the quantizer's checks (the CPU tests' cases: bench.py's
+#: shape, a rank-3 input, a zero row, a row holding one value 1e4 times
+#: the rest, rows whose bytes are no multiple of 16) and its timed shape, a
+#: Llama-3-8B FFN weight (what qwZ would quantize)
+QUANT_CHECKS = [("bench", (512, 256)), ("rank3", (4, 256, 96)),
+                ("zero_row", (512, 256)), ("outlier", (512, 256)),
+                ("ragged", (4, 100, 96)), ("llama3_8b_ffn", (14336, 4096))]
+QUANT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+QUANT_TIMED = (14336, 4096)
+#: tensor size of the TP phases; their ranks share card 0 over gloo
+TP = 2
+TP_TIMEOUT = 900
+#: serve_tp's requests (prompt length, max_new_tokens, class); the first
+#: two start with a shared 256-token header
+SERVE_TP_REQUESTS = [(320, 32, "interactive"), (448, 32, "batch"),
+                     (64, 32, "interactive"), (512, 32, "background"),
+                     (200, 32, "batch"), (128, 32, "background")]
+SERVE_TP_HEADER = 256
+#: the serve phase's engine knobs, per rank
+SERVE_ENGINE = dict(max_batch_slots=8, prefill_chunk=256, prefill_batch=2,
+                    decode_burst=8)
+#: agree_tp: Llama-3-8B widths at 4 of 32 layers, these prompts, 16 tokens
+AGREE_TP_LAYERS, AGREE_TP_PROMPTS, AGREE_TP_NEW = 4, (37, 100, 260), 16
+#: in bf16, how much further from the fp32 logits the ``tp=2`` logits may
+#: lie than the ``tp=1`` ones: the partial sums add roundings of bf16's own
+#: size (random-weight logits carry ~5e-2 of bf16 error against fp32)
+BF16_TP_SLACK = 1.5
+TP_NOTE = "gloo through the host, two ranks on one card: not a TP speed"
+
+
+def quant_input(case, shape, dtype, gen, dev):
+    x = torch.randn(shape, generator=gen, device=dev)
+    if case == "zero_row":
+        x[3] = 0.0
+    if case == "outlier":
+        x[5] = 1e-2
+        x[5, 17] = 1e2
+    return x.to(dtype)
+
+
+def phase_quant_kernels(dev, seed: int) -> dict:
+    """The int8 quantizer against its plain version, exactly, at every
+    ``QUANT_CHECKS`` shape in fp32, bf16 and fp16; timed at a Llama-3-8B
+    FFN weight in bf16 beside its plain version and its bound (bytes:
+    each element read once, a code byte per element and a scale per row
+    written); then its path: every weight matrix of a seeded one-layer
+    Llama-3-8B quantized through the op entry, the counts read from 0
+    around it, each round trip within bench.py's bound (max|w| / 127 ·
+    1.01)."""
+    from deepspeed_tpu_torch import LlamaConfig, LlamaModel
+    from deepspeed_tpu_torch.ops.kernels import (dequantize_int8,
+                                                 quantize_int8,
+                                                 quantize_int8_plain)
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    errs = {}
+    for (case, shape), dtype in itertools.product(QUANT_CHECKS,
+                                                  QUANT_DTYPES):
+        x = quant_input(case, shape, dtype, gen, dev)
+        (q, s), (wq, ws) = quantize_int8(x), quantize_int8_plain(x)
+        torch.cuda.synchronize()
+        require(q.dtype == torch.int8 and q.shape == x.shape
+                and s.shape == x.shape[:-1], f"quant_kernels {case}: wrong "
+                "dtype/shape")
+        require(torch.equal(q, wq) and torch.equal(s, ws),
+                f"quant_kernels {case} {dtype}: codes or scales differ from "
+                "the plain version")
+        errs[f"{case}_{str(dtype).split('.')[-1]}"] = max(
+            (q.int() - wq.int()).abs().max().item(),
+            (s - ws).abs().max().item())
+    launches = quantize_int8.launches
+    sets = [quant_input("timed", QUANT_TIMED, torch.bfloat16, gen, dev)
+            for _ in range(2)]  # 117 MB each: no call finds its input in L2
+    cycles = sleep_cycles_per_ms()
+    R, C = QUANT_TIMED
+    bound_ms, by = bound(R * C * (2 + 1) + 4 * R, 4 * R * C,
+                         PEAK_FLOPS[torch.float32])
+    out = dict(
+        kernel_time=time_ms([lambda x=x: quantize_int8(x) for x in sets],
+                            cycles),
+        plain_time=time_ms([lambda x=x: quantize_int8_plain(x)
+                            for x in sets], cycles),
+        library_time=None,
+        library_call="none: no single PyTorch call computes per-row absmax "
+                     "scales and int8 codes",
+        bound_ms=bound_ms, bound_by=by, launches_this_phase=launches,
+        max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
+        tolerance="exact", checked_at=dict(QUANT_CHECKS),
+        timed_at=f"bf16 {list(QUANT_TIMED)} (a Llama-3-8B FFN weight)")
+    del sets
+    model = LlamaModel(LlamaConfig.llama3_8b(num_layers=1), device=dev,
+                       seed=seed)
+    reset_counts()
+    worst, n_bytes = 0.0, 0
+    with torch.no_grad():
+        for name, w in model.named_parameters():
+            if w.dim() != 2:
+                continue
+            q, s = quantize_int8(w)
+            err = (dequantize_int8(q, s) - w.float()).abs().max().item()
+            lim = w.float().abs().max().item() / 127.0 * 1.01
+            require(err <= lim, f"quant path: {name} round trip error {err} "
+                                f"over {lim}")
+            worst = max(worst, err / lim)
+            n_bytes += w.numel() * w.element_size()
+    torch.cuda.synchronize()
+    out["path"] = {"what": "every weight matrix of a one-layer Llama-3-8B "
+                           "(bf16), quantized and dequantized",
+                   "launches": read_counts(), "bytes_quantized": n_bytes,
+                   "worst_error_over_bound": worst}
+    require(out["path"]["launches"]["quantize_int8"] == 9,
+            f"quant path: {out['path']['launches']['quantize_int8']} "
+            "launches for 9 weight matrices")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_shard(q, k_pool, v_pool, rank: int):
+    """Rank ``rank``'s contiguous head block of q and of the pools."""
+    h, kv = q.shape[1] // TP, k_pool.shape[2] // TP
+    return (q[:, rank * h:(rank + 1) * h].contiguous(),
+            k_pool[:, :, rank * kv:(rank + 1) * kv].contiguous(),
+            v_pool[:, :, rank * kv:(rank + 1) * kv].contiguous())
+
+
+def phase_tp_kernels(dev) -> dict:
+    """#2b in one process: each rank's head block (``TP`` 2) of the paged
+    kernel's serving shapes (B 8, 32/8 heads, d 128, 2048 keys, ragged,
+    windows None and 512), bf16 and fp32, through
+    ``paged_decode_attention_tp``: bit-equal to those heads of the
+    unsharded kernel, and within tolerance of the shard's plain version;
+    then rank 0's call timed beside its plain version and its bound (half
+    of #2's bytes)."""
+    from deepspeed_tpu_torch.ops.kernels import (
+        paged_decode_attention, paged_decode_attention_plain,
+        paged_decode_attention_tp)
+    from deepspeed_tpu_torch.parallel import MeshLayout, ProcessMesh
+    meshes = [ProcessMesh(MeshLayout(tp=TP), rank=r) for r in range(TP)]
+    h = SLICE["h"] // TP
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    _, lengths, smax, windows = CHECKS[0]
+    reset_launches(paged_decode_attention_tp)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, _, _, kp, vp, tables, lens = make_inputs(dtype, lengths, smax,
+                                                    gen, dev)
+        for window in windows:
+            whole = paged_decode_attention(q, kp, vp, tables, lens,
+                                           window=window)
+            for r in range(TP):
+                qs, ks, vs = tp_shard(q, kp, vp, r)
+                got = paged_decode_attention_tp(qs, ks, vs, tables, lens,
+                                                meshes[r], window=window)
+                torch.cuda.synchronize()
+                what = (f"paged_decode_attention_tp rank {r} "
+                        f"{str(dtype).split('.')[-1]} window={window}")
+                require(torch.equal(got, whole[:, r * h:(r + 1) * h]),
+                        f"{what}: not the unsharded kernel's heads")
+                errs[what] = check_close(what, got, paged_decode_attention_plain(
+                    qs, ks, vs, tables, lens, window), dtype)
+    launches = paged_decode_attention_tp.launches
+    sets = []
+    for _ in range(3):  # 3 x 34 MB of K/V shards: each call finds them cold
+        q, _, _, kp, vp, tables, lens = make_inputs(
+            torch.bfloat16, [smax] * SLICE["B"], smax, gen, dev)
+        sets.append((*tp_shard(q, kp, vp, 0), tables, lens))
+    cycles = sleep_cycles_per_ms()
+    q0, *_, l0 = sets[0]
+    bound_ms, by = decode_bound_ms(q0, l0, SLICE["kv_h"] // TP, smax, True)
+    out = dict(
+        kernel_time=time_ms([lambda s=s: paged_decode_attention_tp(
+            *s, meshes[0]) for s in sets], cycles),
+        plain_time=time_ms([lambda s=s: paged_decode_attention_plain(*s)
+                            for s in sets], cycles),
+        library_time=None,
+        library_call="none: no single PyTorch call attends through a block "
+                     "table",
+        bound_ms=bound_ms, bound_by=by, launches_this_phase=launches,
+        max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
+        bit_equal_to_unsharded=True, tp=TP,
+        heads_per_rank=dict(h=h, kv_h=SLICE["kv_h"] // TP),
+        tolerance={"float32": TOL[torch.float32],
+                   "bfloat16": TOL[torch.bfloat16]},
+        timed_at="bf16, B 8, every length 2048, no window, rank 0's 16/4 "
+                 "heads")
+    del sets
+    torch.cuda.empty_cache()
+    return {"paged_decode_attention_tp": out}
+
+
+def tp_rank_model(seed: int, dtype, num_layers: int):
+    """In a rank: card 0, the gloo group through the host, the ``TP``-way
+    mesh, and this rank's split of a seeded Llama-3-8B (the whole weights
+    are drawn, so the split is the one-rank model's slice)."""
+    from deepspeed_tpu_torch import LlamaConfig, LlamaModel, init_distributed
+    from deepspeed_tpu_torch.parallel import MeshLayout
+    from deepspeed_tpu_torch.utils import groups
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_distributed(dist_backend="gloo", device=dev)
+    mesh = groups.initialize_mesh(MeshLayout.infer(tp=TP))
+    cfg = LlamaConfig.llama3_8b(num_layers=num_layers, dtype=dtype)
+    return LlamaModel(cfg, device=dev, seed=seed, mesh=mesh)
+
+
+def serving_tp_rank(rank: int, seed: int) -> dict:
+    """One rank of serve_tp and generate_tp: Llama-3-8B at full width and
+    depth, bf16, served through ``build_serving_frontend(mesh=...)``
+    (``pump()`` on this rank) and generated through ``init_inference``."""
+    from deepspeed_tpu_torch import KVCacheConfig
+
+    model = tp_rank_model(seed, torch.bfloat16, 32)
+    rng = np.random.default_rng(seed + 7)  # the same requests on every rank
+    s = serve(model, rng, cache_config=KVCacheConfig(
+        num_blocks=1025, block_size=16, max_seq_len=2048),
+        header_len=SERVE_TP_HEADER, requests=SERVE_TP_REQUESTS,
+        mesh=model.mesh, **SERVE_ENGINE)
+    s["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    ids = torch.from_numpy(rng.integers(0, model.config.vocab_size,
+                                        (V1_BATCH, V1_PROMPT)))
+    return {"serve": s, "generate": generate_v1(model, ids, V1_NEW)}
+
+
+def phase_serving_tp(seed: int) -> dict:
+    """serve_tp and generate_tp: ``TP`` ranks on card 0 over gloo, launched
+    by ``launcher.local``; every budget returned (``serve``), both ranks'
+    tokens equal, ``paged_decode_attention_tp`` 32 times a decode step and
+    the decode kernel 32 x 31 times on each rank, the unsharded paged
+    kernel never."""
+    from deepspeed_tpu_torch.launcher import launch
+    from deepspeed_tpu_torch.ops import op_builder
+
+    op_builder.build()  # here, so the ranks do not both run nvcc
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(serving_tp_rank, TP, (seed,), timeout=TP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    L = 32
+    for r, res in enumerate(ranks):
+        la, lg = res["serve"]["launches"], res["generate"]["launches"]
+        steps = res["serve"]["decode_steps"]
+        require(la["paged_decode_attention_tp"] == L * steps,
+                f"serve_tp rank {r}: paged_decode_attention_tp launched "
+                f"{la['paged_decode_attention_tp']} times, want {L} x "
+                f"{steps} decode steps")
+        require(la["paged_decode_attention"] == 0 and
+                la["decode_attention"] == 0,
+                f"serve_tp rank {r}: an unsharded decode kernel ran: {la}")
+        require(lg["decode_attention"] == L * (V1_NEW - 1),
+                f"generate_tp rank {r}: decode kernel launched "
+                f"{lg['decode_attention']} times, want {L} x {V1_NEW - 1}")
+        require(lg["paged_decode_attention"] == 0 and
+                lg["paged_decode_attention_tp"] == 0,
+                f"generate_tp rank {r}: a paged kernel ran: {lg}")
+    for key in ("serve", "generate"):
+        require(all(res[key]["tokens"] == ranks[0][key]["tokens"]
+                    for res in ranks), f"{key}_tp: the ranks' tokens differ")
+    return {"ranks": ranks, "launch_wall_s": wall}
+
+
+def logit_rel_err(got, want) -> float:
+    """Largest ``|got - want| / (1 + |want|)``."""
+    return float((np.abs(got - want) / (1 + np.abs(want))).max())
+
+
+def agree_tp_run(model, prompts, n_new: int) -> dict:
+    """v2 and v1 greedy tokens of ``prompts`` and the first prompt's
+    last-token logits (``prefill``), with the launches they made."""
+    from deepspeed_tpu_torch import (KVCacheConfig, build_engine_v2,
+                                     init_inference)
+    reset_counts()
+    v2 = build_engine_v2(model, cache_config=KVCacheConfig(
+        num_blocks=128, block_size=16, max_seq_len=512), max_batch_slots=4,
+        prefill_chunk=64, decode_burst=8, device=model.device,
+        mesh=model.mesh).generate(prompts, max_new_tokens=n_new)
+    v1 = init_inference(model, tensor_parallel={"tp_size": model.tp},
+                        device=model.device)
+    v1_tokens = [v1.generate([p], max_new_tokens=n_new)[0, len(p):].tolist()
+                 for p in prompts]
+    ids = torch.tensor([prompts[0]], device=model.device)
+    logits, _ = model.prefill(ids, model.init_cache(1, ids.shape[1]))
+    return {"v2": v2, "v1": v1_tokens, "logits": logits.cpu().numpy(),
+            "launches": read_counts()}
+
+
+AGREE_TP_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def agree_tp_rank(rank: int, seed: int, prompts, n_new: int) -> dict:
+    out = {}
+    for name, dtype in AGREE_TP_DTYPES.items():
+        model = tp_rank_model(seed, dtype, AGREE_TP_LAYERS)
+        out[name] = agree_tp_run(model, prompts, n_new)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_agree_tp(dev, seed: int) -> dict:
+    """Llama-3-8B widths at ``AGREE_TP_LAYERS`` layers, the same seed at
+    ``tp`` 1 (this process) and 2 (two ranks on card 0 over gloo): in fp32
+    the ``tp=2`` v2 and v1 greedy tokens equal the ``tp=1`` ones and the
+    first logits agree to 1e-4 relative to 1 + |ref|.  In bf16 the two
+    partial sums round differently, so tokens may differ (the agreement is
+    reported) and the logits are held to the fp32 ``tp=1`` logits: the
+    ``tp=2`` ones may lie at most ``BF16_TP_SLACK`` times as far from them
+    as the bf16 ``tp=1`` ones do.  Both ranks must agree bit for bit."""
+    from deepspeed_tpu_torch import LlamaConfig, LlamaModel
+    from deepspeed_tpu_torch.launcher import launch
+
+    rng = np.random.default_rng(seed + 11)
+    prompts = [rng.integers(0, 128256, n).tolist() for n in AGREE_TP_PROMPTS]
+    ref = {}
+    for name, dtype in AGREE_TP_DTYPES.items():
+        model = LlamaModel(LlamaConfig.llama3_8b(
+            num_layers=AGREE_TP_LAYERS, dtype=dtype), device=dev, seed=seed)
+        ref[name] = agree_tp_run(model, prompts, AGREE_TP_NEW)
+        require(ref[name]["launches"]["paged_decode_attention"] > 0 and
+                ref[name]["launches"]["decode_attention"] > 0,
+                f"agree_tp tp=1 {name}: a decode kernel did not run")
+        del model
+        torch.cuda.empty_cache()
+    ranks = launch(agree_tp_rank, TP, (seed, prompts, AGREE_TP_NEW),
+                   timeout=TP_TIMEOUT)
+    out = {}
+    for name, dtype in AGREE_TP_DTYPES.items():
+        got, want = ranks[0][name], ref[name]
+        for other in ranks[1:]:
+            require(other[name]["v2"] == got["v2"]
+                    and other[name]["v1"] == got["v1"]
+                    and np.array_equal(other[name]["logits"], got["logits"]),
+                    f"agree_tp {name}: the ranks differ")
+        la = got["launches"]
+        require(la["paged_decode_attention_tp"] > 0 and
+                la["decode_attention"] > 0 and
+                la["paged_decode_attention"] == 0,
+                f"agree_tp tp={TP} {name}: launches {la}")
+        rel = logit_rel_err(got["logits"], want["logits"])
+        exact = ref["float32"]["logits"]
+        if dtype == torch.float32:
+            require(rel <= TOL[dtype], f"agree_tp fp32: first logits differ "
+                                       f"by {rel} relative, over {TOL[dtype]}")
+        else:
+            own, tp_err = (logit_rel_err(want["logits"], exact),
+                           logit_rel_err(got["logits"], exact))
+            require(tp_err <= BF16_TP_SLACK * own,
+                    f"agree_tp bf16: tp={TP} logits lie {tp_err} from the fp32 "
+                    f"ones, tp=1's {own}")
+
+        def agreement(a, b):
+            pairs = [(x, y) for p, q in zip(a, b) for x, y in zip(p, q)]
+            return sum(x == y for x, y in pairs) / len(pairs)
+
+        out[name] = {"max_rel_logit_err": rel,
+                     "vs_fp32_tp1": logit_rel_err(got["logits"], exact),
+                     "tp1_vs_fp32_tp1": logit_rel_err(want["logits"], exact),
+                     "v2_token_agreement": agreement(got["v2"], want["v2"]),
+                     "v1_token_agreement": agreement(got["v1"], want["v1"]),
+                     "tp1_v2_equals_v1": want["v2"] == want["v1"],
+                     "launches_tp": la, "launches_tp1": want["launches"]}
+        if dtype == torch.float32:
+            require(got["v2"] == want["v2"] and got["v1"] == want["v1"],
+                    f"agree_tp fp32: tp={TP} tokens differ from tp=1's")
+    return {"model": "llama3_8b",
+            "reduced": [f"num_layers 32 -> {AGREE_TP_LAYERS}"],
+            "prompts": list(AGREE_TP_PROMPTS), "new_tokens": AGREE_TP_NEW,
+            "comm": TP_NOTE, **out}
+
+
 # -- main ------------------------------------------------------------------
 
 def nvidia_smi_line() -> str:
@@ -1679,7 +2087,8 @@ def run_serving(model, name: str, seed: int, reduced: list) -> tuple:
     emit(dict(phase="serve_moe" if moe else "serve", model=name, layers=L,
               hidden=cfg.hidden_size, params=cfg.num_params(),
               dtype="bfloat16", reduced=reduced,
-              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **s))
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+              **without_tokens(s)))
 
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                         (V1_BATCH, V1_PROMPT)))
@@ -1696,8 +2105,13 @@ def run_serving(model, name: str, seed: int, reduced: list) -> tuple:
         want = L if moe else 0
         require(la[kernel] == want, f"generate ({name}): {kernel} launched "
                                     f"{la[kernel]} times, want {want}")
-    emit(dict(phase="generate_moe" if moe else "generate", model=name, **g))
+    emit(dict(phase="generate_moe" if moe else "generate", model=name,
+              **without_tokens(g)))
     return s, g
+
+
+def without_tokens(result: dict) -> dict:
+    return {k: v for k, v in result.items() if k != "tokens"}
 
 
 def main() -> int:
@@ -1706,9 +2120,11 @@ def main() -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run alone (build, "
                          "kernels, flash_kernels, moe_kernels, adam_kernels, "
-                         "sparse_kernels, serve, agree, serve_moe, "
-                         "agree_moe, train, train_8b_width, train_moe, "
-                         "train_agree, sparse)")
+                         "sparse_kernels, quant_kernels, tp_kernels, serve, "
+                         "agree, serve_moe, agree_moe, train, "
+                         "train_8b_width, train_moe, train_agree, sparse, "
+                         "serve_tp, generate_tp (one launch runs both), "
+                         "agree_tp)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU path "
@@ -1749,6 +2165,27 @@ def main() -> int:
         res["sparse_kernels"] = phase_sparse_kernels(dev)
         for name, row in res["sparse_kernels"].items():
             emit(dict(phase="kernels", kernel=name, **row))
+
+    def quant_kernels():
+        res["quant"] = phase_quant_kernels(dev, args.seed)
+        emit(dict(phase="kernels", kernel="quantize_int8", **res["quant"]))
+
+    def tp_kernels():
+        res["tp_kernels"] = phase_tp_kernels(dev)
+        for name, row in res["tp_kernels"].items():
+            emit(dict(phase="kernels", kernel=name, **row))
+
+    def serving_tp():
+        out = phase_serving_tp(args.seed)
+        ranks = out["ranks"]
+        res["serve_tp"] = ranks[0]["serve"]
+        for key, phase in (("serve", "serve_tp"), ("generate", "generate_tp")):
+            emit(dict(phase=phase, model="llama3_8b", layers=32, tp=TP,
+                      dtype="bfloat16", reduced=[], comm=TP_NOTE,
+                      ranks_tokens_equal=True,
+                      launch_wall_s=out["launch_wall_s"],
+                      **{f"rank{r}": without_tokens(x[key])
+                         for r, x in enumerate(ranks)}))
 
     def sparse():
         rows, res["sparse"] = phase_sparse(dev)
@@ -1807,7 +2244,8 @@ def main() -> int:
         "build": lambda: emit(phase_build()),
         "kernels": kernels, "flash_kernels": flash_kernels,
         "moe_kernels": moe_kernels, "adam_kernels": adam_kernels,
-        "sparse_kernels": sparse_kernels,
+        "sparse_kernels": sparse_kernels, "quant_kernels": quant_kernels,
+        "tp_kernels": tp_kernels,
         "serve": lambda: serving(False),
         "agree": lambda: emit(dict(phase="agree", **agree(dev, args.seed))),
         "serve_moe": lambda: serving(True),
@@ -1818,13 +2256,17 @@ def main() -> int:
         "train_moe": lambda: training("train_moe"),
         "train_agree": lambda: emit(dict(phase="train_agree",
                                          **train_agree(dev, args.seed))),
-        "sparse": sparse}
+        "sparse": sparse, "serve_tp": serving_tp, "generate_tp": serving_tp,
+        "agree_tp": lambda: emit(dict(phase="agree_tp",
+                                      **phase_agree_tp(dev, args.seed)))}
     only = [p for p in args.only.split(",") if p]
     unknown = set(only) - set(phases)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    ran = set()
     for name, run in phases.items():
-        if not only or name in only:
+        if (not only or name in only) and run not in ran:
+            ran.add(run)
             run()
     if only:
         return 0
@@ -1834,6 +2276,7 @@ def main() -> int:
     moe_src = "deepspeed_tpu_torch/csrc/moe_dispatch.cu"
     adam_src = "deepspeed_tpu_torch/csrc/fused_adam.cu"
     sparse_src = "deepspeed_tpu_torch/csrc/block_sparse_attention.cu"
+    quant_src = "deepspeed_tpu_torch/csrc/quantizer.cu"
     pallas = "deepspeed_tpu/ops/pallas/"
     (s, g), (sm, gm), t, tm = (res["serve"], res["serve_moe"], res["train"],
                                res["train_moe"])
@@ -1851,6 +2294,11 @@ def main() -> int:
                                    pallas + "paged_attention.py:116",
                                    s["launches"]["paged_decode_attention"],
                                    timing["paged_decode_attention"]),
+        # the same kernel on one rank's heads; launches per rank of serve_tp
+        "paged_decode_attention_tp": (
+            decode_src, pallas + "paged_attention.py:183",
+            res["serve_tp"]["launches"]["paged_decode_attention_tp"],
+            res["tp_kernels"]["paged_decode_attention_tp"]),
         "flash_fwd": (flash_src, pallas + "flash_attention.py:260",
                       t["launches"]["flash_fwd"], flash["flash_fwd"]),
         "flash_bwd_dq": (flash_src, pallas + "flash_attention.py:453",
@@ -1880,7 +2328,10 @@ def main() -> int:
         "block_sparse_bwd_dkv": (sparse_src,
                                  pallas + "block_sparse_attention.py:1037",
                                  res["sparse"]["block_sparse_bwd_dkv"],
-                                 bs["block_sparse_bwd_dkv"])}
+                                 bs["block_sparse_bwd_dkv"]),
+        "quantize_int8": (quant_src, pallas + "quantizer.py:38",
+                          res["quant"]["path"]["launches"]["quantize_int8"],
+                          res["quant"])}
 
     def kernel_row(name, source, replaces, launches, m):
         m = m["timed"]["headline"] if "timed" in m else m

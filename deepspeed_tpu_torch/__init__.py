@@ -11,11 +11,17 @@ kernels (forward, dq pass, dk/dv pass) and, under ``kernels.fused_adam``,
 a multi-tensor gradient norm and a fused Adam step; and Mixtral on both
 paths, with hand-written CUDA MoE dispatch and combine kernels; and
 block-sparse attention with its gradient (:mod:`.ops.sparse_attention`),
-down to three hand-written CUDA kernels over the live tiles.  Every
+down to three hand-written CUDA kernels over the live tiles; and
+tensor-parallel serving of the Llama family over ``torch.distributed``,
+one process per rank (:func:`init_distributed`, :mod:`.comm`,
+``utils.groups``, ``launcher.local``), with the paged kernel on each
+rank's heads; and the int8 quantizer kernel.  Every
 entry point runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run.
 """
 
+from . import comm
+from .comm import init_distributed
 from .inference import init_inference
 from .inference.v2 import KVCacheConfig, build_engine_v2
 from .models import LlamaConfig, LlamaModel, MixtralConfig, MixtralModel
@@ -26,4 +32,5 @@ from .serving import ServingParams, build_serving_frontend
 __all__ = ["DeepSpeedConfig", "DeepSpeedEngine", "KVCacheConfig",
            "LlamaConfig", "LlamaModel", "MixtralConfig", "MixtralModel",
            "MoE", "ServingParams", "build_engine_v2",
-           "build_serving_frontend", "init_inference", "initialize"]
+           "build_serving_frontend", "comm", "init_distributed",
+           "init_inference", "initialize"]

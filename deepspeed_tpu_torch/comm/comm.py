@@ -1,0 +1,208 @@
+"""Communication verbs over ``torch.distributed``.
+
+Counterpart of ``deepspeed_tpu/comm/comm.py`` (the reference's
+``deepspeed/comm/comm.py``): ``init_distributed`` with the launcher's
+environment (``MASTER_ADDR`` / ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
+``LOCAL_RANK``), the rank queries, ``ReduceOp`` and the eager verbs
+``all_reduce``, ``all_gather``, ``broadcast``, ``barrier`` and
+``new_group``.  The JAX package's verbs run XLA collectives over a mesh of
+one controller; here every rank is a process and a verb is a
+``torch.distributed`` collective over a process group.  A ``group`` is a
+``torch.distributed`` group, ``None`` for the whole world, or the name of
+a mesh axis (or a tuple of them), resolved through
+:mod:`deepspeed_tpu_torch.utils.groups`.
+
+Backends: ``dist_backend`` defaults to ``"nccl"`` on the card and
+``"gloo"`` on the CPU, as DeepSpeed takes its accelerator's backend.
+``"gloo"`` on CUDA tensors happens only when the caller names it (several
+ranks sharing one card, where NCCL refuses); gloo's CUDA support covers
+only some collectives and dtypes and goes through the host anyway, so
+every verb on a CUDA tensor over a gloo group copies it through pinned
+host memory itself.  Asking for NCCL with two ranks on one card raises;
+nothing switches backends on its own.  The comms logger, the census and
+``monitored_barrier`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import socket
+from typing import Any, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+
+from ..utils.device import DeviceLike, resolve_device
+
+GroupLike = Union[None, str, Tuple[str, ...], Any]
+
+
+class ReduceOp:
+    """The reference's reduce-op names (strings, as in the JAX package)."""
+    SUM = "sum"
+    AVG = "avg"
+    MAX = "max"
+    MIN = "min"
+    PROD = "prod"
+
+
+_TORCH_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.MAX: dist.ReduceOp.MAX,
+              ReduceOp.MIN: dist.ReduceOp.MIN,
+              ReduceOp.PROD: dist.ReduceOp.PRODUCT}
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def get_local_rank() -> int:
+    return int(os.environ.get("LOCAL_RANK", "0"))
+
+
+def init_distributed(dist_backend: Optional[str] = None,
+                     init_method: Optional[str] = None,
+                     world_size: Optional[int] = None,
+                     rank: Optional[int] = None,
+                     timeout: Optional[float] = None,
+                     device: DeviceLike = "cuda") -> None:
+    """Join the process group (a no-op when already joined).  The world
+    size and rank default to ``WORLD_SIZE`` / ``RANK`` (1 and 0 when
+    unset); the rendezvous to ``tcp://MASTER_ADDR:MASTER_PORT``, or an
+    in-process store for a world of one.  On the card under NCCL each rank
+    takes card ``LOCAL_RANK``.  ``timeout`` (seconds) bounds every
+    collective."""
+    if is_initialized():
+        return
+    dev = resolve_device(device)
+    backend = dist_backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"dist_backend {backend!r}: use 'nccl' or 'gloo'")
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("dist_backend='nccl' needs device='cuda'")
+    world = world_size or int(os.environ.get("WORLD_SIZE", "1"))
+    rank = rank if rank is not None else int(os.environ.get("RANK", "0"))
+    local_rank = get_local_rank()
+    if backend == "nccl":
+        if local_rank >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"NCCL needs one card per rank: local rank {local_rank} but "
+                f"{torch.cuda.device_count()} card(s) visible; ranks that "
+                "share a card need dist_backend='gloo'")
+        torch.cuda.set_device(local_rank)
+    kw = {}
+    if timeout is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout)
+    if init_method is None and "MASTER_ADDR" not in os.environ and world == 1:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, **kw)
+    else:
+        if init_method is None:
+            init_method = (f"tcp://{os.environ.get('MASTER_ADDR', '127.0.0.1')}"
+                           f":{os.environ.get('MASTER_PORT', '29500')}")
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=world, **kw)
+    if backend == "nccl":
+        _refuse_shared_cards()
+
+
+def _refuse_shared_cards() -> None:
+    """Raise on every rank when two NCCL ranks hold the same card (NCCL
+    itself fails later, at the first collective, with "Duplicate GPU")."""
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    card = (socket.gethostname(), str(getattr(props, "uuid",
+                                              torch.cuda.current_device())))
+    cards = [None] * dist.get_world_size()
+    host_group = dist.new_group(backend="gloo")
+    dist.all_gather_object(cards, card, group=host_group)
+    dist.destroy_process_group(host_group)
+    if len(set(cards)) < len(cards):
+        dist.destroy_process_group()
+        raise RuntimeError(
+            "NCCL needs one card per rank, but ranks share a card "
+            f"({cards}); pass dist_backend='gloo' to run them over the host")
+
+
+def get_rank(group: GroupLike = None) -> int:
+    """This process's rank in ``group`` (the world by default); 0 before
+    ``init_distributed``."""
+    if not is_initialized():
+        return 0
+    return dist.get_rank(_resolve(group))
+
+
+def get_world_size(group: GroupLike = None) -> int:
+    if not is_initialized():
+        return 1
+    return dist.get_world_size(_resolve(group))
+
+
+def new_group(axes: Sequence[str]) -> Any:
+    """The process group over the mesh ``axes`` that holds this rank
+    (every rank calls it alike; built once, then cached on the mesh)."""
+    from ..utils import groups
+    return groups.axes_group(tuple(axes))
+
+
+def _resolve(group: GroupLike) -> Any:
+    if isinstance(group, (str, tuple)):
+        axes = (group,) if isinstance(group, str) else group
+        from ..utils import groups
+        return groups.axes_group(axes)
+    return group
+
+
+def _through_host(tensor: torch.Tensor, group: Any) -> bool:
+    return tensor.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _pinned_copy(tensor: torch.Tensor) -> torch.Tensor:
+    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    return host.copy_(tensor)
+
+
+def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM,
+               group: GroupLike = None) -> torch.Tensor:
+    """Reduce ``tensor`` over the group, in place; returns it."""
+    group = _resolve(group)
+    if op == ReduceOp.AVG:
+        all_reduce(tensor, ReduceOp.SUM, group)
+        return tensor.div_(dist.get_world_size(group))
+    if _through_host(tensor, group):
+        host = _pinned_copy(tensor)
+        dist.all_reduce(host, _TORCH_OPS[op], group=group)
+        return tensor.copy_(host)
+    dist.all_reduce(tensor, _TORCH_OPS[op], group=group)
+    return tensor
+
+
+def all_gather(tensor: torch.Tensor, group: GroupLike = None,
+               dim: int = 0) -> torch.Tensor:
+    """Every rank's ``tensor`` (equal shapes), concatenated along ``dim``
+    in group-rank order; a new tensor on ``tensor``'s device."""
+    group = _resolve(group)
+    n = dist.get_world_size(group)
+    src = tensor.contiguous()
+    if _through_host(src, group):
+        src = _pinned_copy(src)
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim).to(tensor.device)
+
+
+def broadcast(tensor: torch.Tensor, src: int = 0,
+              group: GroupLike = None) -> torch.Tensor:
+    """``tensor`` from group rank ``src`` to every rank, in place; returns
+    it."""
+    group = _resolve(group)
+    root = src if group is None else dist.get_global_rank(group, src)
+    if _through_host(tensor, group):
+        host = _pinned_copy(tensor)
+        dist.broadcast(host, root, group=group)
+        return tensor.copy_(host)
+    dist.broadcast(tensor, root, group=group)
+    return tensor
+
+
+def barrier(group: GroupLike = None) -> None:
+    dist.barrier(group=_resolve(group))

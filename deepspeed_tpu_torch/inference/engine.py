@@ -3,8 +3,13 @@
 Counterpart of ``deepspeed_tpu/inference/engine.py`` (the reference's
 ``deepspeed.init_inference(model, ...) -> InferenceEngine`` with
 ``.generate``).  "Kernel injection" is the CUDA decode-attention kernel that
-the model's ``decode_step`` calls.  Tensor-parallel inference is not ported
-yet: ``tp_size`` other than 1 raises.
+the model's ``decode_step`` calls.  Tensor-parallel inference
+(``tensor_parallel={"tp_size": N}``) runs one process per rank: the engine
+takes the model's mesh, or builds one over the joined process group
+(joining it from the launcher's environment first) and splits a whole
+model's weights in place (``LlamaModel.shard_``, the reference's AutoTP).
+Each rank's decode kernel then runs on its own heads, and every rank
+returns the same tokens.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..parallel.mesh import AXIS_TENSOR, MeshLayout
+from ..utils import groups
 from ..utils.device import DeviceLike, check_module_device, resolve_device
 from ..utils.logging import log_dist
 
@@ -33,16 +40,25 @@ class DeepSpeedInferenceConfig:
 class InferenceEngine:
     def __init__(self, model: torch.nn.Module,
                  config: DeepSpeedInferenceConfig,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh: Any = None):
         self.device = resolve_device(device)
         check_module_device(model, self.device)
         tp = int(config.tensor_parallel.get("tp_size", 1))
-        if tp != 1:
-            raise NotImplementedError(
-                f"tensor-parallel inference (tp_size={tp}) is not ported")
+        if tp > 1 and model.tp == 1:
+            if mesh is None:
+                from ..comm import comm
+                comm.init_distributed(device=self.device)
+                mesh = groups.initialize_mesh(MeshLayout.infer(tp=tp))
+            model.shard_(mesh)
+        if model.tp != tp or (mesh is not None
+                              and mesh.shape[AXIS_TENSOR] != tp):
+            raise ValueError(f"tp_size={tp}, but the model is split over "
+                             f"{model.tp} ranks")
         self.module = model
         self.config = config
-        log_dist(f"init_inference: device={self.device} dtype={config.dtype} "
+        self.mesh = model.mesh
+        log_dist(f"init_inference: tp={tp} device={self.device} "
+                 f"dtype={config.dtype} "
                  f"kernel_inject={config.replace_with_kernel_inject}")
 
     def __call__(self, input_ids: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -98,9 +114,11 @@ def init_inference(model: torch.nn.Module, config: Any = None,
                    dtype: torch.dtype = torch.bfloat16,
                    replace_with_kernel_inject: bool = True,
                    max_out_tokens: int = 1024,
-                   device: DeviceLike = "cuda") -> InferenceEngine:
+                   device: DeviceLike = "cuda",
+                   mesh: Any = None) -> InferenceEngine:
     """The reference's call shape; ``model`` is one of the port's models,
-    already holding its weights on ``device``."""
+    already holding its weights on ``device`` (whole, or split over
+    ``mesh``'s tensor axis)."""
     if config is None:
         config = DeepSpeedInferenceConfig(
             tensor_parallel=tensor_parallel or {"tp_size": 1},
@@ -108,4 +126,4 @@ def init_inference(model: torch.nn.Module, config: Any = None,
             max_out_tokens=max_out_tokens)
     elif isinstance(config, dict):
         config = DeepSpeedInferenceConfig(**config)
-    return InferenceEngine(model, config, device=device)
+    return InferenceEngine(model, config, device=device, mesh=mesh)

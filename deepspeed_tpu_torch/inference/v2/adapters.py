@@ -89,7 +89,16 @@ class ModelAdapterV2:
 
 
 class LlamaV2Adapter(ModelAdapterV2):
-    """Llama/Mistral family: RoPE, RMSNorm, biasless projections."""
+    """Llama/Mistral family: RoPE, RMSNorm, biasless projections.  The head
+    counts are this rank's under tensor parallelism."""
+
+    @property
+    def num_heads(self) -> int:
+        return self.model.num_local_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.model.num_local_kv_heads
 
     def layers(self):
         return self.model.layers

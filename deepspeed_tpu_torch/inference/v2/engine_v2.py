@@ -15,8 +15,19 @@ step runs up to two programs over the paged KV pool:
 
 The JAX engine donates the pool to its compiled programs; here KV writes
 go into the pool tensors in place (``index_put_``).  Inactive slots point
-their tables at page 0 and write only there.  TP serving, the memory-ledger
-registration, spans/counters and the MoE gate telemetry are not ported yet.
+their tables at page 0 and write only there.
+
+Tensor-parallel serving: with a model built on a process mesh whose
+``tensor`` axis has size ``tp``, every rank runs this engine over its own
+heads and its own pool ``[L, N, bs, kv_h/tp, d]`` (the JAX pool's
+``PartitionSpec(None, None, None, "tensor", None)``); prefill attends over
+the local heads and the decode burst calls ``paged_decode_attention_tp``.
+The model all-reduces each layer's row-parallel outputs and all-gathers the
+logits, so every rank samples the same tokens (the generators are seeded
+alike).  Every rank must be given the same requests in the same order: the
+scheduler is deterministic, and a rank that took another decision would
+leave a collective waiting.  The memory-ledger registration,
+spans/counters and the MoE gate telemetry are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,7 +39,8 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
-from ...ops.kernels.paged_attention import paged_decode_attention
+from ...ops.kernels.paged_attention import (paged_decode_attention,
+                                            paged_decode_attention_tp)
 from ...ops.masks import local_attention_mask
 from ...utils.device import DeviceLike, check_module_device, resolve_device
 from ...utils.logging import log_dist
@@ -53,10 +65,22 @@ class RaggedInferenceEngineV2:
                  max_batch_slots: int = 8, prefill_chunk: int = 128,
                  prefill_batch: int = 2, decode_burst: int = 8,
                  scheduler_factory: Optional[Callable] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh: Any = None):
         self.device = resolve_device(device)
         check_module_device(model, self.device)
         self.model = model
+        #: the process mesh the model is split over (default: the model's)
+        self.mesh = mesh if mesh is not None else model.mesh
+        self.tp = model.tp
+        if self.mesh is not None and self.mesh.shape["tensor"] != self.tp:
+            raise ValueError(
+                f"the engine's mesh has tensor size "
+                f"{self.mesh.shape['tensor']}, the model was built for "
+                f"{self.tp}: build the model on the same mesh")
+        #: the decode burst's attention: "pallas" (the paged kernel) or,
+        #: under tensor parallelism, "pallas_tp_shard_map" (the paged
+        #: kernel on this rank's heads); the JAX engine's names
+        self.last_attn_path: Optional[str] = None
         self.adapter: ModelAdapterV2 = make_adapter(model)
         self.config = model.config
         self.cache_config = cache_config or KVCacheConfig()
@@ -87,7 +111,7 @@ class RaggedInferenceEngineV2:
                  f"slots={max_batch_slots}, chunk={prefill_chunk}"
                  f"x{prefill_batch}, burst={self.decode_burst}, "
                  f"adapter={type(self.adapter).__name__}, "
-                 f"device={self.device}")
+                 f"tp={self.tp}, device={self.device}")
 
     # ------------------------------------------------------------------
     # the two programs
@@ -161,6 +185,8 @@ class RaggedInferenceEngineV2:
         bs = self.cache_config.block_size
         rows = torch.arange(B, device=self.device)
         out = torch.empty((n_steps, B), dtype=torch.int64, device=self.device)
+        self.last_attn_path = "pallas_tp_shard_map" if self.tp > 1 \
+            else "pallas"
         for step in range(n_steps):
             wp = torch.minimum(kv_lens, max_pos)  # [B] int32 write positions
             wp64 = wp.long()
@@ -173,8 +199,13 @@ class RaggedInferenceEngineV2:
                 k_pool, v_pool = self.pool["k"][li], self.pool["v"][li]
                 k_pool[page_ids, offsets] = k
                 v_pool[page_ids, offsets] = v
-                attn = paged_decode_attention(q, k_pool, v_pool, tables,
-                                              lengths, window=self.window)
+                if self.tp > 1:
+                    attn = paged_decode_attention_tp(
+                        q, k_pool, v_pool, tables, lengths, self.mesh,
+                        window=self.window)
+                else:
+                    attn = paged_decode_attention(q, k_pool, v_pool, tables,
+                                                  lengths, window=self.window)
                 x = ad.post_attn(layer, x, attn)
             tokens = _sample(ad.logits(ad.finalize(x)), temperature, self._gen)
             out[step] = tokens
@@ -288,8 +319,9 @@ def build_engine_v2(model: Any,
                     max_batch_slots: int = 8, prefill_chunk: int = 128,
                     prefill_batch: int = 2, decode_burst: int = 8,
                     scheduler_factory: Optional[Callable] = None,
-                    device: DeviceLike = "cuda") -> RaggedInferenceEngineV2:
+                    device: DeviceLike = "cuda",
+                    mesh: Any = None) -> RaggedInferenceEngineV2:
     return RaggedInferenceEngineV2(model, cache_config, max_batch_slots,
                                    prefill_chunk, prefill_batch, decode_burst,
                                    scheduler_factory=scheduler_factory,
-                                   device=device)
+                                   device=device, mesh=mesh)

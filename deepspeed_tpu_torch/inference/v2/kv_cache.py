@@ -28,7 +28,9 @@ class KVCacheConfig:
 
 def init_kv_pool(adapter: Any, cache_config: KVCacheConfig,
                  device: torch.device) -> Dict[str, torch.Tensor]:
-    """Zeroed pool sized from the adapter's (layers, kv heads, head dim)."""
+    """Zeroed pool sized from the adapter's (layers, kv heads, head dim);
+    under tensor parallelism the kv heads are this rank's, so each rank's
+    pool is its own contiguous ``[L, N, bs, kv_h/tp, d]``."""
     shape = (adapter.num_layers, cache_config.num_blocks,
              cache_config.block_size, adapter.kv_heads, adapter.head_dim)
     return {"k": torch.zeros(shape, dtype=adapter.dtype, device=device),

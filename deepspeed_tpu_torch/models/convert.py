@@ -9,7 +9,8 @@ V]``; Mixtral replaces ``layers.mlp`` with ``layers.moe``: ``wg [L, H, E]``,
 module per layer with ``nn.Linear`` weights ``[out, in]`` and the expert
 stacks in the JAX orientation.  The input is the JAX tree with every leaf
 already a numpy array (``jax.device_get``), so this module needs neither JAX
-nor the JAX package.
+nor the JAX package.  :func:`shard_llama_params` cuts a whole ``state_dict``
+into one tensor-parallel rank's.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from .llama import tp_shard
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -61,6 +64,22 @@ def llama_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     if "lm_head" in params:
         sd["lm_head.weight"] = _t(np.asarray(params["lm_head"]).T)
     return sd
+
+
+def shard_llama_params(state_dict: Dict[str, torch.Tensor], tp: int,
+                       rank: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s ``state_dict`` of a Llama split over ``tp`` ranks:
+    every weight that tensor parallelism splits keeps its ``rank``-th
+    contiguous block along the split dim (``llama.tp_split_dim``, the JAX
+    ``param_specs``: ``P(pipe, None, "tensor", None)`` on ``wq [L, H, nh,
+    hd]`` is the heads, dim 0 of ``q_proj.weight``; ``P(pipe, "tensor",
+    None, None)`` on ``wo`` is dim 1 of ``o_proj.weight``; ``P(None,
+    "tensor")`` on ``lm_head [H, V]`` is dim 0 of ``lm_head.weight``), the
+    rest is whole."""
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} out of range for tp={tp}")
+    return {name: tp_shard(name, t, tp, rank)
+            for name, t in state_dict.items()}
 
 
 def mixtral_params_from_jax(params: Dict[str, Any]

@@ -20,8 +20,22 @@ a JAX parameter tree across.  The attention kernels are hand-written CUDA:
 decode attention (``ops/kernels/decode_attention.py``) on the KV-cache path
 and flash attention (``ops/kernels/flash_attention.py``) in the training
 loss under ``attn_impl="flash"``; everything else is plain PyTorch, as the
-JAX package left it to XLA.  Sharding, pipeline and sequence parallelism
-and ``loss_tiles`` are not ported yet.
+JAX package left it to XLA.
+
+Tensor parallelism (serving only): built on a process mesh
+(``LlamaModel(config, mesh=...)``) whose ``tensor`` axis has size ``tp``,
+each rank holds Megatron's split of every layer, the JAX model's
+``param_specs``: ``q_proj``, ``k_proj``, ``v_proj``, ``gate_proj`` and
+``up_proj`` keep a contiguous block of their output rows, ``o_proj`` and
+``down_proj`` the matching block of their input columns, ``lm_head`` a
+block of the vocabulary (unless the embeddings are tied); the embedding
+and the norms are whole.  Rank ``r`` owns query heads ``[r·h/tp,
+(r+1)·h/tp)`` and kv heads ``[r·kv/tp, ...)``, so every GQA group stays on
+one rank.  The outputs of ``o_proj`` and ``down_proj`` are all-reduced over
+the tensor group in the compute dtype (Megatron's *g*, the JAX model's
+``_tp_reduce``), and the logits' vocabulary blocks are all-gathered.
+Training under tensor parallelism, pipeline and sequence parallelism and
+``loss_tiles`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,9 +51,11 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..comm import comm
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.masks import local_attention_mask
+from ..parallel.mesh import AXIS_TENSOR, ProcessMesh
 from ..utils.device import DeviceLike, resolve_device
 
 #: a layer's router aux loss: a 0-dim fp32 tensor, or 0.0 without a router
@@ -194,29 +210,64 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     return x.repeat_interleave(n_rep, dim=-2) if n_rep > 1 else x
 
 
-#: ``normal_(weight, fan_in)``: draw ``N(0, 1/fan_in)`` into ``weight``
-Init = Callable[[torch.Tensor, int], None]
+#: ``normal_(weight, fan_in, tp_dim=None)``: draw ``N(0, 1/fan_in)`` into
+#: ``weight``, this rank's slice along ``tp_dim`` of the whole weight
+Init = Callable[..., None]
+
+#: a layer's ``nn.Linear`` → the dim of its ``[out, in]`` weight that tensor
+#: parallelism splits: 0, the output rows (column-parallel), or 1, the
+#: input columns (row-parallel); the JAX ``param_specs``' ``tensor`` entries
+LAYER_TP_DIMS = {"q_proj": 0, "k_proj": 0, "v_proj": 0, "o_proj": 1,
+                 "gate_proj": 0, "up_proj": 0, "down_proj": 1}
+
+
+def tp_split_dim(name: str) -> Optional[int]:
+    """The dim of state-dict entry ``name`` that tensor parallelism splits;
+    None for a weight every rank holds whole."""
+    if name == "lm_head.weight":
+        return 0  # the vocabulary
+    parts = name.split(".")
+    if len(parts) == 4 and parts[0] == "layers" and parts[3] == "weight":
+        return LAYER_TP_DIMS.get(parts[2])
+    return None
+
+
+def tp_shard(name: str, t: torch.Tensor, tp: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s contiguous block of state-dict entry ``name`` along
+    its split dim (``t`` itself when every rank holds it whole)."""
+    dim = tp_split_dim(name)
+    if dim is None or tp == 1:
+        return t
+    if t.shape[dim] % tp:
+        raise ValueError(f"{name}: dim {dim} of {tuple(t.shape)} does not "
+                         f"split over {tp} ranks")
+    n = t.shape[dim] // tp
+    return t.narrow(dim, rank * n, n).clone()
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, c: LlamaConfig, device: DeviceLike):
+    """One decoder layer; under tensor parallelism (``tp > 1``) it holds
+    this rank's ``1/tp`` of the heads and of the FFN's intermediate dim."""
+
+    def __init__(self, c: LlamaConfig, device: DeviceLike, tp: int = 1):
         super().__init__()
         H, hd = c.hidden_size, c.hd
         self.compute_dtype = c.dtype
+        self.tp = tp
         kw = dict(bias=False, device=device, dtype=c.storage_dtype)
         self.attn_norm = nn.Parameter(torch.empty(H, device=device,
                                                   dtype=c.storage_dtype))
-        self.q_proj = nn.Linear(H, c.num_heads * hd, **kw)
-        self.k_proj = nn.Linear(H, c.num_kv_heads * hd, **kw)
-        self.v_proj = nn.Linear(H, c.num_kv_heads * hd, **kw)
-        self.o_proj = nn.Linear(c.num_heads * hd, H, **kw)
+        self.q_proj = nn.Linear(H, c.num_heads // tp * hd, **kw)
+        self.k_proj = nn.Linear(H, c.num_kv_heads // tp * hd, **kw)
+        self.v_proj = nn.Linear(H, c.num_kv_heads // tp * hd, **kw)
+        self.o_proj = nn.Linear(c.num_heads // tp * hd, H, **kw)
         self.mlp_norm = nn.Parameter(torch.empty(H, device=device,
                                                  dtype=c.storage_dtype))
         self._build_ffn(c, device)
 
     def _build_ffn(self, c: LlamaConfig, device: DeviceLike) -> None:
         """The dense SwiGLU's three projections."""
-        H, I = c.hidden_size, c.intermediate_size
+        H, I = c.hidden_size, c.intermediate_size // self.tp
         kw = dict(bias=False, device=device, dtype=c.storage_dtype)
         self.gate_proj = nn.Linear(H, I, **kw)
         self.up_proj = nn.Linear(H, I, **kw)
@@ -225,15 +276,21 @@ class LlamaDecoderLayer(nn.Module):
     def reset_parameters(self, normal_: Init) -> None:
         """Every matrix from ``normal_`` (attention first, then the FFN, one
         tensor at a time), the norms at one."""
-        for lin in (self.q_proj, self.k_proj, self.v_proj, self.o_proj):
-            normal_(lin.weight, lin.in_features)
+        self._normal_linears(normal_, "q_proj", "k_proj", "v_proj", "o_proj")
         self._reset_ffn(normal_)
         self.attn_norm.fill_(1.0)
         self.mlp_norm.fill_(1.0)
 
     def _reset_ffn(self, normal_: Init) -> None:
-        for lin in (self.gate_proj, self.up_proj, self.down_proj):
-            normal_(lin.weight, lin.in_features)
+        self._normal_linears(normal_, "gate_proj", "up_proj", "down_proj")
+
+    def _normal_linears(self, normal_: Init, *names: str) -> None:
+        for name in names:
+            lin, dim = getattr(self, name), LAYER_TP_DIMS[name]
+            # a row-parallel weight holds 1/tp of its inputs; the fan-in
+            # is the whole weight's
+            normal_(lin.weight, lin.in_features * (self.tp if dim == 1
+                                                   else 1), dim)
 
     def proj(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         """``x @ W.T`` with the weight cast to the compute dtype at use."""
@@ -249,29 +306,82 @@ class LlamaDecoderLayer(nn.Module):
 class LlamaModel(nn.Module):
     """Llama decoder with a KV cache.  ``device`` defaults to ``"cuda"``
     and raises without a CUDA device; weights are drawn from a
-    ``torch.Generator`` seeded with ``seed`` (see :meth:`init_params`)."""
+    ``torch.Generator`` seeded with ``seed`` (see :meth:`init_params`).
+    ``mesh`` (a process mesh of ``utils.groups``) makes the model this
+    rank's tensor-parallel shard."""
 
     layer_cls = LlamaDecoderLayer
+    #: whether the model's tensor-parallel split is ported
+    tp_ported = True
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = "cuda",
-                 seed: int = 0):
+                 seed: int = 0, mesh: Optional[ProcessMesh] = None):
         super().__init__()
         dev = resolve_device(device)
         self.config = c = config
+        self._set_mesh(mesh)
         # built on the meta device and materialised once: the init below
         # writes every weight, so a default init would be wasted work
         self.embed = nn.Embedding(c.vocab_size, c.hidden_size,
                                   device="meta", dtype=c.storage_dtype)
-        self.layers = nn.ModuleList(self.layer_cls(c, "meta")
+        self.layers = nn.ModuleList(self.layer_cls(c, "meta", self.tp)
                                     for _ in range(c.num_layers))
         self.final_norm = nn.Parameter(torch.empty(c.hidden_size,
                                                    device="meta",
                                                    dtype=c.storage_dtype))
         self.lm_head = (None if c.tie_embeddings else
-                        nn.Linear(c.hidden_size, c.vocab_size, bias=False,
-                                  device="meta", dtype=c.storage_dtype))
+                        nn.Linear(c.hidden_size, c.vocab_size // self.tp,
+                                  bias=False, device="meta",
+                                  dtype=c.storage_dtype))
         self.to_empty(device=dev)
         self.init_params(seed)
+
+    def _set_mesh(self, mesh: Optional[ProcessMesh]) -> None:
+        """Take ``mesh``'s tensor axis: this rank's split sizes and place."""
+        c = self.config
+        tp = int(mesh.shape[AXIS_TENSOR]) if mesh is not None else 1
+        if tp > 1:
+            if not self.tp_ported:
+                raise NotImplementedError(
+                    f"{type(self).__name__} under tensor parallelism is not "
+                    "ported yet")
+            for what, n in (("kv heads", c.num_kv_heads),
+                            ("intermediate size", c.intermediate_size),
+                            ("vocab size", None if c.tie_embeddings
+                             else c.vocab_size)):
+                if n is not None and n % tp:
+                    raise ValueError(f"tensor size {tp} must divide the "
+                                     f"{what} ({n})")
+        self.mesh = mesh
+        self.tp = tp
+        self.tp_rank = mesh.axis_rank(AXIS_TENSOR) if tp > 1 else 0
+        #: this rank's query and kv heads
+        self.num_local_heads = c.num_heads // tp
+        self.num_local_kv_heads = c.num_kv_heads // tp
+
+    @torch.no_grad()
+    def shard_(self, mesh: ProcessMesh) -> "LlamaModel":
+        """Keep this rank's tensor-parallel slice of a whole model's
+        weights, in place (the reference's AutoTP on a loaded module)."""
+        if self.tp != 1:
+            raise ValueError(f"the model is already split over {self.tp} "
+                             "ranks")
+        self._set_mesh(mesh)
+        for name, p in self.named_parameters():
+            p.data = tp_shard(name, p.data, self.tp, self.tp_rank)
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                module.out_features, module.in_features = module.weight.shape
+        for layer in self.layers:
+            layer.tp = self.tp
+        return self
+
+    def _tp_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum the row-parallel partial outputs over the tensor group, in
+        place, in their dtype (identity without tensor parallelism)."""
+        if self.tp == 1:
+            return x
+        return comm.all_reduce(x, group=self.mesh.group(AXIS_TENSOR))
 
     @property
     def device(self) -> torch.device:
@@ -285,9 +395,19 @@ class LlamaModel(nn.Module):
         numbers differ, since the two generators differ)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
 
-        def normal_(w: torch.Tensor, fan_in: int) -> None:
-            w.copy_(torch.randn(w.shape, generator=gen, device=w.device,
-                                dtype=torch.float32).div_(math.sqrt(fan_in)))
+        def normal_(w: torch.Tensor, fan_in: int,
+                    tp_dim: Optional[int] = None) -> None:
+            # the whole weight is drawn, so a rank's shard is exactly that
+            # slice of the unsplit model from the same seed
+            shape = list(w.shape)
+            if tp_dim is not None:
+                shape[tp_dim] *= self.tp
+            full = torch.randn(shape, generator=gen, device=w.device,
+                               dtype=torch.float32).div_(math.sqrt(fan_in))
+            if tp_dim is not None:
+                n = w.shape[tp_dim]
+                full = full.narrow(tp_dim, self.tp_rank * n, n)
+            w.copy_(full)
 
         c = self.config
         normal_(self.embed.weight, c.hidden_size)
@@ -295,7 +415,7 @@ class LlamaModel(nn.Module):
             layer.reset_parameters(normal_)
         self.final_norm.fill_(1.0)
         if self.lm_head is not None:
-            normal_(self.lm_head.weight, c.hidden_size)
+            normal_(self.lm_head.weight, c.hidden_size, 0)
 
     # -- pieces shared with the v2 adapter -------------------------------
 
@@ -310,8 +430,13 @@ class LlamaModel(nn.Module):
                            self.embed.weight.to(self.config.dtype))
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """LM head in the model dtype, returned as fp32."""
-        return F.linear(x, self.head_weight().to(self.config.dtype)).float()
+        """LM head in the model dtype, returned as fp32 ``[..., V]`` (under
+        tensor parallelism the ranks' vocabulary blocks, all-gathered)."""
+        out = F.linear(x, self.head_weight().to(self.config.dtype)).float()
+        if self.lm_head is None or self.tp == 1:
+            return out
+        return comm.all_gather(out, group=self.mesh.group(AXIS_TENSOR),
+                               dim=-1)
 
     def qkv(self, layer: LlamaDecoderLayer, x: torch.Tensor,
             positions: torch.Tensor
@@ -321,9 +446,10 @@ class LlamaModel(nn.Module):
         c = self.config
         h = _rms_norm(x, layer.attn_norm, c.rms_norm_eps)
         shape = x.shape[:-1]
-        q = layer.proj(layer.q_proj, h).view(*shape, c.num_heads, c.hd)
-        k = layer.proj(layer.k_proj, h).view(*shape, c.num_kv_heads, c.hd)
-        v = layer.proj(layer.v_proj, h).view(*shape, c.num_kv_heads, c.hd)
+        nh, nkv = self.num_local_heads, self.num_local_kv_heads
+        q = layer.proj(layer.q_proj, h).view(*shape, nh, c.hd)
+        k = layer.proj(layer.k_proj, h).view(*shape, nkv, c.hd)
+        v = layer.proj(layer.v_proj, h).view(*shape, nkv, c.hd)
         return (_rope(q, positions, c.rope_theta),
                 _rope(k, positions, c.rope_theta), v)
 
@@ -336,11 +462,11 @@ class LlamaModel(nn.Module):
     def _post_attn(self, layer: LlamaDecoderLayer, x: torch.Tensor,
                    attn: torch.Tensor) -> Tuple[torch.Tensor, AuxLoss]:
         """Output projection + residual + FFN block + residual, and the
-        FFN's aux loss; ``attn [..., h, d]``."""
-        x = x + layer.proj(layer.o_proj, attn.flatten(-2))
+        FFN's aux loss; ``attn [..., h, d]`` (this rank's heads)."""
+        x = x + self._tp_reduce(layer.proj(layer.o_proj, attn.flatten(-2)))
         h = _rms_norm(x, layer.mlp_norm, self.config.rms_norm_eps)
         out, l_aux = self._ffn(layer, h)
-        return x + out, l_aux
+        return x + self._tp_reduce(out), l_aux
 
     def post_attn(self, layer: LlamaDecoderLayer, x: torch.Tensor,
                   attn: torch.Tensor) -> torch.Tensor:
@@ -377,7 +503,8 @@ class LlamaModel(nn.Module):
         """Decode cache ``[L, B, max_len, kv_h, d]`` in the GQA layout: only
         the kv heads are stored; the decode kernel expands the groups."""
         c = self.config
-        shape = (c.num_layers, batch_size, max_len, c.num_kv_heads, c.hd)
+        shape = (c.num_layers, batch_size, max_len, self.num_local_kv_heads,
+                 c.hd)
         return {"k": torch.zeros(shape, dtype=c.dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=c.dtype, device=self.device),
                 "lengths": torch.zeros(batch_size, dtype=torch.int32,
@@ -459,6 +586,9 @@ class LlamaModel(nn.Module):
         losses summed, fp32), with a gradient.  Under ``config.remat`` each
         layer is recomputed in the backward, keeping only its weight
         matmuls' outputs."""
+        if self.tp > 1:
+            raise NotImplementedError("training under tensor parallelism is "
+                                      "not ported yet")
         c = self.config
         pos = torch.arange(input_ids.shape[1], device=self.device)
         x = self.embed_tokens(input_ids)

@@ -17,13 +17,14 @@ capacity, padding included, as in the JAX model.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..moe.layer import swiglu_expert_fn
 from ..moe.sharded_moe import MOELayer, TopKGate
+from ..parallel.mesh import ProcessMesh
 from ..utils.device import DeviceLike
 from .llama import Init, LlamaConfig, LlamaDecoderLayer, LlamaModel
 
@@ -102,10 +103,13 @@ class MixtralModel(LlamaModel):
     """Llama backbone + top-k routed SwiGLU experts."""
 
     layer_cls = MixtralDecoderLayer
+    #: the experts' tensor-parallel split (JAX ``models/mixtral.py``
+    #: ``param_specs``) is not ported: a mesh with ``tensor > 1`` raises
+    tp_ported = False
 
     def __init__(self, config: MixtralConfig, device: DeviceLike = "cuda",
-                 seed: int = 0):
-        super().__init__(config, device=device, seed=seed)
+                 seed: int = 0, mesh: Optional[ProcessMesh] = None):
+        super().__init__(config, device=device, seed=seed, mesh=mesh)
         gate = TopKGate(num_experts=config.num_experts, k=config.top_k,
                         capacity_factor=config.capacity_factor,
                         eval_capacity_factor=config.capacity_factor,

@@ -3,8 +3,13 @@
 Replaces the Pallas TPU kernel ``paged_decode_attention``
 (``_paged_kernel``) of ``deepspeed_tpu/ops/pallas/paged_attention.py``; the
 CUDA kernel is ``deepspeed_tpu_torch/csrc/decode_attention.cu`` (entry point
-``ds_paged_decode_attention``), hand-written for Hopper.  The head-sharded
-``paged_decode_attention_tp`` is not ported yet.
+``ds_paged_decode_attention``), hand-written for Hopper.
+:func:`paged_decode_attention_tp` replaces the head-sharded
+``paged_decode_attention_tp`` of the same file: the JAX version is a
+``shard_map`` over the ``tensor`` mesh axis whose body runs the paged
+kernel on each rank's heads; here each rank is a process, so the body alone
+remains, launching the same CUDA kernel on the rank's ``h/tp`` query heads
+and its ``kv_h/tp`` slice of the pool.
 
 Bound on the card: the K/V bytes of the live pages, read once per call.
 The kernel shares its design with the padded-cache kernel (one thread block
@@ -20,7 +25,7 @@ CUDA tensor it launches the kernel and raises on any failure.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -60,6 +65,27 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return torch.einsum("bhk,bkhd->bhd", p, v)
 
 
+def _launch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+            block_tables: torch.Tensor, lengths: torch.Tensor,
+            window: Optional[int], what: str) -> torch.Tensor:
+    """The CUDA paged kernel on ``q``'s heads; raises on any failure."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    check_kernel_args(q, k_pool, v_pool, block_tables, lengths)
+    lib = op_builder.load_library()
+    B, h, d = q.shape
+    num_pages, bs, kv_h, _ = k_pool.shape
+    out = torch.empty_like(q)
+    status = lib.ds_paged_decode_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, h,
+        kv_h, d, num_pages, bs, block_tables.shape[1],
+        int(window) if window is not None else 0, DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    op_builder.check(status, what)
+    return out
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor,
                            lengths: torch.Tensor,
@@ -72,24 +98,43 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             lengths, window)
-    if q.device.type != "cuda":
-        raise ValueError(
-            f"paged_decode_attention: unsupported device {q.device}")
-    check_kernel_args(q, k_pool, v_pool, block_tables, lengths)
-    lib = op_builder.load_library()
-    B, h, d = q.shape
-    num_pages, bs, kv_h, _ = k_pool.shape
-    out = torch.empty_like(q)
-    status = lib.ds_paged_decode_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, h,
-        kv_h, d, num_pages, bs, block_tables.shape[1],
-        int(window) if window is not None else 0, DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    op_builder.check(status, "paged_decode_attention")
+    out = _launch(q, k_pool, v_pool, block_tables, lengths, window,
+                  "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
 
 
 #: kernel launches since the last reset (CPU calls never count)
 paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_tp(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor,
+                              block_tables: torch.Tensor,
+                              lengths: torch.Tensor, mesh: Any,
+                              window: Optional[int] = None) -> torch.Tensor:
+    """Tensor-parallel paged decode on this rank's shard: ``q [B, h/tp,
+    d]`` and the local pool ``[N, bs, kv_h/tp, d]`` (contiguous head
+    blocks, so every GQA group lies on one rank), with the block tables and
+    lengths that every rank holds alike.  Heads are independent, so no rank
+    talks to another; the result is this rank's heads of the unsharded
+    call.  ``mesh`` is the process mesh (``utils.groups``) whose ``tensor``
+    axis splits the heads."""
+    # the local heads form whole GQA groups (kv_h/tp | h/tp) when tp
+    # divides kv_h, which the model checks against this mesh
+    check_decode_args(q, k_pool, v_pool, lengths, window, tables=block_tables)
+    if mesh is None or int(mesh.shape.get("tensor", 0)) < 1:
+        raise ValueError("paged_decode_attention_tp: needs a mesh with a "
+                         "tensor axis")
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
+                                            lengths, window)
+    out = _launch(q, k_pool, v_pool, block_tables, lengths, window,
+                  "paged_decode_attention_tp")
+    paged_decode_attention_tp.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (CPU calls never count), apart
+#: from the unsharded wrapper's
+paged_decode_attention_tp.launches = 0

@@ -156,12 +156,16 @@ def load_library() -> ctypes.CDLL:
                                                    + [ptr])
             lib.ds_block_sparse_bwd_dkv.argtypes = ([ptr] * 12 + [i32] * 8
                                                     + [ptr])
+            # quantizer: x, q, scales | rows (int64), cols, dtype, vector |
+            # stream
+            lib.ds_quantize_int8.argtypes = ([ptr] * 3 + [ctypes.c_int64]
+                                             + [i32] * 3 + [ptr])
             for fn in (lib.ds_flash_fwd, lib.ds_flash_bwd_dq,
                        lib.ds_flash_bwd_dkv, lib.ds_block_sparse_fwd,
                        lib.ds_block_sparse_bwd_dq,
                        lib.ds_block_sparse_bwd_dkv, lib.ds_moe_dispatch,
                        lib.ds_moe_combine, lib.ds_multi_tensor_sqsum,
-                       lib.ds_fused_adam):
+                       lib.ds_fused_adam, lib.ds_quantize_int8):
                 fn.restype = i32
             _lib = lib
         return _lib

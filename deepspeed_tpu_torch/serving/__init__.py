@@ -44,9 +44,12 @@ def build_serving_frontend(model: Any, replicas: int = 1,
                            prefix_sharing: bool = True,
                            max_cached_blocks: int = 0,
                            serving_params: Optional[ServingParams] = None,
-                           device: DeviceLike = "cuda") -> ServingFrontend:
+                           device: DeviceLike = "cuda",
+                           mesh: Any = None) -> ServingFrontend:
     """N v2 engine replicas of ``model`` behind one front-end.  Each replica
-    owns a full KV pool on ``device`` (memory scales with ``replicas``)."""
+    owns a full KV pool on ``device`` (memory scales with ``replicas``).
+    Under tensor parallelism (a model split over ``mesh``) each rank builds
+    its own front-end and drives ``pump()`` itself."""
     from ..inference.v2 import build_engine_v2
 
     def factory(cc, slots, chunk, pbatch):
@@ -61,6 +64,6 @@ def build_serving_frontend(model: Any, replicas: int = 1,
             model, cache_config=cache_config,
             max_batch_slots=max_batch_slots, prefill_chunk=prefill_chunk,
             prefill_batch=prefill_batch, decode_burst=decode_burst,
-            scheduler_factory=factory, device=device)
+            scheduler_factory=factory, device=device, mesh=mesh)
         reps.append(Replica(eng, i))
     return ServingFrontend(reps, params=serving_params)

@@ -21,7 +21,10 @@ Counterpart of ``deepspeed_tpu/serving/frontend.py``:
 
 Driven by hand (``pump()``, ``run_until_idle()``) or by its own thread
 (``start()`` / ``stop()``).  One re-entrant lock guards the front-end state;
-tokens reach consumers through per-handle thread-safe queues.
+tokens reach consumers through per-handle thread-safe queues.  Under tensor
+parallelism every rank runs its own front-end over its shard and drives
+``pump()`` itself, with the same submissions in the same order; ``start()``
+refuses, since a thread's timing would let the ranks' decisions diverge.
 
 Not ported yet: the flight recorder and watchdog hooks, request tracing,
 the disaggregated KV adoption, and the HBM-headroom gate
@@ -267,6 +270,10 @@ class ServingFrontend:
     # -- background drive --------------------------------------------------
 
     def start(self, idle_sleep_s: float = 0.001) -> None:
+        if any(getattr(r.engine, "tp", 1) > 1 for r in self.router.replicas):
+            raise RuntimeError("under tensor parallelism each rank drives "
+                               "pump() itself: a background thread would "
+                               "let the ranks' steps diverge")
         with self._lock:
             if self._thread is not None:
                 return

@@ -16,7 +16,8 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch import (KVCacheConfig, LlamaConfig, LlamaModel,
                                  MixtralConfig, MixtralModel,
                                  build_engine_v2, build_serving_frontend,
-                                 init_inference, initialize)
+                                 init_distributed, init_inference,
+                                 initialize)
 from deepspeed_tpu_torch.utils.device import check_module_device
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -82,6 +83,8 @@ def _check_entry_points_raise(model_cls, cfg_cls):
             num_blocks=8, block_size=4, max_seq_len=64), prefill_chunk=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         initialize(model=model, config={"train_micro_batch_size_per_gpu": 1})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_distributed()
 
 
 def test_engine_refuses_a_model_on_another_device():

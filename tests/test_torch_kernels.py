@@ -17,6 +17,7 @@ kernel's head-group splits (1, 2, 3, 4, 8, 12).
 import pytest
 import torch
 
+from deepspeed_tpu_torch import LlamaConfig
 from deepspeed_tpu_torch.ops.kernels import (decode_attention,
                                              decode_attention_plain,
                                              paged_decode_attention,
@@ -441,3 +442,147 @@ def test_cuda_block_sparse_refuses_what_the_kernels_cannot_take(cuda):
                          plan)
     with pytest.raises(TypeError, match="bf16 or fp32"):
         block_sparse_fwd(q.half(), k.half(), v.half(), plan)
+
+
+# -- int8 quantizer and tensor-parallel paged decode --------------------------
+
+#: (case, shape): bench.py's shape, a rank-3 input, a zero row, a row with
+#: one value 1e4 times the rest, and rows whose bytes are no multiple of 16
+#: (the kernel's scalar walk)
+QUANT_CASES = [("bench", (512, 256)), ("rank3", (4, 256, 96)),
+               ("zero_row", (512, 256)), ("outlier", (512, 256)),
+               ("ragged", (4, 100, 96)), ("odd_width", (37, 99))]
+
+
+def _quant_case(case, dtype, device):
+    shape = dict(QUANT_CASES)[case]
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(len(case)))
+    if case == "zero_row":
+        x[3] = 0.0
+    if case == "outlier":
+        x[5] = 1e-2
+        x[5, 17] = 1e2
+    return x.to(device=device, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", [c for c, _ in QUANT_CASES])
+def test_cuda_quantizer_matches_plain_exactly(cuda, case, dtype):
+    from deepspeed_tpu_torch.ops.kernels import (quantize_int8,
+                                                 quantize_int8_plain)
+    x = _quant_case(case, dtype, cuda)
+    before = quantize_int8.launches
+    q, s = quantize_int8(x)
+    torch.cuda.synchronize()
+    assert quantize_int8.launches - before == 1
+    want_q, want_s = quantize_int8_plain(x)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert q.shape == x.shape and s.shape == x.shape[:-1]
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    if case == "zero_row":
+        assert s[3].item() == 1.0 and not q[3].any()
+
+
+@pytest.mark.cuda
+def test_cuda_quantizer_refuses_what_the_kernel_cannot_take(cuda):
+    from deepspeed_tpu_torch.ops.kernels import quantize_int8
+    with pytest.raises(TypeError, match="not supported"):
+        quantize_int8(torch.ones(4, 8, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize_int8(torch.ones(8, 4, device=cuda).t())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("window", [None, 20])
+def test_cuda_paged_tp_shards_equal_unsharded_heads(cuda, dtype, tp, window):
+    """Each rank's contiguous head block through
+    ``paged_decode_attention_tp`` gives, bit for bit, those heads of the
+    unsharded kernel's result (one process plays every rank)."""
+    from deepspeed_tpu_torch.ops.kernels import paged_decode_attention_tp
+    from deepspeed_tpu_torch.parallel import MeshLayout, ProcessMesh
+    q, _, _, pk, pv, tables, lens = _cuda_case(4, 128, dtype, tp, cuda)
+    q = torch.cat([q, q + 1], dim=1)  # 16 query heads
+    pk, pv = (torch.cat([t, t.flip(0)], dim=2).contiguous() for t in (pk, pv))
+    full = paged_decode_attention(q, pk, pv, tables, lens, window=window)
+    h, kv = q.shape[1] // tp, pk.shape[2] // tp
+    before = (paged_decode_attention.launches,
+              paged_decode_attention_tp.launches)
+    for r in range(tp):
+        mesh = ProcessMesh(MeshLayout(tp=tp), rank=r)
+        got = paged_decode_attention_tp(
+            q[:, r * h:(r + 1) * h].contiguous(),
+            pk[:, :, r * kv:(r + 1) * kv].contiguous(),
+            pv[:, :, r * kv:(r + 1) * kv].contiguous(), tables, lens, mesh,
+            window=window)
+        assert torch.equal(got, full[:, r * h:(r + 1) * h])
+    torch.cuda.synchronize()
+    assert (paged_decode_attention.launches - before[0],
+            paged_decode_attention_tp.launches - before[1]) == (0, tp)
+
+
+# -- tensor parallelism over NCCL ---------------------------------------------
+
+def _nccl_serve_rank(rank, prompts):
+    """One rank of a tensor-parallel v2 engine over NCCL (card
+    ``LOCAL_RANK``), as many ranks as the launch started."""
+    from deepspeed_tpu_torch import (KVCacheConfig, LlamaModel,
+                                     build_engine_v2, init_distributed)
+    from deepspeed_tpu_torch.parallel import MeshLayout
+    from deepspeed_tpu_torch.utils import groups
+    init_distributed()
+    mesh = groups.initialize_mesh(MeshLayout.infer(
+        tp=torch.distributed.get_world_size()))
+    model = LlamaModel(_TP_CFG, device="cuda", seed=3, mesh=mesh)
+    eng = build_engine_v2(model, cache_config=KVCacheConfig(**_TP_CACHE),
+                          prefill_chunk=16, mesh=mesh)
+    return eng.generate(prompts, max_new_tokens=8)
+
+
+def _nccl_shared_card_rank(rank, same_local_rank):
+    """Two NCCL ranks on one card: by local rank past the cards, or by two
+    ranks that both claim card 0."""
+    import os
+    from deepspeed_tpu_torch import init_distributed
+    os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+    if same_local_rank:
+        os.environ["LOCAL_RANK"] = "0"
+    init_distributed()
+    return None
+
+
+_TP_CFG = LlamaConfig.tiny(num_layers=2, hidden_size=512, num_heads=8,
+                          num_kv_heads=4, dtype=torch.float32)
+_TP_CACHE = dict(num_blocks=64, block_size=16, max_seq_len=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_cuda_nccl_tp_serve_matches_one_rank(cuda, tp):
+    """``tp`` ranks, one card each, over NCCL: the v2 engine's greedy
+    tokens equal the one-rank engine's (fp32)."""
+    if torch.cuda.device_count() < tp:
+        pytest.skip(f"NCCL tensor parallelism needs one card per rank: "
+                    f"fewer than {tp} cards")
+    from deepspeed_tpu_torch import KVCacheConfig, LlamaModel, build_engine_v2
+    from deepspeed_tpu_torch.launcher import launch
+    g = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(1, 512, (n,), generator=g).tolist()
+               for n in (5, 23, 40)]
+    want = build_engine_v2(LlamaModel(_TP_CFG, device=cuda, seed=3),
+                           cache_config=KVCacheConfig(**_TP_CACHE),
+                           prefill_chunk=16).generate(prompts,
+                                                      max_new_tokens=8)
+    got = launch(_nccl_serve_rank, tp, (prompts,), timeout=300)
+    assert all(g == want for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("same_local_rank", [False, True])
+def test_cuda_nccl_refuses_two_ranks_on_one_card(cuda, same_local_rank):
+    from deepspeed_tpu_torch.launcher import launch
+    with pytest.raises(RuntimeError, match="NCCL needs one card per rank"):
+        launch(_nccl_shared_card_rank, 2, (same_local_rank,), timeout=120)
