@@ -7,19 +7,26 @@ against their plain PyTorch versions.
 
 Phases, one JSON line each; any failure exits non-zero:
 
-1. ``build``    — nvcc builds the kernels from ``deepspeed_tpu_torch/csrc``.
+1. ``build``    — nvcc builds the kernels from ``deepspeed_tpu_torch/csrc``;
+   registers and spills per kernel family, and the tensor-core
+   instructions (``HMMA``) of each flash family in ``cuobjdump -sass``: the
+   16-bit flash families must hold some, and none of them may spill.
 2. ``kernels``  — one line per decode kernel: the kernel against its plain
    version at every shape the main path gives it (32/8 heads, d 128, pages
    of 16; B 8 over up to 2048 keys with ragged lengths and window None and
-   512, as served; B 4 over generate's 256 + 32 keys), bf16 and fp32; then
-   timed with CUDA events (calls queued back to back behind a GPU sleep so
-   the host's overhead is hidden, median and range over 7 reps, inputs
-   rotated over more than the 50 MB L2) beside its plain version, a PyTorch
-   library yardstick and its bound (K/V bytes over 3.35 TB/s).
+   512, as served; B 4 over generate's 256 + 32 keys), bf16 and fp32 (and
+   fp16 at the serving shape); then timed with CUDA events (calls queued
+   back to back behind a GPU sleep so the host's overhead is hidden, median
+   and range over 7 reps, inputs rotated over more than the 50 MB L2)
+   beside its plain version, a PyTorch library yardstick and its bound (K/V
+   bytes over 3.35 TB/s).
 3. ``kernels``  — one line per flash kernel (forward, dq pass, dk/dv pass):
-   against its plain version at every ``FLASH_CASES`` shape, bf16 and fp32,
-   then timed the same way at the two training shapes beside its plain
-   version, SDPA and its bound (causal flops over 989 TFLOP/s in bf16).
+   against its plain version at every ``FLASH_CASES`` shape, bf16, fp16
+   (both on the tensor-core kernels) and fp32 (the fp32-FMA kernels), then
+   timed the same way at the two training shapes in bf16 beside its plain
+   version, SDPA and its bound (causal flops over 989 TFLOP/s), and in fp16
+   beside SDPA.  The decode and block-sparse kernels are also held in fp16
+   at one shape each.
 4. ``serve``    — Llama-3-8B at full width and depth (bf16, random weights
    from a seed) behind ``build_serving_frontend``: 8 requests of mixed
    classes, two sharing a 512-token header.  Every handle must return its
@@ -76,8 +83,9 @@ The block-sparse slice adds:
   every layout family (BigBird, Fixed, BSLongformer, Variable, EmptyTail
   with rows that attend nothing), cells of 16 to 256 tokens, shared and
   per-head layouts, causal and not, d 64 and 128, S 272 (a ragged tile) to
-  4096, bf16 and fp32; then timed at the training shape (B 2, S 4096, h
-  16, d 64, BigBird cells of 128, causal, bf16) beside its plain version,
+  4096, bf16 and fp32 (and fp16 on the first case); then timed at the
+  training shape (B 2, S 4096, h 16, d 64, BigBird cells of 128, causal,
+  bf16) beside its plain version,
   SDPA with the boolean token mask and its bound (the live token pairs'
   flops over 989 TFLOP/s against the bytes over 3.35 TB/s);
 - ``sparse``: ``sparse_attention(impl="auto")`` forward and backward
@@ -145,7 +153,8 @@ import torch
 import torch.nn.functional as F
 
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
 SLICE = dict(B=8, h=32, kv_h=8, d=128, bs=16, smax=2048)
 LENGTHS = [1, 15, 16, 17, 1000, 2048, 640, 1999]
 V1_BATCH, V1_PROMPT, V1_NEW = 4, 256, 32
@@ -156,7 +165,7 @@ V1_BATCH, V1_PROMPT, V1_NEW = 4, 256, 32
 CHECKS = [("slice", LENGTHS, SLICE["smax"], (None, 512)),
           ("v1", [V1_PROMPT + 1, V1_PROMPT + 14, V1_PROMPT + V1_NEW - 1,
                   V1_PROMPT + V1_NEW], V1_PROMPT + V1_NEW, (None,))]
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 
 
 def emit(obj: dict) -> None:
@@ -201,6 +210,38 @@ def read_counts() -> dict:
 
 # -- phase 1 ---------------------------------------------------------------
 
+#: kernel families of the flash passes that run on the tensor cores (bf16
+#: and fp16); each must hold tensor-core instructions and none may spill
+MMA_FAMILIES = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
+FAMILY = re.compile(r"(gqa_decode|flash_fwd|flash_bwd_dq|flash_bwd_dkv|"
+                    r"flash_fwd_mma|flash_bwd_dq_mma|flash_bwd_dkv_mma|"
+                    r"block_sparse_fwd|block_sparse_bwd_dq|"
+                    r"block_sparse_bwd_dkv|dispatch|combine|sqsum_partial|"
+                    r"sqsum_final|adam)_kernel")
+
+
+def tensor_core_instructions(library) -> dict:
+    """Per flash kernel family, the ``HMMA`` / ``HGMMA`` instructions in
+    ``cuobjdump -sass`` of the built library (summed over its instances)."""
+    import os
+
+    from deepspeed_tpu_torch.ops import op_builder
+    tool = os.path.join(os.path.dirname(op_builder.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fam = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = FAMILY.search(fn.group(1))
+            fam = name.group(1) if name and "flash" in name.group(1) else None
+            if fam is not None:
+                counts.setdefault(fam, 0)
+        elif fam is not None and re.search(r"\bH(G)?MMA\b", line):
+            counts[fam] += 1
+    return counts
+
+
 def phase_build() -> dict:
     from deepspeed_tpu_torch.ops import op_builder
 
@@ -214,11 +255,7 @@ def phase_build() -> dict:
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             compiled += 1
-            name = re.search(r"(gqa_decode|flash_fwd|flash_bwd_dq|"
-                             r"flash_bwd_dkv|block_sparse_fwd|"
-                             r"block_sparse_bwd_dq|block_sparse_bwd_dkv|"
-                             r"dispatch|combine|sqsum_partial|"
-                             r"sqsum_final|adam)_kernel", entry.group(1))
+            name = FAMILY.search(entry.group(1))
             fam = name.group(1) if name else entry.group(1)
             families.setdefault(fam, [0, 0])
         for i, pattern in enumerate((r"Used (\d+) registers",
@@ -226,10 +263,20 @@ def phase_build() -> dict:
             found = re.search(pattern, line)
             if found and fam is not None:
                 families[fam][i] = max(families[fam][i], int(found.group(1)))
-    return {"phase": "build", "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    mma = tensor_core_instructions(path)
+    for fam in MMA_FAMILIES:
+        require(mma.get(fam, 0) > 0, f"build: {fam} (bf16, fp16) holds no "
+                                     "tensor-core instruction")
+    if families:  # empty when the library was already built
+        for fam in MMA_FAMILIES:
+            require(families[fam][1] == 0, f"build: {fam} spills "
+                                           f"{families[fam][1]} bytes")
+    return {"phase": "build", "seconds": seconds,
             "library": path.name, "kernels_compiled": compiled,
             "max_registers": {f: r for f, (r, _) in families.items()},
-            "max_spill_bytes": {f: sp for f, (_, sp) in families.items()}}
+            "max_spill_bytes": {f: sp for f, (_, sp) in families.items()},
+            "tensor_core_instructions": mma}
 
 
 # -- phase 2 ---------------------------------------------------------------
@@ -329,8 +376,10 @@ def phase_kernels(dev) -> dict:
     reset_launches(decode_attention, paged_decode_attention)
     gen = torch.Generator(device=dev).manual_seed(1234)
     errs = {"decode_attention": {}, "paged_decode_attention": {}}
-    for (case, lengths, smax, windows), dtype in itertools.product(
-            CHECKS, (torch.bfloat16, torch.float32)):
+    slice_case = CHECKS[0][:3] + ((None,),)  # fp16 at the serving shape
+    for (case, lengths, smax, windows), dtype in list(itertools.product(
+            CHECKS, (torch.bfloat16, torch.float32))) + [
+                (slice_case, torch.float16)]:
         q, k, v, kp, vp, tables, lens = make_inputs(dtype, lengths, smax,
                                                     gen, dev)
         for window in windows:
@@ -412,8 +461,8 @@ def phase_kernels(dev) -> dict:
                         for case, lengths, smax, windows in CHECKS},
             heads=dict(h=SLICE["h"], kv_h=SLICE["kv_h"], d=SLICE["d"],
                        bs=SLICE["bs"]),
-            tolerance={"float32": TOL[torch.float32],
-                       "bfloat16": TOL[torch.bfloat16]},
+            tolerance={str(t).split(".")[-1]: v for t, v in TOL.items()},
+            checked_fp16_at="slice, no window",
             timed_at="bf16, B 8, every length 2048, no window",
             tf32=torch.backends.cuda.matmul.allow_tf32)
     return timing
@@ -475,11 +524,17 @@ def attention_bounds(B: int, S: int, h: int, d: int, el: int, pairs: int,
     return out
 
 
+#: the flash kernels' check dtypes: bf16 and fp16 run the tensor-core
+#: kernels, fp32 the fp32-FMA ones
+FLASH_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
 def phase_flash_kernels(dev) -> dict:
     """The three flash kernels against their plain versions at every
-    ``FLASH_CASES`` shape, bf16 and fp32 (the backward passes start from the
-    plain forward's out and lse, so each kernel is held alone); then timed
-    at the training shapes beside the plain versions, SDPA and the bound."""
+    ``FLASH_CASES`` shape, bf16, fp16 and fp32 (the backward passes start
+    from the plain forward's out and lse, so each kernel is held alone);
+    then timed at the training shapes in bf16 beside the plain versions,
+    SDPA and the bound, and in fp16 beside SDPA."""
     from deepspeed_tpu_torch.ops.kernels import (flash_attention_bwd_plain,
                                                  flash_attention_fwd_plain,
                                                  flash_bwd_dkv, flash_bwd_dq,
@@ -490,8 +545,7 @@ def phase_flash_kernels(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(4321)
     errs = {name: {} for name in FLASH_KERNELS}
-    for case, dtype in itertools.product(FLASH_CASES,
-                                         (torch.bfloat16, torch.float32)):
+    for case, dtype in itertools.product(FLASH_CASES, FLASH_DTYPES):
         name, _, _, _, _, causal, window, _ = case
         q, k, v, do, seg = flash_inputs(case, dtype, gen, dev)
         out, lse = flash_fwd(q, k, v, causal, window, seg)
@@ -572,6 +626,12 @@ def phase_flash_kernels(dev) -> dict:
                                                         causal))}
         bounds = attention_bounds(B, S, h, d, 2,
                                   h * live_pairs(S, causal, window) * B)
+        half_sets = []
+        for _ in range(3):  # the same kernels' fp16 instances
+            q, k, v, do, _ = flash_inputs(case, torch.float16, gen, dev)
+            out, lse = flash_attention_fwd_plain(q, k, v, causal, window)
+            half_sets.append((q, k, v, do, out, lse,
+                              attention_delta(out, do)))
         for kernel, (fn, plain) in run.items():
             library = (sdpa_fwd if kernel == "flash_fwd" else None)
             timing[kernel][name] = dict(
@@ -591,8 +651,13 @@ def phase_flash_kernels(dev) -> dict:
                 library_max_abs_err_vs_plain=lib_err,
                 bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1],
                 shape=dict(B=B, h=h, d=d, S=S, causal=causal),
-                dtype="bfloat16")
-        del sets, graphs
+                dtype="bfloat16",
+                kernel_time_fp16=time_ms(
+                    [lambda s=s: fn(*s) for s in half_sets], cycles),
+                library_time_fp16=time_ms(
+                    [lambda s=s: sdpa_fwd(*s) for s in half_sets], cycles)
+                if library else None)
+        del sets, graphs, half_sets
         torch.cuda.empty_cache()
     return {kernel: dict(
         max_abs_err=max(errs[kernel].values()),
@@ -600,8 +665,10 @@ def phase_flash_kernels(dev) -> dict:
         checked_at={c[0]: dict(zip(("B", "h", "d", "S", "causal", "window",
                                     "segments"), c[1:]))
                     for c in FLASH_CASES},
-        tolerance={"float32": TOL[torch.float32],
-                   "bfloat16": TOL[torch.bfloat16]},
+        tolerance={str(t).split(".")[-1]: TOL[t] for t in FLASH_DTYPES},
+        routes={"bfloat16": "flash_attention_mma.cu (mma.sync)",
+                "float16": "flash_attention_mma.cu (mma.sync)",
+                "float32": "flash_attention.cu (fp32 FMA)"},
         timed=timing[kernel], tf32=torch.backends.cuda.matmul.allow_tf32)
         for kernel in FLASH_KERNELS}
 
@@ -1043,7 +1110,8 @@ def check_close(what: str, got, want, dtype) -> float:
 
 def phase_sparse_kernels(dev) -> dict:
     """The three block-sparse kernels against their plain versions at every
-    ``SPARSE_CHECKS`` case, bf16 and fp32 (the backward passes start from
+    ``SPARSE_CHECKS`` case, bf16 and fp32, and fp16 on the first (the
+    backward passes start from
     the plain forward's out and lse, so each kernel is held alone); then
     timed at the training shape in bf16 beside the plain versions, SDPA with
     the boolean token mask, and the bound."""
@@ -1059,8 +1127,9 @@ def phase_sparse_kernels(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(8642)
     errs = {name: {} for name in SPARSE_KERNELS}
-    for case, dtype in itertools.product(SPARSE_CHECKS,
-                                         (torch.bfloat16, torch.float32)):
+    for case, dtype in list(itertools.product(
+            SPARSE_CHECKS, (torch.bfloat16, torch.float32))) + [
+                (SPARSE_CHECKS[0], torch.float16)]:  # fp16 at one shape
         name, B, S, h, d, family, kw, causal = case
         cfg = sparse_config(family, h, **kw)
         layout, plan = sparse_plan(cfg, S, h, causal)
@@ -1168,8 +1237,8 @@ def phase_sparse_kernels(dev) -> dict:
             checked_at={c[0]: dict(zip(("B", "S", "h", "d", "family",
                                         "config", "causal"), c[1:]))
                         for c in SPARSE_CHECKS},
-            tolerance={"float32": TOL[torch.float32],
-                       "bfloat16": TOL[torch.bfloat16]},
+            tolerance={str(t).split(".")[-1]: v for t, v in TOL.items()},
+            checked_fp16_at=SPARSE_CHECKS[0][0],
             timed_at=f"bf16, {name}: B {B}, S {S}, h {h}, d {d}, {family} "
                      f"{kw}, causal {causal}", **walk_lengths(plan),
             tf32=torch.backends.cuda.matmul.allow_tf32)
@@ -2272,7 +2341,8 @@ def main() -> int:
         return 0
 
     decode_src = "deepspeed_tpu_torch/csrc/decode_attention.cu"
-    flash_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
+    # the main path (train) is bf16: the tensor-core kernels
+    flash_src = "deepspeed_tpu_torch/csrc/flash_attention_mma.cu"
     moe_src = "deepspeed_tpu_torch/csrc/moe_dispatch.cu"
     adam_src = "deepspeed_tpu_torch/csrc/fused_adam.cu"
     sparse_src = "deepspeed_tpu_torch/csrc/block_sparse_attention.cu"

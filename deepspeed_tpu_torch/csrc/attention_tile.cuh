@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -66,6 +67,35 @@ struct Io<__nv_bfloat16> {
     __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
     h2[0] = __floats2bfloat162_rn(x[0], x[1]);
     h2[1] = __floats2bfloat162_rn(x[2], x[3]);
+    *reinterpret_cast<uint2*>(p) = raw;
+  }
+};
+
+template <>
+struct Io<__half> {
+  static constexpr int kVec = 8;
+  __device__ __forceinline__ static void load_vec(const __half* p, float* o) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __half2* h2 = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h2[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static void load4(const __half* p, float* o) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __half2* h2 = reinterpret_cast<const __half2*>(&raw);
+    const float2 a = __half22float2(h2[0]);
+    const float2 b = __half22float2(h2[1]);
+    o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+  }
+  __device__ __forceinline__ static void store4(__half* p, const float* x) {
+    uint2 raw;
+    __half2* h2 = reinterpret_cast<__half2*>(&raw);
+    h2[0] = __halves2half2(__float2half_rn(x[0]), __float2half_rn(x[1]));
+    h2[1] = __halves2half2(__float2half_rn(x[2]), __float2half_rn(x[3]));
     *reinterpret_cast<uint2*>(p) = raw;
   }
 };

@@ -406,7 +406,7 @@ cudaError_t launch_td(Pass pass, const BsArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16
 cudaError_t launch(Pass pass, const BsArgs& a, int d, int dtype,
                    cudaStream_t stream) {
   if (a.B <= 0 || a.S <= 0 || a.H <= 0) return cudaGetLastError();
@@ -419,6 +419,8 @@ cudaError_t launch(Pass pass, const BsArgs& a, int d, int dtype,
     return launch_td<__nv_bfloat16, 64>(pass, a, stream);
   if (dtype == 1 && d == 128)
     return launch_td<__nv_bfloat16, 128>(pass, a, stream);
+  if (dtype == 2 && d == 64) return launch_td<__half, 64>(pass, a, stream);
+  if (dtype == 2 && d == 128) return launch_td<__half, 128>(pass, a, stream);
   return cudaErrorInvalidValue;
 }
 

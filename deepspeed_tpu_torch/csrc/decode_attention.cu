@@ -35,6 +35,7 @@
 // cudaGetLastError() after its launch.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -74,6 +75,25 @@ struct Vec<__nv_bfloat16> {
   }
   __device__ __forceinline__ static void store(__nv_bfloat16* p, float x) {
     *p = __float2bfloat16(x);
+  }
+};
+
+template <>
+struct Vec<__half> {
+  static constexpr int N = 8;  // 16 bytes
+  __device__ __forceinline__ static void load(const __half* p,
+                                              float (&o)[N]) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __half2* h2 = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h2[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static void store(__half* p, float x) {
+    *p = __float2half_rn(x);
   }
 };
 
@@ -266,7 +286,7 @@ cudaError_t launch_d(const Problem& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16
 cudaError_t launch(const Problem& p, int batch, int d, int dtype,
                    cudaStream_t stream) {
   if (batch <= 0 || p.kv_h <= 0 || p.n_rep <= 0) return cudaGetLastError();
@@ -274,6 +294,8 @@ cudaError_t launch(const Problem& p, int batch, int d, int dtype,
   if (dtype == 0 && d == 128) return launch_d<float, 128>(p, batch, stream);
   if (dtype == 1 && d == 64) return launch_d<__nv_bfloat16, 64>(p, batch, stream);
   if (dtype == 1 && d == 128) return launch_d<__nv_bfloat16, 128>(p, batch, stream);
+  if (dtype == 2 && d == 64) return launch_d<__half, 64>(p, batch, stream);
+  if (dtype == 2 && d == 128) return launch_d<__half, 128>(p, batch, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -1,14 +1,20 @@
-// Flash attention for training on Hopper (sm_90a), hand-written CUDA:
-// a forward (out + lse), a dq pass and a dk/dv pass.
+// Flash attention for training on Hopper (sm_90a), hand-written CUDA, fp32
+// inputs: a forward (out + lse), a dq pass and a dk/dv pass; and the C entry
+// points of both flash families.
 //
-// Replaces the Pallas TPU kernels of deepspeed_tpu/ops/pallas/
-// flash_attention.py:
+// Replaces, for fp32 inputs, the Pallas TPU kernels of
+// deepspeed_tpu/ops/pallas/flash_attention.py:
 //   * _flash_call (_fa_kernel) and _flash_fwd_stream (_fa_stream_kernel)
 //     -> flash_fwd_kernel;
 //   * _flash_bwd_pallas and _flash_bwd_stream, dq pass
 //     (_fa_bwd_dq_kernel, _fa_bwd_dq_stream_kernel) -> flash_bwd_dq_kernel;
 //   * the same two, dk/dv pass (_fa_bwd_dkv_kernel,
 //     _fa_bwd_dkv_stream_kernel) -> flash_bwd_dkv_kernel.
+// bf16 and fp16 inputs go to the tensor-core kernels of
+// flash_attention_mma.cu; the entry points below choose by the dtype alone.
+// fp32 is the parity dtype (five fp32 training steps on the card match the
+// CPU's to 1e-4), which TF32 tensor-core products (~3 digits) would not
+// keep, so these kernels compute in fp32 FMAs.
 // The TPU split between a resident kernel (K/V whole in VMEM) and a streamed
 // one (S * d past the VMEM budget) does not carry over: every kernel here
 // stages one 64-row tile at a time in shared memory, at any S.
@@ -18,19 +24,18 @@
 // int32 [B, S] or null.  K/V carry the query heads (GQA is repeated before
 // the call, as the JAX model does).
 //
-// Semantics (ops/pallas/lattice.py tile_keep, flash_attention.py
-// _fa_kernel): a key is live for a query when both lie below S, under
-// causal q >= k, under a window q - k < W (and k - q < W without causal),
-// and under segments equal ids.  Scores are s = q . k / sqrt(D).  Masked
+// Semantics (flash_common.cuh keep; ops/pallas/lattice.py tile_keep,
+// flash_attention.py _fa_kernel): scores are s = q . k / sqrt(D).  Masked
 // probabilities are exactly 0; a row with no live key gets out 0 and lse
 // 1e30.  p stays fp32 before p . V.
 //
 // What bounds it: the operations.  Per live (q, k) pair the forward does
 // 4 D flops, the backward 10 D (it recomputes s); at S 2048 each byte read
-// from device memory meets hundreds of flops.
+// from device memory meets hundreds of flops.  In fp32 the card has no
+// tensor-core path that keeps the parity, so the bound is 67 TFLOP/s.
 //
-// The design, first right and simple (tensor cores, cp.async/TMA pipelining
-// and a persistent schedule are later work):
+// The design, first right and simple (cp.async pipelining and a persistent
+// schedule are later work):
 //   * one block per (b * H + h, 64-row tile): the forward and the dq pass
 //     own 64 query rows and walk the live key tiles [k0, k1) of the lattice
 //     (kv_bounds); the dk/dv pass owns 64 keys and walks the live query
@@ -42,64 +47,22 @@
 //     float4 chunks, interleaved so a warp's reads of one staged row hit
 //     distinct banks); a dot product is 16 FMAs per lane and a butterfly of
 //     log2(G) shuffles, which leaves the full sum in every lane of the group;
-//   * fp32 FMA arithmetic for both fp32 and bf16 inputs; the forward's
-//     online softmax rescales once per 32 keys.
+//   * fp32 FMA arithmetic; the forward's online softmax rescales once per 32
+//     keys.
 
 #include "attention_tile.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;   // backward only
-  const float* lse;   // written by the forward, read by the backward
-  const float* delta; // backward only
-  const int* seg;     // [B, S] or null
-  void* out0;         // forward: out; dq pass: dq; dk/dv pass: dk
-  void* out1;         // dk/dv pass: dv
-  float* lse_out;     // forward only
-  int B, S, H;
-  int causal;
-  int window;         // <= 0: none
-  float scale;
-};
-
-__device__ __forceinline__ bool keep(int qpos, int kpos, const Args& a,
-                                     int qseg, int kseg) {
-  if (qpos >= a.S || kpos >= a.S) return false;
-  if (a.causal && qpos < kpos) return false;
-  if (a.window > 0) {
-    const int diff = qpos - kpos;
-    if (diff >= a.window) return false;
-    if (!a.causal && -diff >= a.window) return false;
-  }
-  return a.seg == nullptr || qseg == kseg;
-}
-
-// lattice.kv_block_bounds with block_q = block_k = kTile
-__device__ __forceinline__ void kv_bounds(int qi, int nk, const Args& a,
-                                          int& k0, int& k1) {
-  k1 = a.causal ? min(qi + 1, nk) : nk;
-  k0 = 0;
-  if (a.window > 0) {
-    k0 = max(qi * kTile - (a.window - 1), 0) / kTile;
-    if (!a.causal)
-      k1 = min(k1, (qi * kTile + kTile - 1 + a.window + kTile - 1) / kTile);
-  }
-}
-
-// lattice.q_block_bounds with block_q = block_k = kTile
-__device__ __forceinline__ void q_bounds(int ki, int nq, const Args& a,
-                                         int& q0, int& q1) {
-  q0 = a.causal ? ki : 0;
-  q1 = nq;
-  if (a.window > 0) {
-    q1 = min(nq, (ki * kTile + kTile - 1 + a.window + kTile - 1) / kTile);
-    if (!a.causal) q0 = max(ki * kTile - (a.window - 1), 0) / kTile;
-  }
-}
+using flash::Args;
+using flash::keep;
+using flash::kv_bounds;
+using flash::q_bounds;
+using flash::Pass;
+using flash::kFwd;
+using flash::kDq;
+using flash::kDkv;
 
 // ---------------------------------------------------------------------------
 // forward: block (b * H + h, q tile); out [B, S, H, D], lse [B, H, S]
@@ -335,8 +298,6 @@ flash_bwd_dkv_kernel(Args a) {
 // launch
 // ---------------------------------------------------------------------------
 
-enum Pass { kFwd = 0, kDq = 1, kDkv = 2 };
-
 template <typename T, int D>
 cudaError_t launch_td(Pass pass, const Args& a, cudaStream_t stream) {
   const int threads = kTile * D / kDimsPerLane;
@@ -360,17 +321,15 @@ cudaError_t launch_td(Pass pass, const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16
+// dtype: 0 = float32 (the kernels above), 1 = bfloat16 and 2 = float16
+// (the tensor-core kernels of flash_attention_mma.cu)
 cudaError_t launch(Pass pass, const Args& a, int d, int dtype,
                    cudaStream_t stream) {
   if (a.B <= 0 || a.S <= 0 || a.H <= 0) return cudaGetLastError();
   if ((a.S + kTile - 1) / kTile > 65535) return cudaErrorInvalidValue;
   if (dtype == 0 && d == 64) return launch_td<float, 64>(pass, a, stream);
   if (dtype == 0 && d == 128) return launch_td<float, 128>(pass, a, stream);
-  if (dtype == 1 && d == 64)
-    return launch_td<__nv_bfloat16, 64>(pass, a, stream);
-  if (dtype == 1 && d == 128)
-    return launch_td<__nv_bfloat16, 128>(pass, a, stream);
+  if (dtype == 1 || dtype == 2) return flash::launch_mma(pass, a, d, dtype, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -10,7 +10,7 @@ import torch
 #: dtype → the code the C entry points take
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: dtypes the attention kernels are instantiated for
-ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
+ATTENTION_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: head dims the CUDA kernel is instantiated for
 KERNEL_HEAD_DIMS = (64, 128)
 
@@ -19,7 +19,7 @@ def check_decode_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       lengths: torch.Tensor, window: Optional[int],
                       tables: Optional[torch.Tensor] = None) -> None:
     """Raise on anything either path does not take: ``q [B, h, d]``, K/V
-    ``[*, *, kv_h, d]`` in q's dtype (bf16 or fp32) with ``kv_h | h``,
+    ``[*, *, kv_h, d]`` in q's dtype (fp32, bf16 or fp16) with ``kv_h | h``,
     int32 ``lengths [B]`` (and int32 ``tables [B, max_blocks]``), all on one
     device, and a window of at least one key."""
     if q.dim() != 3 or k.dim() != 4:
@@ -28,7 +28,8 @@ def check_decode_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     if q.dtype not in ATTENTION_DTYPES:
-        raise TypeError(f"q dtype {q.dtype} not supported (bf16 or fp32)")
+        raise TypeError(f"q dtype {q.dtype} not supported (fp32, bf16 or "
+                        "fp16)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q {q.dtype}, k {k.dtype}, v {v.dtype} must match")
     B, h, d = q.shape

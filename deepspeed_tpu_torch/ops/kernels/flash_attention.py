@@ -4,17 +4,21 @@ PyTorch version.
 
 Replaces the Pallas TPU kernels of ``deepspeed_tpu/ops/pallas/
 flash_attention.py``: the resident forward ``_flash_call`` and the streamed
-forward ``_flash_fwd_stream`` (both by the kernel behind :func:`flash_fwd`),
+forward ``_flash_fwd_stream`` (both by the kernels behind :func:`flash_fwd`),
 the resident backward ``_flash_bwd_pallas`` and the streamed backward
 ``_flash_bwd_stream`` (both by the kernels behind :func:`flash_bwd_dq` and
-:func:`flash_bwd_dkv`).  The CUDA source is
-``deepspeed_tpu_torch/csrc/flash_attention.cu``.
+:func:`flash_bwd_dkv`).  Each pass has two kernel families, chosen by the
+dtype alone: bf16 and fp16 run on the tensor cores
+(``deepspeed_tpu_torch/csrc/flash_attention_mma.cu``, ``mma.sync`` with fp32
+accumulators), fp32 on fp32 FMAs (``csrc/flash_attention.cu``, the parity
+dtype, which TF32 products would not keep).
 
 Bound on the card: the operations.  A causal forward does ``4 d`` flops per
 live (q, k) pair and reads each of q, K, V once; at S 2048 that is hundreds
-of flops per byte, far above the H100's ~295 in bf16.  The backward does
-``10 d`` per live pair (it recomputes the scores).  The kernels' answers,
-and what they leave for later, are in the CUDA source.
+of flops per byte, far above the H100's ~295 in bf16.  The dq pass does
+``6 d`` per live pair and the dk/dv pass ``8 d`` (each recomputes the
+scores).  The kernels' answers, and what they leave for later, are in the
+CUDA sources.
 
 Semantics (``[B, S, h, d]`` layout, scale ``1/sqrt(d)``, causal/window as
 ``ops/masks.py``, ``segment_ids [B, S]`` masking cross-segment pairs):
@@ -25,11 +29,12 @@ Semantics (``[B, S, h, d]`` layout, scale ``1/sqrt(d)``, causal/window as
 * the backward's ``delta = sum_d do * o`` is plain PyTorch, as JAX computed
   it outside its kernels.
 
-The kernels keep p in fp32 before p·V (the TPU kernel did too); the plain
-forward casts p to q's dtype first, as the JAX reference does.  The JAX
-function sent blocks under 64 and S not a multiple of its block to the dense
-reference; on the card these kernels take every S (the tail tile is masked)
-and every mask.  A head dim other than 64 or 128 raises; nothing falls back
+The fp32 kernels keep p in fp32 before p·V (the TPU kernel did too); the
+16-bit kernels round p (and, backward, dS) to the inputs' dtype as ``mma``
+operands, as the plain forward casts p to q's dtype first, like the JAX
+reference.  The JAX function sent blocks under 64 and S not a multiple of
+its block to the dense reference; on the card these kernels take every S
+(the tail tile is masked) and every mask.  A head dim other than 64 or 128 raises; nothing falls back
 to the plain version on a CUDA tensor.
 """
 
@@ -133,17 +138,17 @@ def check_attention_args(q: Tensor, k: Tensor, v: Tensor,
                          segment_ids: Optional[Tensor], window: Optional[int],
                          *more: Tensor) -> None:
     """Raise on anything the two paths do not take: q, K, V ``[B, S, h,
-    d]`` of one shape and one dtype (bf16 or fp32; GQA is repeated to the
-    query heads before the call), int32 ``segment_ids [B, S]``, a window of
-    at least one key, all on one device."""
+    d]`` of one shape and one dtype (fp32, bf16 or fp16; GQA is repeated to
+    the query heads before the call), int32 ``segment_ids [B, S]``, a window
+    of at least one key, all on one device."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be [B, S, h, d] of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     if q.dtype not in ATTENTION_DTYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must share a dtype of bf16 or fp32, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"q, k, v must share a dtype of fp32, bf16 or fp16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if segment_ids is not None and (segment_ids.shape != q.shape[:2]
                                     or segment_ids.dtype != torch.int32):
         raise ValueError(f"segment_ids must be int32 {tuple(q.shape[:2])}, "

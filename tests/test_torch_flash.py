@@ -12,8 +12,9 @@
 On the CPU the port's wrappers run the plain versions (the CUDA kernels are
 held against those on the card: ``tests/test_torch_kernels.py -m cuda``).
 Inputs are numpy draws from a seed.  Tolerances: fp32 2e-5 (the same
-arithmetic in another order; the JAX package's own tier), bf16 2e-2 (input
-rounding and bf16 p before p·V; every path accumulates in fp32).
+arithmetic in another order; the JAX package's own tier), bf16 and fp16
+2e-2 (input rounding and p in the inputs' dtype before p·V; every path
+accumulates in fp32).
 """
 
 import importlib
@@ -34,9 +35,11 @@ from deepspeed_tpu_torch.ops.kernels import lattice as port_lattice
 fa = importlib.import_module("deepspeed_tpu.ops.pallas.flash_attention")
 jax_lattice = importlib.import_module("deepspeed_tpu.ops.pallas.lattice")
 
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+       "float16": jnp.float16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+         "float16": torch.float16}
 
 
 # -- the tile plan ----------------------------------------------------------
@@ -159,7 +162,7 @@ MASKS = {"causal": (True, None, False), "window": (True, 48, False),
          "bidir": (False, None, False)}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("mask", sorted(MASKS))
 def test_forward_matches_jax_kernels(mask, dtype):
     causal, window, with_seg = MASKS[mask]
@@ -185,7 +188,7 @@ def test_forward_matches_jax_kernels(mask, dtype):
     _close(out, public, tol, "out vs flash_attention_interpret")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("mask", sorted(MASKS))
 def test_backward_matches_jax_kernels(mask, dtype):
     causal, window, with_seg = MASKS[mask]

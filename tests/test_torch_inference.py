@@ -50,6 +50,28 @@ def test_v1_greedy_matches_jax(pair):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_v1_fp16_prefill_logits_match_jax_and_generate_is_finite():
+    """A tiny Llama computing in fp16: the port's prefill logits within
+    2e-2 (relative to 1 + |ref|) of JAX's, and v1 ``generate`` (prefill,
+    then the decode path) gives finite logits and valid tokens."""
+    jm, params = jax_tiny(num_layers=2, max_seq_len=64, dtype=jnp.float16)
+    tm = port_model(jm, params)
+    assert tm.config.dtype == torch.float16
+    ids = np.random.RandomState(1).randint(1, 512, size=(2, 11))
+    want, _ = jm.prefill(params, jnp.asarray(ids), jm.init_cache(2, 32))
+    got, cache = tm.prefill(torch.from_numpy(ids), tm.init_cache(2, 32))
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2e-2,
+                               atol=2e-2)
+    logits, _ = tm.decode_step(cache, got.argmax(-1))
+    assert bool(torch.isfinite(logits).all())
+    out = init_inference(tm, device="cpu").generate(ids,
+                                                    max_new_tokens=N_NEW)
+    assert out.shape == (2, 11 + N_NEW)
+    assert ((out >= 0) & (out < 512)).all()
+
+
 def test_v1_eos_and_sampling_shapes(pair):
     _, _, tm = pair
     eng = init_inference(tm, device="cpu")

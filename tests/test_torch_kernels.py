@@ -9,7 +9,9 @@ has only PyTorch and the CUDA toolkit::
     python -m pytest tests/test_torch_kernels.py -m cuda
 
 Tolerances: fp32 1e-4 (fp32 arithmetic, another summation order); bf16
-2e-2 (the plain version rounds q·k and p to bf16, the kernel keeps fp32).
+and fp16 2e-2 (the plain version rounds q·k and p to the inputs' dtype, the
+kernel keeps fp32 or, in the tensor-core flash kernels, rounds p and dS at
+other places).
 Lengths cover 1, bs-1, bs, bs+1, full and past full; n_rep covers the
 kernel's head-group splits (1, 2, 3, 4, 8, 12).
 """
@@ -55,7 +57,8 @@ def _cuda_case(n_rep, d, dtype, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("n_rep", [1, 2, 3, 4, 8, 12])
 @pytest.mark.parametrize("window", [None, 20])
@@ -85,10 +88,13 @@ def test_cuda_kernel_refuses_unsupported_head_dim(cuda):
 
 # -- flash attention (training): forward, dq pass, dk/dv pass ---------------
 #
-# Tolerances: fp32 1e-4; bf16 2e-2 (the plain forward rounds q·k and p to
-# bf16, the kernel keeps fp32; the backward passes differ only in the final
-# rounding).  S 200 leaves a tail tile of 8 rows; the masks cover causal,
-# causal with a window, a bidirectional window and packed segments.
+# Tolerances: fp32 1e-4; bf16 and fp16 2e-2 (16-bit inputs run the
+# tensor-core kernels, which round p and dS to the inputs' dtype as mma
+# operands; the plain forward rounds p, the plain backward keeps fp32).
+# S 200 leaves a tail tile of 8 rows; the masks cover causal, causal with a
+# window, a bidirectional window and packed segments.  S 1000 with a window
+# of 130 and segments walks diagonal, window-edge and tail tiles in one
+# call.
 
 FLASH_MASKS = {"causal": (True, None, False), "window": (True, 48, False),
                "bidir_window": (False, 70, False),
@@ -106,21 +112,12 @@ def _flash_case(B, S, h, d, dtype, seed, device, with_seg):
     return q.to(**to), k.to(**to), v.to(**to), do.to(**to), seg
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("S", [128, 200])
-@pytest.mark.parametrize("mask", sorted(FLASH_MASKS))
-def test_cuda_flash_kernels_match_plain(cuda, dtype, d, S, mask):
+def _flash_check(q, k, v, do, seg, causal, window, tol):
+    """The three kernels against their plain versions on one input."""
     from deepspeed_tpu_torch.ops.kernels import (flash_attention_bwd_plain,
                                                  flash_attention_fwd_plain,
                                                  flash_bwd_dkv, flash_bwd_dq,
                                                  flash_fwd)
-    causal, window, with_seg = FLASH_MASKS[mask]
-    q, k, v, do, seg = _flash_case(2, S, 3, d, dtype, S + d, cuda, with_seg)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    before = (flash_fwd.launches, flash_bwd_dq.launches,
-              flash_bwd_dkv.launches)
     out, lse = flash_fwd(q, k, v, causal, window, seg)
     want_out, want_lse = flash_attention_fwd_plain(q, k, v, causal, window,
                                                    seg)
@@ -135,9 +132,75 @@ def test_cuda_flash_kernels_match_plain(cuda, dtype, d, S, mask):
     for got, ref in zip((dq, dk, dv), want):
         torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("S", [128, 200])
+@pytest.mark.parametrize("mask", sorted(FLASH_MASKS))
+def test_cuda_flash_kernels_match_plain(cuda, dtype, d, S, mask):
+    from deepspeed_tpu_torch.ops.kernels import (flash_bwd_dkv, flash_bwd_dq,
+                                                 flash_fwd)
+    causal, window, with_seg = FLASH_MASKS[mask]
+    q, k, v, do, seg = _flash_case(2, S, 3, d, dtype, S + d, cuda, with_seg)
+    before = (flash_fwd.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    _flash_check(q, k, v, do, seg, causal, window,
+                 1e-4 if dtype == torch.float32 else 2e-2)
     torch.cuda.synchronize()
     assert (flash_fwd.launches - before[0], flash_bwd_dq.launches - before[1],
             flash_bwd_dkv.launches - before[2]) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_flash_diagonal_window_edge_and_tail_tiles(cuda, dtype, d):
+    """S 1000 (a tail tile of 40 rows), a window of 130 (two window-edge
+    tiles a row of tiles) and three packed segments (every tile masked)."""
+    q, k, v, do, _ = _flash_case(2, 1000, 2, d, dtype, 1000 + d, cuda, False)
+    seg = torch.zeros(2, 1000, dtype=torch.int32)
+    seg[0, 311:] += 1
+    seg[0, 650:] += 1
+    seg[1, 77:] += 1
+    seg[1, 900:] += 1
+    _flash_check(q, k, v, do, seg.to(cuda), True, 130,
+                 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_cuda_flash_rows_without_live_keys(cuda, dtype):
+    """Every query sees itself, so no row of the forward is without a live
+    key in all; but under causal segments a row meets no live key in its
+    first walked tiles (the running max stays -inf there), and the forward
+    gives a row that has none out 0 and lse 1e30, which the backward passes
+    must read as a row that contributes nothing."""
+    from deepspeed_tpu_torch.ops.kernels import (flash_attention_bwd_plain,
+                                                 flash_bwd_dkv, flash_bwd_dq)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    S = 640
+    q, k, v, do, _ = _flash_case(1, S, 2, 64, dtype, 3, cuda, False)
+    seg = torch.zeros(1, S, dtype=torch.int32, device=cuda)
+    seg[0, 520:] = 1  # rows 520.. walk 8 tiles with no key of their segment
+    _flash_check(q, k, v, do, seg, True, None, tol)
+    out = torch.randn_like(q)
+    lse = torch.randn(1, 2, S, device=cuda).abs() + 3.0
+    dead = torch.zeros(S, dtype=torch.bool, device=cuda)
+    dead[[0, 63, 64, 300, S - 1]] = True
+    lse[..., dead] = 1e30
+    dq = flash_bwd_dq(q, k, v, out, lse, do, True)
+    dk, dv = flash_bwd_dkv(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    assert (dq[:, dead] == 0).all()
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+    for got, ref in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                   atol=tol)
 
 
 @pytest.mark.cuda
@@ -377,7 +440,8 @@ def _bs_case(case, d, dtype, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("case", BS_CASES, ids=[c[0] for c in BS_CASES])
 def test_cuda_block_sparse_kernels_match_plain(cuda, dtype, d, case):
@@ -440,8 +504,8 @@ def test_cuda_block_sparse_refuses_what_the_kernels_cannot_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         block_sparse_fwd(*(t[..., :32].contiguous() for t in (q, k, v)),
                          plan)
-    with pytest.raises(TypeError, match="bf16 or fp32"):
-        block_sparse_fwd(q.half(), k.half(), v.half(), plan)
+    with pytest.raises(TypeError, match="fp32, bf16 or fp16"):
+        block_sparse_fwd(q.double(), k.double(), v.double(), plan)
 
 
 # -- int8 quantizer and tensor-parallel paged decode --------------------------

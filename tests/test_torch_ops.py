@@ -3,8 +3,10 @@ versions of the two decode-attention kernels, fed the same numpy inputs.
 
 Off the TPU the JAX ``decode_attention`` and ``paged_decode_attention``
 return their jnp references, which is what the port's plain versions
-transcribe.  Tolerances: fp32 1e-5 (same arithmetic, another summation
-order); bf16 2e-2 (both round q·k and p to bf16, at different places).
+transcribe; in fp16 the plain versions are also held against the Pallas
+kernels in interpret mode.  Tolerances: fp32 1e-5 (same arithmetic, another
+summation order); bf16 and fp16 2e-2 (both round q·k and p to the inputs'
+dtype, at different places).
 The CUDA kernels themselves are held against these plain versions on a card,
 by ``test_torch_kernels.py`` and ``chip_smoke.py``.
 """
@@ -28,7 +30,7 @@ from deepspeed_tpu_torch.ops.masks import local_attention_mask
 BS, MAX_BLOCKS, H, D = 8, 4, 8, 16
 FULL = BS * MAX_BLOCKS
 LENGTHS = np.array([1, BS - 1, BS, BS + 1, FULL], np.int32)
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2}
 
 
 def _cast(x: np.ndarray, dtype: str):
@@ -67,7 +69,7 @@ def test_local_attention_mask_matches_jax(causal, window):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("window", [None, 5])
 @pytest.mark.parametrize("n_rep", [1, 4])
 def test_decode_attention_plain_matches_jax(n_rep, window, dtype):
@@ -82,7 +84,7 @@ def test_decode_attention_plain_matches_jax(n_rep, window, dtype):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("window", [None, 5])
 @pytest.mark.parametrize("n_rep", [1, 4])
 def test_paged_decode_attention_plain_matches_jax(n_rep, window, dtype):
@@ -96,6 +98,34 @@ def test_paged_decode_attention_plain_matches_jax(n_rep, window, dtype):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("n_rep", [1, 4])
+def test_fp16_plain_versions_match_jax_kernels_interpreted(n_rep):
+    """fp16 through the Pallas kernels themselves (interpret mode): the
+    padded-cache kernel without a window (a window routes JAX to its
+    reference) and the paged kernel with and without one."""
+    q, k, v, k_pool, v_pool, tables = _inputs(n_rep, seed=5)
+    (jq, tq), (jk, tk), (jv, tv) = (_cast(a, "float16") for a in (q, k, v))
+    (jkp, tkp), (jvp, tvp) = (_cast(a, "float16") for a in (k_pool, v_pool))
+    lens = torch.from_numpy(LENGTHS)
+    tol = TOL["float16"]
+    cases = [("decode", decode_attention_plain(tq, tk, tv, lens),
+              jax_decode(jq, jk, jv, jnp.asarray(LENGTHS), block_k=BS,
+                         interpret=True))]
+    for window in (None, 5):
+        cases.append((f"paged window={window}",
+                      paged_decode_attention_plain(
+                          tq, tkp, tvp, torch.from_numpy(tables), lens,
+                          window),
+                      jax_paged(jq, jkp, jvp, jnp.asarray(tables),
+                                jnp.asarray(LENGTHS), interpret=True,
+                                window=window)))
+    for what, got, want in cases:
+        assert got.dtype == torch.float16 and want.dtype == jnp.float16
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   rtol=tol, atol=tol, err_msg=what)
 
 
 def test_paged_equals_padded_over_the_same_keys():
@@ -133,7 +163,8 @@ def _bad_calls():
     dec = decode_attention
     pag = paged_decode_attention
     return {
-        "fp16": (TypeError, lambda: dec(q.half(), k.half(), v.half(), lens)),
+        "fp64": (TypeError, lambda: dec(q.double(), k.double(), v.double(),
+                                        lens)),
         "mixed_dtype": (TypeError, lambda: dec(q, k.bfloat16(), v, lens)),
         "q_rank": (ValueError, lambda: dec(q[0], k, v, lens)),
         "kv_shape": (ValueError, lambda: dec(q, k, v[:, :4], lens)),

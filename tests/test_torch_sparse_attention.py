@@ -39,7 +39,7 @@ jax_bsa = importlib.import_module(
 port_bsa = importlib.import_module(
     "deepspeed_tpu_torch.ops.kernels.block_sparse_attention")
 
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
 CONFIGS = ["SparsityConfig", "FixedSparsityConfig", "FixedUnidirectional",
            "BSLongformerSparsityConfig", "BigBirdSparsityConfig",
            "VariableSparsityConfig"]
@@ -348,22 +348,33 @@ def test_public_entry_matches_jax(causal):
                impl)
 
 
-def test_bf16_forward_and_backward_match_jax_dense():
+def _half_forward_and_backward_match_jax_dense(dtype: str) -> None:
+    """A per-head BigBird layout, causal, in a 16-bit dtype: the kernel
+    Function (its plain versions on the CPU) against JAX's dense path."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     q, k, v, do = _inputs(B=1, h=4, seed=3)
     cfg_args = dict(num_heads=4, block=32, different_layout_per_head=True)
     jax_cfg = jax_sa.BigBirdSparsityConfig(**cfg_args)
     layout = jax_bsa._norm_layout(jax_cfg.make_layout(256), 4)
-    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    jq, jk, jv, jdo = (jnp.asarray(x, jdt) for x in (q, k, v, do))
     want, vjp = jax.vjp(lambda a, b, c: jax_sa.sparse_attention(
         a, b, c, jax_cfg, causal=True, impl="dense"), jq, jk, jv)
-    leaves = [torch.from_numpy(x).bfloat16().requires_grad_()
+    leaves = [torch.from_numpy(x).to(tdt).requires_grad_()
               for x in (q, k, v)]
     got = block_sparse_kernel_attention(*leaves, layout, 32, True)
-    assert got.dtype == torch.bfloat16
-    _close(got.detach().float(), want, TOL["bfloat16"], "out")
-    got.backward(torch.from_numpy(do).bfloat16())
+    assert got.dtype == tdt
+    _close(got.detach().float(), want, TOL[dtype], "out")
+    got.backward(torch.from_numpy(do).to(tdt))
     for leaf, w, name in zip(leaves, vjp(jdo), "qkv"):
-        _close(leaf.grad.float(), w, TOL["bfloat16"], f"d{name}")
+        _close(leaf.grad.float(), w, TOL[dtype], f"d{name}")
+
+
+def test_bf16_forward_and_backward_match_jax_dense():
+    _half_forward_and_backward_match_jax_dense("bfloat16")
+
+
+def test_fp16_forward_and_backward_match_jax_dense():
+    _half_forward_and_backward_match_jax_dense("float16")
 
 
 def test_key_padding_mask_with_gradient_matches_jax():

@@ -6,8 +6,9 @@
 * five ``train_step``s of the port's engine against five of the JAX
   engine: the ``loss``, ``grad_norm``, ``lr``, ``loss_scale`` and
   ``skipped_steps`` sequences, in fp32, bf16 and fp16 (with an overflow
-  that skips), with gradient accumulation, clipping and a WarmupLR
-  schedule, and the parameters after the steps for every ported optimizer;
+  that skips; bf16 and fp16 also through ``attn_impl="flash"``), with
+  gradient accumulation, clipping and a WarmupLR schedule, and the
+  parameters after the steps for every ported optimizer;
 * ``forward`` / ``backward`` / ``step`` against ``train_step``.
 
 The JAX model draws the weights; ``llama_params_from_jax`` carries them into
@@ -221,6 +222,8 @@ ENGINE_CASES = {
             "warmup_min_lr": 0.0, "warmup_max_lr": 3e-3,
             "warmup_num_steps": 4}}}, {}),
     "bf16_flash": ("bfloat16", {"bf16": {"enabled": True}},
+                   {"attn_impl": "flash"}),
+    "fp16_flash": ("float16", {"fp16": {"enabled": True}},
                    {"attn_impl": "flash"}),
     # every token the same: the lm_head gradient is h * scale / gas in
     # fp16, which overflows at 2^15 and not after the scale halves

@@ -20,12 +20,13 @@ _SHARED_FIELDS = ("vocab_size", "hidden_size", "intermediate_size",
                   "max_seq_len", "rope_theta", "rms_norm_eps",
                   "tie_embeddings", "sliding_window")
 
-TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16,
+                jnp.float16: torch.float16}
 
 
-def jax_tiny(seed: int = 0, **kw):
-    """(JAX tiny Llama in fp32, its params)."""
-    cfg = JaxLlamaConfig.tiny(dtype=jnp.float32, **kw)
+def jax_tiny(seed: int = 0, dtype=jnp.float32, **kw):
+    """(JAX tiny Llama computing in ``dtype``, default fp32; its params)."""
+    cfg = JaxLlamaConfig.tiny(dtype=dtype, **kw)
     model = JaxLlamaModel(cfg)
     return model, model.init_params(jax.random.PRNGKey(seed))
 
