@@ -9,8 +9,9 @@ Phases, one JSON line each; any failure exits non-zero:
 
 1. ``build``    — nvcc builds the kernels from ``deepspeed_tpu_torch/csrc``;
    registers and spills per kernel family, and the tensor-core
-   instructions (``HMMA``) of each flash family in ``cuobjdump -sass``: the
-   16-bit flash families must hold some, and none of them may spill.
+   instructions (``HMMA``) of each family in ``cuobjdump -sass``: the
+   16-bit flash, decode and block-sparse backward families
+   (``MMA_FAMILIES``) must hold some, and none of them may spill.
 2. ``kernels``  — one line per decode kernel: the kernel against its plain
    version at every shape the main path gives it (32/8 heads, d 128, pages
    of 16; B 8 over up to 2048 keys with ragged lengths and window None and
@@ -19,7 +20,9 @@ Phases, one JSON line each; any failure exits non-zero:
    back to back behind a GPU sleep so the host's overhead is hidden, median
    and range over 7 reps, inputs rotated over more than the 50 MB L2)
    beside its plain version, a PyTorch library yardstick and its bound (K/V
-   bytes over 3.35 TB/s).
+   bytes over 3.35 TB/s); then the decode kernel checked and timed at the
+   shape v1 ``generate`` gives it (B 4, 257-288 keys) and the paged kernel
+   at a serve decode step (``SERVE_STEP_LENGTHS``).
 3. ``kernels``  — one line per flash kernel (forward, dq pass, dk/dv pass):
    against its plain version at every ``FLASH_CASES`` shape, bf16, fp16
    (both on the tensor-core kernels) and fp32 (the fp32-FMA kernels), then
@@ -31,7 +34,11 @@ Phases, one JSON line each; any failure exits non-zero:
    from a seed) behind ``build_serving_frontend``: 8 requests of mixed
    classes, two sharing a 512-token header.  Every handle must return its
    budget, the prefix cache must hit, and the paged kernel must launch
-   ``num_layers`` times per decode step.
+   ``num_layers`` times per decode step.  Then ``serve_trace``: one
+   ``torch.profiler`` trace of three decode bursts of a v2 engine on the
+   same weights (8 slots of 512-token prompts): the shares of device time
+   in the paged kernel, in cuBLAS and in the rest, and the device's idle
+   share between the window's first and last device event.
 5. ``generate`` — ``init_inference(...).generate`` on the same weights,
    ``[4, 256]`` prompts, 32 new tokens: ``32 x 31`` decode-kernel launches.
 6. ``agree``    — a narrow fp32 model: v2 greedy tokens equal v1 greedy
@@ -210,18 +217,22 @@ def read_counts() -> dict:
 
 # -- phase 1 ---------------------------------------------------------------
 
-#: kernel families of the flash passes that run on the tensor cores (bf16
-#: and fp16); each must hold tensor-core instructions and none may spill
-MMA_FAMILIES = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
-FAMILY = re.compile(r"(gqa_decode|flash_fwd|flash_bwd_dq|flash_bwd_dkv|"
-                    r"flash_fwd_mma|flash_bwd_dq_mma|flash_bwd_dkv_mma|"
-                    r"block_sparse_fwd|block_sparse_bwd_dq|"
-                    r"block_sparse_bwd_dkv|dispatch|combine|sqsum_partial|"
-                    r"sqsum_final|adam)_kernel")
+#: kernel families that run on the tensor cores (bf16 and fp16): the flash
+#: passes, the decode kernel and the block-sparse backward passes; each
+#: must hold tensor-core instructions and none may spill
+MMA_FAMILIES = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
+                "gqa_decode_mma", "block_sparse_bwd_dq_mma",
+                "block_sparse_bwd_dkv_mma")
+FAMILY = re.compile(r"(gqa_decode|gqa_decode_mma|flash_fwd|flash_bwd_dq|"
+                    r"flash_bwd_dkv|flash_fwd_mma|flash_bwd_dq_mma|"
+                    r"flash_bwd_dkv_mma|block_sparse_fwd|block_sparse_bwd_dq|"
+                    r"block_sparse_bwd_dkv|block_sparse_bwd_dq_mma|"
+                    r"block_sparse_bwd_dkv_mma|dispatch|combine|"
+                    r"sqsum_partial|sqsum_final|adam)_kernel")
 
 
 def tensor_core_instructions(library) -> dict:
-    """Per flash kernel family, the ``HMMA`` / ``HGMMA`` instructions in
+    """Per kernel family, the ``HMMA`` / ``HGMMA`` instructions in
     ``cuobjdump -sass`` of the built library (summed over its instances)."""
     import os
 
@@ -234,7 +245,7 @@ def tensor_core_instructions(library) -> dict:
         fn = re.search(r"Function : (\S+)", line)
         if fn:
             name = FAMILY.search(fn.group(1))
-            fam = name.group(1) if name and "flash" in name.group(1) else None
+            fam = name.group(1) if name else None
             if fam is not None:
                 counts.setdefault(fam, 0)
         elif fam is not None and re.search(r"\bH(G)?MMA\b", line):
@@ -265,6 +276,12 @@ def phase_build() -> dict:
                 families[fam][i] = max(families[fam][i], int(found.group(1)))
     seconds = time.perf_counter() - t0
     mma = tensor_core_instructions(path)
+    out = {"phase": "build", "seconds": seconds,
+           "library": path.name, "kernels_compiled": compiled,
+           "max_registers": {f: r for f, (r, _) in families.items()},
+           "max_spill_bytes": {f: sp for f, (_, sp) in families.items()},
+           "tensor_core_instructions": mma}
+    emit(out)  # before the checks, so a failing build still reports
     for fam in MMA_FAMILIES:
         require(mma.get(fam, 0) > 0, f"build: {fam} (bf16, fp16) holds no "
                                      "tensor-core instruction")
@@ -272,11 +289,7 @@ def phase_build() -> dict:
         for fam in MMA_FAMILIES:
             require(families[fam][1] == 0, f"build: {fam} spills "
                                            f"{families[fam][1]} bytes")
-    return {"phase": "build", "seconds": seconds,
-            "library": path.name, "kernels_compiled": compiled,
-            "max_registers": {f: r for f, (r, _) in families.items()},
-            "max_spill_bytes": {f: sp for f, (_, sp) in families.items()},
-            "tensor_core_instructions": mma}
+    return out
 
 
 # -- phase 2 ---------------------------------------------------------------
@@ -365,6 +378,52 @@ def decode_bound_ms(q, lens, kv_h, smax, with_tables: bool) -> tuple:
                                  else "operations")
 
 
+#: the serve phase's 8 slots halfway through their decode: each request's
+#: prompt plus half its budget (``SERVE_REQUESTS``)
+SERVE_STEP_LENGTHS = [736, 832, 96, 1516, 928, 276, 1218, 158]
+
+
+def time_main_path_shapes(gen, dev, cycles) -> dict:
+    """The decode kernel at the shape v1 ``generate`` gives it (B 4 over
+    257-288 keys of a 288-key cache) and the paged kernel at a serve
+    decode step (``SERVE_STEP_LENGTHS`` in a 2048-key cache), bf16, each
+    checked against its plain version there, then timed with its bound;
+    with the kernels' split-K chunk."""
+    import importlib
+
+    from deepspeed_tpu_torch.ops.kernels import (decode_attention,
+                                                 decode_attention_plain,
+                                                 paged_decode_attention,
+                                                 paged_decode_attention_plain)
+    _, v1_lengths, v1_smax, _ = CHECKS[1]
+    shapes = {
+        "decode_attention": (
+            "v1_time", v1_lengths, v1_smax, False,
+            lambda s: decode_attention(s[0], s[1], s[2], s[6]),
+            lambda s: decode_attention_plain(s[0], s[1], s[2], s[6])),
+        "paged_decode_attention": (
+            "serve_step_time", SERVE_STEP_LENGTHS, SLICE["smax"], True,
+            lambda s: paged_decode_attention(*s[:1], *s[3:]),
+            lambda s: paged_decode_attention_plain(*s[:1], *s[3:]))}
+    chunk = importlib.import_module(
+        "deepspeed_tpu_torch.ops.kernels.decode_attention").SPLIT_CHUNK
+    out = {}
+    for name, (key, lengths, smax, with_tables, kernel, plain) in \
+            shapes.items():
+        sets = [make_inputs(torch.bfloat16, lengths, smax, gen, dev)
+                for _ in range(3)]
+        check_close(f"{name} at {key}", kernel(sets[0]), plain(sets[0]),
+                    torch.bfloat16)
+        bound, by = decode_bound_ms(sets[0][0], sets[0][6], SLICE["kv_h"],
+                                    smax, with_tables)
+        out[name] = {key: dict(
+            time_ms([lambda s=s: kernel(s) for s in sets], cycles),
+            bound_ms=bound, bound_by=by,
+            at=f"bf16, B {len(lengths)}, lengths {lengths}, cache of "
+               f"{smax} keys"), "split_chunk": chunk}
+    return out
+
+
 def phase_kernels(dev) -> dict:
     """One dict per kernel: its errors against its plain version, its
     times, its bound, and the launches this phase made."""
@@ -448,6 +507,8 @@ def phase_kernels(dev) -> dict:
     }
     launches = {"decode_attention": decode_attention.launches,
                 "paged_decode_attention": paged_decode_attention.launches}
+    for name, extra in time_main_path_shapes(gen, dev, cycles).items():
+        timing[name].update(extra)
     for name, with_tables in (("decode_attention", False),
                               ("paged_decode_attention", True)):
         bound, by = decode_bound_ms(q0, l0, SLICE["kv_h"], SLICE["smax"],
@@ -1457,6 +1518,83 @@ def serve(model, rng, *, cache_config, header_len, requests, **engine) -> dict:
             "tokens": [results[i] for i in range(len(requests))]}
 
 
+#: decode bursts (of ``decode_burst`` steps each) under the profiler
+TRACE_BURSTS = 3
+
+
+def kernel_class(name: str) -> str:
+    """The bucket of a device event of the serving trace."""
+    low = name.lower()
+    if "gqa_decode" in low:
+        return "paged_attention"
+    if any(t in low for t in ("gemm", "cutlass", "nvjet", "xmma", "cublas")):
+        return "cublas"
+    if low.startswith(("memcpy", "memset")):
+        return "copies"
+    return "other"
+
+
+def trace_decode(model) -> dict:
+    """One ``torch.profiler`` trace of the v2 engine's decode steps: the
+    serve phase's pool and knobs, 8 slots of 512-token prompts, every
+    prompt prefilled, one burst to warm up, then ``TRACE_BURSTS`` bursts
+    traced.  Device time by class (the paged kernel, cuBLAS's GEMMs,
+    copies, the rest) as shares of the device's busy time, and the
+    device's idle share between the traced window's first and last device
+    event (the host's launches leave the gaps)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch import KVCacheConfig, build_engine_v2
+
+    rng = np.random.default_rng(7)
+    eng = build_engine_v2(model, cache_config=KVCacheConfig(
+        num_blocks=1025, block_size=16, max_seq_len=2048),
+        max_batch_slots=8, prefill_chunk=256, prefill_batch=2,
+        decode_burst=8, device=model.device)
+    for _ in range(8):
+        eng.put(rng.integers(0, model.config.vocab_size, 512).tolist(),
+                max_new_tokens=8 * (TRACE_BURSTS + 2))
+    while eng.scheduler.waiting or eng.scheduler.prefilling:
+        eng.step()
+    eng.step()  # warm-up burst
+    steps0 = eng.stats["decode_steps"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRACE_BURSTS):
+            eng.step()  # each burst ends in a device-to-host copy
+        wall = time.perf_counter() - t0
+    steps = eng.stats["decode_steps"] - steps0
+    events = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {"decode_steps": steps, "slots": 8, "prompt_len": 512,
+           "host_ms_per_step": wall / steps * 1e3,
+           "device_events": len(events)}
+    require(events, "serve_trace: the profiler recorded no device events")
+    busy, end = 0.0, -np.inf
+    for _, a, b in sorted(events, key=lambda x: x[1]):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    span = max(b for *_, b in events) - min(a for _, a, _ in events)
+    by_class, by_name = {}, {}
+    for name, a, b in events:
+        by_class[kernel_class(name)] = by_class.get(kernel_class(name), 0) \
+            + (b - a)
+        by_name[name] = by_name.get(name, 0) + (b - a)
+    total = sum(by_class.values())
+    top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
+    return dict(out, device_span_ms_per_step=span / steps / 1e3,
+                device_busy_ms_per_step=busy / steps / 1e3,
+                device_idle_share=1.0 - busy / span,
+                share_of_device_time={k: v / total
+                                      for k, v in by_class.items()},
+                ms_per_step_by_class={k: v / steps / 1e3
+                                      for k, v in by_class.items()},
+                top_kernels_ms_per_step={n[:80]: v / steps / 1e3
+                                         for n, v in top})
+
+
 # -- phase 5 ---------------------------------------------------------------
 
 def generate_v1(model, ids: torch.Tensor, n_new: int) -> dict:
@@ -2276,6 +2414,9 @@ def main() -> int:
         res[key] = run_serving(
             model, "mixtral_8x7b" if moe else "llama3_8b", args.seed,
             [f"num_layers 32 -> {MOE_SERVE_LAYERS}"] if moe else [])
+        if not moe:
+            emit(dict(phase="serve_trace", model="llama3_8b",
+                      **trace_decode(model)))
         del model
         torch.cuda.empty_cache()
 
@@ -2310,7 +2451,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     phases = {
-        "build": lambda: emit(phase_build()),
+        "build": phase_build,
         "kernels": kernels, "flash_kernels": flash_kernels,
         "moe_kernels": moe_kernels, "adam_kernels": adam_kernels,
         "sparse_kernels": sparse_kernels, "quant_kernels": quant_kernels,
@@ -2346,6 +2487,8 @@ def main() -> int:
     moe_src = "deepspeed_tpu_torch/csrc/moe_dispatch.cu"
     adam_src = "deepspeed_tpu_torch/csrc/fused_adam.cu"
     sparse_src = "deepspeed_tpu_torch/csrc/block_sparse_attention.cu"
+    # the sparse phase is bf16: the backward runs the tensor-core passes
+    sparse_bwd_src = "deepspeed_tpu_torch/csrc/block_sparse_attention_mma.cu"
     quant_src = "deepspeed_tpu_torch/csrc/quantizer.cu"
     pallas = "deepspeed_tpu/ops/pallas/"
     (s, g), (sm, gm), t, tm = (res["serve"], res["serve_moe"], res["train"],
@@ -2391,11 +2534,11 @@ def main() -> int:
                              pallas + "block_sparse_attention.py:335",
                              res["sparse"]["block_sparse_fwd"],
                              bs["block_sparse_fwd"]),
-        "block_sparse_bwd_dq": (sparse_src,
+        "block_sparse_bwd_dq": (sparse_bwd_src,
                                 pallas + "block_sparse_attention.py:990",
                                 res["sparse"]["block_sparse_bwd_dq"],
                                 bs["block_sparse_bwd_dq"]),
-        "block_sparse_bwd_dkv": (sparse_src,
+        "block_sparse_bwd_dkv": (sparse_bwd_src,
                                  pallas + "block_sparse_attention.py:1037",
                                  res["sparse"]["block_sparse_bwd_dkv"],
                                  bs["block_sparse_bwd_dkv"]),

@@ -10,9 +10,13 @@
 //     capacity artifact: here one kernel stages one live tile at a time in
 //     shared memory, at any S;
 //   * _sparse_bwd_pallas, dq pass (_bs_bwd_dq_kernel, the flat live-tile
-//     list row-major) -> block_sparse_bwd_dq_kernel;
+//     list row-major) -> block_sparse_bwd_dq_kernel (fp32);
 //   * _sparse_bwd_pallas, dk/dv pass (_bs_bwd_dkv_kernel, the list
-//     column-major) -> block_sparse_bwd_dkv_kernel.
+//     column-major) -> block_sparse_bwd_dkv_kernel (fp32).
+// In bf16 and fp16 the two backward passes run on the tensor cores
+// (block_sparse_attention_mma.cu); the C entry points below choose by the
+// dtype.  The arguments and cell-mask helpers both files use are in
+// block_sparse_common.cuh.
 //
 // Layout: q, k, v, out, dq, dk, dv are [B, S, H, D]; lse and delta fp32
 // [B, H, S].  The host plan (ops/kernels/block_sparse_attention.py TilePlan)
@@ -54,103 +58,22 @@
 //     and leave the card idle behind them;
 //   * the backward passes are split, as in JAX, so neither needs atomics.
 
+#include <type_traits>
+
 #include "attention_tile.cuh"
+#include "block_sparse_common.cuh"
 
 namespace {
 
-constexpr int kMaxMaskWords = 64;  // 1-token sub-blocks: 64 x 64 bits
-
-struct BsArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;   // backward only
-  const float* lse;   // written by the forward, read by the backward
-  const float* delta; // backward only
-  const int* ptr;     // [layout_heads * nt + 1]
-  const int* idx;     // [live]
-  const unsigned long long* masks;  // [live, words]
-  const int* order;   // [layout_heads * nt]: the tiles, longest list first
-  void* out0;         // forward: out; dq pass: dq; dk/dv pass: dk
-  void* out1;         // dk/dv pass: dv
-  float* lse_out;     // forward only
-  int B, S, H;
-  int layout_heads;   // 1 (shared layout) or H
-  int causal;
-  int mask_shift;     // sub-blocks of 1 << mask_shift tokens
-  float scale;
-};
-
-__device__ __forceinline__ int mask_words(int shift) {
-  return kMaxMaskWords >> (2 * shift);
-}
-
-// Bits [lo, hi) of a 64-bit word (clamped to the tile).
-__device__ __forceinline__ unsigned long long span_bits(int lo, int hi) {
-  lo = max(lo, 0);
-  hi = min(hi, kTile);
-  if (hi <= lo) return 0ull;
-  const unsigned long long upto = hi == kTile ? ~0ull : (1ull << hi) - 1ull;
-  return upto & ~((1ull << lo) - 1ull);
-}
-
-// Bit c: the cell of (tile row r, tile column c) is live.  A row is
-// (64 >> shift) consecutive bits of the mask, each for 1 << shift columns.
-__device__ __forceinline__ unsigned long long row_bits(
-    const unsigned long long* mask, int r, int shift) {
-  if (shift == 0) return mask[r];
-  const int per = kTile >> shift;
-  const int first = (r >> shift) * per;
-  const unsigned long long bits = mask[first >> 6] >> (first & 63);
-  const unsigned long long unit = (1ull << (1 << shift)) - 1ull;
-  unsigned long long out = 0ull;
-  for (int j = 0; j < per; ++j)
-    if ((bits >> j) & 1ull) out |= unit << (j << shift);
-  return out;
-}
-
-// Bit r: the cell of (tile row r, tile column c) is live.
-__device__ __forceinline__ unsigned long long col_bits(
-    const unsigned long long* mask, int c, int shift) {
-  const int per = kTile >> shift;
-  const int col = c >> shift;
-  const unsigned long long unit = (1ull << (1 << shift)) - 1ull;
-  unsigned long long out = 0ull;
-  for (int i = 0; i < per; ++i) {
-    const int bit = i * per + col;
-    if ((mask[bit >> 6] >> (bit & 63)) & 1ull) out |= unit << (i << shift);
-  }
-  return out;
-}
-
-// The live keys of query qpos (tile row r) in k tile kt: its cells, S and
-// causality, bit c for key kt * 64 + c.
-__device__ __forceinline__ unsigned long long row_keep(
-    const unsigned long long* mask, int r, int qpos, int kt,
-    const BsArgs& a) {
-  if (qpos >= a.S) return 0ull;
-  const int k0 = kt * kTile;
-  return row_bits(mask, r, a.mask_shift) &
-         span_bits(0, a.causal ? min(a.S, qpos + 1) - k0 : a.S - k0);
-}
-
-// The live queries of key kpos (tile column c) in q tile qt, bit r for query
-// qt * 64 + r.
-__device__ __forceinline__ unsigned long long col_keep(
-    const unsigned long long* mask, int c, int kpos, int qt,
-    const BsArgs& a) {
-  if (kpos >= a.S) return 0ull;
-  const int q0 = qt * kTile;
-  return col_bits(mask, c, a.mask_shift) &
-         span_bits(a.causal ? kpos - q0 : 0, a.S - q0);
-}
-
-__device__ __forceinline__ void stage_mask(const BsArgs& a, int e,
-                                           unsigned long long* mask_s) {
-  const int words = mask_words(a.mask_shift);
-  for (int t = threadIdx.x; t < words; t += blockDim.x)
-    mask_s[t] = a.masks[(size_t)e * words + t];
-}
+using BsArgs = bsparse::Args;
+using bsparse::col_keep;
+using bsparse::kMaxMaskWords;
+using bsparse::Pass;
+using bsparse::row_keep;
+using bsparse::stage_mask;
+using bsparse::kDkv;
+using bsparse::kDq;
+using bsparse::kFwd;
 
 // ---------------------------------------------------------------------------
 // forward: block (b * H + h, q tile); out [B, S, H, D], lse [B, H, S]
@@ -382,22 +305,20 @@ block_sparse_bwd_dkv_kernel(BsArgs a) {
 // launch
 // ---------------------------------------------------------------------------
 
-enum Pass { kFwd = 0, kDq = 1, kDkv = 2 };
-
 template <typename T, int D>
 cudaError_t launch_td(Pass pass, const BsArgs& a, cudaStream_t stream) {
   const int threads = kTile * D / kDimsPerLane;
   const dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
   size_t smem = 2 * kTile * D * sizeof(float) +
                 kMaxMaskWords * sizeof(unsigned long long);
-  void (*kernel)(BsArgs);
-  if (pass == kFwd) {
-    kernel = block_sparse_fwd_kernel<T, D>;
-  } else if (pass == kDq) {
-    kernel = block_sparse_bwd_dq_kernel<T, D>;
-  } else {
-    kernel = block_sparse_bwd_dkv_kernel<T, D>;
-    smem += 2 * kTile * sizeof(float);
+  void (*kernel)(BsArgs) = block_sparse_fwd_kernel<T, D>;
+  if constexpr (std::is_same_v<T, float>) {  // 16-bit backward: launch_mma
+    if (pass == kDq) {
+      kernel = block_sparse_bwd_dq_kernel<T, D>;
+    } else if (pass == kDkv) {
+      kernel = block_sparse_bwd_dkv_kernel<T, D>;
+      smem += 2 * kTile * sizeof(float);
+    }
   }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -413,6 +334,8 @@ cudaError_t launch(Pass pass, const BsArgs& a, int d, int dtype,
   if ((a.S + kTile - 1) / kTile > 65535) return cudaErrorInvalidValue;
   if (a.layout_heads != 1 && a.layout_heads != a.H) return cudaErrorInvalidValue;
   if (a.mask_shift < 0 || a.mask_shift > 3) return cudaErrorInvalidValue;
+  if (pass != kFwd && dtype != 0)  // 16-bit backward: the tensor cores
+    return bsparse::launch_mma(pass, a, d, dtype, stream);
   if (dtype == 0 && d == 64) return launch_td<float, 64>(pass, a, stream);
   if (dtype == 0 && d == 128) return launch_td<float, 128>(pass, a, stream);
   if (dtype == 1 && d == 64)

@@ -70,54 +70,11 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Rows [row0, row0 + kTile) of a [*, S, H, D] operand (base at (b, 0, h),
-// row stride `stride` elements) into a [kTile][D + 8] shared tile; rows at
-// or past S are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src,
-                                           size_t stride, int row0, int S) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-#pragma unroll
-  for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
-    const int t = i * kThreads + threadIdx.x;
-    const int r = t / kChunks, c = t % kChunks;
-    const bool ok = row0 + r < S;
-    mma::cp_async16(dst + r * (D + 8) + c * 8,
-                    src + (size_t)(ok ? row0 + r : 0) * stride + c * 8, ok);
-  }
-}
-
-// kTile 4-byte values row[pos0 ..] (lse, delta or segment ids), 0 past S.
-template <typename U>
-__device__ __forceinline__ void stage_vec(U* dst, const U* row, int pos0,
-                                          int S) {
-  const int t = threadIdx.x;
-  if (t < kTile) {
-    const bool ok = pos0 + t < S;
-    mma::cp_async4(dst + t, row + (ok ? pos0 + t : 0), ok);
-  }
-}
-
-// Store a warp's 16 x D fp32 accumulator block times `mult` to rows
-// row0 .. row0 + 15 of a [*, S, H, D] output; rows past S are skipped.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* dst, size_t stride, int row0,
-                                           int S, const float (&c)[D / 8][4],
-                                           float mult0, float mult1,
-                                           int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + g + half * 8;
-    if (row >= S) continue;
-    const float mult = half ? mult1 : mult0;
-    T* out = dst + (size_t)row * stride + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(out + n * 8) = Op<T>::pack(
-          c[n][2 * half] * mult, c[n][2 * half + 1] * mult);
-  }
-}
+static_assert(kTile == mma::kTileRows && kThreads == mma::kBlockThreads,
+              "the staging helpers' tile and block");
+using mma::stage_rows;
+using mma::stage_vec;
+using mma::store_rows;
 
 // ---------------------------------------------------------------------------
 // forward: block (b * H + h, q tile); out [B, S, H, D], lse [B, H, S]

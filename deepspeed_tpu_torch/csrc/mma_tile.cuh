@@ -1,5 +1,6 @@
-// Tensor-core building blocks of the flash-attention kernels of
-// flash_attention_mma.cu: 16-bit tiles staged in shared memory by cp.async,
+// Tensor-core building blocks of the attention kernels of
+// flash_attention_mma.cu, block_sparse_attention_mma.cu and
+// decode_attention.cu: 16-bit tiles staged in shared memory by cp.async,
 // fragments loaded by ldmatrix, products by mma.sync m16n8k16 with fp32
 // accumulators.
 //
@@ -145,6 +146,63 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
   a[1] = Op<T>::pack(c[2 * kc][2], c[2 * kc][3]);
   a[2] = Op<T>::pack(c[2 * kc + 1][0], c[2 * kc + 1][1]);
   a[3] = Op<T>::pack(c[2 * kc + 1][2], c[2 * kc + 1][3]);
+}
+
+// The staging and storing of [*, S, H, D] operands that the tensor-core
+// attention kernels share (flash_attention_mma.cu,
+// block_sparse_attention_mma.cu): blocks of kBlockThreads threads, tiles
+// of kTileRows rows.
+constexpr int kTileRows = 64;
+constexpr int kBlockThreads = 128;
+
+// Rows [row0, row0 + kTileRows) of a [*, S, H, D] operand (base at (b, 0,
+// h), row stride `stride` elements) into a [kTileRows][D + 8] shared tile;
+// rows at or past S are zero.
+template <typename T, int D>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src,
+                                           size_t stride, int row0, int S) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int i = 0; i < kTileRows * kChunks / kBlockThreads; ++i) {
+    const int t = i * kBlockThreads + threadIdx.x;
+    const int r = t / kChunks, c = t % kChunks;
+    const bool ok = row0 + r < S;
+    cp_async16(dst + r * (D + 8) + c * 8,
+               src + (size_t)(ok ? row0 + r : 0) * stride + c * 8, ok);
+  }
+}
+
+// kTileRows 4-byte values row[pos0 ..] (lse, delta or segment ids), 0 past
+// S.
+template <typename U>
+__device__ __forceinline__ void stage_vec(U* dst, const U* row, int pos0,
+                                          int S) {
+  const int t = threadIdx.x;
+  if (t < kTileRows) {
+    const bool ok = pos0 + t < S;
+    cp_async4(dst + t, row + (ok ? pos0 + t : 0), ok);
+  }
+}
+
+// Store a warp's 16 x D fp32 accumulator block times `mult` to rows
+// row0 .. row0 + 15 of a [*, S, H, D] output; rows past S are skipped.
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* dst, size_t stride, int row0,
+                                           int S, const float (&c)[D / 8][4],
+                                           float mult0, float mult1,
+                                           int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + g + half * 8;
+    if (row >= S) continue;
+    const float mult = half ? mult1 : mult0;
+    T* out = dst + (size_t)row * stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(out + n * 8) = Op<T>::pack(
+          c[n][2 * half] * mult, c[n][2 * half + 1] * mult);
+  }
 }
 
 }  // namespace mma

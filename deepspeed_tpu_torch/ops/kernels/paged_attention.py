@@ -12,11 +12,14 @@ remains, launching the same CUDA kernel on the rank's ``h/tp`` query heads
 and its ``kv_h/tp`` slice of the pool.
 
 Bound on the card: the K/V bytes of the live pages, read once per call.
-The kernel shares its design with the padded-cache kernel (one thread block
-per sequence and kv head, holding the whole GQA group; 16-byte loads; fp32
-online softmax); each key's page comes from ``block_tables[b, pos // bs]``,
-and with a window the walk starts at the window's first key, so pages before
-it are never read.
+The kernel is the padded-cache kernel's (split-K over chunks of
+``SPLIT_CHUNK`` keys at absolute positions, one block per chunk, sequence
+and kv head holding the whole GQA group, the splits merged in split order
+in the same launch); each chunk reads its page ids from ``block_tables``
+once a page, and with a window the walk starts at the window's first key,
+so pages before it are never read.  The partition does not depend on the
+heads, so a rank's shard of :func:`paged_decode_attention_tp` is bit-equal
+to those heads of the unsharded call.
 
 On a CPU tensor the wrapper runs :func:`paged_decode_attention_plain`; on a
 CUDA tensor it launches the kernel and raises on any failure.
@@ -31,6 +34,7 @@ import torch
 
 from .. import op_builder
 from .common import DTYPE_CODES, check_decode_args, check_kernel_args
+from .decode_attention import split_layout, workspace
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -75,13 +79,17 @@ def _launch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     lib = op_builder.load_library()
     B, h, d = q.shape
     num_pages, bs, kv_h, _ = k_pool.shape
+    max_blocks = block_tables.shape[1]
+    split = split_layout(B, h, d, max_blocks * bs)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    parts, counters = workspace(q.device, stream, split)
     out = torch.empty_like(q)
     status = lib.ds_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, h,
-        kv_h, d, num_pages, bs, block_tables.shape[1],
-        int(window) if window is not None else 0, DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        parts.data_ptr(), counters.data_ptr(), B, h, kv_h, d, num_pages, bs,
+        max_blocks, int(window) if window is not None else 0, split.chunk,
+        split.splits, DTYPE_CODES[q.dtype], stream)
     op_builder.check(status, what)
     return out
 

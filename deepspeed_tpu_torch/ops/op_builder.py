@@ -126,9 +126,12 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.ds_decode_attention.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+            # decode: q, k, v, (tables,) lengths, out, partials, counters |
+            # B, h, kv_h, d, Smax (paged: pages, bs, max blocks), window,
+            # chunk, splits, dtype | stream
+            lib.ds_decode_attention.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
             lib.ds_decode_attention.restype = i32
-            lib.ds_paged_decode_attention.argtypes = ([ptr] * 6 + [i32] * 9
+            lib.ds_paged_decode_attention.argtypes = ([ptr] * 8 + [i32] * 11
                                                       + [ptr])
             lib.ds_paged_decode_attention.restype = i32
             # flash attention: q, k, v, seg, out, lse | B, S, H, d, causal,

@@ -78,6 +78,69 @@ def test_cuda_kernels_match_plain(cuda, n_rep, d, dtype, window):
             paged_decode_attention.launches - before[1]) == (1, 1)
 
 
+def _split_case(n_rep, d, dtype, lengths, seed, device, kv_h=2):
+    """Sequences of ``lengths`` over a 2048-key cache and the shuffled pool
+    (pages of 16) holding the same keys: lengths around the split chunk C
+    cross one, two and many splits."""
+    g = torch.Generator().manual_seed(seed)
+    bs, smax = 16, 2048
+    mb, B, h = smax // bs, len(lengths), kv_h * n_rep
+    q = torch.randn(B, h, d, generator=g)
+    k = torch.randn(B, smax, kv_h, d, generator=g)
+    v = torch.randn(B, smax, kv_h, d, generator=g)
+    tables = (torch.randperm(B * mb, generator=g) + 1).reshape(B, mb)
+    pool_k = torch.randn(B * mb + 1, bs, kv_h, d, generator=g)
+    pool_v = torch.randn(B * mb + 1, bs, kv_h, d, generator=g)
+    pool_k[tables.reshape(-1)] = k.reshape(B * mb, bs, kv_h, d)
+    pool_v[tables.reshape(-1)] = v.reshape(B * mb, bs, kv_h, d)
+    to = dict(device=device, dtype=dtype)
+    return (q.to(**to), k.to(**to), v.to(**to), pool_k.to(**to),
+            pool_v.to(**to), tables.int().to(device),
+            torch.tensor(lengths, dtype=torch.int32, device=device))
+
+
+def _split_lengths():
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import SPLIT_CHUNK
+    C = SPLIT_CHUNK
+    return C, [1, C - 1, C, C + 1, 3 * C + 5, 2048]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("window", ["none", "C-3", "C+7"])
+def test_cuda_split_k_kernels_match_plain(cuda, n_rep, d, dtype, window):
+    """Both decode kernels at lengths that cross 0, 1 and many chunk
+    boundaries of the split-K partition, with windows that start inside a
+    chunk, against their plain versions; then each sequence alone (B 1,
+    where its splits are most of the grid) equals its row of the batch."""
+    C, lengths = _split_lengths()
+    w = {"none": None, "C-3": C - 3, "C+7": C + 7}[window]
+    q, k, v, pk, pv, tables, lens = _split_case(n_rep, d, dtype, lengths,
+                                                n_rep * d + C, cuda)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    got = decode_attention(q, k, v, lens, window=w)
+    torch.testing.assert_close(
+        got.float(), decode_attention_plain(q, k, v, lens, w).float(),
+        rtol=tol, atol=tol)
+    paged = paged_decode_attention(q, pk, pv, tables, lens, window=w)
+    torch.testing.assert_close(
+        paged.float(),
+        paged_decode_attention_plain(q, pk, pv, tables, lens, w).float(),
+        rtol=tol, atol=tol)
+    for b in range(len(lengths)):
+        one = slice(b, b + 1)
+        assert torch.equal(
+            decode_attention(q[one], k[one], v[one], lens[one], window=w),
+            got[one])
+        assert torch.equal(
+            paged_decode_attention(q[one], pk, pv, tables[one], lens[one],
+                                   window=w), paged[one])
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_refuses_unsupported_head_dim(cuda):
     q, k, v, *_, lens = _cuda_case(2, 64, torch.float32, 0, cuda)
@@ -424,6 +487,7 @@ BS_CASES = [
     ("cb4_perhead", "BigBirdSparsityConfig", 256, 4, True, True),
     ("cb2_ragged", "BigBirdSparsityConfig", 200, 2, False, True),
     ("cb1", "BSLongformerSparsityConfig", 128, 1, False, False),
+    ("bigbird_cb128_s4096", "BigBirdSparsityConfig", 4096, 128, False, True),
 ]
 
 
@@ -568,7 +632,9 @@ def test_cuda_paged_tp_shards_equal_unsharded_heads(cuda, dtype, tp, window):
     unsharded kernel's result (one process plays every rank)."""
     from deepspeed_tpu_torch.ops.kernels import paged_decode_attention_tp
     from deepspeed_tpu_torch.parallel import MeshLayout, ProcessMesh
-    q, _, _, pk, pv, tables, lens = _cuda_case(4, 128, dtype, tp, cuda)
+    _, lengths = _split_lengths()  # across several split-K chunks
+    q, _, _, pk, pv, tables, lens = _split_case(4, 128, dtype, lengths, tp,
+                                                cuda)
     q = torch.cat([q, q + 1], dim=1)  # 16 query heads
     pk, pv = (torch.cat([t, t.flip(0)], dim=2).contiguous() for t in (pk, pv))
     full = paged_decode_attention(q, pk, pv, tables, lens, window=window)

@@ -188,3 +188,22 @@ def test_wrappers_raise_on_bad_arguments(case):
     exc, call = _bad_calls()[case]
     with pytest.raises(exc):
         call()
+
+
+@pytest.mark.parametrize("seq_cap", [1, 127, 128, 129, 2048, 2049])
+def test_decode_split_count_depends_on_the_cache_length_alone(seq_cap):
+    """The decode kernels' split-K partition: chunks of ``SPLIT_CHUNK``
+    keys at absolute positions, as many as cover the cache.  The count
+    must not move with the batch or the heads (a tensor-parallel rank sees
+    ``h / tp`` heads and must split as the unsharded call does); those only
+    size the workspace."""
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import (
+        SPLIT_CHUNK, split_layout)
+    want = -(-seq_cap // SPLIT_CHUNK)
+    layouts = {(B, h, d): split_layout(B, h, d, seq_cap)
+               for B in (1, 4, 8) for h in (4, 16, 32) for d in (64, 128)}
+    assert {lay.splits for lay in layouts.values()} == {want}
+    assert {lay.chunk for lay in layouts.values()} == {SPLIT_CHUNK}
+    for (B, h, d), lay in layouts.items():
+        assert lay.partial_floats == B * h * want * (d + 4)
+        assert lay.counters == B * h
