@@ -10,8 +10,8 @@ Phases, one JSON line each; any failure exits non-zero:
 1. ``build``    — nvcc builds the kernels from ``deepspeed_tpu_torch/csrc``;
    registers and spills per kernel family, and the tensor-core
    instructions (``HMMA``) of each family in ``cuobjdump -sass``: the
-   16-bit flash, decode and block-sparse backward families
-   (``MMA_FAMILIES``) must hold some, and none of them may spill.
+   16-bit flash, decode and block-sparse families (``MMA_FAMILIES``) must
+   hold some, and none of them may spill.
 2. ``kernels``  — one line per decode kernel: the kernel against its plain
    version at every shape the main path gives it (32/8 heads, d 128, pages
    of 16; B 8 over up to 2048 keys with ragged lengths and window None and
@@ -25,11 +25,13 @@ Phases, one JSON line each; any failure exits non-zero:
    at a serve decode step (``SERVE_STEP_LENGTHS``).
 3. ``kernels``  — one line per flash kernel (forward, dq pass, dk/dv pass):
    against its plain version at every ``FLASH_CASES`` shape, bf16, fp16
-   (both on the tensor-core kernels) and fp32 (the fp32-FMA kernels), then
-   timed the same way at the two training shapes in bf16 beside its plain
-   version, SDPA and its bound (causal flops over 989 TFLOP/s), and in fp16
-   beside SDPA.  The decode and block-sparse kernels are also held in fp16
-   at one shape each.
+   (both on the tensor-core kernels) and fp32 (the fp32-FMA kernels), and
+   the backward passes on the random-``out`` regime (``regime_inputs``:
+   delta far from dP, dead rows at lse 1e30; bf16 and fp16, d 64 and 128,
+   four seeds), then timed the same way at the two training shapes in
+   bf16 beside its plain version, SDPA and its bound (causal flops over
+   989 TFLOP/s), and in fp16 beside SDPA.  The decode and block-sparse
+   kernels are also held in fp16 at one shape each.
 4. ``serve``    — Llama-3-8B at full width and depth (bf16, random weights
    from a seed) behind ``build_serving_frontend``: 8 requests of mixed
    classes, two sharing a 512-token header.  Every handle must return its
@@ -90,11 +92,13 @@ The block-sparse slice adds:
   every layout family (BigBird, Fixed, BSLongformer, Variable, EmptyTail
   with rows that attend nothing), cells of 16 to 256 tokens, shared and
   per-head layouts, causal and not, d 64 and 128, S 272 (a ragged tile) to
-  4096, bf16 and fp32 (and fp16 on the first case); then timed at the
-  training shape (B 2, S 4096, h 16, d 64, BigBird cells of 128, causal,
-  bf16) beside its plain version,
-  SDPA with the boolean token mask and its bound (the live token pairs'
-  flops over 989 TFLOP/s against the bytes over 3.35 TB/s);
+  4096, bf16 and fp32 (and fp16 on the first case; bf16 and fp16 run the
+  tensor-core kernels, fp32 the FMA ones), the backward passes also on
+  the random-``out`` regime over two layouts (``SPARSE_REGIME``); then
+  timed at the training shape (B 2, S 4096, h 16, d 64, BigBird cells of
+  128, causal, bf16) beside its plain version, SDPA with the boolean token
+  mask and its bound (the live token pairs' flops over 989 TFLOP/s
+  against the bytes over 3.35 TB/s);
 - ``sparse``: ``sparse_attention(impl="auto")`` forward and backward
   through autograd at bench.py's shapes (S 4096 to 8192), a per-head layout
   at Llama-3-8B's attention width (h 32, d 128), S 32768 and a Fixed layout
@@ -218,17 +222,21 @@ def read_counts() -> dict:
 # -- phase 1 ---------------------------------------------------------------
 
 #: kernel families that run on the tensor cores (bf16 and fp16): the flash
-#: passes, the decode kernel and the block-sparse backward passes; each
-#: must hold tensor-core instructions and none may spill
+#: passes, the decode kernel and the block-sparse forward and backward
+#: passes; each must hold tensor-core instructions and none may spill
 MMA_FAMILIES = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
-                "gqa_decode_mma", "block_sparse_bwd_dq_mma",
-                "block_sparse_bwd_dkv_mma")
-FAMILY = re.compile(r"(gqa_decode|gqa_decode_mma|flash_fwd|flash_bwd_dq|"
-                    r"flash_bwd_dkv|flash_fwd_mma|flash_bwd_dq_mma|"
-                    r"flash_bwd_dkv_mma|block_sparse_fwd|block_sparse_bwd_dq|"
-                    r"block_sparse_bwd_dkv|block_sparse_bwd_dq_mma|"
-                    r"block_sparse_bwd_dkv_mma|dispatch|combine|"
-                    r"sqsum_partial|sqsum_final|adam)_kernel")
+                "gqa_decode_mma", "block_sparse_fwd_mma",
+                "block_sparse_bwd_dq_mma", "block_sparse_bwd_dkv_mma")
+#: a family's name is what precedes "_kernel"; each ``_mma`` name comes
+#: before the name it extends, so the first alternative that matches at a
+#: position is the whole family name
+FAMILY = re.compile(r"(gqa_decode_mma|gqa_decode|flash_fwd_mma|flash_fwd|"
+                    r"flash_bwd_dq_mma|flash_bwd_dq|flash_bwd_dkv_mma|"
+                    r"flash_bwd_dkv|block_sparse_fwd_mma|block_sparse_fwd|"
+                    r"block_sparse_bwd_dq_mma|block_sparse_bwd_dq|"
+                    r"block_sparse_bwd_dkv_mma|block_sparse_bwd_dkv|"
+                    r"dispatch|combine|sqsum_partial|sqsum_final|"
+                    r"adam)_kernel")
 
 
 def tensor_core_instructions(library) -> dict:
@@ -589,11 +597,56 @@ def attention_bounds(B: int, S: int, h: int, d: int, el: int, pairs: int,
 #: kernels, fp32 the fp32-FMA ones
 FLASH_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
+#: the backward passes' random-``out`` regime (tests/test_torch_kernels.py
+#: ``_regime_case``): B 1, S 640, h 2, causal, at each head dim and seed
+REGIME_S, REGIME_H, REGIME_SEEDS = 640, 2, (0, 1, 2, 3)
+REGIME_DEAD = (0, 63, 64, 300, REGIME_S - 1)
+
+
+def regime_inputs(d: int, dtype, seed: int, dev) -> tuple:
+    """q, k, v, do and a random ``out`` ``[1, S, h, d]``, lse = |N(0, 1)| +
+    3 with the ``REGIME_DEAD`` rows at 1e30, from a generator on the card
+    seeded with ``seed``.  delta = rowsum(dO∘out) is then as large as dP,
+    so dS = P (dP − delta) is large: a backward pass that rounds dS to 16
+    bits before its products misses the plain version's fp32 by more than
+    2e-2 (PERF.md)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (1, REGIME_S, REGIME_H, d)
+    q, k, v, do, out = (torch.randn(shape, generator=gen, device=dev)
+                        .to(dtype) for _ in range(5))
+    lse = torch.randn(1, REGIME_H, REGIME_S, generator=gen,
+                      device=dev).abs() + 3.0
+    lse[..., list(REGIME_DEAD)] = 1e30
+    return q, k, v, do, out, lse
+
+
+def hold_regime(kernel_dq, kernel_dkv, plain, errs: dict, label: str,
+                dev) -> None:
+    """The dq and dk/dv passes (``kernel_dq``/``kernel_dkv``/``plain`` take
+    q, k, v, out, lse, do) on the random-``out`` regime, bf16 and fp16, d 64
+    and 128, each ``REGIME_SEEDS`` seed, within ``TOL`` of the plain
+    version; the dead rows' dq is 0.  Errors go to ``errs[name][key]``."""
+    for d, dtype, seed in itertools.product(
+            (64, 128), (torch.bfloat16, torch.float16), REGIME_SEEDS):
+        q, k, v, do, out, lse = regime_inputs(d, dtype, seed, dev)
+        dq = kernel_dq(q, k, v, out, lse, do)
+        dk, dv = kernel_dkv(q, k, v, out, lse, do)
+        want = plain(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        key = f"{label}_d{d}_seed{seed}_{str(dtype).split('.')[-1]}"
+        require(bool((dq[:, list(REGIME_DEAD)] == 0).all()),
+                f"{key}: a dead row's dq is not 0")
+        for name, outputs in ((0, ((dq, want[0]),)),
+                              (1, ((dk, want[1]), (dv, want[2])))):
+            errs[name][key] = max(check_close(f"{key} pass {name}", g, w,
+                                              dtype) for g, w in outputs)
+
 
 def phase_flash_kernels(dev) -> dict:
     """The three flash kernels against their plain versions at every
     ``FLASH_CASES`` shape, bf16, fp16 and fp32 (the backward passes start
-    from the plain forward's out and lse, so each kernel is held alone);
+    from the plain forward's out and lse, so each kernel is held alone),
+    and the backward passes on the random-``out`` regime (``hold_regime``);
     then timed at the training shapes in bf16 beside the plain versions,
     SDPA and the bound, and in fp16 beside SDPA."""
     from deepspeed_tpu_torch.ops.kernels import (flash_attention_bwd_plain,
@@ -639,6 +692,13 @@ def phase_flash_kernels(dev) -> dict:
             errs[kernel][key] = worst
         del q, k, v, do, out, lse, want_out, want_lse, dq, dk, dv, want
         torch.cuda.empty_cache()
+    hold_regime(
+        lambda q, k, v, o, l, do: flash_bwd_dq(q, k, v, o, l, do, True),
+        lambda q, k, v, o, l, do: flash_bwd_dkv(q, k, v, o, l, do, True),
+        lambda q, k, v, o, l, do: flash_attention_bwd_plain(q, k, v, o, l,
+                                                            do, True),
+        {0: errs["flash_bwd_dq"], 1: errs["flash_bwd_dkv"]}, "random_out",
+        dev)
 
     cycles = sleep_cycles_per_ms()
     timing = {name: {} for name in FLASH_KERNELS}
@@ -726,6 +786,10 @@ def phase_flash_kernels(dev) -> dict:
         checked_at={c[0]: dict(zip(("B", "h", "d", "S", "causal", "window",
                                     "segments"), c[1:]))
                     for c in FLASH_CASES},
+        random_out_regime=dict(B=1, S=REGIME_S, h=REGIME_H, d=(64, 128),
+                               seeds=REGIME_SEEDS, dead_rows=REGIME_DEAD,
+                               dtypes=("bfloat16", "float16"))
+        if kernel != "flash_fwd" else None,
         tolerance={str(t).split(".")[-1]: TOL[t] for t in FLASH_DTYPES},
         routes={"bfloat16": "flash_attention_mma.cu (mma.sync)",
                 "float16": "flash_attention_mma.cu (mma.sync)",
@@ -1115,6 +1179,12 @@ SPARSE_CHECKS = [
      True),
 ]
 SPARSE_TIMED = "train"
+#: the random-``out`` regime's layouts (``hold_regime``, causal): cells
+#: smaller than a tile (every walked tile masked) and cells of a tile
+#: (wholly live tiles)
+SPARSE_REGIME = {"bigbird_cb16_perhead": (
+    "BigBirdSparsityConfig", dict(block=16, different_layout_per_head=True)),
+    "fixed_cb64": ("FixedSparsityConfig", dict(block=64))}
 
 
 def sparse_inputs(B, S, h, d, dtype, gen, dev) -> list:
@@ -1172,10 +1242,11 @@ def check_close(what: str, got, want, dtype) -> float:
 def phase_sparse_kernels(dev) -> dict:
     """The three block-sparse kernels against their plain versions at every
     ``SPARSE_CHECKS`` case, bf16 and fp32, and fp16 on the first (the
-    backward passes start from
-    the plain forward's out and lse, so each kernel is held alone); then
-    timed at the training shape in bf16 beside the plain versions, SDPA with
-    the boolean token mask, and the bound."""
+    backward passes start from the plain forward's out and lse, so each
+    kernel is held alone), and the backward passes on the random-``out``
+    regime over the ``SPARSE_REGIME`` layouts; then timed at the training
+    shape in bf16 beside the plain versions, SDPA with the boolean token
+    mask, and the bound."""
     from deepspeed_tpu_torch.ops.kernels import (block_sparse_bwd_dkv,
                                                  block_sparse_bwd_dq,
                                                  block_sparse_bwd_plain,
@@ -1219,6 +1290,18 @@ def phase_sparse_kernels(dev) -> dict:
                     "not zero")
         del q, k, v, do, out, lse, want_out, want_lse, dq, dk, dv, want
         torch.cuda.empty_cache()
+    for label, (family, kw) in SPARSE_REGIME.items():
+        cfg = sparse_config(family, REGIME_H, **kw)
+        layout, plan = sparse_plan(cfg, REGIME_S, REGIME_H, True)
+        hold_regime(
+            lambda q, k, v, o, l, do: block_sparse_bwd_dq(q, k, v, o, l, do,
+                                                          plan),
+            lambda q, k, v, o, l, do: block_sparse_bwd_dkv(q, k, v, o, l, do,
+                                                           plan),
+            lambda q, k, v, o, l, do: block_sparse_bwd_plain(
+                q, k, v, o, l, do, layout, cfg.block, True),
+            {0: errs["block_sparse_bwd_dq"], 1: errs["block_sparse_bwd_dkv"]},
+            f"random_out_{label}", dev)
 
     name, B, S, h, d, family, kw, causal = next(
         c for c in SPARSE_CHECKS if c[0] == SPARSE_TIMED)
@@ -1300,6 +1383,13 @@ def phase_sparse_kernels(dev) -> dict:
                         for c in SPARSE_CHECKS},
             tolerance={str(t).split(".")[-1]: v for t, v in TOL.items()},
             checked_fp16_at=SPARSE_CHECKS[0][0],
+            routes={"bfloat16": "block_sparse_attention_mma.cu (mma.sync)",
+                    "float16": "block_sparse_attention_mma.cu (mma.sync)",
+                    "float32": "block_sparse_attention.cu (fp32 FMA)"},
+            random_out_regime=None if fwd else dict(
+                B=1, S=REGIME_S, h=REGIME_H, d=(64, 128), seeds=REGIME_SEEDS,
+                dead_rows=REGIME_DEAD, layouts=SPARSE_REGIME,
+                dtypes=("bfloat16", "float16")),
             timed_at=f"bf16, {name}: B {B}, S {S}, h {h}, d {d}, {family} "
                      f"{kw}, causal {causal}", **walk_lengths(plan),
             tf32=torch.backends.cuda.matmul.allow_tf32)
@@ -2486,9 +2576,8 @@ def main() -> int:
     flash_src = "deepspeed_tpu_torch/csrc/flash_attention_mma.cu"
     moe_src = "deepspeed_tpu_torch/csrc/moe_dispatch.cu"
     adam_src = "deepspeed_tpu_torch/csrc/fused_adam.cu"
-    sparse_src = "deepspeed_tpu_torch/csrc/block_sparse_attention.cu"
-    # the sparse phase is bf16: the backward runs the tensor-core passes
-    sparse_bwd_src = "deepspeed_tpu_torch/csrc/block_sparse_attention_mma.cu"
+    # the sparse phase is bf16: the tensor-core kernels
+    sparse_src = "deepspeed_tpu_torch/csrc/block_sparse_attention_mma.cu"
     quant_src = "deepspeed_tpu_torch/csrc/quantizer.cu"
     pallas = "deepspeed_tpu/ops/pallas/"
     (s, g), (sm, gm), t, tm = (res["serve"], res["serve_moe"], res["train"],
@@ -2534,11 +2623,11 @@ def main() -> int:
                              pallas + "block_sparse_attention.py:335",
                              res["sparse"]["block_sparse_fwd"],
                              bs["block_sparse_fwd"]),
-        "block_sparse_bwd_dq": (sparse_bwd_src,
+        "block_sparse_bwd_dq": (sparse_src,
                                 pallas + "block_sparse_attention.py:990",
                                 res["sparse"]["block_sparse_bwd_dq"],
                                 bs["block_sparse_bwd_dq"]),
-        "block_sparse_bwd_dkv": (sparse_bwd_src,
+        "block_sparse_bwd_dkv": (sparse_src,
                                  pallas + "block_sparse_attention.py:1037",
                                  res["sparse"]["block_sparse_bwd_dkv"],
                                  bs["block_sparse_bwd_dkv"]),

@@ -1,22 +1,22 @@
-// Block-sparse attention for training on Hopper (sm_90a), hand-written CUDA:
-// a forward (out + lse), a dq pass and a dk/dv pass over the live 64 x 64
-// tiles of a block-sparse layout.
+// Block-sparse attention for training on Hopper (sm_90a), hand-written CUDA,
+// fp32: a forward (out + lse), a dq pass and a dk/dv pass over the live
+// 64 x 64 tiles of a block-sparse layout.
 //
-// Replaces the Pallas TPU kernels of deepspeed_tpu/ops/pallas/
-// block_sparse_attention.py:
+// Replaces, for fp32 inputs, the Pallas TPU kernels of deepspeed_tpu/ops/
+// pallas/block_sparse_attention.py:
 //   * _bs_fwd (_bs_kernel, K/V resident in VMEM) and _bs_fwd_gather
 //     (_bs_gather_kernel, one live K/V block a grid step)
 //     -> block_sparse_fwd_kernel.  The resident/gather split was a VMEM
 //     capacity artifact: here one kernel stages one live tile at a time in
 //     shared memory, at any S;
 //   * _sparse_bwd_pallas, dq pass (_bs_bwd_dq_kernel, the flat live-tile
-//     list row-major) -> block_sparse_bwd_dq_kernel (fp32);
+//     list row-major) -> block_sparse_bwd_dq_kernel;
 //   * _sparse_bwd_pallas, dk/dv pass (_bs_bwd_dkv_kernel, the list
-//     column-major) -> block_sparse_bwd_dkv_kernel (fp32).
-// In bf16 and fp16 the two backward passes run on the tensor cores
-// (block_sparse_attention_mma.cu); the C entry points below choose by the
-// dtype.  The arguments and cell-mask helpers both files use are in
-// block_sparse_common.cuh.
+//     column-major) -> block_sparse_bwd_dkv_kernel.
+// fp32 is the parity dtype (TF32 products would keep ~3 digits).  In bf16
+// and fp16 all three run on the tensor cores (block_sparse_attention_mma.cu);
+// the C entry points below choose by the dtype.  The arguments and
+// cell-mask helpers both files use are in block_sparse_common.cuh.
 //
 // Layout: q, k, v, out, dq, dk, dv are [B, S, H, D]; lse and delta fp32
 // [B, H, S].  The host plan (ops/kernels/block_sparse_attention.py TilePlan)
@@ -42,8 +42,9 @@
 // uneven: global rows and columns of a BigBird or Fixed layout walk every
 // tile while the others walk a few, so the longest block sets the time.
 //
-// The design, first right and simple (tensor cores, cp.async/TMA pipelining
-// and a balanced, persistent schedule are later work):
+// The design, first right and simple (the 16-bit kernels on the tensor
+// cores are in block_sparse_attention_mma.cu; a balanced, persistent
+// schedule is later work):
 //   * the flash kernels' skeleton (attention_tile.cuh): one block per
 //     (b * H + h, 64-row tile), G = D / 16 lanes a row, the walked tile
 //     staged in shared memory as fp32 (zero past S);
@@ -57,8 +58,6 @@
 //     long rows of global cells and of the causal bottom do not start last
 //     and leave the card idle behind them;
 //   * the backward passes are split, as in JAX, so neither needs atomics.
-
-#include <type_traits>
 
 #include "attention_tile.cuh"
 #include "block_sparse_common.cuh"
@@ -305,20 +304,18 @@ block_sparse_bwd_dkv_kernel(BsArgs a) {
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-cudaError_t launch_td(Pass pass, const BsArgs& a, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_d(Pass pass, const BsArgs& a, cudaStream_t stream) {
   const int threads = kTile * D / kDimsPerLane;
   const dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
   size_t smem = 2 * kTile * D * sizeof(float) +
                 kMaxMaskWords * sizeof(unsigned long long);
-  void (*kernel)(BsArgs) = block_sparse_fwd_kernel<T, D>;
-  if constexpr (std::is_same_v<T, float>) {  // 16-bit backward: launch_mma
-    if (pass == kDq) {
-      kernel = block_sparse_bwd_dq_kernel<T, D>;
-    } else if (pass == kDkv) {
-      kernel = block_sparse_bwd_dkv_kernel<T, D>;
-      smem += 2 * kTile * sizeof(float);
-    }
+  void (*kernel)(BsArgs) = block_sparse_fwd_kernel<float, D>;
+  if (pass == kDq) {
+    kernel = block_sparse_bwd_dq_kernel<float, D>;
+  } else if (pass == kDkv) {
+    kernel = block_sparse_bwd_dkv_kernel<float, D>;
+    smem += 2 * kTile * sizeof(float);
   }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -334,16 +331,10 @@ cudaError_t launch(Pass pass, const BsArgs& a, int d, int dtype,
   if ((a.S + kTile - 1) / kTile > 65535) return cudaErrorInvalidValue;
   if (a.layout_heads != 1 && a.layout_heads != a.H) return cudaErrorInvalidValue;
   if (a.mask_shift < 0 || a.mask_shift > 3) return cudaErrorInvalidValue;
-  if (pass != kFwd && dtype != 0)  // 16-bit backward: the tensor cores
+  if (dtype != 0)  // bf16, fp16: the tensor cores
     return bsparse::launch_mma(pass, a, d, dtype, stream);
-  if (dtype == 0 && d == 64) return launch_td<float, 64>(pass, a, stream);
-  if (dtype == 0 && d == 128) return launch_td<float, 128>(pass, a, stream);
-  if (dtype == 1 && d == 64)
-    return launch_td<__nv_bfloat16, 64>(pass, a, stream);
-  if (dtype == 1 && d == 128)
-    return launch_td<__nv_bfloat16, 128>(pass, a, stream);
-  if (dtype == 2 && d == 64) return launch_td<__half, 64>(pass, a, stream);
-  if (dtype == 2 && d == 128) return launch_td<__half, 128>(pass, a, stream);
+  if (d == 64) return launch_d<64>(pass, a, stream);
+  if (d == 128) return launch_d<128>(pass, a, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -1,53 +1,73 @@
-// Block-sparse attention backward for Hopper (sm_90a), bf16 and fp16, on the
-// tensor cores: a dq pass and a dk/dv pass over the live 64 x 64 tiles of a
-// block-sparse layout.
+// Block-sparse attention for Hopper (sm_90a), bf16 and fp16, on the tensor
+// cores: a forward (out + lse), a dq pass and a dk/dv pass over the live
+// 64 x 64 tiles of a block-sparse layout.
 //
 // Replaces, for 16-bit inputs, the Pallas TPU kernels of
-// deepspeed_tpu/ops/pallas/block_sparse_attention.py _sparse_bwd_pallas:
-//   * its dq pass (_bs_bwd_dq_kernel, the flat live-tile list row-major)
-//     -> block_sparse_bwd_dq_mma_kernel;
+// deepspeed_tpu/ops/pallas/block_sparse_attention.py:
+//   * _bs_fwd_gather (_bs_gather_kernel, :335) and _bs_fwd (_bs_kernel,
+//     :523) -> block_sparse_fwd_mma_kernel, one kernel for every S (the
+//     resident/gather split was a VMEM capacity artifact);
+//   * _sparse_bwd_pallas, its dq pass (_bs_bwd_dq_kernel, the flat
+//     live-tile list row-major) -> block_sparse_bwd_dq_mma_kernel;
 //   * its dk/dv pass (_bs_bwd_dkv_kernel, the list column-major)
 //     -> block_sparse_bwd_dkv_mma_kernel.
-// fp32 inputs stay on the fp32-FMA passes of block_sparse_attention.cu,
-// whose C entry points choose by the dtype; the forward stays there too.
-// Layout, plan, masks and semantics are those kernels'
-// (block_sparse_common.cuh): masked probabilities are exactly 0, a row with
-// no live key gets dq 0, a key that no live query reaches gets dk = dv = 0,
-// an empty list writes zeros.
+// fp32 inputs stay on the fp32-FMA kernels of block_sparse_attention.cu,
+// whose C entry points choose by the dtype.  Layout, plan, masks and
+// semantics are those kernels' (block_sparse_common.cuh): masked
+// probabilities are exactly 0, a row with no live key gets out 0, lse 1e30
+// and dq 0, a key that no live query reaches gets dk = dv = 0, an empty
+// list writes zeros.
 //
-// What bounds it: the operations.  Per live (q, k) pair the dq pass does
-// 6 D flops and the dk/dv pass 8 D (each recomputes the scores), and every
-// tile staged from device memory meets 64 rows of work, so only the tensor
-// cores come near the bound.
+// What bounds it: the forward, the bytes at the training shape (B 2, S 4096,
+// h 16, d 64, BigBird cells of 128, causal): it reads each live K/V tile
+// once per q tile, and 4 D flops a live pair over 989 TFLOP/s come to less
+// than q, k, v, out and lse over 3.35 TB/s (chip_smoke.py attention_bounds);
+// the backward, the operations: per live (q, k) pair the dq pass does 6 D
+// flops and the dk/dv pass 8 D (each recomputes the scores; the split dS
+// adds 2 D to each), and every tile staged from device memory meets 64 rows
+// of work, so only the tensor cores come near the bound.
 //
-// The design: the flash backward's tile (flash_attention_mma.cu), walking a
+// The design: the flash kernels' tile (flash_attention_mma.cu), walking a
 // live list instead of a causal range:
 //   * one block of 4 warps per (b * H + h, 64-row tile); each warp owns 16
-//     query rows (dq pass) or 16 keys (dk/dv pass).  The block walks its
-//     tile's live list (the plan's ptr / idx: k tiles row-major for dq, q
-//     tiles column-major for dk/dv); blocks start longest list first (the
-//     plan's order), so the long lists of global rows and columns do not
-//     start last.  The passes are split, as in JAX: no atomics;
+//     query rows (forward, dq pass) or 16 keys (dk/dv pass).  The block
+//     walks its tile's live list (the plan's ptr / idx: k tiles row-major
+//     for the forward and dq, q tiles column-major for dk/dv); blocks start
+//     longest list first (the plan's order), so the long lists of global
+//     rows and columns do not start last.  The passes are split, as in JAX:
+//     no atomics;
 //   * operands stay 16-bit in shared memory (rows padded by 8 elements for
 //     conflict-free ldmatrix); the next live tile, its lse and delta (dk/dv)
 //     and its cell mask are staged by cp.async one list entry ahead,
-//     double-buffered;
-//   * every product is mma.sync m16n8k16 with fp32 accumulators.  dq pass:
-//     S = Q.K^T, P = exp(S * scale - lse), dP = dO.V^T, dS = P (dP - delta),
-//     dQ += dS.K.  dk/dv pass: S^T = K.Q^T and dP^T = V.dO^T, so P^T and
-//     dS^T are A fragments, dV += P^T.dO, dK += dS^T.Q, lse and delta read
-//     per column.  P and dS are rounded to 16 bits as operands;
+//     double-buffered, rows past S zero-filled by the src-size operand, so
+//     no K/V tile is read twice by a block and the loads of entry e + 1
+//     overlap the products of entry e;
+//   * every product is mma.sync m16n8k16 with fp32 accumulators.  Forward:
+//     S = Q.K^T, the online softmax on the accumulator fragment (exp2 with
+//     the scale folded in, row max and sum across the quad), p rounded to
+//     16 bits in registers as the A fragment of O += P.V (the plain
+//     version's rounding); a row whose walked tiles so far hold no live key
+//     keeps its running max at -inf and takes no exp(-inf - -inf).  dq pass:
+//     S = Q.K^T, P = exp(S * scale - lse), dP = dO.V^T, dS = P (dP -
+//     delta), dQ += dS.K.  dk/dv pass: S^T = K.Q^T and dP^T = V.dO^T, so
+//     P^T and dS^T are A fragments, dV += P^T.dO, dK += dS^T.Q, lse and
+//     delta read per column.  P is rounded to 16 bits as an operand; dS
+//     goes in as hi = round(dS) and lo = round(dS - hi), both on the same B
+//     fragments (mma::acc_to_a_split), as JAX keeps ds in fp32;
 //   * masks on the fragment, only on tiles that are not wholly live (a
 //     cell mask with a clear bit, the causal diagonal, the S tail): a row's
 //     (key's) cell bits, S and causality fold into one 64-bit word a tile
-//     (row_keep / col_keep), and one bit is tested an element.  The dq
-//     pass keeps its rows' two words in registers; the dk/dv pass folds the
-//     block's 64 key words into shared memory once a tile and reads them
-//     where it tests them;
-//   * registers: at d 128 the block's resident operands are re-read from
-//     shared memory for each tile and the dk/dv pass takes 16 queries a
-//     step, as in flash, so neither pass spills (chip_smoke.py's build phase
-//     fails on a spill).
+//     (row_keep / col_keep), and one bit is tested an element.  The forward
+//     and the dq pass keep their rows' two words in registers; the dk/dv
+//     pass folds the block's 64 key words into shared memory once a tile
+//     and reads them where it tests them;
+//   * registers: at d 128 the backward passes re-read the block's resident
+//     operands from shared memory for each tile and the dk/dv pass takes 16
+//     queries a step, its four steps rolled, as in flash, so no pass spills
+//     (chip_smoke.py's build phase fails on a spill).
+// Not done here (later work): the list imbalance.  The longest row list is
+// 7.9x the mean at S 4096 and 61x at S 32768, and one block walks it alone;
+// splitting long lists over blocks needs a merge of partial rows.
 
 #include "block_sparse_common.cuh"
 #include "flash_common.cuh"
@@ -96,6 +116,172 @@ __device__ __forceinline__ bool tile_full(const unsigned long long* mask,
   for (int w = 0; w < words; ++w)
     if (mask[w] != ~0ull) return false;
   return true;
+}
+
+// ---------------------------------------------------------------------------
+// forward: block (b * H + h, q tile from the plan's order), walking the
+// row's live k tiles; out [B, S, H, D], lse [B, H, S]
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+block_sparse_fwd_mma_kernel(Args a) {
+  constexpr int LD = D + 8, KC = D / 16, NT = kTile / 8, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* k_s = q_s + kTile * LD;          // [2][kTile][LD]
+  T* v_s = k_s + 2 * kTile * LD;      // [2][kTile][LD]
+  unsigned long long* mask_s =        // [2][kMaxMaskWords]
+      reinterpret_cast<unsigned long long*>(v_s + 2 * kTile * LD);
+
+  const int bh = blockIdx.x, hh = bh % a.layout_heads;
+  const int b = bh / a.H, h = bh % a.H;
+  const int qi = a.order[hh * gridDim.y + blockIdx.y];
+  const int list = hh * gridDim.y + qi;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const size_t stride = (size_t)a.H * D;
+  const size_t base = ((size_t)b * a.S * a.H + h) * D;
+  const T* k = static_cast<const T*>(a.k) + base;
+  const T* v = static_cast<const T*>(a.v) + base;
+  const int words = bsparse::mask_words(a.mask_shift);
+  const int row0 = qi * kTile + warp * 16;  // this warp's first query
+
+  const int e0 = a.ptr[list], e1 = a.ptr[list + 1];
+  stage_rows<T, D>(q_s, static_cast<const T*>(a.q) + base, stride,
+                   qi * kTile, a.S);
+  if (e0 < e1) {
+    const int kt = a.idx[e0];
+    stage_rows<T, D>(k_s, k, stride, kt * kTile, a.S);
+    stage_rows<T, D>(v_s, v, stride, kt * kTile, a.S);
+    stage_mask_async(mask_s, a, e0, words);
+  }
+  mma::cp_async_commit();
+
+  const float sl2 = a.scale * kLog2e;
+  float o[DT][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  uint32_t qf[KC][4];
+
+  for (int e = e0; e < e1; ++e) {
+    const int st = (e - e0) & 1;
+    const int kt = a.idx[e];
+    if (e + 1 < e1) {  // the next live tile loads while this one computes
+      const int nx = a.idx[e + 1] * kTile;
+      stage_rows<T, D>(k_s + (st ^ 1) * kTile * LD, k, stride, nx, a.S);
+      stage_rows<T, D>(v_s + (st ^ 1) * kTile * LD, v, stride, nx, a.S);
+      stage_mask_async(mask_s + (st ^ 1) * kMaxMaskWords, a, e + 1, words);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (e == e0) {
+#pragma unroll
+      for (int c = 0; c < KC; ++c)
+        mma::load_a(qf[c], q_s, LD, warp * 16, c * 16, lane);
+    }
+    const T* ks = k_s + st * kTile * LD;
+    const T* vs = v_s + st * kTile * LD;
+    const unsigned long long* ms = mask_s + st * kMaxMaskWords;
+
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t bf[4];
+        mma::load_b_nk(bf, ks, LD, n * 8, c * 16, lane);
+        Op<T>::mma(s[n], qf[c], bf[0], bf[1]);
+        Op<T>::mma(s[n + 1], qf[c], bf[2], bf[3]);
+      }
+
+    // on a tile that is not wholly live, bit kc of the row's keep word
+    // decides; a masked score is -inf, so its probability is exactly 0
+    if (!tile_full(ms, words, qi, kt, a)) {
+      unsigned long long keep[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        keep[r] = bsparse::row_keep(ms, warp * 16 + g + 8 * r,
+                                    row0 + g + 8 * r, kt, a);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (!((keep[i >> 1] >> (n * 8 + 2 * t4 + (i & 1))) & 1ull))
+            s[n][i] = -INFINITY;
+    }
+
+    // online softmax on the fragment: rows g (i = 0, 1) and g + 8 (2, 3)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // no live key for this row yet: keep everything at 0, no -inf - -inf
+      const float m_use = mx == -INFINITY ? 0.f : mx;
+      const float alpha = exp2f((m[r] - m_use) * sl2);
+      const float off = m_use * sl2;
+      m[r] = mx;
+      float rs = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float p = exp2f(fmaf(s[n][2 * r + j], sl2, -off));
+          s[n][2 * r + j] = p;
+          rs += p;
+        }
+      l[r] = l[r] * alpha + rs;  // this lane's part; the quad sums at the end
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        o[n][2 * r] *= alpha;
+        o[n][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += P.V, p rounded to 16 bits in registers
+#pragma unroll
+    for (int c = 0; c < NT / 2; ++c) {
+      uint32_t pa[4];
+      mma::acc_to_a<T>(pa, s, c);
+#pragma unroll
+      for (int n = 0; n < DT; n += 2) {
+        uint32_t bf[4];
+        mma::load_b_kn(bf, vs, LD, n * 8, c * 16, lane);
+        Op<T>::mma(o[n], pa, bf[0], bf[1]);
+        Op<T>::mma(o[n + 1], pa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // this stage is free for the load after next
+  }
+  mma::cp_async_wait<0>();  // an empty list staged Q all the same
+
+  // an empty list, or a row with no live key, leaves l 0: out 0, lse 1e30
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    const int row = row0 + g + 8 * r;
+    if (t4 == 0 && row < a.S)
+      a.lse_out[(size_t)bh * a.S + row] =
+          l[r] > 0.f ? m[r] * a.scale + logf(l[r]) : flash::kNoKeyLse;
+  }
+  store_rows<T, D>(static_cast<T*>(a.out0) + base, stride, row0, a.S, o,
+                   inv[0], inv[1], lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -249,17 +435,20 @@ block_sparse_bwd_dq_mma_kernel(Args a) {
         }
     }
 
-    // dQ += dS.K
+    // dQ += dS.K, dS as two 16-bit parts (hi.K + lo.K on the same K
+    // fragments): dS keeps fp32's precision through the product
 #pragma unroll
     for (int c = 0; c < NT / 2; ++c) {
-      uint32_t sa[4];
-      mma::acc_to_a<T>(sa, s, c);
+      uint32_t sh[4], sl[4];
+      mma::acc_to_a_split<T>(sh, sl, s, c);
 #pragma unroll
       for (int n = 0; n < DT; n += 2) {
         uint32_t bf[4];
         mma::load_b_kn(bf, ks, LD, n * 8, c * 16, lane);
-        Op<T>::mma(dq[n], sa, bf[0], bf[1]);
-        Op<T>::mma(dq[n + 1], sa, bf[2], bf[3]);
+        Op<T>::mma(dq[n], sh, bf[0], bf[1]);
+        Op<T>::mma(dq[n + 1], sh, bf[2], bf[3]);
+        Op<T>::mma(dq[n], sl, bf[0], bf[1]);
+        Op<T>::mma(dq[n + 1], sl, bf[2], bf[3]);
       }
     }
     __syncthreads();  // this stage is free for the load after next
@@ -374,7 +563,9 @@ block_sparse_bwd_dkv_mma_kernel(Args a) {
       __syncthreads();
     }
 
-#pragma unroll
+    // not unrolled: at d 128 (four steps of 16 queries) the unrolled steps
+    // spilled once dS went in as two parts; one step at d 64
+#pragma unroll 1
     for (int qc = 0; qc < kTile; qc += NQ) {
       // S^T = K.Q^T and dP^T = V.dO^T over queries qc .. qc + NQ
       float s[NQT][4], dp[NQT][4];
@@ -446,9 +637,9 @@ block_sparse_bwd_dkv_mma_kernel(Args a) {
       // dV += P^T.dO, dK += dS^T.Q over these queries
 #pragma unroll
       for (int c = 0; c < NQ / 16; ++c) {
-        uint32_t pa[4], sa[4];
+        uint32_t pa[4], sh[4], sl[4];  // dS^T as hi + lo, as in the dq pass
         mma::acc_to_a<T>(pa, s, c);
-        mma::acc_to_a<T>(sa, dp, c);
+        mma::acc_to_a_split<T>(sh, sl, dp, c);
 #pragma unroll
         for (int n = 0; n < DT; n += 2) {
           uint32_t bf[4];
@@ -456,8 +647,10 @@ block_sparse_bwd_dkv_mma_kernel(Args a) {
           Op<T>::mma(dv[n], pa, bf[0], bf[1]);
           Op<T>::mma(dv[n + 1], pa, bf[2], bf[3]);
           mma::load_b_kn(bf, qs, LD, n * 8, qc + c * 16, lane);
-          Op<T>::mma(dk[n], sa, bf[0], bf[1]);
-          Op<T>::mma(dk[n + 1], sa, bf[2], bf[3]);
+          Op<T>::mma(dk[n], sh, bf[0], bf[1]);
+          Op<T>::mma(dk[n + 1], sh, bf[2], bf[3]);
+          Op<T>::mma(dk[n], sl, bf[0], bf[1]);
+          Op<T>::mma(dk[n + 1], sl, bf[2], bf[3]);
         }
       }
     }
@@ -479,7 +672,10 @@ cudaError_t launch_td(bsparse::Pass pass, const Args& a,
   const dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
   size_t smem;
   void (*kernel)(Args);
-  if (pass == bsparse::kDq) {
+  if (pass == bsparse::kFwd) {
+    kernel = block_sparse_fwd_mma_kernel<T, D>;
+    smem = 5 * tile + masks;
+  } else if (pass == bsparse::kDq) {
     kernel = block_sparse_bwd_dq_mma_kernel<T, D>;
     smem = 6 * tile + masks;
   } else if (pass == bsparse::kDkv) {

@@ -1,8 +1,8 @@
 // What the block-sparse kernels share: their arguments and the cell masks
 // of a walked 64 x 64 tile (ops/kernels/block_sparse_attention.py TilePlan).
 //
-// block_sparse_attention.cu holds the forward, the fp32 backward passes and
-// the C entry points; block_sparse_attention_mma.cu holds the bf16 and fp16
+// block_sparse_attention.cu holds the fp32 kernels and the C entry points;
+// block_sparse_attention_mma.cu holds the bf16 and fp16 forward and
 // backward passes on the tensor cores.  The entry points choose by dtype.
 
 #pragma once
@@ -109,8 +109,8 @@ __device__ __forceinline__ void stage_mask(const Args& a, int e,
 
 enum Pass { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// The tensor-core backward passes (block_sparse_attention_mma.cu); dtype 1
-// = bfloat16, 2 = float16.
+// The tensor-core kernels (block_sparse_attention_mma.cu); dtype 1 =
+// bfloat16, 2 = float16.
 cudaError_t launch_mma(Pass pass, const Args& a, int d, int dtype,
                        cudaStream_t stream);
 

@@ -17,7 +17,8 @@
 //
 // What bounds it: the operations (chip_smoke.py attention_bounds).  Per
 // live (q, k) pair the forward does 4 d flops, the dq pass 6 d and the
-// dk/dv pass 8 d (each pass recomputes the scores); at the training shapes
+// dk/dv pass 8 d (each pass recomputes the scores; the split dS adds 2 d
+// tensor-core flops to each backward pass); at the training shapes
 // each byte read meets hundreds of flops, so only the tensor cores' 989
 // TFLOP/s (bf16, fp16) come near the bound.
 //
@@ -43,8 +44,12 @@
 //   * dq pass: S = Q·Kᵀ, P = exp(S·scale − lse), dP = dO·Vᵀ,
 //     dS = P∘(dP − delta), dQ += dS·K; dk/dv pass: Sᵀ = K·Qᵀ and
 //     dPᵀ = V·dOᵀ directly, so Pᵀ and dSᵀ come out as A fragments,
-//     dV += Pᵀ·dO, dK += dSᵀ·Q.  P and dS are rounded to 16 bits as
-//     operands; delta = rowsum(dO∘O) stays outside (JAX :443);
+//     dV += Pᵀ·dO, dK += dSᵀ·Q.  P is rounded to 16 bits as an operand;
+//     dS goes in as two 16-bit parts, hi = round(dS) and lo = round(dS −
+//     hi), each multiplied on the same B fragments (mma::acc_to_a_split):
+//     JAX keeps ds in fp32 (:363-366), and where delta is far from dP one
+//     rounding of dS put dq and dk past 2e-2 of the fp32 backward
+//     (PERF.md); delta = rowsum(dO∘O) stays outside (JAX :443);
 //   * masks (causal, window, segments, the S tail) are applied on the
 //     accumulator fragment, only on tiles that need one
 //     (tile_needs_mask); segment ids, lse and delta of the walked tile are
@@ -53,7 +58,9 @@
 //     (Q, dO in the dq pass; K, V in the dk/dv pass) are re-read from shared
 //     memory for each tile, and the dk/dv pass takes its 64 queries 16 at a
 //     time, so dK and dV (64 fp32 each) fit beside Sᵀ and dPᵀ without a
-//     spill (32 at a time spilled 24 bytes at the same speed: PERF.md).
+//     spill (32 at a time spilled 24 bytes at the same speed: PERF.md);
+//     with dSᵀ in two parts the four 16-query steps stay rolled (unrolled
+//     they spilled 24-32 bytes).
 
 #include "flash_common.cuh"
 #include "mma_tile.cuh"
@@ -372,17 +379,20 @@ flash_bwd_dq_mma_kernel(Args a) {
         s[n][i] = p * (dp[n][i] - delta[r]);
       }
 
-    // dQ += dS·K
+    // dQ += dS·K, dS as two 16-bit parts (hi·K + lo·K on the same K
+    // fragments): dS keeps fp32's precision through the product
 #pragma unroll
     for (int c = 0; c < NT / 2; ++c) {
-      uint32_t sa[4];
-      mma::acc_to_a<T>(sa, s, c);
+      uint32_t sh[4], sl[4];
+      mma::acc_to_a_split<T>(sh, sl, s, c);
 #pragma unroll
       for (int n = 0; n < DT; n += 2) {
         uint32_t bf[4];
         mma::load_b_kn(bf, ks, LD, n * 8, c * 16, lane);
-        Op<T>::mma(dq[n], sa, bf[0], bf[1]);
-        Op<T>::mma(dq[n + 1], sa, bf[2], bf[3]);
+        Op<T>::mma(dq[n], sh, bf[0], bf[1]);
+        Op<T>::mma(dq[n + 1], sh, bf[2], bf[3]);
+        Op<T>::mma(dq[n], sl, bf[0], bf[1]);
+        Op<T>::mma(dq[n + 1], sl, bf[2], bf[3]);
       }
     }
     __syncthreads();
@@ -485,7 +495,9 @@ flash_bwd_dkv_mma_kernel(Args a) {
     const int* qsg = seg_s + st * kTile;
     const bool masked = flash::tile_needs_mask(qt, ki, a);
 
-#pragma unroll
+    // not unrolled: at d 128 (four steps of 16 queries) the unrolled steps
+    // spilled once dS went in as two parts; one step at d 64
+#pragma unroll 1
     for (int qc = 0; qc < kTile; qc += NQ) {
       // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over queries qc .. qc + NQ
       float s[NQT][4], dp[NQT][4];
@@ -539,9 +551,9 @@ flash_bwd_dkv_mma_kernel(Args a) {
       // dV += Pᵀ·dO, dK += dSᵀ·Q over these queries
 #pragma unroll
       for (int c = 0; c < NQ / 16; ++c) {
-        uint32_t pa[4], sa[4];
+        uint32_t pa[4], sh[4], sl[4];  // dS^T as hi + lo, as in the dq pass
         mma::acc_to_a<T>(pa, s, c);
-        mma::acc_to_a<T>(sa, dp, c);
+        mma::acc_to_a_split<T>(sh, sl, dp, c);
 #pragma unroll
         for (int n = 0; n < DT; n += 2) {
           uint32_t bf[4];
@@ -549,8 +561,10 @@ flash_bwd_dkv_mma_kernel(Args a) {
           Op<T>::mma(dv[n], pa, bf[0], bf[1]);
           Op<T>::mma(dv[n + 1], pa, bf[2], bf[3]);
           mma::load_b_kn(bf, qs, LD, n * 8, qc + c * 16, lane);
-          Op<T>::mma(dk[n], sa, bf[0], bf[1]);
-          Op<T>::mma(dk[n + 1], sa, bf[2], bf[3]);
+          Op<T>::mma(dk[n], sh, bf[0], bf[1]);
+          Op<T>::mma(dk[n + 1], sh, bf[2], bf[3]);
+          Op<T>::mma(dk[n], sl, bf[0], bf[1]);
+          Op<T>::mma(dk[n + 1], sl, bf[2], bf[3]);
         }
       }
     }

@@ -34,6 +34,10 @@ struct Op<__nv_bfloat16> {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
+  // the two values of a register made by pack, as fp32
+  __device__ __forceinline__ static float2 unpack(uint32_t u) {
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+  }
   __device__ __forceinline__ static void mma(float (&d)[4],
                                              const uint32_t (&a)[4],
                                              uint32_t b0, uint32_t b1) {
@@ -50,6 +54,9 @@ struct Op<__half> {
   __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
     __half2 v = __halves2half2(__float2half_rn(lo), __float2half_rn(hi));
     return *reinterpret_cast<uint32_t*>(&v);
+  }
+  __device__ __forceinline__ static float2 unpack(uint32_t u) {
+    return __half22float2(*reinterpret_cast<__half2*>(&u));
   }
   __device__ __forceinline__ static void mma(float (&d)[4],
                                              const uint32_t (&a)[4],
@@ -146,6 +153,27 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
   a[1] = Op<T>::pack(c[2 * kc][2], c[2 * kc][3]);
   a[2] = Op<T>::pack(c[2 * kc + 1][0], c[2 * kc + 1][1]);
   a[3] = Op<T>::pack(c[2 * kc + 1][2], c[2 * kc + 1][3]);
+}
+
+// The same chunk as two 16-bit parts, hi = round(c) and lo = round(c - hi):
+// hi + lo holds c to about 2^-16 relative in bf16 (2^-22 in fp16), so
+// hi·B + lo·B on the tensor cores is the product of the fp32 operand to
+// within the fp32 accumulation.  The backward passes multiply dS so: JAX
+// keeps ds in fp32 there, and dS = P (dP - delta) can be large where dP
+// and delta do not cancel, so one 16-bit rounding of it shows in dq and dk.
+template <typename T, int N>
+__device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4],
+                                               const float (&c)[N][4],
+                                               int kc) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x0 = c[2 * kc + (i >> 1)][2 * (i & 1)];
+    const float x1 = c[2 * kc + (i >> 1)][2 * (i & 1) + 1];
+    hi[i] = Op<T>::pack(x0, x1);
+    const float2 h = Op<T>::unpack(hi[i]);
+    lo[i] = Op<T>::pack(x0 - h.x, x1 - h.y);
+  }
 }
 
 // The staging and storing of [*, S, H, D] operands that the tensor-core

@@ -10,15 +10,29 @@
 //     y[t] = sum_k gates[t, k] * expert_out.flat[flat_idx[t, k]], where an
 //     index E*C (a dropped assignment) contributes nothing.
 //
-// What bounds them: the bytes.  Dispatch reads and writes each slot's row
-// once; combine reads K rows per token and writes one.  Neither does more
-// than K multiply-adds per element.
+// What bounds them: the bytes.  Dispatch reads each routed token's row and
+// writes every slot's row once (an empty slot's as zeros); combine reads K
+// rows per token and writes one.  Neither does more than K multiply-adds
+// per element.
 //
 // What the design does about it:
-//   * one thread block per output row (dispatch: per expert slot; combine:
-//     per token), with grid-stride loops past 2^31 - 1 rows; the threads of
-//     a block walk the row in 16-byte vectors, so every load and store is a
-//     full 128-bit access;
+//   * dispatch runs one 128-thread block per slot row (grid-stride loops
+//     past 2^31 - 1 rows): the hardware's block scheduler balances the mix
+//     of copied and empty rows.  Each thread issues all its loads of a row
+//     (U 16-byte vectors, unrolled, U * 128 vectors a pass; U = 4 for a
+//     bf16 row of 4096) before any store, so a row's bytes are in flight
+//     together instead of one vector a thread; an empty slot's row is
+//     written with no read;
+//   * its stores are streaming (st.global.cs, evict-first in L2): the
+//     [E, C, H] buffers are written once here.  The two changes, measured
+//     one at a time, each shortened the kernel at the train shape; a
+//     persistent grid of contiguous row ranges (132 x 8 or 16 blocks, the
+//     range's indices staged at once) and bulk copies through shared memory
+//     (cp.async.bulk with an mbarrier ring) were both slower than this grid
+//     (tools/dispatch_bench.cu; the numbers are in PERF.md);
+//   * combine runs one thread block per token, with a grid-stride loop past
+//     2^31 - 1 tokens; the threads of a block walk the row in 16-byte
+//     vectors, so every load and store is a full 128-bit access;
 //   * dispatch copies raw bytes: one kernel serves every dtype, and the
 //     copy is exact;
 //   * combine accumulates in fp32 in the order k = 0, 1, ..., as the TPU
@@ -44,25 +58,34 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxGrid = 1 << 20;
 
-__global__ void dispatch_kernel(const uint4* __restrict__ tokens,
-                                const int* __restrict__ src_idx,
-                                uint4* __restrict__ out, int num_tokens,
-                                int64_t rows, int vecs_per_row) {
+// out[r] = tokens[min(src_idx[r], T - 1)], zero where src_idx[r] < 0; U
+// vectors a thread a pass over a row.
+template <int U>
+__global__ void __launch_bounds__(kThreads)
+dispatch_kernel(const uint4* __restrict__ tokens,
+                const int* __restrict__ src_idx, uint4* __restrict__ out,
+                int num_tokens, int64_t rows, int vecs_per_row) {
   for (int64_t r = blockIdx.x; r < rows; r += gridDim.x) {
-    const int src = src_idx[r];
+    const int src = __ldg(src_idx + r);
     uint4* dst = out + r * vecs_per_row;
-    if (src < 0) {
-      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-      for (int i = threadIdx.x; i < vecs_per_row; i += blockDim.x) {
-        dst[i] = zero;
-      }
+    if (src < 0) {  // an empty slot: zeros, nothing read
+      for (int i = threadIdx.x; i < vecs_per_row; i += kThreads)
+        __stcs(dst + i, make_uint4(0u, 0u, 0u, 0u));
       continue;
     }
     // an index past the tokens clamps, as the plain version's gather does
-    const int64_t row = src < num_tokens ? src : num_tokens - 1;
-    const uint4* from = tokens + row * vecs_per_row;
-    for (int i = threadIdx.x; i < vecs_per_row; i += blockDim.x) {
-      dst[i] = __ldg(from + i);
+    const int row = src < num_tokens ? src : num_tokens - 1;
+    const uint4* from = tokens + static_cast<int64_t>(row) * vecs_per_row;
+    for (int c0 = threadIdx.x; c0 < vecs_per_row; c0 += U * kThreads) {
+      uint4 buf[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (c0 + u * kThreads < vecs_per_row)
+          buf[u] = __ldg(from + c0 + u * kThreads);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (c0 + u * kThreads < vecs_per_row)
+          __stcs(dst + c0 + u * kThreads, buf[u]);
     }
   }
 }
@@ -171,10 +194,23 @@ extern "C" int ds_moe_dispatch(const void* tokens, const void* src_idx,
                                void* out, int num_tokens, int rows,
                                int row_bytes, void* stream) {
   if (rows <= 0 || row_bytes <= 0) return 0;
-  dispatch_kernel<<<grid_for(rows), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(tokens), static_cast<const int*>(src_idx),
-      static_cast<uint4*>(out), num_tokens, rows, row_bytes / 16);
+  const uint4* t = static_cast<const uint4*>(tokens);
+  const int* idx = static_cast<const int*>(src_idx);
+  uint4* o = static_cast<uint4*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vecs = row_bytes / 16;
+  // U: a row's vectors a thread, up to 4 (a bf16 row of 4096 in one pass)
+  const int per_thread = (vecs + kThreads - 1) / kThreads;
+  const int grid = grid_for(rows);
+  if (per_thread <= 1)
+    dispatch_kernel<1><<<grid, kThreads, 0, s>>>(t, idx, o, num_tokens, rows,
+                                                 vecs);
+  else if (per_thread <= 2)
+    dispatch_kernel<2><<<grid, kThreads, 0, s>>>(t, idx, o, num_tokens, rows,
+                                                 vecs);
+  else
+    dispatch_kernel<4><<<grid, kThreads, 0, s>>>(t, idx, o, num_tokens, rows,
+                                                 vecs);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,10 +8,10 @@ block_sparse_attention.py``: the resident forward ``_bs_fwd`` and the gather
 forward ``_bs_fwd_gather`` (both by the kernel behind
 :func:`block_sparse_fwd`), and the flat-tile backward ``_sparse_bwd_pallas``
 (its dq pass by :func:`block_sparse_bwd_dq`, its dk/dv pass by
-:func:`block_sparse_bwd_dkv`).  The CUDA source is
-``deepspeed_tpu_torch/csrc/block_sparse_attention.cu``; in bf16 and fp16
-the two backward passes run on the tensor cores
-(``csrc/block_sparse_attention_mma.cu``), fp32 stays on fp32 FMAs.
+:func:`block_sparse_bwd_dkv`).  In bf16 and fp16 all three run on the tensor
+cores (``deepspeed_tpu_torch/csrc/block_sparse_attention_mma.cu``); fp32
+stays on fp32 FMAs (``csrc/block_sparse_attention.cu``, whose C entry
+points choose by the dtype).
 
 Two tile sizes, kept apart:
 

@@ -30,12 +30,14 @@ Semantics (``[B, S, h, d]`` layout, scale ``1/sqrt(d)``, causal/window as
   it outside its kernels.
 
 The fp32 kernels keep p in fp32 before p·V (the TPU kernel did too); the
-16-bit kernels round p (and, backward, dS) to the inputs' dtype as ``mma``
-operands, as the plain forward casts p to q's dtype first, like the JAX
-reference.  The JAX function sent blocks under 64 and S not a multiple of
-its block to the dense reference; on the card these kernels take every S
-(the tail tile is masked) and every mask.  A head dim other than 64 or 128 raises; nothing falls back
-to the plain version on a CUDA tensor.
+16-bit kernels round p to the inputs' dtype as an ``mma`` operand, as the
+plain forward casts p to q's dtype first, like the JAX reference, and
+multiply dS in two 16-bit parts (hi + lo), which keeps it to about 2^-16
+relative, as the JAX kernel's fp32 ``ds``.  The JAX function sent blocks
+under 64 and S not a multiple of its block to the dense reference; on the
+card these kernels take every S (the tail tile is masked) and every mask.
+A head dim other than 64 or 128 raises; nothing falls back to the plain
+version on a CUDA tensor.
 """
 
 from __future__ import annotations

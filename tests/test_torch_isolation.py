@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no JAX package, no silent CPU fallback.
 
-Every ``.py`` under ``deepspeed_tpu_torch/`` and ``chip_smoke.py`` is parsed
-with ``ast``; an import of ``jax``, ``jaxlib`` or ``deepspeed_tpu`` (other
-than ``deepspeed_tpu_torch``) fails the test.  The entry points, called
+Every ``.py`` under ``deepspeed_tpu_torch/``, ``chip_smoke.py`` and the
+card tools under ``tools/`` is parsed with ``ast``; an import of ``jax``,
+``jaxlib`` or ``deepspeed_tpu`` (other than ``deepspeed_tpu_torch``) fails
+the test.  The entry points, called
 without a device while CUDA is absent, raise instead of running on the CPU.
 """
 
@@ -22,7 +23,7 @@ from deepspeed_tpu_torch.utils.device import check_module_device
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu")
 
 

@@ -10,12 +10,13 @@ has only PyTorch and the CUDA toolkit::
 
 Tolerances: fp32 1e-4 (fp32 arithmetic, another summation order); bf16
 and fp16 2e-2 (the plain version rounds q·k and p to the inputs' dtype, the
-kernel keeps fp32 or, in the tensor-core flash kernels, rounds p and dS at
-other places).
+kernel keeps fp32 or, in the tensor-core attention kernels, rounds p at
+other places; dS goes into their products as two 16-bit parts).
 Lengths cover 1, bs-1, bs, bs+1, full and past full; n_rep covers the
 kernel's head-group splits (1, 2, 3, 4, 8, 12).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -152,8 +153,9 @@ def test_cuda_kernel_refuses_unsupported_head_dim(cuda):
 # -- flash attention (training): forward, dq pass, dk/dv pass ---------------
 #
 # Tolerances: fp32 1e-4; bf16 and fp16 2e-2 (16-bit inputs run the
-# tensor-core kernels, which round p and dS to the inputs' dtype as mma
-# operands; the plain forward rounds p, the plain backward keeps fp32).
+# tensor-core kernels, which round p to the inputs' dtype as an mma operand
+# and split dS into two 16-bit parts; the plain forward rounds p, the plain
+# backward keeps fp32).
 # S 200 leaves a tail tile of 8 rows; the masks cover causal, causal with a
 # window, a bidirectional window and packed segments.  S 1000 with a window
 # of 130 and segments walks diagonal, window-edge and tail tiles in one
@@ -234,36 +236,100 @@ def test_cuda_flash_diagonal_window_edge_and_tail_tiles(cuda, dtype, d):
                  1e-4 if dtype == torch.float32 else 2e-2)
 
 
+# The backward passes on saved statistics that no forward of these inputs
+# gives: a random ``out`` (so delta = rowsum(dO∘out) is as large as dP, and
+# dS = P (dP − delta) is large where it does not cancel), lse = |N(0, 1)|
+# + 3 and five dead rows at lse 1e30.  Every tensor is drawn from a seeded
+# generator on the card, so a seed gives the same inputs in every run.
+REGIME_SEEDS = list(range(12))
+REGIME_S, REGIME_H = 640, 2
+
+
+def _regime_case(d, dtype, seed, device):
+    """q, k, v, do, out ``[1, S, 2, d]``, lse ``[1, 2, S]`` and the dead
+    rows, all from ``torch.Generator(device).manual_seed(seed)``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    S, h = REGIME_S, REGIME_H
+    q, k, v, do, out = (torch.randn(1, S, h, d, generator=gen,
+                                    device=device).to(dtype)
+                        for _ in range(5))
+    lse = torch.randn(1, h, S, generator=gen, device=device).abs() + 3.0
+    dead = torch.zeros(S, dtype=torch.bool, device=device)
+    dead[[0, 63, 64, 300, S - 1]] = True
+    lse[..., dead] = 1e30
+    return q, k, v, do, out, lse, dead
+
+
+def _bwd_ds_rounded(q, k, v, out, lse, do, mask):
+    """The plain backward (fp32; ``p = exp(s·scale − lse)`` on the live
+    pairs of the bool ``mask [B|1, h|1, S, S]``, ``ds = p (dp − delta)``)
+    with ds rounded to q's dtype before ``ds·K`` and ``dsᵀ·Q``, as a 16-bit
+    mma operand rounds it: the emulation of a kernel that does so."""
+    scale = q.shape[-1] ** -0.5
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    delta = torch.einsum("bqhd,bqhd->bhq", do32, out.float())
+    s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype)
+
+
+def _of_bound(got, ref, tol) -> float:
+    """The largest ``|got − ref| / (tol (1 + |ref|))``: above 1 fails."""
+    ref = ref.float()
+    return ((got.float() - ref).abs() / (tol * (1 + ref.abs()))).max().item()
+
+
+def _hold_regime(what, got, want, emulated, tol):
+    """Each of dq, dk, dv within ``tol`` of the plain backward's; prints
+    each one's share of its bound beside that of the ds-rounded emulation
+    (dq, dk), which names the rounding point when the kernel follows it."""
+    shares = {}
+    for name, g, w, e in zip(("dq", "dk", "dv"), got, want,
+                             (*emulated, None)):
+        shares[name] = (_of_bound(g, w, tol),
+                        None if e is None else _of_bound(e, w, tol))
+    print(f"{what}: share of the bound (kernel, ds-rounded plain) "
+          f"{shares}")
+    for (name, (kernel, emulation)), g, w in zip(shares.items(), got, want):
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=tol, atol=tol,
+            msg=f"{what}: {name} at {kernel:.3f} of its bound {tol} x (1 + "
+                f"|plain|); the plain backward with ds rounded to the "
+                f"inputs' dtype is at {emulation}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-def test_cuda_flash_rows_without_live_keys(cuda, dtype):
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("seed", REGIME_SEEDS)
+def test_cuda_flash_rows_without_live_keys(cuda, dtype, d, seed):
     """Every query sees itself, so no row of the forward is without a live
     key in all; but under causal segments a row meets no live key in its
     first walked tiles (the running max stays -inf there), and the forward
     gives a row that has none out 0 and lse 1e30, which the backward passes
-    must read as a row that contributes nothing."""
+    must read as a row that contributes nothing.  Then the backward passes
+    on the random-``out`` regime above."""
     from deepspeed_tpu_torch.ops.kernels import (flash_attention_bwd_plain,
                                                  flash_bwd_dkv, flash_bwd_dq)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
-    S = 640
-    q, k, v, do, _ = _flash_case(1, S, 2, 64, dtype, 3, cuda, False)
+    S = REGIME_S
+    q, k, v, do, out, lse, dead = _regime_case(d, dtype, seed, cuda)
     seg = torch.zeros(1, S, dtype=torch.int32, device=cuda)
     seg[0, 520:] = 1  # rows 520.. walk 8 tiles with no key of their segment
     _flash_check(q, k, v, do, seg, True, None, tol)
-    out = torch.randn_like(q)
-    lse = torch.randn(1, 2, S, device=cuda).abs() + 3.0
-    dead = torch.zeros(S, dtype=torch.bool, device=cuda)
-    dead[[0, 63, 64, 300, S - 1]] = True
-    lse[..., dead] = 1e30
     dq = flash_bwd_dq(q, k, v, out, lse, do, True)
     dk, dv = flash_bwd_dkv(q, k, v, out, lse, do, True)
     torch.cuda.synchronize()
     assert (dq[:, dead] == 0).all()
     want = flash_attention_bwd_plain(q, k, v, out, lse, do, True)
-    for got, ref in zip((dq, dk, dv), want):
-        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
-                                   atol=tol)
+    causal = torch.ones(S, S, dtype=torch.bool, device=cuda).tril()
+    _hold_regime(f"flash {dtype} d {d} seed {seed}", (dq, dk, dv), want,
+                 _bwd_ds_rounded(q, k, v, out, lse, do, causal), tol)
 
 
 @pytest.mark.cuda
@@ -327,8 +393,8 @@ def test_cuda_moe_kernels_match_plain(cuda, dtype, shape):
     assert (src < 0).any() and (flat == E * C).any()
     before = (moe_dispatch_fwd.launches, moe_combine_fwd.launches)
     got = moe_dispatch_fwd(tokens, src)
-    torch.testing.assert_close(got, dispatch_reference(tokens, src),
-                               rtol=0, atol=0)
+    assert got.dtype == dtype and torch.equal(got,
+                                              dispatch_reference(tokens, src))
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     y = moe_combine_fwd(eo, flat, gates)
     want = combine_reference(eo, flat, gates)
@@ -337,6 +403,50 @@ def test_cuda_moe_kernels_match_plain(cuda, dtype, shape):
     torch.cuda.synchronize()
     assert (moe_dispatch_fwd.launches - before[0],
             moe_combine_fwd.launches - before[1]) == (1, 1)
+
+
+#: (case, T, E, C, H, fill): the dispatch kernel's edges.  fill: "empty"
+#: (every slot -1), "past_T" (indices T .. T + 9 clamp to the last token),
+#: "mixed" (a third empty, the rest random tokens).  "grid" has more rows
+#: (E·C = 16384) than the kernel's persistent grid of blocks.
+DISPATCH_EDGES = [("all_empty", 64, 8, 20, 256, "empty"),
+                  ("index_past_T", 40, 4, 16, 128, "past_T"),
+                  ("rows_of_16_bytes", 50, 4, 32, 0, "mixed"),
+                  ("more_rows_than_grid", 300, 64, 256, 64, "mixed"),
+                  ("wide_rows", 96, 2, 48, 8192, "mixed")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DISPATCH_EDGES,
+                         ids=[c[0] for c in DISPATCH_EDGES])
+def test_cuda_moe_dispatch_edges_equal_plain(cuda, dtype, case):
+    """Dispatch is a byte copy: ``torch.equal`` with its plain version.
+    H 0 stands for one 16-byte vector a row (4 fp32 or 8 bf16 values)."""
+    from deepspeed_tpu_torch.ops.kernels import (dispatch_reference,
+                                                 moe_dispatch_fwd)
+    _, T, E, C, H, fill = case
+    H = H or 16 // torch.empty(0, dtype=dtype).element_size()
+    g = torch.Generator().manual_seed(T + E + C)
+    tokens = torch.randn(T, H, generator=g).to(device=cuda, dtype=dtype)
+    if fill == "empty":
+        src = torch.full((E, C), -1, dtype=torch.int32)
+    elif fill == "past_T":
+        src = torch.randint(-1, T + 10, (E, C), generator=g,
+                            dtype=torch.int32)
+        src[0, :10] = torch.arange(T, T + 10, dtype=torch.int32)
+    else:
+        src = torch.randint(0, T, (E, C), generator=g, dtype=torch.int32)
+        src[torch.rand(E, C, generator=g) < 1 / 3] = -1
+    src = src.to(cuda)
+    before = moe_dispatch_fwd.launches
+    got = moe_dispatch_fwd(tokens, src)
+    want = dispatch_reference(tokens, src)
+    torch.cuda.synchronize()
+    assert moe_dispatch_fwd.launches - before == 1
+    assert got.dtype == dtype and torch.equal(got, want)
+    if fill == "past_T":
+        assert torch.equal(got[0, :10], tokens[-1].expand(10, H))
 
 
 @pytest.mark.cuda
@@ -466,6 +576,16 @@ def _bs_config(family, h, cb, per_head):
                 lay[-4:, :] = 0
                 return lay
         return EmptyTail(num_local_blocks=2, num_global_blocks=0, **kw)
+    if family == "late_keys":
+        class LateKeys(sa.SparsityConfig):
+            """Each cell row attends its diagonal cell; the first cell row
+            of each 64-row tile also attends cell 0, so the other rows of
+            the tile walk k tile 0 first and find no live key there."""
+            def _head_layout(self, seq_len, head):
+                lay = np.eye(self._blocks(seq_len), dtype=np.int32)
+                lay[::max(64 // self.block, 1), 0] = 1
+                return lay
+        return LateKeys(**kw)
     if family == "fixed_unidirectional":
         return sa.FixedSparsityConfig(attention="unidirectional", **kw)
     return getattr(sa, family)(**kw)
@@ -487,6 +607,7 @@ BS_CASES = [
     ("cb4_perhead", "BigBirdSparsityConfig", 256, 4, True, True),
     ("cb2_ragged", "BigBirdSparsityConfig", 200, 2, False, True),
     ("cb1", "BSLongformerSparsityConfig", 128, 1, False, False),
+    ("late_keys_cb16", "late_keys", 320, 16, False, True),
     ("bigbird_cb128_s4096", "BigBirdSparsityConfig", 4096, 128, False, True),
 ]
 
@@ -535,8 +656,47 @@ def test_cuda_block_sparse_kernels_match_plain(cuda, dtype, d, case):
             block_sparse_bwd_dq.launches - before[1],
             block_sparse_bwd_dkv.launches - before[2]) == (1, 1, 1)
     if case[0] == "empty_tail":  # no key for the last 64 rows; keys unread
-        assert (out[:, -64:] == 0).all() and (dq[:, -64:] == 0).all()
+        assert (out[:, -64:] == 0).all() and (lse[..., -64:] == 1e30).all()
+        assert (dq[:, -64:] == 0).all()
         assert (dk[:, -64:] == 0).all() and (dv[:, -64:] == 0).all()
+
+
+#: the random-``out`` regime's layouts: cells smaller than a tile (every
+#: walked tile masked) and cells of a tile (wholly live tiles, no mask)
+BS_REGIME = {"bigbird_cb16_perhead": ("BigBirdSparsityConfig", 16, True),
+             "fixed_cb64": ("FixedSparsityConfig", 64, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("seed", REGIME_SEEDS)
+@pytest.mark.parametrize("layout", sorted(BS_REGIME))
+def test_cuda_block_sparse_bwd_random_out_regime(cuda, dtype, d, seed,
+                                                 layout):
+    """The block-sparse dq and dk/dv passes on the random-``out`` regime of
+    the flash test above (dead rows give dq 0), causal."""
+    from deepspeed_tpu_torch.ops.kernels import (block_sparse_bwd_dkv,
+                                                 block_sparse_bwd_dq,
+                                                 block_sparse_bwd_plain)
+    from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import (
+        _norm_layout, tile_plan, token_mask)
+    family, cb, per_head = BS_REGIME[layout]
+    S, h = REGIME_S, REGIME_H
+    lay = _norm_layout(_bs_config(family, h, cb, per_head).make_layout(S), h)
+    plan = tile_plan(lay, cb, S, True)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    q, k, v, do, out, lse, dead = _regime_case(d, dtype, seed, cuda)
+    dq = block_sparse_bwd_dq(q, k, v, out, lse, do, plan)
+    dk, dv = block_sparse_bwd_dkv(q, k, v, out, lse, do, plan)
+    torch.cuda.synchronize()
+    assert (dq[:, dead] == 0).all()
+    want = block_sparse_bwd_plain(q, k, v, out, lse, do, lay, cb, True)
+    mask = token_mask(lay, cb, True, S, device=cuda)[None]
+    _hold_regime(f"block-sparse {layout} {dtype} d {d} seed {seed}",
+                 (dq, dk, dv), want,
+                 _bwd_ds_rounded(q, k, v, out, lse, do, mask), tol)
 
 
 @pytest.mark.cuda
