@@ -151,6 +151,7 @@ V; the engines never pass it (an idle slot attends one key on scratch page
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import re
@@ -1779,15 +1780,16 @@ WIDE_LAYERS, WIDE_STEPS, WIDE_BATCH = 4, 5, 1
 PEAK_BF16 = PEAK_FLOPS[torch.bfloat16]
 
 
-def ds_config(model, micro_batch: int, fused_adam: bool = False) -> dict:
-    """bench.build_engine's ds_config: AdamW lr 1e-4, ZeRO 0, the model's
-    dtype; the groups the port accepts without effect stay in.
-    ``fused_adam`` turns on the two-kernel Adam step."""
+def ds_config(model, micro_batch: int, fused_adam: bool = False,
+              stage: int = 0) -> dict:
+    """bench.build_engine's ds_config: AdamW lr 1e-4, ZeRO ``stage`` (0 by
+    default), the model's dtype; the groups the port accepts without effect
+    stay in.  ``fused_adam`` turns on the two-kernel Adam step."""
     return {"train_micro_batch_size_per_gpu": micro_batch,
             "kernels": {"fused_adam": fused_adam},
             "gradient_accumulation_steps": 1,
             "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
-            "zero_optimization": {"stage": 0},
+            "zero_optimization": {"stage": stage},
             "bf16": {"enabled": model.config.dtype == torch.bfloat16},
             "steps_per_print": 0,
             "telemetry": {"enabled": True, "jsonl": False,
@@ -1967,6 +1969,218 @@ def train_agree(dev, seed: int) -> dict:
                 fused_adam=fused, launches=launches), moe=moe)
         out[name] = row
     return out
+
+
+# -- the data-parallel slice --------------------------------------------------
+
+ZERO_RANKS, ZERO_STEPS, ZERO_TIMEOUT = 2, 4, 900
+#: train_zero's runs: (label, ZeRO stage, fused Adam)
+ZERO_RUNS = (("stage0", 0, False), ("stage1", 1, False),
+             ("stage2", 2, False), ("stage3", 3, False),
+             ("stage3_fused_adam", 3, True))
+#: each stage's losses against stage 0's: the gradient sums and updates are
+#: the same operations (two ranks: every sum has two terms), so they are
+#: expected bit-equal
+ZERO_STAGE_RTOL = 1e-6
+ZERO_AGREE_LAYERS, ZERO_AGREE_STEPS, ZERO_AGREE_ROWS = 4, 3, 4
+ZERO_NOTE = ("2 ranks on card 0 over gloo, every collective through pinned "
+             "host memory: a correctness and memory check, the step time "
+             "on the host clock is not a DP speed")
+
+
+def zero_state_bytes(engine) -> dict:
+    """This rank's persistent fp32 training state: masters (whole, or this
+    rank's chunk of a cut leaf at stage 3), Adam's m and v, and the
+    gradients a step holds (whole at stages 0-1, this rank's chunk of a cut
+    leaf at stages 2-3)."""
+    opt = engine.optimizer
+    masters = sum(p.numel() for p in engine.params)
+    moments = sum(t.numel() for t in opt.m + opt.v)
+    grads = sum(p.numel() if pl is None or engine.zero_stage < 2
+                else int(np.prod(pl.chunk_shape))
+                for p, pl in zip(engine.params, engine.placements))
+    if engine.zero_stage < 3:  # stages 0-2 hold whole masters
+        masters = sum(int(np.prod(pl.full_shape)) if pl is not None
+                      else p.numel()
+                      for p, pl in zip(engine.params, engine.placements))
+    return {"masters": 4 * masters, "moments": 4 * moments,
+            "grads": 4 * grads, "total": 4 * (masters + moments + grads)}
+
+
+def zero_rank_setup():
+    """In a rank: card 0, the gloo group through the host (NCCL refuses
+    two ranks on one card)."""
+    from deepspeed_tpu_torch import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_distributed(dist_backend="gloo", device=dev)
+    return dev
+
+
+def zero_batch(seed: int, vocab: int, rows: int, dev) -> torch.Tensor:
+    """The global batch, the same on every rank."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, vocab, (rows, TRAIN_SEQ), generator=gen,
+                         device=dev)
+
+
+def zero_train_rank(rank: int, seed: int) -> dict:
+    """One rank of train_zero: bench.py's headline on this rank's half of
+    a ``[TRAIN_BATCH, 2048]`` global batch, ``ZERO_STEPS`` steps of every
+    ``ZERO_RUNS`` entry (a fresh model from this rank's seed each: the
+    engine broadcasts rank 0's), with the kernels' launches, the state
+    bytes and the peak memory of each."""
+    from deepspeed_tpu_torch import LlamaConfig, LlamaModel, initialize
+
+    dev = zero_rank_setup()
+    cfg = LlamaConfig(**HEADLINE, dtype=torch.bfloat16,
+                      param_dtype=torch.float32, attn_impl="flash")
+    micro = TRAIN_BATCH // ZERO_RANKS
+    ids = zero_batch(seed, cfg.vocab_size, TRAIN_BATCH, dev)
+    rows = ids[rank * micro:(rank + 1) * micro]
+    out = {}
+    for label, stage, fused in ZERO_RUNS:
+        gc.collect()  # the previous run's model and engine
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = LlamaModel(cfg, device=dev, seed=seed + rank)
+        engine, *_ = initialize(model=model, config=ds_config(
+            model, micro, fused, stage), device=dev)
+        reset_counts()
+        metrics, marks = [], []
+        for _ in range(ZERO_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append(engine.train_step({"input_ids": rows}))
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter() - t0) * 1e3)
+        out[label] = {
+            "stage": stage, "fused_adam": fused,
+            "loss": [float(m["loss"]) for m in metrics],
+            "grad_norm": [float(m["grad_norm"]) for m in metrics],
+            "launches": train_launches(),
+            "state_bytes": zero_state_bytes(engine),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "host_step_ms": marks,
+            "cut_leaves": sum(p is not None for p in engine.placements),
+            "leaves": len(engine.params)}
+        del model, engine, metrics
+    return out
+
+
+def phase_train_zero(seed: int) -> dict:
+    """train_zero: ``ZERO_RANKS`` ranks on card 0 over gloo, each running
+    the headline at micro-batch 4 (global ``[8, 2048]``) at ZeRO stages
+    0-3 and stage 3 with ``kernels.fused_adam``: finite, falling losses,
+    equal on both ranks; each run's losses equal stage 0's (within
+    ``ZERO_STAGE_RTOL``); per rank and step 24 flash forwards, 12 dq and 12
+    dk/dv passes, and under fused Adam the norm and Adam kernels once."""
+    from deepspeed_tpu_torch.launcher import launch
+    from deepspeed_tpu_torch.ops import op_builder
+
+    op_builder.build()  # here, so the ranks do not both run nvcc
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(zero_train_rank, ZERO_RANKS, (seed,),
+                   timeout=ZERO_TIMEOUT)
+    wall = time.perf_counter() - t0
+    base = ranks[0]["stage0"]["loss"]
+    rel = {}
+    for label, stage, fused in ZERO_RUNS:
+        for r, res in enumerate(ranks):
+            row = res[label]
+            losses = row["loss"]
+            require(all(np.isfinite(losses)),
+                    f"train_zero {label} rank {r}: non-finite loss {losses}")
+            require(losses[-1] < losses[0], f"train_zero {label} rank {r}: "
+                                            f"loss did not fall: {losses}")
+            require(losses == ranks[0][label]["loss"],
+                    f"train_zero {label}: rank {r}'s losses {losses} != "
+                    f"rank 0's {ranks[0][label]['loss']}")
+            require_train_launches(f"train_zero {label} rank {r}", dict(
+                layers=HEADLINE["num_layers"], steps=ZERO_STEPS, remat=True,
+                fused_adam=fused, launches=row["launches"]))
+        rel[label] = _max_rel(ranks[0][label]["loss"], base)
+        require(rel[label] <= ZERO_STAGE_RTOL,
+                f"train_zero {label}: losses {ranks[0][label]['loss']} != "
+                f"stage 0's {base} (rel {rel[label]})")
+    peaks = [ranks[0][label]["peak_mem_bytes"] for label, _, _ in ZERO_RUNS]
+    require(peaks[3] < peaks[0], f"train_zero: rank 0's peak at stage 3 "
+                                 f"({peaks[3]} B) is not below stage 0's "
+                                 f"({peaks[0]} B)")
+    return {"ranks": ranks, "loss_rel_to_stage0": rel,
+            "peak_mem_bytes_rank0": peaks, "launch_wall_s": wall}
+
+
+def zero_agree_rank(rank: int, seed: int) -> dict:
+    """One rank of train_zero_agree: the fp32 4-layer headline-width model
+    on this rank's rows, at stages 0 and 3."""
+    from deepspeed_tpu_torch import initialize
+
+    dev = zero_rank_setup()
+    cfg, ids = zero_agree_inputs(seed, dev)
+    n = ZERO_AGREE_ROWS // ZERO_RANKS
+    out = {}
+    for stage in (0, 3):
+        model = zero_agree_model(cfg, seed + rank, dev)
+        engine, *_ = initialize(model=model, config=ds_config(
+            model, n, stage=stage), device=dev)
+        ms = [engine.train_step({"input_ids": ids[rank * n:(rank + 1) * n]})
+              for _ in range(ZERO_AGREE_STEPS)]
+        out[stage] = {"loss": [float(m["loss"]) for m in ms],
+                      "grad_norm": [float(m["grad_norm"]) for m in ms]}
+        del model, engine
+    return out
+
+
+def zero_agree_inputs(seed: int, dev) -> tuple:
+    from deepspeed_tpu_torch import LlamaConfig
+
+    cfg = LlamaConfig(**dict(HEADLINE, num_layers=ZERO_AGREE_LAYERS),
+                      dtype=torch.float32, param_dtype=torch.float32,
+                      attn_impl="flash")
+    return cfg, zero_batch(seed + 5, cfg.vocab_size, ZERO_AGREE_ROWS, dev)
+
+
+def zero_agree_model(cfg, seed: int, dev):
+    from deepspeed_tpu_torch import LlamaModel
+    return LlamaModel(cfg, device=dev, seed=seed)
+
+
+def phase_train_zero_agree(dev, seed: int) -> dict:
+    """train_zero_agree: two ranks on card 0 over gloo at stages 0 and 3
+    give the one-process run's loss and grad-norm sequences on the same
+    global batch, to 1e-4 (fp32, headline width, 4 layers)."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.launcher import launch
+
+    cfg, ids = zero_agree_inputs(seed, dev)
+    model = zero_agree_model(cfg, seed, dev)
+    engine, *_ = initialize(model=model, config=ds_config(
+        model, ZERO_AGREE_ROWS), device=dev)
+    ms = [engine.train_step({"input_ids": ids})
+          for _ in range(ZERO_AGREE_STEPS)]
+    want = {"loss": [float(m["loss"]) for m in ms],
+            "grad_norm": [float(m["grad_norm"]) for m in ms]}
+    del model, engine, ms
+    torch.cuda.empty_cache()
+    ranks = launch(zero_agree_rank, ZERO_RANKS, (seed,),
+                   timeout=ZERO_TIMEOUT)
+    rel = {}
+    for r, res in enumerate(ranks):
+        for stage, got in res.items():
+            for what in ("loss", "grad_norm"):
+                rel[f"rank{r}_stage{stage}_{what}"] = e = _max_rel(
+                    got[what], want[what])
+                require(e <= 1e-4, f"train_zero_agree rank {r} stage "
+                                   f"{stage}: {what} {got[what]} != one "
+                                   f"process's {want[what]} (rel {e})")
+    return {"one_process": want, "ranks": ranks, "max_rel": rel,
+            "layers": ZERO_AGREE_LAYERS, "rows": ZERO_AGREE_ROWS,
+            "steps": ZERO_AGREE_STEPS}
 
 
 # -- the tensor-parallel slice ------------------------------------------------
@@ -2421,7 +2635,7 @@ def main() -> int:
                          "agree, serve_moe, agree_moe, train, "
                          "train_8b_width, train_moe, train_agree, sparse, "
                          "serve_tp, generate_tp (one launch runs both), "
-                         "agree_tp)")
+                         "agree_tp, train_zero, train_zero_agree)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU path "
@@ -2483,6 +2697,20 @@ def main() -> int:
                       launch_wall_s=out["launch_wall_s"],
                       **{f"rank{r}": without_tokens(x[key])
                          for r, x in enumerate(ranks)}))
+
+    def train_zero():
+        out = phase_train_zero(args.seed)
+        for label, stage, fused in ZERO_RUNS:  # one line per run
+            emit(dict(phase="train_zero", run=label, stage=stage,
+                      fused_adam=fused, model="bench.py headline",
+                      ranks=ZERO_RANKS, global_batch=[TRAIN_BATCH, TRAIN_SEQ],
+                      reduced=["cards 2 -> 1, NCCL -> gloo through the host"],
+                      comm=ZERO_NOTE,
+                      loss_rel_to_stage0=out["loss_rel_to_stage0"][label],
+                      **{f"rank{r}": x[label]
+                         for r, x in enumerate(out["ranks"])}))
+        emit(dict(phase="train_zero", launch_wall_s=out["launch_wall_s"],
+                  peak_mem_bytes_rank0=out["peak_mem_bytes_rank0"]))
 
     def sparse():
         rows, res["sparse"] = phase_sparse(dev)
@@ -2558,7 +2786,13 @@ def main() -> int:
                                          **train_agree(dev, args.seed))),
         "sparse": sparse, "serve_tp": serving_tp, "generate_tp": serving_tp,
         "agree_tp": lambda: emit(dict(phase="agree_tp",
-                                      **phase_agree_tp(dev, args.seed)))}
+                                      **phase_agree_tp(dev, args.seed))),
+        "train_zero": train_zero,
+        "train_zero_agree": lambda: emit(dict(
+            phase="train_zero_agree", model="bench.py headline width",
+            reduced=[f"num_layers 12 -> {ZERO_AGREE_LAYERS}",
+                     "cards 2 -> 1, NCCL -> gloo through the host"],
+            comm=ZERO_NOTE, **phase_train_zero_agree(dev, args.seed)))}
     only = [p for p in args.only.split(",") if p]
     unknown = set(only) - set(phases)
     if unknown:

@@ -15,12 +15,15 @@ down to three hand-written CUDA kernels over the live tiles; and
 tensor-parallel serving of the Llama family over ``torch.distributed``,
 one process per rank (:func:`init_distributed`, :mod:`.comm`,
 ``utils.groups``, ``launcher.local``), with the paged kernel on each
-rank's heads; and the int8 quantizer kernel.  Every
+rank's heads; and the int8 quantizer kernel; and data parallelism with
+ZeRO stages 0-3 over ``torch.distributed`` (:mod:`.zero`: ``Init``,
+``GatheredParameters``), one process per rank.  Every
 entry point runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run.
 """
 
 from . import comm
+from .runtime import zero
 from .comm import init_distributed
 from .inference import init_inference
 from .inference.v2 import KVCacheConfig, build_engine_v2
@@ -33,4 +36,4 @@ __all__ = ["DeepSpeedConfig", "DeepSpeedEngine", "KVCacheConfig",
            "LlamaConfig", "LlamaModel", "MixtralConfig", "MixtralModel",
            "MoE", "ServingParams", "build_engine_v2",
            "build_serving_frontend", "comm", "init_distributed",
-           "init_inference", "initialize"]
+           "init_inference", "initialize", "zero"]

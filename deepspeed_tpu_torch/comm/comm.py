@@ -4,8 +4,8 @@ Counterpart of ``deepspeed_tpu/comm/comm.py`` (the reference's
 ``deepspeed/comm/comm.py``): ``init_distributed`` with the launcher's
 environment (``MASTER_ADDR`` / ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
 ``LOCAL_RANK``), the rank queries, ``ReduceOp`` and the eager verbs
-``all_reduce``, ``all_gather``, ``broadcast``, ``barrier`` and
-``new_group``.  The JAX package's verbs run XLA collectives over a mesh of
+``all_reduce``, ``all_gather``, ``reduce_scatter``, ``all_to_all_single``,
+``broadcast``, ``barrier`` and ``new_group``.  The JAX package's verbs run XLA collectives over a mesh of
 one controller; here every rank is a process and a verb is a
 ``torch.distributed`` collective over a process group.  A ``group`` is a
 ``torch.distributed`` group, ``None`` for the whole world, or the name of
@@ -188,6 +188,48 @@ def all_gather(tensor: torch.Tensor, group: GroupLike = None,
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(tensor.device)
+
+
+def reduce_scatter(tensor: torch.Tensor, op: str = ReduceOp.SUM,
+                   group: GroupLike = None, dim: int = 0) -> torch.Tensor:
+    """Reduce ``tensor`` (the same shape on every rank) over the group and
+    return this rank's block of the result: the ``rank``-th of ``n`` equal
+    contiguous blocks along ``dim`` (JAX ``reduce_scatter``); a new
+    contiguous tensor on ``tensor``'s device.  ``dim`` other than 0 is
+    moved to the front around the collective."""
+    group = _resolve(group)
+    n = dist.get_world_size(group)
+    if tensor.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of "
+                         f"{tuple(tensor.shape)} does not split over {n} "
+                         "ranks")
+    if op == ReduceOp.AVG:
+        return reduce_scatter(tensor, ReduceOp.SUM, group, dim).div_(n)
+    src = tensor.movedim(dim, 0).contiguous()
+    if _through_host(src, group):
+        src = _pinned_copy(src)
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, _TORCH_OPS[op], group=group)
+    return out.movedim(0, dim).to(tensor.device).contiguous()
+
+
+def all_to_all_single(tensor: torch.Tensor,
+                      group: GroupLike = None) -> torch.Tensor:
+    """Split ``tensor`` into ``n`` equal blocks along dim 0, send block
+    ``j`` to group rank ``j``, and return the blocks received, in group-rank
+    order (JAX ``all_to_all_single``; even splits only)."""
+    group = _resolve(group)
+    n = dist.get_world_size(group)
+    if tensor.shape[0] % n:
+        raise ValueError(f"all_to_all_single: dim 0 of "
+                         f"{tuple(tensor.shape)} does not split over {n} "
+                         "ranks")
+    src = tensor.contiguous()
+    if _through_host(src, group):
+        src = _pinned_copy(src)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(tensor.device)
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0,

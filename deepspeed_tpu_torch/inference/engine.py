@@ -21,6 +21,7 @@ import torch
 
 from ..parallel.mesh import AXIS_TENSOR, MeshLayout
 from ..utils import groups
+from ..runtime.zero.sharder import refuse_cut
 from ..utils.device import DeviceLike, check_module_device, resolve_device
 from ..utils.logging import log_dist
 
@@ -43,6 +44,7 @@ class InferenceEngine:
                  device: DeviceLike = "cuda", mesh: Any = None):
         self.device = resolve_device(device)
         check_module_device(model, self.device)
+        refuse_cut(model, "init_inference")
         tp = int(config.tensor_parallel.get("tp_size", 1))
         if tp > 1 and model.tp == 1:
             if mesh is None:

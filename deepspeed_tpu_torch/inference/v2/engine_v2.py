@@ -42,6 +42,7 @@ import torch
 from ...ops.kernels.paged_attention import (paged_decode_attention,
                                             paged_decode_attention_tp)
 from ...ops.masks import local_attention_mask
+from ...runtime.zero.sharder import refuse_cut
 from ...utils.device import DeviceLike, check_module_device, resolve_device
 from ...utils.logging import log_dist
 from .adapters import ModelAdapterV2, make_adapter
@@ -68,6 +69,7 @@ class RaggedInferenceEngineV2:
                  device: DeviceLike = "cuda", mesh: Any = None):
         self.device = resolve_device(device)
         check_module_device(model, self.device)
+        refuse_cut(model, "build_engine_v2")
         self.model = model
         #: the process mesh the model is split over (default: the model's)
         self.mesh = mesh if mesh is not None else model.mesh

@@ -36,6 +36,14 @@ the tensor group in the compute dtype (Megatron's *g*, the JAX model's
 ``_tp_reduce``), and the logits' vocabulary blocks are all-gathered.
 Training under tensor parallelism, pipeline and sequence parallelism and
 ``loss_tiles`` are not ported yet.
+
+Data parallelism (``runtime/engine.py``): every read of a weight goes
+through ``runtime/zero/sharder.compute_weight``, a cast to the compute
+dtype; under ZeRO-3 it also gathers the weight's chunks from the
+data-parallel ranks (and reduce-scatters its gradient), again in the
+recompute under remat.  A model built inside ``zero.Init`` is born cut:
+:meth:`LlamaModel.init_params` draws one weight at a time through
+``runtime/zero/init_ctx.materialize``.
 """
 
 from __future__ import annotations
@@ -56,6 +64,9 @@ from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.masks import local_attention_mask
 from ..parallel.mesh import AXIS_TENSOR, ProcessMesh
+from ..runtime.zero.init_ctx import active as zero_init_active
+from ..runtime.zero.init_ctx import materialize
+from ..runtime.zero.sharder import compute_weight
 from ..utils.device import DeviceLike, resolve_device
 
 #: a layer's router aux loss: a 0-dim fp32 tensor, or 0.0 without a router
@@ -153,7 +164,7 @@ def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * compute_weight(w, dt)
 
 
 def masked_cross_entropy(logits: torch.Tensor,
@@ -211,7 +222,8 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 #: ``normal_(weight, fan_in, tp_dim=None)``: draw ``N(0, 1/fan_in)`` into
-#: ``weight``, this rank's slice along ``tp_dim`` of the whole weight
+#: ``weight``, this rank's slice along ``tp_dim`` of the whole weight;
+#: ``ones_(weight)`` sets it to one
 Init = Callable[..., None]
 
 #: a layer's ``nn.Linear`` → the dim of its ``[out, in]`` weight that tensor
@@ -273,13 +285,13 @@ class LlamaDecoderLayer(nn.Module):
         self.up_proj = nn.Linear(H, I, **kw)
         self.down_proj = nn.Linear(I, H, **kw)
 
-    def reset_parameters(self, normal_: Init) -> None:
+    def reset_parameters(self, normal_: Init, ones_: Init) -> None:
         """Every matrix from ``normal_`` (attention first, then the FFN, one
         tensor at a time), the norms at one."""
         self._normal_linears(normal_, "q_proj", "k_proj", "v_proj", "o_proj")
         self._reset_ffn(normal_)
-        self.attn_norm.fill_(1.0)
-        self.mlp_norm.fill_(1.0)
+        ones_(self.attn_norm)
+        ones_(self.mlp_norm)
 
     def _reset_ffn(self, normal_: Init) -> None:
         self._normal_linears(normal_, "gate_proj", "up_proj", "down_proj")
@@ -293,8 +305,9 @@ class LlamaDecoderLayer(nn.Module):
                                                    else 1), dim)
 
     def proj(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        """``x @ W.T`` with the weight cast to the compute dtype at use."""
-        return F.linear(x, lin.weight.to(self.compute_dtype))
+        """``x @ W.T`` with the weight cast to the compute dtype at use
+        (gathered under ZeRO-3)."""
+        return F.linear(x, compute_weight(lin.weight, self.compute_dtype))
 
     def ffn(self, h: torch.Tensor) -> torch.Tensor:
         """Dense SwiGLU."""
@@ -308,7 +321,8 @@ class LlamaModel(nn.Module):
     and raises without a CUDA device; weights are drawn from a
     ``torch.Generator`` seeded with ``seed`` (see :meth:`init_params`).
     ``mesh`` (a process mesh of ``utils.groups``) makes the model this
-    rank's tensor-parallel shard."""
+    rank's tensor-parallel shard.  Built inside ``zero.Init``, the model
+    holds this rank's ZeRO-3 chunks."""
 
     layer_cls = LlamaDecoderLayer
     #: whether the model's tensor-parallel split is ported
@@ -333,8 +347,9 @@ class LlamaModel(nn.Module):
                         nn.Linear(c.hidden_size, c.vocab_size // self.tp,
                                   bias=False, device="meta",
                                   dtype=c.storage_dtype))
-        self.to_empty(device=dev)
-        self.init_params(seed)
+        if zero_init_active() is None:
+            self.to_empty(device=dev)
+        self.init_params(seed, dev)
 
     def _set_mesh(self, mesh: Optional[ProcessMesh]) -> None:
         """Take ``mesh``'s tensor axis: this rank's split sizes and place."""
@@ -388,12 +403,16 @@ class LlamaModel(nn.Module):
         return self.final_norm.device
 
     @torch.no_grad()
-    def init_params(self, seed: int = 0) -> None:
+    def init_params(self, seed: int = 0,
+                    device: Optional[torch.device] = None) -> None:
         """Norms at one; every matrix ``N(0, 1/fan_in)``, drawn in fp32 from a
-        seeded generator on the model's device and stored in
+        seeded generator on ``device`` (the model's) and stored in
         ``config.storage_dtype`` (the JAX model's init distribution; its
-        numbers differ, since the two generators differ)."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        numbers differ, since the two generators differ).  Parameters still
+        on the meta device (a model built inside ``zero.Init``) are
+        materialised one at a time."""
+        dev = device if device is not None else self.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
 
         def normal_(w: torch.Tensor, fan_in: int,
                     tp_dim: Optional[int] = None) -> None:
@@ -402,18 +421,21 @@ class LlamaModel(nn.Module):
             shape = list(w.shape)
             if tp_dim is not None:
                 shape[tp_dim] *= self.tp
-            full = torch.randn(shape, generator=gen, device=w.device,
+            full = torch.randn(shape, generator=gen, device=dev,
                                dtype=torch.float32).div_(math.sqrt(fan_in))
             if tp_dim is not None:
                 n = w.shape[tp_dim]
                 full = full.narrow(tp_dim, self.tp_rank * n, n)
-            w.copy_(full)
+            materialize(w, dev, lambda t: t.copy_(full))
+
+        def ones_(w: torch.Tensor) -> None:
+            materialize(w, dev, lambda t: t.fill_(1.0))
 
         c = self.config
         normal_(self.embed.weight, c.hidden_size)
         for layer in self.layers:
-            layer.reset_parameters(normal_)
-        self.final_norm.fill_(1.0)
+            layer.reset_parameters(normal_, ones_)
+        ones_(self.final_norm)
         if self.lm_head is not None:
             normal_(self.lm_head.weight, c.hidden_size, 0)
 
@@ -427,12 +449,14 @@ class LlamaModel(nn.Module):
     def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
         """``ids [...]`` → ``[..., H]`` in the compute dtype."""
         return F.embedding(ids.long(),
-                           self.embed.weight.to(self.config.dtype))
+                           compute_weight(self.embed.weight,
+                                          self.config.dtype))
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """LM head in the model dtype, returned as fp32 ``[..., V]`` (under
         tensor parallelism the ranks' vocabulary blocks, all-gathered)."""
-        out = F.linear(x, self.head_weight().to(self.config.dtype)).float()
+        out = F.linear(x, compute_weight(self.head_weight(),
+                                         self.config.dtype)).float()
         if self.lm_head is None or self.tp == 1:
             return out
         return comm.all_gather(out, group=self.mesh.group(AXIS_TENSOR),
@@ -588,7 +612,8 @@ class LlamaModel(nn.Module):
         matmuls' outputs."""
         if self.tp > 1:
             raise NotImplementedError("training under tensor parallelism is "
-                                      "not ported yet")
+                                      "not ported yet (ROADMAP Queue 1 item "
+                                      "5)")
         c = self.config
         pos = torch.arange(input_ids.shape[1], device=self.device)
         x = self.embed_tokens(input_ids)

@@ -106,6 +106,10 @@ class MixtralModel(LlamaModel):
     #: the experts' tensor-parallel split (JAX ``models/mixtral.py``
     #: ``param_specs``) is not ported: a mesh with ``tensor > 1`` raises
     tp_ported = False
+    #: every rank routes only its own tokens, so capacity and the aux loss
+    #: would not be the global micro-batch's (JAX computes both over it):
+    #: ``initialize`` refuses a data axis above 1 until expert parallelism
+    data_parallel_ported = False
 
     def __init__(self, config: MixtralConfig, device: DeviceLike = "cuda",
                  seed: int = 0, mesh: Optional[ProcessMesh] = None):

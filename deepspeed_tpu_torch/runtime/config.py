@@ -1,23 +1,27 @@
 """The ds_config subset the training path reads.
 
 Counterpart of ``deepspeed_tpu/runtime/config.py`` for the keys
-``deepspeed_tpu_torch.initialize`` honours on one device:
+``deepspeed_tpu_torch.initialize`` honours:
 
 * ``train_batch_size``, ``train_micro_batch_size_per_gpu``,
   ``gradient_accumulation_steps`` (resolved as ``resolve_batch_sizes``
-  does), ``steps_per_print``, ``gradient_clipping``, ``seed``;
+  does, over the data-parallel world), ``steps_per_print``,
+  ``gradient_clipping``, ``seed``;
 * ``optimizer.{type, params}``, ``scheduler.{type, params}``;
 * ``bf16.enabled``, ``fp16.{enabled, loss_scale, initial_scale_power,
   loss_scale_window, hysteresis, min_loss_scale, consecutive_hysteresis}``;
-* ``zero_optimization.stage`` (0 only), ``kernels.{flash_attention,
-  flash_block_q, flash_block_k, fused_adam}`` (``fused_adam``: the engine's
-  two-kernel Adam step, for the Adam family).
+* ``zero_optimization`` (:class:`ZeroConfig`: stages 0-3 over the
+  data-parallel ranks), ``kernels.{flash_attention, flash_block_q,
+  flash_block_k, fused_adam}`` (``fused_adam``: the engine's two-kernel
+  Adam step, for the Adam family).
 
 What the port cannot do yet raises ``NotImplementedError`` ("not ported
-yet"): ZeRO stage above 0, optimizer or parameter offload, a parallel
-dimension above 1.  The groups of
-:data:`ACCEPTED_WITHOUT_EFFECT` (telemetry, tuning, comms_logger, ...) are
-accepted and have no effect; ``ROADMAP.md`` lists them.
+yet", naming its ``ROADMAP.md`` Queue 1 item): optimizer or parameter
+offload, MiCS, ZeRO++ (quantized weights or gradients, hpZ) and
+``kernels.overlap_collectives``, a tensor, sequence, pipeline or expert
+dimension above 1.  The groups of :data:`ACCEPTED_WITHOUT_EFFECT`
+(telemetry, tuning, comms_logger, ...) are accepted and have no effect;
+``ROADMAP.md`` lists them.
 """
 
 from __future__ import annotations
@@ -43,10 +47,11 @@ ACCEPTED_WITHOUT_EFFECT = (
     "telemetry", "tensorboard", "tuning", "wall_clock_breakdown", "wandb",
     "zero_allow_untested_optimizer", "zero_force_ds_cpu_optimizer")
 
-#: (group, key) whose value above 1 asks for a mesh of more than one device
-_PARALLEL_DIMS = (("tensor_parallel", "autotp_size"),
-                  ("sequence_parallel", "sp_size"), ("pipeline", "stages"),
-                  ("moe", "expert_parallel_size"))
+#: (group, key, ROADMAP Queue 1 item) of the parallel dimensions other than
+#: data whose training is not ported: a value above 1 raises
+_PARALLEL_DIMS = (("tensor_parallel", "autotp_size", 5),
+                  ("sequence_parallel", "sp_size", 7), ("pipeline", "stages", 8),
+                  ("moe", "expert_parallel_size", 5))
 
 
 @dataclasses.dataclass
@@ -82,12 +87,66 @@ class SchedulerConfig:
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
+#: the persistence threshold an unresolved ``"auto"`` counts as (JAX
+#: ``ZeroShardingPolicy.from_config``)
+AUTO_PERSISTENCE_THRESHOLD = 100_000
+
+
 @dataclasses.dataclass
 class ZeroConfig:
+    """``zero_optimization`` (JAX ``DeepSpeedZeroConfig``).
+
+    ``stage`` (0-3) and ``stage3_param_persistence_threshold`` (a leaf of
+    at most this many elements stays replicated) decide the placement of
+    every leaf (``runtime/zero/sharder.py``); ``reduce_bucket_size`` is the
+    elements of one flat collective (the gradients' all-reduce, the
+    masters' all-gather).  The other scheduling knobs
+    (``allgather_bucket_size``, ``overlap_comm``, ``contiguous_gradients``,
+    ``stage3_prefetch_bucket_size``, ``stage3_max_live_parameters``,
+    ``stage3_gather_16bit_weights_on_model_save``) are recorded and
+    advisory, as in the JAX package: the engine gathers one weight at a
+    time where it is read and reduce-scatters it where its gradient
+    forms."""
+
     stage: int = 0
+    reduce_bucket_size: Union[int, str] = 500_000_000
+    allgather_bucket_size: Union[int, str] = 500_000_000
+    overlap_comm: Optional[bool] = None
+    contiguous_gradients: bool = True
+    stage3_param_persistence_threshold: Union[int, str] = 100_000
+    stage3_prefetch_bucket_size: Union[int, str] = 50_000_000
+    stage3_max_live_parameters: int = 1_000_000_000
+    stage3_gather_16bit_weights_on_model_save: bool = False
     offload_optimizer: Optional[Dict[str, Any]] = None
     offload_param: Optional[Dict[str, Any]] = None
+    cpu_offload: Optional[bool] = None
+    mics_shard_size: int = -1
+    zero_quantized_weights: bool = False
+    zero_quantized_nontrainable_weights: bool = False
+    zero_quantized_gradients: bool = False
+    zero_hpz_partition_size: int = 1
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def resolve_auto_from_hidden_size(self, hidden_size: int) -> None:
+        """The reference's ``"auto"`` heuristics: reduce bucket hidden²,
+        prefetch 0.9 hidden², persistence threshold 10 hidden."""
+        if is_auto(self.reduce_bucket_size):
+            self.reduce_bucket_size = hidden_size * hidden_size
+        if is_auto(self.stage3_prefetch_bucket_size):
+            self.stage3_prefetch_bucket_size = int(0.9 * hidden_size
+                                                   * hidden_size)
+        if is_auto(self.stage3_param_persistence_threshold):
+            self.stage3_param_persistence_threshold = 10 * hidden_size
+
+    @property
+    def persistence_threshold(self) -> int:
+        t = self.stage3_param_persistence_threshold
+        return AUTO_PERSISTENCE_THRESHOLD if is_auto(t) else int(t)
+
+    @property
+    def reduce_bucket_elements(self) -> int:
+        b = self.reduce_bucket_size
+        return 500_000_000 if is_auto(b) else max(int(b), 1)
 
 
 @dataclasses.dataclass
@@ -98,6 +157,8 @@ class KernelsConfig:
     flash_block_k: int = 0
     #: the fused step: one gradient-norm kernel and one Adam kernel
     fused_adam: bool = False
+    #: the JAX engine's chunked ring collectives under ZeRO-3 (refused)
+    overlap_collectives: bool = False
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
@@ -134,12 +195,13 @@ class DeepSpeedConfig:
         """Parse a ds_config dict; raises "not ported yet" for what the port
         cannot do."""
         data = dict(data)
-        for group, key in _PARALLEL_DIMS:
+        for group, key, item in _PARALLEL_DIMS:
             size = (data.get(group) or {}).get(key) or 1
             if not is_auto(size) and int(size) > 1:
                 raise NotImplementedError(
-                    f"{group}.{key}={size}: a mesh of more than one device is "
-                    "not ported yet")
+                    f"{group}.{key}={size}: training over a {group} "
+                    f"dimension is not ported yet (ROADMAP Queue 1 item "
+                    f"{item})")
         accepted = tuple(k for k in ACCEPTED_WITHOUT_EFFECT if k in data)
         groups = {name: (group_from_dict(g, data.pop(name), name)
                          if data.get(name) is not None else data.pop(name))
@@ -148,7 +210,7 @@ class DeepSpeedConfig:
         known = {k: v for k, v in data.items() if k in names}
         rest = {k: v for k, v in data.items()
                 if k not in names and k not in ACCEPTED_WITHOUT_EFFECT
-                and k not in {g for g, _ in _PARALLEL_DIMS}}
+                and k not in {g for g, _, _ in _PARALLEL_DIMS}}
         cfg = cls(**known, **groups, accepted_without_effect=accepted,
                   extra=rest)
         cfg._refuse_unported()
@@ -167,21 +229,40 @@ class DeepSpeedConfig:
 
     def _refuse_unported(self) -> None:
         z = self.zero_optimization
-        if int(z.stage) > 0:
-            raise NotImplementedError(f"zero_optimization.stage={z.stage}: "
-                                      "ZeRO above stage 0 is not ported yet")
-        if _offloads(z.offload_optimizer) or _offloads(z.offload_param):
+        if int(z.stage) not in (0, 1, 2, 3):
+            raise ValueError(f"zero_optimization.stage={z.stage}: use 0-3")
+        if (_offloads(z.offload_optimizer) or _offloads(z.offload_param)
+                or z.cpu_offload):
             raise NotImplementedError("optimizer/parameter offload is not "
-                                      "ported yet")
-        if int(z.extra.get("mics_shard_size", -1) or -1) > 0:
-            raise NotImplementedError("MiCS sharding is not ported yet")
+                                      "ported yet (ROADMAP Queue 1 item 9)")
+        if int(z.mics_shard_size or -1) > 0:
+            raise NotImplementedError("MiCS sharding (mics_shard_size) is "
+                                      "not ported yet (ROADMAP Queue 1 item "
+                                      "10)")
+        zpp = [k for k in ("zero_quantized_weights",
+                           "zero_quantized_nontrainable_weights",
+                           "zero_quantized_gradients") if getattr(z, k)]
+        if int(z.zero_hpz_partition_size or 1) > 1:
+            zpp.append(f"zero_hpz_partition_size="
+                       f"{z.zero_hpz_partition_size}")
+        if self.kernels.overlap_collectives:
+            zpp.append("kernels.overlap_collectives")
+        if zpp:
+            raise NotImplementedError(
+                f"{', '.join(zpp)}: ZeRO++ and the overlapped collectives "
+                "are not ported yet (ROADMAP Queue 1 item 4)")
 
-    def resolve_batch_sizes(self, world_size: int = 1) -> None:
+    def resolve_batch_sizes(self, world_size: int = 1, tp: int = 1,
+                            pp: int = 1, sp: int = 1) -> None:
         """Infer the missing members of (train batch, micro batch, grad
-        accumulation) and check ``train = micro x gas x world``
-        (``resolve_batch_sizes`` of the JAX config, one data-parallel
-        rank per device)."""
-        dp = world_size
+        accumulation) and check ``train = micro x gas x dp`` with ``dp =
+        world_size / (tp x pp x sp)`` (``resolve_batch_sizes`` of the JAX
+        config)."""
+        denom = tp * pp * sp
+        if world_size % denom:
+            raise ValueError(f"world_size={world_size} not divisible by "
+                             f"tp*pp*sp={denom}")
+        dp = world_size // denom
         tb = None if is_auto(self.train_batch_size) else self.train_batch_size
         mb = (None if is_auto(self.train_micro_batch_size_per_gpu)
               else self.train_micro_batch_size_per_gpu)

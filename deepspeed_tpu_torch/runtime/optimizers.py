@@ -29,11 +29,18 @@ the same numbers.  A plain step in ``addcmul`` / ``addcdiv`` form (fewer
 passes, contracted roundings) drifts from the fused one: five fp32 steps
 of ``chip_smoke.py``'s narrow Mixtral on an H100 ended 7.1e-6 apart in
 the loss, against the 1e-6 the two steps are held to.
+
+Under ZeRO stages 1-3 the engine builds the optimizer over this rank's
+chunks of the cut leaves (and the whole replicated ones) and passes the
+chunk lists to :meth:`Optimizer.step`, so the state (m, v, Lion's m,
+SGD's trace, Adagrad's sums) exists for this rank's chunks only.  Every
+rule here is elementwise, so a chunk's update is that part of the whole
+update and needs nothing else.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -47,7 +54,9 @@ _NOT_PORTED = ("lamb", "fusedlamb", "onebitlamb", "onebitadam",
 
 class Optimizer:
     """In-place update of ``params`` from their ``.grad``; the gradients
-    are already unscaled and clipped by the engine."""
+    are already unscaled and clipped by the engine.  The state is built
+    for the shapes of ``params`` (contiguous fp32, whatever their
+    strides)."""
 
     def __init__(self, params: List[torch.Tensor]):
         self.params = list(params)
@@ -58,15 +67,22 @@ class Optimizer:
                 for p in self.params]
 
     def _state(self, fill: float = 0.0) -> List[torch.Tensor]:
-        return [torch.full_like(p, fill, dtype=torch.float32)
-                for p in self.params]
+        return [torch.full(p.shape, fill, dtype=torch.float32,
+                           device=p.device) for p in self.params]
 
     @torch.no_grad()
-    def step(self, lr: float) -> None:
+    def step(self, lr: float, params: Optional[List[torch.Tensor]] = None,
+             grads: Optional[List[torch.Tensor]] = None) -> None:
+        """One update of ``params`` (default: the tensors the optimizer was
+        built over) from ``grads`` (default: their ``.grad``), tensors of
+        the state's shapes, in its order."""
+        params = self.params if params is None else list(params)
+        grads = self._grads() if grads is None else list(grads)
         self.count += 1
-        self._update(self._grads(), lr)
+        self._update(params, grads, lr)
 
-    def _update(self, grads: List[torch.Tensor], lr: float) -> None:
+    def _update(self, params: List[torch.Tensor],
+                grads: List[torch.Tensor], lr: float) -> None:
         raise NotImplementedError
 
 
@@ -88,8 +104,8 @@ class Adam(Optimizer):
                                weight_decay=self.weight_decay,
                                decoupled_wd=self.decoupled)
 
-    def _update(self, grads, lr):
-        reference_adam(self.params, grads, self.m, self.v, self.count, lr,
+    def _update(self, params, grads, lr):
+        reference_adam(params, grads, self.m, self.v, self.count, lr,
                        1.0, self.fused_config())
 
 
@@ -102,13 +118,13 @@ class Lion(Optimizer):
         self.weight_decay = float(weight_decay)
         self.m = self._state()
 
-    def _update(self, grads, lr):
+    def _update(self, params, grads, lr):
         upd = torch._foreach_mul(self.m, self.b1)
         torch._foreach_add_(upd, grads, alpha=1.0 - self.b1)
         torch._foreach_sign_(upd)
         if self.weight_decay:
-            torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, upd, alpha=-lr)
+            torch._foreach_add_(upd, params, alpha=self.weight_decay)
+        torch._foreach_add_(params, upd, alpha=-lr)
         torch._foreach_mul_(self.m, self.b2)
         torch._foreach_add_(self.m, grads, alpha=1.0 - self.b2)
 
@@ -121,10 +137,10 @@ class SGD(Optimizer):
         self.momentum = float(momentum)
         self.trace = self._state()
 
-    def _update(self, grads, lr):
+    def _update(self, params, grads, lr):
         torch._foreach_mul_(self.trace, self.momentum)
         torch._foreach_add_(self.trace, grads)
-        torch._foreach_add_(self.params, self.trace, alpha=-lr)
+        torch._foreach_add_(params, self.trace, alpha=-lr)
 
 
 class Adagrad(Optimizer):
@@ -136,12 +152,12 @@ class Adagrad(Optimizer):
         self.eps = float(eps)
         self.sum_sq = self._state(initial_accumulator_value)
 
-    def _update(self, grads, lr):
+    def _update(self, params, grads, lr):
         torch._foreach_addcmul_(self.sum_sq, grads, grads)
         scale = torch._foreach_add(self.sum_sq, self.eps)
         torch._foreach_rsqrt_(scale)
         torch._foreach_mul_(scale, grads)
-        torch._foreach_add_(self.params, scale, alpha=-lr)
+        torch._foreach_add_(params, scale, alpha=-lr)
 
 
 def _clean_params(cfg: OptimizerConfig) -> Dict[str, Any]:

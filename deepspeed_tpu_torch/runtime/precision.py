@@ -3,15 +3,18 @@
 Counterpart of ``deepspeed_tpu/runtime/precision.py``.  The JAX scaler is a
 functional state threaded through the compiled step; here it is a small
 host object, since the fp16 step reads the overflow flag on the host to
-decide whether to take the optimizer step.
+decide whether to take the optimizer step.  Under ZeRO the gradients of
+cut leaves are chunks: the overflow flag and the norm's partial sums are
+reduced over the data-parallel group, replicated leaves counted once.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, List, Optional, Sequence
 
 import torch
 
+from ..comm import comm
 from ..ops.kernels.fused_adam import reference_sqsum
 from .config import FP16Config
 
@@ -69,24 +72,54 @@ class DynamicLossScaler:
             self.growth_counter = 0
 
 
-def has_overflow(grads: List[torch.Tensor]) -> torch.Tensor:
-    """0-dim bool: some gradient entry is not finite."""
+def partial_norm_terms(grads: Sequence[torch.Tensor],
+                replicated: Sequence[torch.Tensor],
+                group: Any) -> List[torch.Tensor]:
+    """What this rank adds to a sum over the whole model: its chunks, and
+    the replicated leaves on group rank 0 only (every rank holds them)."""
+    if group is None or comm.get_rank(group) == 0:
+        return list(grads) + list(replicated)
+    return list(grads)
+
+
+def has_overflow(grads: Sequence[torch.Tensor],
+                 group: Any = None) -> torch.Tensor:
+    """0-dim bool: some gradient entry is not finite, on this rank or (with
+    ``group``, a data-parallel group over whose ranks the gradients are
+    cut) on any rank of ``group``: the flag is max-reduced, so every rank
+    skips the step together."""
+    grads = list(grads)
     if not grads:
         return torch.zeros((), dtype=torch.bool)
-    return torch.stack([~torch.isfinite(g).all() for g in grads]).any()
+    flag = torch.stack([~torch.isfinite(g).all() for g in grads]).any()
+    if group is None:
+        return flag
+    flag = flag.to(torch.float32)
+    comm.all_reduce(flag, comm.ReduceOp.MAX, group=group)
+    return flag > 0
 
 
-def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """0-dim fp32 ``sqrt(sum g^2)`` over every gradient (the plain version
-    of the fused step's Σg² kernel)."""
-    return reference_sqsum(grads).sqrt()
+def global_grad_norm(grads: Sequence[torch.Tensor],
+                     replicated: Sequence[torch.Tensor] = (),
+                     group: Any = None) -> torch.Tensor:
+    """0-dim fp32 ``sqrt(sum g^2)`` over the whole model (the plain version
+    of the fused step's Σg² kernel).  Without ``group`` the gradients are
+    whole (``replicated`` adds to them); with it, ``grads`` are this
+    rank's chunks of the cut leaves and ``replicated`` the leaves every
+    rank holds whole: each rank's partial sum is all-reduced, the
+    replicated leaves counted once."""
+    part = reference_sqsum(partial_norm_terms(grads, replicated, group))
+    if group is not None:
+        comm.all_reduce(part, group=group)
+    return part.sqrt()
 
 
 def clip_grads_by_global_norm(grads: List[torch.Tensor], max_norm: float,
                               precomputed_norm: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
     """Scale the gradients in place by ``min(1, max_norm / (norm + 1e-6))``;
-    returns the norm before clipping."""
+    returns the norm before clipping (``precomputed_norm``, the global one
+    over chunks, when given)."""
     norm = (precomputed_norm if precomputed_norm is not None
             else global_grad_norm(grads))
     factor = torch.clamp(max_norm / (norm + 1e-6), max=1.0)

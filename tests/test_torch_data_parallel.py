@@ -1,12 +1,13 @@
-"""``initialize`` refuses to train data-parallel replicas it cannot average.
+"""``initialize`` on several ranks trains one model.
 
-Data parallelism is not ported: on more than one rank each engine would
-step on its own batch and never average its gradients.  Two gloo ranks
-(``launcher.local.launch``, rank bodies in ``torch_dp_ranks``) must get
-"not ported yet" from ``initialize``, with and without a data-parallel
-mesh, and a mesh or mpu of two data-parallel ranks must be refused even
-without a process group.  A world of one, with a one-rank gloo group or
-none, trains exactly as before: the same losses.
+Two gloo ranks (``launcher.local.launch``, rank bodies in
+``torch_dp_ranks``) that built the model from different seeds, each
+feeding its half of the global batch, give the losses of one process
+running the global batch (two accumulation steps of the same rows), with
+the world alone, a data-parallel mesh or an mpu naming the world.  A
+world of one, with a one-rank gloo group or none, trains exactly as
+before: the same losses.  A mesh or mpu of two data-parallel ranks
+without a process group of two is refused.
 """
 
 import types
@@ -23,13 +24,14 @@ from deepspeed_tpu_torch.launcher import launch
 TIMEOUT = 120
 
 
-@pytest.mark.parametrize("with_mesh", [False, True],
-                         ids=["world", "world_and_mesh"])
-def test_two_ranks_are_refused(with_mesh):
-    got = launch(ranks.initialize_rank, 2, (with_mesh,), timeout=TIMEOUT)
-    for msg in got:
-        assert isinstance(msg, str), msg
-        assert "data parallelism over 2 ranks is not ported yet" in msg
+@pytest.mark.parametrize("how", ["world", "world_and_mesh", "world_and_mpu"])
+def test_two_ranks_train_one_model(how):
+    want = ranks.train_steps(initialize(model=ranks.tiny_model(),
+                                        config=ranks.CONFIG,
+                                        device="cpu")[0])
+    got = launch(ranks.initialize_rank, 2, (how,), timeout=TIMEOUT)
+    assert got[0] == got[1]
+    np.testing.assert_allclose(got[0], want, rtol=1e-6)
 
 
 def test_one_rank_world_trains_as_without_a_group():
@@ -37,7 +39,8 @@ def test_one_rank_world_trains_as_without_a_group():
                                         config=ranks.CONFIG,
                                         device="cpu")[0])
     assert np.all(np.isfinite(want))
-    (got,) = launch(ranks.initialize_rank, 1, (True,), timeout=TIMEOUT)
+    (got,) = launch(ranks.initialize_rank, 1, ("world_and_mesh",),
+                    timeout=TIMEOUT)
     assert got == want
 
 
@@ -46,8 +49,10 @@ def test_a_data_axis_of_two_is_refused_without_a_group(what):
     kw = ({"mesh": types.SimpleNamespace(shape={"data": 2, "tensor": 1})}
           if what == "mesh" else
           {"mpu": types.SimpleNamespace(
-              get_data_parallel_world_size=lambda: 2)})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+              get_data_parallel_world_size=lambda: 2,
+              get_data_parallel_group=lambda: None)})
+    with pytest.raises(ValueError, match="more ranks than the process "
+                                         "group holds"):
         initialize(model=ranks.tiny_model(), config=ranks.CONFIG,
                    device="cpu", **kw)
     # a data axis of one is accepted

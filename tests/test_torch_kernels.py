@@ -870,6 +870,65 @@ def test_cuda_nccl_tp_serve_matches_one_rank(cuda, tp):
     assert all(g == want for g in got)
 
 
+# -- data parallelism and ZeRO over NCCL -------------------------------------
+
+_ZERO_CFG = LlamaConfig.tiny(num_layers=2, hidden_size=512, num_heads=8,
+                             num_kv_heads=4, dtype=torch.float32,
+                             param_dtype=torch.float32, attn_impl="flash")
+_ZERO_STEPS = 3
+
+
+def _zero_config(stage, rows):
+    return {"train_micro_batch_size_per_gpu": rows, "steps_per_print": 0,
+            "gradient_clipping": 0.5,
+            "zero_optimization": {"stage": stage,
+                                  "stage3_param_persistence_threshold": 1000},
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
+
+
+def _zero_batches(world):
+    g = torch.Generator().manual_seed(1)
+    return [torch.randint(0, 512, (2 * world, 32), generator=g)
+            for _ in range(_ZERO_STEPS)]
+
+
+def _nccl_zero_rank(rank):
+    """Stages 0-3 on one rank of a data-parallel world over NCCL (card
+    ``LOCAL_RANK``): the losses of each stage on this rank's rows."""
+    from deepspeed_tpu_torch import LlamaModel, init_distributed, initialize
+    init_distributed()
+    world = torch.distributed.get_world_size()
+    out = {}
+    for stage in range(4):
+        model = LlamaModel(_ZERO_CFG, device="cuda", seed=rank)
+        engine, *_ = initialize(model=model, config=_zero_config(stage, 2))
+        out[stage] = [float(engine.train_step(
+            {"input_ids": b[2 * rank:2 * rank + 2]})["loss"])
+            for b in _zero_batches(world)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_cuda_nccl_zero_stages_match_one_rank(cuda, world):
+    """``world`` ranks, one card each, over NCCL, at ZeRO stages 0-3: every
+    rank's losses equal the one-process run on the global batch (fp32,
+    1e-5 relative)."""
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"NCCL data parallelism needs one card per rank: "
+                    f"fewer than {world} cards")
+    from deepspeed_tpu_torch import LlamaModel, initialize
+    from deepspeed_tpu_torch.launcher import launch
+    engine, *_ = initialize(model=LlamaModel(_ZERO_CFG, device=cuda, seed=0),
+                            config=_zero_config(0, 2 * world))
+    want = [float(engine.train_step({"input_ids": b})["loss"])
+            for b in _zero_batches(world)]
+    got = launch(_nccl_zero_rank, world, (), timeout=600)
+    for res in got:
+        for stage in range(4):
+            np.testing.assert_allclose(res[stage], want, rtol=1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("same_local_rank", [False, True])
 def test_cuda_nccl_refuses_two_ranks_on_one_card(cuda, same_local_rank):

@@ -339,7 +339,9 @@ def test_eval_loss_has_no_graph_and_equals_the_loss():
 
 def test_initialize_refuses_what_is_not_ported():
     _, _, tm = training_pair(num_layers=1)
-    for bad in ({"zero_optimization": {"stage": 1}},
+    for bad in ({"zero_optimization": {"stage": 2,
+                                       "zero_quantized_gradients": True}},
+                {"zero_optimization": {"stage": 1, "mics_shard_size": 2}},
                 {"zero_optimization": {"offload_optimizer":
                                        {"device": "cpu"}}},
                 {"tensor_parallel": {"autotp_size": 2}},
