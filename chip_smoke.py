@@ -133,6 +133,17 @@ The tensor-parallel slice adds:
   logits no further from the fp32 ones than ``BF16_TP_SLACK`` times the
   bf16 ``tp=1`` logits are, the token agreement reported.
 
+The checkpoint slice adds ``train_ckpt``: bench.py's headline fed by
+``initialize(training_data=...)`` (a token dataset from the seed): a sync
+save at step 3 resumed in a fresh engine gives steps 4-6 of the unbroken
+run bit for bit; an async save, two steps on, and the loaded state is the
+one at the save; two gloo ranks on card 0 at stage 3 with fused Adam save,
+one process at stage 0 loads their slices bit for bit (sha256), trains on
+and ``zero_to_fp32`` counts every parameter; a seqlen curriculum (256 to
+2048) sets the batch lengths and the flash launches.  Each rank file is
+held within 2 % of its predicted payload (12 bytes an element); save and
+load seconds are printed beside the card.
+
 Ranks report to this process through a queue; only it prints.  Then a
 ``kernels`` line (every kernel's launches on the main paths: the
 decode kernels' from ``serve`` and ``generate``, #2b's per rank from
@@ -2183,6 +2194,372 @@ def phase_train_zero_agree(dev, seed: int) -> dict:
             "steps": ZERO_AGREE_STEPS}
 
 
+# -- the checkpoint slice ------------------------------------------------------
+
+#: the token dataset the loader reads: ``CKPT_SAMPLES`` rows of ``TRAIN_SEQ``
+#: tokens from the seed (eight global batches of ``TRAIN_BATCH``)
+CKPT_SAMPLES = 64
+#: the unbroken run's steps; the broken one saves after ``CKPT_SAVE_AT``
+CKPT_STEPS, CKPT_SAVE_AT, CKPT_ASYNC_ON, CKPT_ZERO_STEPS = 6, 3, 2, 2
+#: a rank file's size may exceed its predicted tensor payload by this much
+#: (pickle and zip headers); a view saved with its whole storage would be
+#: twice the payload
+CKPT_BYTES_SLACK = 0.02
+CURRICULUM = {"enabled": True, "min_difficulty": 256, "max_difficulty": 2048,
+              "schedule_type": "fixed_linear",
+              "schedule_config": {"total_curriculum_step": 4,
+                                  "difficulty_step": 256}}
+CURRICULUM_STEPS = 4
+
+
+class TokenDataset:
+    """``CKPT_SAMPLES`` samples of ``TRAIN_SEQ`` random token ids from
+    ``seed``, indexable as the loader reads them."""
+
+    def __init__(self, seed: int, vocab: int):
+        self.ids = np.random.default_rng(seed).integers(
+            0, vocab, (CKPT_SAMPLES, TRAIN_SEQ), dtype=np.int64)
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def __getitem__(self, i: int) -> dict:
+        return {"input_ids": self.ids[i]}
+
+
+def ckpt_root():
+    """A fresh directory under ``build/`` beside this script."""
+    import tempfile
+    from pathlib import Path
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    return tempfile.mkdtemp(prefix="ckpt_smoke_", dir=build)
+
+
+def headline_cfg():
+    from deepspeed_tpu_torch import LlamaConfig
+    return LlamaConfig(**HEADLINE, dtype=torch.bfloat16,
+                       param_dtype=torch.float32, attn_impl="flash")
+
+
+def predicted_rank_bytes(shapes: list, dp: int) -> list:
+    """Each rank file's tensor payload for parameters of ``shapes`` under
+    ZeRO-3 over ``dp`` ranks (at stage 0 one rank writes all): fp32
+    master, m and v, 12 bytes an element; a cut leaf's chunk on every rank,
+    a whole leaf on rank 0 (the placement rule, ``runtime/zero/
+    sharder.py``)."""
+    from deepspeed_tpu_torch.runtime.config import ZeroConfig
+    from deepspeed_tpu_torch.runtime.zero import ZeroShardingPolicy
+
+    policy = ZeroShardingPolicy.from_config(ZeroConfig(stage=3), dp)
+    out = [0] * dp
+    for shape in shapes:
+        n = int(np.prod(shape))
+        if policy.shard_dim(shape) is None:
+            out[0] += n
+        else:
+            out = [x + n // dp for x in out]
+    return [12 * x for x in out]
+
+
+def ckpt_engine(seed: int, dev, data, stage: int = 0, fused: bool = False,
+                **over) -> tuple:
+    """A fresh headline model from ``seed`` behind ``initialize`` with the
+    dataset as ``training_data``: (engine, loader)."""
+    from deepspeed_tpu_torch import LlamaModel, initialize
+
+    model = LlamaModel(headline_cfg(), device=dev, seed=seed)
+    micro = TRAIN_BATCH // (ZERO_RANKS if stage else 1)
+    engine, _, loader, _ = initialize(
+        model=model, config=dict(ds_config(model, micro, fused, stage),
+                                 **over), device=dev, training_data=data)
+    return engine, loader
+
+
+def ckpt_steps(engine, it, n: int) -> list:
+    return [float(engine.train_step(next(it))["loss"]) for _ in range(n)]
+
+
+def state_digests(engine, places=None) -> dict:
+    """sha256 of each leaf's fp32 master, m and v as this engine holds them
+    (a chunk under ZeRO), or of the chunks ``places`` names (per leaf:
+    placement values or None) cut from this engine's whole tensors."""
+    import hashlib
+
+    from deepspeed_tpu_torch.runtime.checkpointing import (box_of,
+                                                           placement_values)
+    opt = engine.optimizer
+    out = {}
+    for i, (name, pl) in enumerate(zip(engine.param_names,
+                                       engine.placements)):
+        if places is not None and name not in places:
+            continue
+        want = places[name] if places is not None else placement_values(pl)
+        row = {}
+        for key, t in (("master", engine._masters()[i]), ("m", opt.m[i]),
+                       ("v", opt.v[i])):
+            if places is not None and want is not None:
+                for d, (lo, hi) in enumerate(box_of(want["full_shape"],
+                                                    want)):
+                    t = t.narrow(d, lo, hi - lo)
+            row[key] = hashlib.sha256(
+                t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+        out[name] = {"placement": want, **row}
+    return out
+
+
+def rank_file_bytes(tag_dir: str) -> list:
+    import glob
+    import os
+    return [os.path.getsize(p) for p in
+            sorted(glob.glob(os.path.join(tag_dir, "dp_rank_*.pt")))]
+
+
+def require_bytes(what: str, got: list, want: list) -> list:
+    rel = [g / w - 1 for g, w in zip(got, want)]
+    require(len(got) == len(want) and all(abs(r) <= CKPT_BYTES_SLACK
+                                          for r in rel),
+            f"{what}: rank files {got} B, predicted payload {want} B")
+    return rel
+
+
+def ckpt_zero_rank(rank: int, seed: int, save_dir: str) -> dict:
+    """One rank of train_ckpt's ZeRO part: the headline at stage 3 with
+    fused Adam over this rank's rows of the loader, ``CKPT_ZERO_STEPS``
+    steps, then a save; returns the losses, launches, the save's time and
+    the digests of this rank's slices."""
+    dev = zero_rank_setup()
+    data = TokenDataset(seed, HEADLINE["vocab_size"])
+    engine, loader = ckpt_engine(seed + 10 + rank, dev, data, stage=3,
+                                 fused=True)
+    reset_counts()
+    losses = ckpt_steps(engine, iter(loader), CKPT_ZERO_STEPS)
+    launches = train_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tag_dir = engine.save_checkpoint(save_dir, client_state={
+        "consumed_samples": CKPT_ZERO_STEPS * TRAIN_BATCH})
+    save_s = time.perf_counter() - t0
+    return {"loss": losses, "launches": launches, "save_s": save_s,
+            "tag_dir": tag_dir, "count": engine.optimizer.count,
+            "digests": state_digests(engine)}
+
+
+def phase_train_ckpt(dev, seed: int) -> dict:
+    """train_ckpt: checkpoints and the dataloader on bench.py's headline
+    (every step fed by ``initialize(training_data=...)``):
+
+    1. one process, stage 0: losses 4-6 of an unbroken run equal, bit for
+       bit, those of a run saved (sync) at step 3 and resumed in a fresh
+       engine on a model from another seed with the loader re-pointed by
+       ``resume_from_samples``; an async save, 2 more steps, and a fresh
+       engine loads the state as it was at the save, bit for bit;
+    2. two gloo ranks on card 0 at stage 3 with fused Adam save after 2
+       steps; one process at stage 0 with plain AdamW loads it: masters,
+       m and v equal the ranks' slices bit for bit (sha256), the count
+       too; 2 more steps are finite and falling; ``zero_to_fp32`` counts
+       every parameter;
+    3. a seqlen curriculum (256 to 2048 over 4 steps in steps of 256): the
+       batch lengths follow it and flash launches at each length as the
+       formula says.
+
+    Each rank file is within ``CKPT_BYTES_SLACK`` of its predicted
+    payload; the checkpoints are deleted after the phase."""
+    import os
+    import shutil
+
+    from deepspeed_tpu_torch.launcher import launch
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.utils.zero_to_fp32 import \
+        get_fp32_state_dict_from_zero_checkpoint
+
+    t_phase = time.perf_counter()
+    cfg = headline_cfg()
+    n_params = cfg.num_params()
+    data = TokenDataset(seed, cfg.vocab_size)
+    root = ckpt_root()
+    try:
+        # 1. sync resume, bit for bit
+        engine, loader = ckpt_engine(seed, dev, data)
+        shapes = [tuple(p.shape) for p in engine.params]
+        pred0, pred3 = (predicted_rank_bytes(shapes, 1),
+                        predicted_rank_bytes(shapes, ZERO_RANKS))
+        out = {"params": n_params, "predicted_bytes": {
+            "stage0": pred0, "stage3_2ranks": pred3}}
+        free = shutil.disk_usage(root).free
+        require(free > 2 * pred0[0], f"train_ckpt: {free} B free under "
+                                     f"{root}, a checkpoint takes {pred0[0]} B")
+        reset_counts()
+        unbroken = ckpt_steps(engine, iter(loader), CKPT_STEPS)
+        t = dict(layers=cfg.num_layers, steps=CKPT_STEPS, remat=cfg.remat,
+                 fused_adam=False, launches=train_launches())
+        require_train_launches("train_ckpt (unbroken)", t)
+        del engine, loader
+        engine, loader = ckpt_engine(seed, dev, data)
+        first = ckpt_steps(engine, iter(loader), CKPT_SAVE_AT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tag_dir = engine.save_checkpoint(
+            os.path.join(root, "sync"), client_state={
+                "consumed_samples": CKPT_SAVE_AT * TRAIN_BATCH})
+        save_s = time.perf_counter() - t0
+        sync_bytes = rank_file_bytes(tag_dir)
+        del engine, loader
+        gc.collect()
+        engine, loader = ckpt_engine(seed + 1, dev, data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, client = engine.load_checkpoint(os.path.join(root, "sync"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        loader.resume_from_samples(client["consumed_samples"])
+        resumed = ckpt_steps(engine, iter(loader), CKPT_STEPS - CKPT_SAVE_AT)
+        require(first == unbroken[:CKPT_SAVE_AT] and
+                resumed == unbroken[CKPT_SAVE_AT:],
+                f"train_ckpt: resumed losses {first} + {resumed} != the "
+                f"unbroken run's {unbroken}")
+        out["sync"] = {
+            "loss_unbroken": unbroken, "loss_saved_run": first,
+            "loss_resumed": resumed, "bit_equal": True,
+            "rank_file_bytes": sync_bytes,
+            "bytes_rel_to_prediction": require_bytes(
+                "train_ckpt sync", sync_bytes, pred0),
+            "save_s": save_s, "load_s": load_s,
+            "save_gb_per_s": sync_bytes[0] / save_s / 1e9,
+            "load_gb_per_s": sync_bytes[0] / load_s / 1e9}
+        del engine, loader
+        shutil.rmtree(os.path.join(root, "sync"))
+
+        # 1b. async: the snapshot is the state at the save
+        over = {"checkpoint": {"checkpoint_engine": {"type": "async"}}}
+        engine, loader = ckpt_engine(seed, dev, data, **over)
+        it = iter(loader)
+        ckpt_steps(engine, it, CKPT_SAVE_AT)
+        saved = ([p.detach().clone() for p in engine.params]
+                 + [t.clone() for t in engine.optimizer.m + engine.optimizer.v])
+        count = engine.optimizer.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.save_checkpoint(os.path.join(root, "async"))
+        block_s = time.perf_counter() - t0
+        on = ckpt_steps(engine, it, CKPT_ASYNC_ON)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.checkpoint_engine.wait()
+        wait_s = time.perf_counter() - t0
+        require(not torch.equal(saved[0], engine.params[0]),
+                "train_ckpt async: the steps after the save changed nothing")
+        del engine, loader
+        engine, _ = ckpt_engine(seed + 2, dev, data, **over)
+        engine.load_checkpoint(os.path.join(root, "async"))
+        now = (list(engine.params) + engine.optimizer.m + engine.optimizer.v)
+        equal = all(torch.equal(a, b) for a, b in zip(saved, now))
+        require(equal and engine.optimizer.count == count,
+                "train_ckpt async: the loaded state is not the state at the "
+                "save")
+        out["async"] = {"loss_after_save": on, "bit_equal": True,
+                        "save_blocking_s": block_s, "wait_s": wait_s,
+                        "rank_file_bytes": rank_file_bytes(os.path.join(
+                            root, "async", f"global_step{CKPT_SAVE_AT}"))}
+        del engine, saved, now
+        shutil.rmtree(os.path.join(root, "async"))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. stage 3 on two ranks -> stage 0 in one process
+        op_builder.build()  # here, so the ranks do not both run nvcc
+        zdir = os.path.join(root, "zero")
+        t0 = time.perf_counter()
+        ranks = launch(ckpt_zero_rank, ZERO_RANKS, (seed, zdir),
+                       timeout=ZERO_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for r, res in enumerate(ranks):
+            require(res["loss"] == ranks[0]["loss"] and
+                    all(np.isfinite(res["loss"])),
+                    f"train_ckpt zero rank {r}: losses {res['loss']}")
+            require_train_launches(f"train_ckpt zero rank {r}", dict(
+                layers=cfg.num_layers, steps=CKPT_ZERO_STEPS, remat=True,
+                fused_adam=True, launches=res["launches"]))
+        zbytes = rank_file_bytes(ranks[0]["tag_dir"])
+        engine, loader = ckpt_engine(seed + 5, dev, data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, client = engine.load_checkpoint(zdir)
+        torch.cuda.synchronize()
+        zload_s = time.perf_counter() - t0
+        for r, res in enumerate(ranks):
+            places = {n: d["placement"] for n, d in res["digests"].items()
+                      if d["placement"] is not None or r == 0}
+            got = state_digests(engine, places)
+            bad = [n for n in places if got[n] != res["digests"][n]]
+            require(not bad, f"train_ckpt zero: rank {r}'s slices of {bad[:3]} "
+                             "differ after the reshard")
+        require(engine.optimizer.count == ranks[0]["count"],
+                f"train_ckpt zero: count {engine.optimizer.count} != "
+                f"{ranks[0]['count']}")
+        # the next global batch, twice: the loss must fall on it
+        loader.resume_from_samples(client["consumed_samples"])
+        batch = next(iter(loader))
+        more = [float(engine.train_step(batch)["loss"]) for _ in range(2)]
+        require(all(np.isfinite(more)) and more[1] < more[0],
+                f"train_ckpt zero: the resumed losses {more} are not finite "
+                "and falling")
+        del engine, loader
+        gc.collect()
+        torch.cuda.empty_cache()
+        sd = get_fp32_state_dict_from_zero_checkpoint(zdir)
+        counted = sum(v.numel() for v in sd.values())
+        del sd
+        require(counted == n_params, f"train_ckpt zero_to_fp32: {counted} "
+                                     f"parameters, want {n_params}")
+        out["zero"] = {
+            "ranks": ZERO_RANKS, "comm": ZERO_NOTE,
+            "loss": ranks[0]["loss"], "loss_resumed_stage0": more,
+            "launches_per_rank": [x["launches"] for x in ranks],
+            "rank_file_bytes": zbytes,
+            "bytes_rel_to_prediction": require_bytes(
+                "train_ckpt zero", zbytes, pred3),
+            "save_s": [x["save_s"] for x in ranks], "load_s": zload_s,
+            "load_gb_per_s": sum(zbytes) / zload_s / 1e9,
+            "reshard_bit_equal": True, "zero_to_fp32_params": counted,
+            "launch_wall_s": wall}
+        shutil.rmtree(zdir)
+
+        # 3. the seqlen curriculum
+        engine, loader = ckpt_engine(seed, dev, data,
+                                     curriculum_learning=CURRICULUM)
+        lo, hi = CURRICULUM["min_difficulty"], CURRICULUM["max_difficulty"]
+        q = CURRICULUM["schedule_config"]["difficulty_step"]
+        total = CURRICULUM["schedule_config"]["total_curriculum_step"]
+        want = [max(lo, min(hi, int(lo + (hi - lo) * min(s / total, 1.0))
+                            // q * q)) for s in range(CURRICULUM_STEPS)]
+        lengths, losses, per_step = [], [], []
+        it = iter(loader)
+        for step in range(CURRICULUM_STEPS):
+            batch = next(it)
+            lengths.append(int(batch["input_ids"].shape[1]))
+            reset_counts()
+            losses.append(float(engine.train_step(batch)["loss"]))
+            per_step.append(train_launches())
+            require_train_launches(f"train_ckpt curriculum step {step}", dict(
+                layers=cfg.num_layers, steps=1, remat=cfg.remat,
+                fused_adam=False, launches=per_step[-1]))
+        require(lengths == want, f"train_ckpt curriculum: lengths {lengths}, "
+                                 f"the schedule says {want}")
+        require(all(np.isfinite(losses)),
+                f"train_ckpt curriculum: losses {losses}")
+        out["curriculum"] = {"lengths": lengths, "loss": losses,
+                             "launches_per_step": per_step}
+        out["wall_s"] = time.perf_counter() - t_phase
+        del engine, loader
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- the tensor-parallel slice ------------------------------------------------
 
 #: (case, shape): the quantizer's checks (the CPU tests' cases: bench.py's
@@ -2635,7 +3012,8 @@ def main() -> int:
                          "agree, serve_moe, agree_moe, train, "
                          "train_8b_width, train_moe, train_agree, sparse, "
                          "serve_tp, generate_tp (one launch runs both), "
-                         "agree_tp, train_zero, train_zero_agree)")
+                         "agree_tp, train_zero, train_zero_agree, "
+                         "train_ckpt)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU path "
@@ -2792,7 +3170,11 @@ def main() -> int:
             phase="train_zero_agree", model="bench.py headline width",
             reduced=[f"num_layers 12 -> {ZERO_AGREE_LAYERS}",
                      "cards 2 -> 1, NCCL -> gloo through the host"],
-            comm=ZERO_NOTE, **phase_train_zero_agree(dev, args.seed)))}
+            comm=ZERO_NOTE, **phase_train_zero_agree(dev, args.seed))),
+        "train_ckpt": lambda: emit(dict(
+            phase="train_ckpt", model="bench.py headline", reduced=[
+                "zero: cards 2 -> 1, NCCL -> gloo through the host"],
+            card=nvidia_smi_line(), **phase_train_ckpt(dev, args.seed)))}
     only = [p for p in args.only.split(",") if p]
     unknown = set(only) - set(phases)
     if unknown:

@@ -13,13 +13,19 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` for the keys
 * ``zero_optimization`` (:class:`ZeroConfig`: stages 0-3 over the
   data-parallel ranks), ``kernels.{flash_attention, flash_block_q,
   flash_block_k, fused_adam}`` (``fused_adam``: the engine's two-kernel
-  Adam step, for the Adam family).
+  Adam step, for the Adam family);
+* ``checkpoint.checkpoint_engine.type`` (:class:`CheckpointConfig`:
+  ``sync``, ``async`` or ``decoupled``);
+* ``curriculum_learning`` and ``data_efficiency.data_sampling.
+  curriculum_learning`` (the seqlen curriculum of the dataloader
+  ``initialize`` builds; :meth:`DeepSpeedConfig.curriculum`).
 
 What the port cannot do yet raises ``NotImplementedError`` ("not ported
 yet", naming its ``ROADMAP.md`` Queue 1 item): optimizer or parameter
 offload, MiCS, ZeRO++ (quantized weights or gradients, hpZ) and
 ``kernels.overlap_collectives``, a tensor, sequence, pipeline or expert
-dimension above 1.  The groups of :data:`ACCEPTED_WITHOUT_EFFECT`
+dimension above 1, random-LTD (``data_efficiency.data_routing.
+random_ltd``).  The groups of :data:`ACCEPTED_WITHOUT_EFFECT`
 (telemetry, tuning, comms_logger, ...) are accepted and have no effect;
 ``ROADMAP.md`` lists them.
 """
@@ -38,10 +44,9 @@ from .config_utils import group_from_dict, is_auto
 #: top-level groups of the JAX config whose planes are not ported: accepted,
 #: no effect
 ACCEPTED_WITHOUT_EFFECT = (
-    "activation_checkpointing", "aio", "amp", "autotuning", "checkpoint",
+    "activation_checkpointing", "aio", "amp", "autotuning",
     "comms_logger", "compile", "compression_training", "csv_monitor",
-    "curriculum_learning", "data_efficiency", "disable_allgather",
-    "dump_state", "elasticity", "flops_profiler", "gradient_predivide_factor",
+    "disable_allgather", "dump_state", "elasticity", "flops_profiler", "gradient_predivide_factor",
     "hybrid_engine", "memory_breakdown", "monitor_config",
     "prescale_gradients", "resilience", "serving", "sparse_gradients",
     "telemetry", "tensorboard", "tuning", "wall_clock_breakdown", "wandb",
@@ -150,6 +155,35 @@ class ZeroConfig:
 
 
 @dataclasses.dataclass
+class CheckpointConfig:
+    """``checkpoint`` (JAX ``CheckpointConfig``): ``checkpoint_engine.type``
+    picks the save backend (``runtime/checkpoint_engine.py``); the other
+    keys are recorded and advisory, as in the JAX package."""
+
+    tag_validation: str = "Warn"
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    writer: Optional[Dict[str, Any]] = None
+    checkpoint_engine: Dict[str, Any] = dataclasses.field(
+        default_factory=dict)
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class DataEfficiencyConfig:
+    """``data_efficiency`` (JAX ``DataEfficiencyConfig``): its
+    ``data_sampling.curriculum_learning`` is the nested form of the
+    curriculum; ``data_routing.random_ltd`` is not ported."""
+
+    enabled: bool = False
+    seed: int = 1234
+    data_sampling: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    data_routing: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
 class KernelsConfig:
     #: route the model's attention through the flash kernels
     flash_attention: bool = False
@@ -181,6 +215,12 @@ class DeepSpeedConfig:
     zero_optimization: ZeroConfig = dataclasses.field(
         default_factory=ZeroConfig)
     kernels: KernelsConfig = dataclasses.field(default_factory=KernelsConfig)
+    checkpoint: CheckpointConfig = dataclasses.field(
+        default_factory=CheckpointConfig)
+    data_efficiency: DataEfficiencyConfig = dataclasses.field(
+        default_factory=DataEfficiencyConfig)
+    curriculum_learning: Dict[str, Any] = dataclasses.field(
+        default_factory=dict)
     #: groups of :data:`ACCEPTED_WITHOUT_EFFECT` present in the input
     accepted_without_effect: Tuple[str, ...] = ()
     #: top-level keys neither ported nor known to the JAX config
@@ -188,7 +228,9 @@ class DeepSpeedConfig:
 
     _GROUPS = {"optimizer": OptimizerConfig, "scheduler": SchedulerConfig,
                "fp16": FP16Config, "bf16": BF16Config,
-               "zero_optimization": ZeroConfig, "kernels": KernelsConfig}
+               "zero_optimization": ZeroConfig, "kernels": KernelsConfig,
+               "checkpoint": CheckpointConfig,
+               "data_efficiency": DataEfficiencyConfig}
 
     @classmethod
     def from_dict(cls, data: Dict[str, Any]) -> "DeepSpeedConfig":
@@ -251,6 +293,29 @@ class DeepSpeedConfig:
             raise NotImplementedError(
                 f"{', '.join(zpp)}: ZeRO++ and the overlapped collectives "
                 "are not ported yet (ROADMAP Queue 1 item 4)")
+        kind = str((self.checkpoint.checkpoint_engine or {}).get(
+            "type", "sync")).lower()
+        if kind not in ("sync", "async", "decoupled"):
+            raise ValueError(f"checkpoint.checkpoint_engine.type={kind!r}: "
+                             "use sync, async or decoupled")
+        ltd = (self.data_efficiency.data_routing or {}).get("random_ltd") \
+            or {}
+        if self.data_efficiency.enabled and ltd.get("enabled"):
+            raise NotImplementedError(
+                "data_efficiency.data_routing.random_ltd is not ported yet "
+                "(ROADMAP Queue 1 item 10)")
+
+    def curriculum(self) -> Dict[str, Any]:
+        """The enabled seqlen curriculum: the top-level
+        ``curriculum_learning`` group, else ``data_efficiency.data_sampling.
+        curriculum_learning`` when ``data_efficiency`` is enabled; ``{}``
+        when neither is (JAX ``initialize``)."""
+        cl = dict(self.curriculum_learning or {})
+        if not cl.get("enabled"):
+            de = self.data_efficiency
+            cl = dict((de.data_sampling or {}).get("curriculum_learning")
+                      or {}) if de.enabled else {}
+        return cl if cl.get("enabled") else {}
 
     def resolve_batch_sizes(self, world_size: int = 1, tp: int = 1,
                             pp: int = 1, sp: int = 1) -> None:

@@ -65,8 +65,14 @@ runs eagerly and updates the parameters in place.  ``loss`` and
 ``grad_norm`` in the metrics are 0-dim fp32 tensors on the device (read
 them when needed: reading syncs); ``lr``, ``loss_scale`` and ``overflow``
 are host numbers.  Every rank of the group must call ``train_step``,
-``step`` and ``eval_loss`` alike: they issue collectives.  Checkpointing,
-offload and the telemetry plane are not ported yet.
+``step`` and ``eval_loss`` alike: they issue collectives.
+
+Checkpoints (``runtime/checkpointing.py``): ``save_checkpoint`` writes this
+rank's slices of the state (fp32 masters, optimizer state, step count,
+loss scaler) through the configured checkpoint engine (sync or async),
+``load_checkpoint`` loads any stage's and any rank count's checkpoint into
+this engine's placement, ``load_universal_checkpoint`` the universal
+layout.  Offload and the telemetry plane are not ported yet.
 """
 
 from __future__ import annotations
@@ -80,6 +86,8 @@ from ..ops.kernels.fused_adam import (MultiTensorPlan, fused_adam,
                                       tree_sqsum)
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import log_dist
+from . import checkpointing
+from .checkpoint_engine import make_checkpoint_engine
 from .config import DeepSpeedConfig
 from .lr_schedules import (LRScheduler, Schedule, constant_lr,
                            get_lr_schedule)
@@ -107,6 +115,12 @@ class DeepSpeedEngine:
         self.loss_fn = loss_fn
         self.module = module
         self.params = [p for p in params if p.requires_grad]
+        named = ({id(p): n for n, p in module.named_parameters()}
+                 if isinstance(module, torch.nn.Module) else {})
+        #: each parameter's name in checkpoints (the module's, else its
+        #: index among the trainable parameters)
+        self.param_names = [named.get(id(p), f"param_{i}")
+                            for i, p in enumerate(self.params)]
         for p in self.params:
             if p.device.type != self.device.type:
                 raise ValueError(f"a parameter is on {p.device}, the engine "
@@ -186,6 +200,9 @@ class DeepSpeedEngine:
         self._loss_sum: Optional[torch.Tensor] = None
         self._accumulation_boundary_forced: Optional[bool] = None
         self.last_metrics: Dict[str, Any] = {}
+        self.checkpoint_engine = make_checkpoint_engine(config)
+        #: the seqlen curriculum's scheduler when ``initialize`` built one
+        self.curriculum_scheduler = None
 
     # -- ZeRO placement ---------------------------------------------------
 
@@ -489,6 +506,47 @@ class DeepSpeedEngine:
     @property
     def skipped_steps(self) -> int:
         return self._skipped_steps
+
+    # -- checkpoints -------------------------------------------------------
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict[str, Any]] = None,
+                        exclude_frozen_parameters: bool = False) -> str:
+        """Write ``<save_dir>/<tag>/`` (default tag ``global_step{N}``);
+        every rank of the group calls it.  Returns the tag directory."""
+        return checkpointing.save_checkpoint(self, save_dir, tag,
+                                             client_state)
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_module_strict: bool = True,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True,
+                        load_module_only: bool = False
+                        ) -> Tuple[Optional[str], Optional[Dict[str, Any]]]:
+        """``(tag directory, client_state)``, or ``(None, None)`` when
+        ``load_dir`` holds no checkpoint."""
+        return checkpointing.load_checkpoint(
+            self, load_dir, tag, load_module_strict, load_optimizer_states,
+            load_lr_scheduler_states, load_module_only)
+
+    def load_universal_checkpoint(self, universal_dir: str) -> None:
+        """Resume from a ``ds_to_universal`` directory at this engine's
+        stage and ranks."""
+        checkpointing.load_universal_checkpoint(self, universal_dir)
+
+    @torch.no_grad()
+    def _zero3_consolidated_16bit_state_dict(
+            self, exclude_frozen_parameters: bool = False
+            ) -> Dict[str, torch.Tensor]:
+        """Every parameter whole, in bf16, on the host (a ZeRO-3 chunk is
+        gathered: every rank calls it)."""
+        out = {}
+        for name, p, pl in zip(self.param_names, self.params,
+                               self.placements):
+            whole = pl.gather(p.data) if pl is not None and \
+                self.zero_stage == 3 else p.data
+            out[name] = whole.to(torch.bfloat16).cpu()
+        return out
 
     def zero_grad(self) -> None:
         for p in self.params:

@@ -5,11 +5,11 @@ Counterpart of ``deepspeed_tpu/runtime/entry.py`` (``initialize``
 ``mesh=`` or ``mpu=`` or build the mesh from the world, resolve the batch
 sizes over the data-parallel ranks, make every rank hold rank 0's
 parameters, and build the engine (one data-parallel rank under
-``zero_optimization.stage``).  The JAX entry also builds the telemetry,
-tuning and resilience planes and the dataloader; none of those is ported
-yet, so their config groups are accepted without effect
-(``runtime/config.py``) and ``training_data`` or a client optimizer
-raises.
+``zero_optimization.stage``) and, from ``training_data``, this rank's
+dataloader (with the seqlen curriculum when the config enables one).  The
+JAX entry also builds the telemetry, tuning and resilience planes; none
+of those is ported yet, so their config groups are accepted without
+effect (``runtime/config.py``) and a client optimizer raises.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from ..comm import comm
 from ..parallel.mesh import AXIS_PIPE, AXIS_SEQ, AXIS_TENSOR, DP_AXES
 from ..utils.device import DeviceLike, resolve_device
 from .config import DeepSpeedConfig
+from .dataloader import DeepSpeedDataLoader
 from .engine import DeepSpeedEngine
 from .lr_schedules import LRScheduler
 from .optimizers import Optimizer
@@ -74,9 +75,9 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
                collate_fn: Any = None, config: Optional[ConfigLike] = None,
                config_params: Optional[ConfigLike] = None, mesh: Any = None,
                device: DeviceLike = "cuda"
-               ) -> Tuple[DeepSpeedEngine, Optimizer, None, LRScheduler]:
-    """``(engine, optimizer, None, lr_scheduler)``, as the reference
-    returns them.
+               ) -> Tuple[DeepSpeedEngine, Optimizer, Any, LRScheduler]:
+    """``(engine, optimizer, dataloader, lr_scheduler)``, as the reference
+    returns them (the dataloader None without ``training_data``).
 
     ``model`` is an ``nn.Module`` with ``.loss(batch)`` (its trainable
     parameters are the fp32 masters, unless ``model_parameters`` names
@@ -96,14 +97,19 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     broadcast to the group first, so ranks that built the model from
     different seeds train one model.  A mixture-of-experts model on more
     than one data-parallel rank raises "not ported yet" (expert
-    parallelism).  Accepted without effect: ``args`` (the argparse
-    namespace), ``distributed_port`` (the environment's ``MASTER_PORT``
-    is used) and ``collate_fn`` (there is no dataloader:
-    ``training_data`` raises)."""
-    del args, distributed_port, collate_fn
-    if training_data is not None:
-        raise NotImplementedError("training_data: the dataloader is not "
-                                  "ported yet; pass batches to train_step")
+    parallelism).
+
+    ``training_data`` (an indexable of samples) gives a
+    :class:`~.dataloader.DeepSpeedDataLoader` of ``train_batch_size``
+    samples a step, shuffled with the config's ``seed``, that yields this
+    rank's rows (collated by ``collate_fn``; pinned CPU tensors on the
+    card); with a curriculum (``curriculum_learning`` or
+    ``data_efficiency.data_sampling.curriculum_learning``) it is wrapped by
+    the seqlen truncation at the engine's step, and the scheduler is
+    ``engine.curriculum_scheduler``.  Accepted without effect: ``args``
+    (the argparse namespace) and ``distributed_port`` (the environment's
+    ``MASTER_PORT`` is used)."""
+    del args, distributed_port
     if optimizer is not None:
         raise NotImplementedError("a client optimizer is not ported yet; "
                                   "name it in the config's optimizer block")
@@ -148,4 +154,20 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
         loss_fn, params, cfg, module=model, device=dev,
         lr_schedule=lr_scheduler if callable(lr_scheduler) else None,
         dp_group=dp_group)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+    dataloader = None
+    if training_data is not None:
+        dataloader = DeepSpeedDataLoader(
+            training_data, batch_size=int(cfg.train_batch_size),
+            dp_rank=comm.get_rank(dp_group) if dp_group is not None else 0,
+            dp_world_size=dp, collate_fn=collate_fn, shuffle=True,
+            seed=cfg.seed, pin_memory=dev.type == "cuda")
+        curriculum = cfg.curriculum()
+        if curriculum:
+            from .data_pipeline import (CurriculumDataLoader,
+                                        CurriculumScheduler)
+
+            sched = CurriculumScheduler(curriculum)
+            engine.curriculum_scheduler = sched
+            dataloader = CurriculumDataLoader(dataloader, sched,
+                                              lambda: engine.global_steps)
+    return engine, engine.optimizer, dataloader, engine.lr_scheduler

@@ -40,7 +40,7 @@ update and needs nothing else.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -58,9 +58,38 @@ class Optimizer:
     for the shapes of ``params`` (contiguous fp32, whatever their
     strides)."""
 
+    #: the attributes holding the per-tensor state lists, in
+    #: :meth:`state_dict`'s order
+    state_names: Tuple[str, ...] = ()
+
     def __init__(self, params: List[torch.Tensor]):
         self.params = list(params)
         self.count = 0  # applied steps
+
+    def state_dict(self) -> Dict[str, Any]:
+        """``{"type", "count", <state name>: [tensor per parameter]}``;
+        the lists hold the live tensors (as ``torch.optim`` does)."""
+        return {"type": type(self).__name__, "count": self.count,
+                **{k: list(getattr(self, k)) for k in self.state_names}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copy a :meth:`state_dict` of the same optimizer type and shapes
+        into this one's state, in place."""
+        if state.get("type") != type(self).__name__:
+            raise ValueError(f"optimizer state of {state.get('type')}, this "
+                             f"optimizer is {type(self).__name__}")
+        for k in self.state_names:
+            dst, src = getattr(self, k), state[k]
+            if len(src) != len(dst) or any(
+                    tuple(s.shape) != tuple(d.shape)
+                    for s, d in zip(src, dst)):
+                raise ValueError(f"optimizer state {k!r}: shapes "
+                                 f"{[tuple(s.shape) for s in src]} do not "
+                                 f"match {[tuple(d.shape) for d in dst]}")
+            for d, s in zip(dst, src):
+                d.copy_(s)
+        self.count = int(state["count"])
 
     def _grads(self) -> List[torch.Tensor]:
         return [p.grad if p.grad is not None else torch.zeros_like(p)
@@ -90,6 +119,8 @@ class Adam(Optimizer):
     """optax ``adam`` (``decoupled=False``: L2 weight decay added to the
     gradient first) or ``adamw`` (decoupled weight decay)."""
 
+    state_names = ("m", "v")
+
     def __init__(self, params, betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.0, decoupled: bool = True):
         super().__init__(params)
@@ -112,6 +143,8 @@ class Adam(Optimizer):
 class Lion(Optimizer):
     """optax ``lion``: ``sign((1-b1) g + b1 m)``, then decoupled decay."""
 
+    state_names = ("m",)
+
     def __init__(self, params, betas=(0.9, 0.99), weight_decay: float = 0.0):
         super().__init__(params)
         self.b1, self.b2 = float(betas[0]), float(betas[1])
@@ -132,6 +165,8 @@ class Lion(Optimizer):
 class SGD(Optimizer):
     """optax ``sgd``: ``t = g + momentum t``, ``p -= lr t``."""
 
+    state_names = ("trace",)
+
     def __init__(self, params, momentum: float = 0.0):
         super().__init__(params)
         self.momentum = float(momentum)
@@ -145,6 +180,8 @@ class SGD(Optimizer):
 
 class Adagrad(Optimizer):
     """optax ``adagrad``: ``s += g^2``, ``p -= lr g / sqrt(s + eps)``."""
+
+    state_names = ("sum_sq",)
 
     def __init__(self, params, eps: float = 1e-7,
                  initial_accumulator_value: float = 0.1):

@@ -10,7 +10,7 @@ reduced over the data-parallel group, replicated leaves counted once.
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -51,6 +51,16 @@ class DynamicLossScaler:
                    min_loss_scale=fp16.min_loss_scale,
                    static_scale=fp16.loss_scale,
                    consecutive_hysteresis=fp16.consecutive_hysteresis)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What a resumed run needs to skip and grow as this one would."""
+        return {"scale": self.scale, "growth_counter": self.growth_counter,
+                "hysteresis": self.hysteresis}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.scale = float(state["scale"])
+        self.growth_counter = int(state["growth_counter"])
+        self.hysteresis = int(state["hysteresis"])
 
     def update(self, overflow: bool) -> None:
         if self.static:

@@ -348,9 +348,11 @@ def test_initialize_refuses_what_is_not_ported():
                 {"optimizer": {"type": "Lamb", "params": {}}}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             dst.initialize(model=tm, config=dict(BASE, **bad), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        dst.initialize(model=tm, config=BASE, training_data=[1],
-                       device="cpu")
+    # the dataloader is ported (tests/test_torch_dataloader.py)
+    data = [{"input_ids": np.arange(16)}] * 4
+    _, _, loader, _ = dst.initialize(model=tm, config=BASE,
+                                     training_data=data, device="cpu")
+    assert next(iter(loader))["input_ids"].shape == (2, 16)
     # the fused Adam step is ported (tests/test_torch_fused_adam.py)
     engine, *_ = dst.initialize(model=tm, config=dict(
         BASE, kernels={"fused_adam": True}), device="cpu")
