@@ -122,11 +122,11 @@ The tensor-parallel slice adds:
   ``paged_decode_attention_tp``, bit-equal to those heads of the unsharded
   kernel; timed beside its plain version and half of #2's bound;
 - ``serve_tp`` and ``generate_tp`` (one launch): Llama-3-8B at full width
-  and depth, bf16, ``tp=2``: two ranks that share card 0 over gloo through
-  the host (NCCL needs one card per rank), spawned by
-  ``launcher.local.launch``; every budget returned, both ranks' tokens
-  equal, #2b ``32`` times a decode step and the decode kernel ``32 x 31``
-  times on each rank.  Their times are gloo through the host, two ranks
+  and ``SERVE_TP_LAYERS`` (16) of its 32 layers, bf16, ``tp=2``: two
+  ranks that share card 0 over gloo through the host (NCCL needs one card
+  per rank), spawned by ``launcher.local.launch``; every budget returned,
+  both ranks' tokens equal, #2b ``L`` times a decode step and the decode
+  kernel ``L x 31`` times on each rank.  Their times are gloo through the host, two ranks
   on one card: not a TP speed;
 - ``agree_tp``: Llama-3-8B widths at 4 layers, ``tp=2`` against ``tp=1``:
   fp32 greedy tokens (v2 and v1) equal and logits within 1e-4; bf16
@@ -143,6 +143,29 @@ and ``zero_to_fp32`` counts every parameter; a seqlen curriculum (256 to
 2048) sets the batch lengths and the flash launches.  Each rank file is
 held within 2 % of its predicted payload (12 bytes an element); save and
 load seconds are printed beside the card.
+
+The expert-parallel slice adds:
+
+- a ``kernels`` line ``moe_dispatch_ep``: #11 at one rank's view of
+  train_moe_ep's global routing (2 ranks' 2048 tokens, C 2048: every
+  other rank's slot empty), ranks 0 and 1, bf16 and fp32, dispatch exact
+  and #12 within its tolerance; timed beside its plain version,
+  ``index_select`` and its bound;
+- ``train_moe_ep``: Mixtral-8x7B widths, 2 layers, bf16 on fp32 masters,
+  ``moe.expert_parallel_size`` 2 in two ranks on card 0 over gloo (4 of
+  the 8 experts a rank, ``[1, 2048]`` a rank, fused Adam, 4 steps):
+  finite falling losses and one ``l_aux`` on both ranks, the launch
+  formula on each, each rank's state bytes to the byte of the prediction;
+- ``train_moe_ep_agree``: Mixtral-8x7B widths at 1 layer in fp32 on one
+  ``[4, 512]`` batch: one process, then ep 2 (ZeRO 0, 2 rows a rank) to
+  1e-4; the ep-2 ranks' save of a narrow fp32 Mixtral loads in one
+  process bit for bit;
+- ``serve_moe_tp`` and ``generate_moe_tp`` (one launch): Mixtral-8x7B at
+  16 layers, bf16, ``tp=2`` over gloo, serve_moe's requests: budgets, both
+  ranks' tokens equal, #2b ``L`` a decode step, #11/#12 ``L`` a prefill
+  call, decode ``L x 31`` in generate;
+- ``agree_moe_tp``: Mixtral-8x7B widths at 2 layers, ``tp=2`` against
+  ``tp=1`` as ``agree_tp``.
 
 Ranks report to this process through a queue; only it prints.  Then a
 ``kernels`` line (every kernel's launches on the main paths: the
@@ -162,6 +185,7 @@ V; the engines never pass it (an idle slot attends one key on scratch page
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import itertools
 import json
@@ -952,6 +976,89 @@ def phase_moe_kernels(dev) -> dict:
     del sets, tokens, eo, src, flat, gates, padded, rows, eo_padded, fl, gb
     torch.cuda.empty_cache()
     out["moe_dispatch"]["crossover"] = moe_crossover(dev)
+    out["moe_dispatch_ep"] = moe_ep_pattern(dev, gen, cycles)
+    return out
+
+
+#: the expert-parallel pattern: train_moe_ep's global routing of 2 ranks'
+#: 2048 tokens (C 2048), seen from rank 0
+MOE_EP_TOKENS, MOE_EP_C = 2048, 2048
+
+
+def moe_ep_inputs(dtype, gen, dev, rank: int = 0) -> tuple:
+    """One rank's view of a global routing (``sharded_moe.local_routing``):
+    its tokens ``[T, H]``, ``src_idx`` with every other rank's slot
+    empty, and its rows of ``flat_idx`` and the gates."""
+    from deepspeed_tpu_torch.moe import top_k_gating_indices
+    from deepspeed_tpu_torch.moe.sharded_moe import local_routing
+    from deepspeed_tpu_torch.ops.kernels.moe_dispatch import \
+        routing_to_indices
+    T, C = MOE_EP_TOKENS, MOE_EP_C
+    logits = torch.randn(MOE_EP * T, MOE_E, generator=gen, device=dev)
+    logits[:, 0] += 1.5
+    gi, _, _ = top_k_gating_indices(logits, MOE_K, C)
+    src, flat = routing_to_indices(gi.expert_idx, gi.slot, gi.keep, MOE_E, C)
+    src, flat, gates = local_routing(src, flat, gi.gate.t().contiguous(),
+                                     rank * T, T)
+    tokens = torch.randn(T, MOE_H, generator=gen, device=dev).to(dtype)
+    eo = torch.randn(MOE_E, C, MOE_H, generator=gen, device=dev).to(dtype)
+    return tokens, eo, src, flat, gates.contiguous()
+
+
+def moe_ep_pattern(dev, gen, cycles: float) -> dict:
+    """#11 (and #12) at the expert-parallel pattern, ranks 0 and 1, bf16
+    and fp32, against their plain versions (dispatch exact); #11 timed in
+    bf16 beside its plain version, ``index_select`` and its bound."""
+    from deepspeed_tpu_torch.ops.kernels import (combine_reference,
+                                                 dispatch_reference,
+                                                 moe_combine_fwd,
+                                                 moe_dispatch_fwd)
+    errs, empty = {}, {}
+    for rank, dtype in itertools.product((0, 1), (torch.bfloat16,
+                                                  torch.float32)):
+        tokens, eo, src, flat, gates = moe_ep_inputs(dtype, gen, dev, rank)
+        key = f"rank{rank}_{str(dtype).split('.')[-1]}"
+        empty[key] = float((src < 0).float().mean())
+        got = moe_dispatch_fwd(tokens, src)
+        y = moe_combine_fwd(eo, flat, gates)
+        want_y = combine_reference(eo, flat, gates).float()
+        torch.cuda.synchronize()
+        require(torch.equal(got, dispatch_reference(tokens, src)),
+                f"moe_dispatch (ep pattern) {key}: not equal to the plain "
+                "version")
+        err = (y.float() - want_y).abs()
+        require(bool((err <= TOL[dtype] * (1 + want_y.abs())).all()),
+                f"moe_combine (ep pattern) {key}: max error "
+                f"{err.max().item()}")
+        errs[key] = err.max().item()
+    sets = []
+    for _ in range(3):
+        tokens, _, src, flat, _ = moe_ep_inputs(torch.bfloat16, gen, dev)
+        padded = torch.cat([tokens, tokens.new_zeros(1, MOE_H)])
+        rows = torch.where(src >= 0, src, MOE_EP_TOKENS).reshape(-1).long()
+        sets.append((tokens, src, padded, rows))
+    tokens, src, padded, rows = sets[0]
+    lib_err = (torch.index_select(padded, 0, rows).reshape(
+        MOE_E, MOE_EP_C, MOE_H).float() - dispatch_reference(
+        tokens, src).float()).abs().max().item()
+    b = moe_bounds(tokens, src, flat)["moe_dispatch"]
+    out = dict(
+        kernel_time=time_ms([lambda s=s: moe_dispatch_fwd(s[0], s[1])
+                             for s in sets], cycles),
+        plain_time=time_ms([lambda s=s: dispatch_reference(s[0], s[1])
+                            for s in sets], cycles),
+        library_time=time_ms([lambda s=s: torch.index_select(s[2], 0, s[3])
+                              for s in sets], cycles),
+        library_call="torch.index_select on the zero-row-padded tokens",
+        library_max_abs_err_vs_plain=lib_err,
+        bound_ms=b[0], bound_by=b[1], max_abs_err=0.0,
+        combine_max_abs_err_by_case=errs, empty_slot_share=empty,
+        tolerance="exact",
+        timed_at=(f"bf16, rank 0 of {MOE_EP}: T {MOE_EP_TOKENS} of "
+                  f"{MOE_EP * MOE_EP_TOKENS}, E {MOE_E}, C {MOE_EP_C}, "
+                  f"H {MOE_H}"))
+    del sets, tokens, src, padded, rows
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2574,6 +2681,10 @@ QUANT_TIMED = (14336, 4096)
 #: tensor size of the TP phases; their ranks share card 0 over gloo
 TP = 2
 TP_TIMEOUT = 900
+#: serve_tp's depth: 16 of Llama-3-8B's 32 layers (gloo's host copies set
+#: the phase's time: 34.1-67.7 s at 32 layers on an H100 80GB HBM3 at
+#: 700 W)
+SERVE_TP_LAYERS = 16
 #: serve_tp's requests (prompt length, max_new_tokens, class); the first
 #: two start with a shared 256-token header
 SERVE_TP_REQUESTS = [(320, 32, "interactive"), (448, 32, "batch"),
@@ -2585,6 +2696,8 @@ SERVE_ENGINE = dict(max_batch_slots=8, prefill_chunk=256, prefill_batch=2,
                     decode_burst=8)
 #: agree_tp: Llama-3-8B widths at 4 of 32 layers, these prompts, 16 tokens
 AGREE_TP_LAYERS, AGREE_TP_PROMPTS, AGREE_TP_NEW = 4, (37, 100, 260), 16
+#: agree_moe_tp: Mixtral-8x7B widths at 2 of 32 layers
+AGREE_MOE_TP_LAYERS = 2
 #: in bf16, how much further from the fp32 logits the ``tp=2`` logits may
 #: lie than the ``tp=1`` ones: the partial sums add roundings of bf16's own
 #: size (random-weight logits carry ~5e-2 of bf16 error against fp32)
@@ -2752,11 +2865,13 @@ def phase_tp_kernels(dev) -> dict:
     return {"paged_decode_attention_tp": out}
 
 
-def tp_rank_model(seed: int, dtype, num_layers: int):
+def tp_rank_model(seed: int, dtype, num_layers: int, moe: bool = False):
     """In a rank: card 0, the gloo group through the host, the ``TP``-way
-    mesh, and this rank's split of a seeded Llama-3-8B (the whole weights
-    are drawn, so the split is the one-rank model's slice)."""
-    from deepspeed_tpu_torch import LlamaConfig, LlamaModel, init_distributed
+    mesh, and this rank's split of a seeded Llama-3-8B (``moe``: of a
+    Mixtral-8x7B; the whole weights are drawn, so the split is the
+    one-rank model's slice)."""
+    from deepspeed_tpu_torch import (LlamaConfig, LlamaModel, MixtralConfig,
+                                     MixtralModel, init_distributed)
     from deepspeed_tpu_torch.parallel import MeshLayout
     from deepspeed_tpu_torch.utils import groups
 
@@ -2766,6 +2881,10 @@ def tp_rank_model(seed: int, dtype, num_layers: int):
     torch.cuda.set_device(dev)
     init_distributed(dist_backend="gloo", device=dev)
     mesh = groups.initialize_mesh(MeshLayout.infer(tp=TP))
+    if moe:
+        return MixtralModel(MixtralConfig.mixtral_8x7b(
+            num_layers=num_layers, dtype=dtype), device=dev, seed=seed,
+            mesh=mesh)
     cfg = LlamaConfig.llama3_8b(num_layers=num_layers, dtype=dtype)
     return LlamaModel(cfg, device=dev, seed=seed, mesh=mesh)
 
@@ -2776,7 +2895,7 @@ def serving_tp_rank(rank: int, seed: int) -> dict:
     (``pump()`` on this rank) and generated through ``init_inference``."""
     from deepspeed_tpu_torch import KVCacheConfig
 
-    model = tp_rank_model(seed, torch.bfloat16, 32)
+    model = tp_rank_model(seed, torch.bfloat16, SERVE_TP_LAYERS)
     rng = np.random.default_rng(seed + 7)  # the same requests on every rank
     s = serve(model, rng, cache_config=KVCacheConfig(
         num_blocks=1025, block_size=16, max_seq_len=2048),
@@ -2791,8 +2910,8 @@ def serving_tp_rank(rank: int, seed: int) -> dict:
 def phase_serving_tp(seed: int) -> dict:
     """serve_tp and generate_tp: ``TP`` ranks on card 0 over gloo, launched
     by ``launcher.local``; every budget returned (``serve``), both ranks'
-    tokens equal, ``paged_decode_attention_tp`` 32 times a decode step and
-    the decode kernel 32 x 31 times on each rank, the unsharded paged
+    tokens equal, ``paged_decode_attention_tp`` ``L`` times a decode step
+    and the decode kernel ``L x 31`` times on each rank, the unsharded paged
     kernel never."""
     from deepspeed_tpu_torch.launcher import launch
     from deepspeed_tpu_torch.ops import op_builder
@@ -2802,7 +2921,7 @@ def phase_serving_tp(seed: int) -> dict:
     t0 = time.perf_counter()
     ranks = launch(serving_tp_rank, TP, (seed,), timeout=TP_TIMEOUT)
     wall = time.perf_counter() - t0
-    L = 32
+    L = SERVE_TP_LAYERS
     for r, res in enumerate(ranks):
         la, lg = res["serve"]["launches"], res["generate"]["launches"]
         steps = res["serve"]["decode_steps"]
@@ -2853,41 +2972,56 @@ def agree_tp_run(model, prompts, n_new: int) -> dict:
 AGREE_TP_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def agree_tp_rank(rank: int, seed: int, prompts, n_new: int) -> dict:
+def agree_tp_rank(rank: int, seed: int, prompts, n_new: int,
+                  moe: bool = False) -> dict:
     out = {}
     for name, dtype in AGREE_TP_DTYPES.items():
-        model = tp_rank_model(seed, dtype, AGREE_TP_LAYERS)
+        model = tp_rank_model(seed, dtype, agree_tp_layers(moe), moe)
         out[name] = agree_tp_run(model, prompts, n_new)
         del model
         torch.cuda.empty_cache()
     return out
 
 
-def phase_agree_tp(dev, seed: int) -> dict:
-    """Llama-3-8B widths at ``AGREE_TP_LAYERS`` layers, the same seed at
+def agree_tp_layers(moe: bool) -> int:
+    return AGREE_MOE_TP_LAYERS if moe else AGREE_TP_LAYERS
+
+
+def phase_agree_tp(dev, seed: int, moe: bool = False) -> dict:
+    """Llama-3-8B widths at ``AGREE_TP_LAYERS`` layers (``moe``:
+    Mixtral-8x7B widths at ``AGREE_MOE_TP_LAYERS``), the same seed at
     ``tp`` 1 (this process) and 2 (two ranks on card 0 over gloo): in fp32
     the ``tp=2`` v2 and v1 greedy tokens equal the ``tp=1`` ones and the
     first logits agree to 1e-4 relative to 1 + |ref|.  In bf16 the two
     partial sums round differently, so tokens may differ (the agreement is
     reported) and the logits are held to the fp32 ``tp=1`` logits: the
     ``tp=2`` ones may lie at most ``BF16_TP_SLACK`` times as far from them
-    as the bf16 ``tp=1`` ones do.  Both ranks must agree bit for bit."""
-    from deepspeed_tpu_torch import LlamaConfig, LlamaModel
+    as the bf16 ``tp=1`` ones do.  Both ranks must agree bit for bit.  A
+    Mixtral's prefill runs the dispatch and combine kernels on every
+    rank's ``I/tp`` expert columns."""
+    from deepspeed_tpu_torch import (LlamaConfig, LlamaModel, MixtralConfig,
+                                     MixtralModel)
     from deepspeed_tpu_torch.launcher import launch
 
+    what = "agree_moe_tp" if moe else "agree_tp"
+    layers = agree_tp_layers(moe)
+    t0 = time.perf_counter()
+    cfg = (MixtralConfig.mixtral_8x7b if moe else LlamaConfig.llama3_8b)(
+        num_layers=layers)
     rng = np.random.default_rng(seed + 11)
-    prompts = [rng.integers(0, 128256, n).tolist() for n in AGREE_TP_PROMPTS]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in AGREE_TP_PROMPTS]
     ref = {}
     for name, dtype in AGREE_TP_DTYPES.items():
-        model = LlamaModel(LlamaConfig.llama3_8b(
-            num_layers=AGREE_TP_LAYERS, dtype=dtype), device=dev, seed=seed)
+        model = (MixtralModel if moe else LlamaModel)(
+            dataclasses.replace(cfg, dtype=dtype), device=dev, seed=seed)
         ref[name] = agree_tp_run(model, prompts, AGREE_TP_NEW)
         require(ref[name]["launches"]["paged_decode_attention"] > 0 and
                 ref[name]["launches"]["decode_attention"] > 0,
-                f"agree_tp tp=1 {name}: a decode kernel did not run")
+                f"{what} tp=1 {name}: a decode kernel did not run")
         del model
         torch.cuda.empty_cache()
-    ranks = launch(agree_tp_rank, TP, (seed, prompts, AGREE_TP_NEW),
+    ranks = launch(agree_tp_rank, TP, (seed, prompts, AGREE_TP_NEW, moe),
                    timeout=TP_TIMEOUT)
     out = {}
     for name, dtype in AGREE_TP_DTYPES.items():
@@ -2896,22 +3030,23 @@ def phase_agree_tp(dev, seed: int) -> dict:
             require(other[name]["v2"] == got["v2"]
                     and other[name]["v1"] == got["v1"]
                     and np.array_equal(other[name]["logits"], got["logits"]),
-                    f"agree_tp {name}: the ranks differ")
+                    f"{what} {name}: the ranks differ")
         la = got["launches"]
         require(la["paged_decode_attention_tp"] > 0 and
                 la["decode_attention"] > 0 and
-                la["paged_decode_attention"] == 0,
-                f"agree_tp tp={TP} {name}: launches {la}")
+                la["paged_decode_attention"] == 0 and
+                (not moe or la["moe_dispatch"] > 0 and la["moe_combine"] > 0),
+                f"{what} tp={TP} {name}: launches {la}")
         rel = logit_rel_err(got["logits"], want["logits"])
         exact = ref["float32"]["logits"]
         if dtype == torch.float32:
-            require(rel <= TOL[dtype], f"agree_tp fp32: first logits differ "
+            require(rel <= TOL[dtype], f"{what} fp32: first logits differ "
                                        f"by {rel} relative, over {TOL[dtype]}")
         else:
             own, tp_err = (logit_rel_err(want["logits"], exact),
                            logit_rel_err(got["logits"], exact))
             require(tp_err <= BF16_TP_SLACK * own,
-                    f"agree_tp bf16: tp={TP} logits lie {tp_err} from the fp32 "
+                    f"{what} bf16: tp={TP} logits lie {tp_err} from the fp32 "
                     f"ones, tp=1's {own}")
 
         def agreement(a, b):
@@ -2927,11 +3062,355 @@ def phase_agree_tp(dev, seed: int) -> dict:
                      "launches_tp": la, "launches_tp1": want["launches"]}
         if dtype == torch.float32:
             require(got["v2"] == want["v2"] and got["v1"] == want["v1"],
-                    f"agree_tp fp32: tp={TP} tokens differ from tp=1's")
-    return {"model": "llama3_8b",
-            "reduced": [f"num_layers 32 -> {AGREE_TP_LAYERS}"],
+                    f"{what} fp32: tp={TP} tokens differ from tp=1's")
+    return {"model": "mixtral_8x7b" if moe else "llama3_8b",
+            "reduced": [f"num_layers 32 -> {layers}"],
             "prompts": list(AGREE_TP_PROMPTS), "new_tokens": AGREE_TP_NEW,
-            "comm": TP_NOTE, **out}
+            "comm": TP_NOTE, "wall_s": time.perf_counter() - t0, **out}
+
+
+# -- the expert-parallel slice -------------------------------------------------
+
+MOE_EP, MOE_EP_STEPS, MOE_EP_TIMEOUT = 2, 4, 900
+MOE_EP_NOTE = ("2 ranks on card 0 over gloo, every collective (the experts' "
+               "exchange included) through pinned host memory: a "
+               "correctness and memory check, the step time on the host "
+               "clock is not an EP speed")
+#: train_moe_ep_agree: Mixtral-8x7B widths at 1 layer in fp32, one global
+#: batch of 4 rows of 512 tokens, 2 rows a rank at ep 2
+MOE_AGREE_LAYERS, MOE_AGREE_ROWS, MOE_AGREE_SEQ, MOE_AGREE_STEPS = \
+    1, 4, 512, 3
+#: (label, ep, dp, ZeRO stage) of the agreement's launches.  ep 2 x dp 2
+#: is held against JAX by the CPU tests only: on one card its four gloo
+#: ranks took 25 s a step (the expert stacks' fp32 collectives over
+#: ``data`` through the host), 88 of the phase's 128 s on an H100 80GB
+#: HBM3 at 700 W
+MOE_AGREE_RUNS = (("ep2", 2, 1, 0),)
+#: the checkpoint check's narrow fp32 Mixtral (train_agree's widths, the
+#: 8 experts and top-2 of Mixtral-8x7B): its save stays small
+MOE_CKPT_MODEL = dict(AGREE_TRAIN, num_experts=8, top_k=2)
+#: serve_moe_tp: Mixtral-8x7B at 16 of 32 layers, bf16, two ranks
+MOE_TP_LAYERS = 16
+
+
+def ep_mesh(ep: int, dp: int):
+    from deepspeed_tpu_torch.parallel import MeshLayout
+    from deepspeed_tpu_torch.utils import groups
+    return groups.initialize_mesh(MeshLayout.infer(ep * dp, ep=ep, dp=dp))
+
+
+def ep_rank_params(cfg, ep: int) -> int:
+    """A rank's parameters of a Mixtral whose experts are split over
+    ``ep``: every parameter less the other ranks' experts."""
+    per_expert = 3 * cfg.hidden_size * cfg.intermediate_size
+    return cfg.num_params() - cfg.num_layers * (
+        cfg.num_experts - cfg.num_experts // ep) * per_expert
+
+
+def moe_ep_train_rank(rank: int, seed: int) -> dict:
+    """One rank of train_moe_ep: Mixtral-8x7B widths, ``MOE_TRAIN_LAYERS``
+    layers, this rank's 4 of the 8 experts, its ``[1, 2048]`` row of the
+    global batch, ``MOE_EP_STEPS`` steps with fused Adam; then the layers'
+    summed ``l_aux`` of a no-grad pass over its row."""
+    from deepspeed_tpu_torch import MixtralConfig, MixtralModel, initialize
+
+    dev = zero_rank_setup()
+    mesh = ep_mesh(MOE_EP, 1)
+    cfg = MixtralConfig.mixtral_8x7b(
+        num_layers=MOE_TRAIN_LAYERS, dtype=torch.bfloat16,
+        param_dtype=torch.float32, attn_impl="flash")
+    torch.cuda.reset_peak_memory_stats()
+    model = MixtralModel(cfg, device=dev, seed=seed, mesh=mesh)
+    engine, *_ = initialize(model=model, config=dict(
+        ds_config(model, 1, fused_adam=True),
+        moe={"expert_parallel_size": MOE_EP}), device=dev, mesh=mesh)
+    rows = zero_batch(seed, cfg.vocab_size, MOE_EP, dev)[rank:rank + 1]
+    reset_counts()
+    metrics, marks = [], []
+    for _ in range(MOE_EP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(engine.train_step({"input_ids": rows}))
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter() - t0) * 1e3)
+    launches = train_launches()
+    with torch.no_grad():
+        _, aux = model.hidden_states(rows)
+    layer = model._moe_layer
+    return {"loss": [float(m["loss"]) for m in metrics],
+            "grad_norm": [float(m["grad_norm"]) for m in metrics],
+            "l_aux": float(aux), "capacity": layer.last_capacity,
+            "rung": layer.last_impl, "launches": launches,
+            "params": sum(p.numel() for p in engine.params),
+            "state_bytes": zero_state_bytes(engine),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "host_step_ms": marks}
+
+
+def phase_train_moe_ep(seed: int) -> dict:
+    """train_moe_ep: ``MOE_EP`` ranks on card 0 over gloo, each holding 4
+    of Mixtral-8x7B's 8 experts (2 layers, bf16 on fp32 masters, fused
+    Adam, ``[1, 2048]`` a rank): finite, falling losses equal on both
+    ranks; one ``l_aux`` on both (the gate routes the global batch); per
+    rank and step dispatch and combine 2 L times, flash as its formula,
+    Σg² and Adam once; each rank's state to the byte of the prediction
+    (16 bytes a parameter it holds)."""
+    from deepspeed_tpu_torch import MixtralConfig
+    from deepspeed_tpu_torch.launcher import launch
+    from deepspeed_tpu_torch.ops import op_builder
+
+    op_builder.build()  # here, so the ranks do not both run nvcc
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(moe_ep_train_rank, MOE_EP, (seed,),
+                   timeout=MOE_EP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    cfg = MixtralConfig.mixtral_8x7b(num_layers=MOE_TRAIN_LAYERS)
+    want_params = ep_rank_params(cfg, MOE_EP)
+    for r, res in enumerate(ranks):
+        losses = res["loss"]
+        require(all(np.isfinite(losses)),
+                f"train_moe_ep rank {r}: non-finite loss {losses}")
+        require(losses[-1] < losses[0],
+                f"train_moe_ep rank {r}: loss did not fall: {losses}")
+        require(losses == ranks[0]["loss"] and
+                res["l_aux"] == ranks[0]["l_aux"] and
+                res["capacity"] == ranks[0]["capacity"],
+                f"train_moe_ep: rank {r}'s losses {losses}, l_aux "
+                f"{res['l_aux']} differ from rank 0's {ranks[0]['loss']}, "
+                f"{ranks[0]['l_aux']}")
+        require(res["rung"] == "pallas", f"train_moe_ep rank {r}: the MoE "
+                                         f"layer took the {res['rung']} rung")
+        require_train_launches(f"train_moe_ep rank {r}", dict(
+            layers=MOE_TRAIN_LAYERS, steps=MOE_EP_STEPS, remat=True,
+            fused_adam=True, launches=res["launches"]), moe=True)
+        require(res["params"] == want_params and
+                res["state_bytes"]["total"] == 16 * want_params,
+                f"train_moe_ep rank {r}: {res['params']} parameters, "
+                f"{res['state_bytes']['total']} state bytes; predicted "
+                f"{want_params}, {16 * want_params}")
+    peak = sum(res["peak_mem_bytes"] for res in ranks)
+    require(peak < torch.cuda.get_device_properties(0).total_memory,
+            f"train_moe_ep: the ranks' peaks add to {peak} B")
+    return {"ranks": ranks, "predicted_params_a_rank": want_params,
+            "params_one_process": cfg.num_params(),
+            "predicted_state_bytes_a_rank": 16 * want_params,
+            "peak_mem_bytes_sum": peak, "wall_s": wall}
+
+
+def moe_agree_inputs(seed: int, dev) -> tuple:
+    from deepspeed_tpu_torch import MixtralConfig
+
+    cfg = MixtralConfig.mixtral_8x7b(
+        num_layers=MOE_AGREE_LAYERS, dtype=torch.float32,
+        param_dtype=torch.float32, attn_impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    ids = torch.randint(0, cfg.vocab_size, (MOE_AGREE_ROWS, MOE_AGREE_SEQ),
+                        generator=gen, device=dev)
+    return cfg, ids
+
+
+def moe_agree_steps(cfg, ids, dev, seed: int, mesh=None, ep: int = 1,
+                    stage: int = 0) -> dict:
+    """``MOE_AGREE_STEPS`` steps of the fp32 Mixtral on ``ids`` (this
+    rank's rows): losses and grad norms."""
+    from deepspeed_tpu_torch import MixtralModel, initialize
+
+    model = MixtralModel(cfg, device=dev, seed=seed, mesh=mesh)
+    engine, *_ = initialize(model=model, config=dict(
+        ds_config(model, ids.shape[0], stage=stage),
+        moe={"expert_parallel_size": ep}), device=dev, mesh=mesh)
+    ms = [engine.train_step({"input_ids": ids})
+          for _ in range(MOE_AGREE_STEPS)]
+    return {"loss": [float(m["loss"]) for m in ms],
+            "grad_norm": [float(m["grad_norm"]) for m in ms]}
+
+
+def leaf_digests(engine) -> dict:
+    """sha256 of each leaf's fp32 master, m and v as this rank holds them,
+    with the box of the whole leaf they fill."""
+    import hashlib
+
+    from deepspeed_tpu_torch.runtime.checkpointing import (_held_boxes,
+                                                           leaf_shape)
+    opt, out = engine.optimizer, {}
+    boxes, masters = _held_boxes(engine), engine._masters()
+    for i, name in enumerate(engine.param_names):
+        row = {key: hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                                   .tobytes()).hexdigest()
+               for key, t in (("master", masters[i]), ("m", opt.m[i]),
+                              ("v", opt.v[i]))}
+        row["box"] = boxes[i][1]
+        row["full_shape"] = leaf_shape(engine, i)
+        out[name] = row
+    return out
+
+
+def boxed_digests(engine, name: str, box) -> dict:
+    """sha256 of ``box`` of leaf ``name``'s master, m and v in an engine
+    that holds the leaf whole."""
+    import hashlib
+
+    i = engine.param_names.index(name)
+    out = {}
+    for key, t in (("master", engine.params[i]),
+                   ("m", engine.optimizer.m[i]),
+                   ("v", engine.optimizer.v[i])):
+        for d, (lo, hi) in enumerate(box):
+            t = t.narrow(d, lo, hi - lo)
+        out[key] = hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                                  .tobytes()).hexdigest()
+    return out
+
+
+def moe_ckpt_engine(dev, seed: int, mesh=None, ep: int = 1):
+    from deepspeed_tpu_torch import MixtralConfig, MixtralModel, initialize
+
+    model = MixtralModel(MixtralConfig(**MOE_CKPT_MODEL), device=dev,
+                         seed=seed, mesh=mesh)
+    engine, *_ = initialize(model=model, config=dict(
+        ds_config(model, 1), moe={"expert_parallel_size": ep}),
+        device=dev, mesh=mesh)
+    return engine
+
+
+def moe_agree_rank(rank: int, seed: int, label: str, ep: int, dp: int,
+                   stage: int, save_dir) -> dict:
+    """One rank of train_moe_ep_agree: this rank's rows of the global
+    batch at ``ep x dp``; with ``save_dir``, then the narrow Mixtral's two
+    steps on this rank's row and a save, with the digests of its slices."""
+    dev = zero_rank_setup()
+    mesh = ep_mesh(ep, dp)
+    cfg, ids = moe_agree_inputs(seed, dev)
+    n = MOE_AGREE_ROWS // (ep * dp)
+    # every rank draws the seed's whole weights and keeps its slice
+    t0 = time.perf_counter()
+    out = moe_agree_steps(cfg, ids[rank * n:(rank + 1) * n], dev, seed,
+                          mesh, ep, stage)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["steps_wall_s"] = time.perf_counter() - t0
+    if save_dir is not None:
+        engine = moe_ckpt_engine(dev, seed + 20 + rank, mesh, ep)
+        gen = torch.Generator(device=dev).manual_seed(seed + rank)
+        for _ in range(2):
+            engine.train_step({"input_ids": torch.randint(
+                0, MOE_CKPT_MODEL["vocab_size"], (1, 128), generator=gen,
+                device=dev)})
+        engine.save_checkpoint(save_dir)
+        out["digests"] = leaf_digests(engine)
+    return out
+
+
+def phase_train_moe_ep_agree(dev, seed: int) -> dict:
+    """train_moe_ep_agree: fp32 Mixtral-8x7B widths at one layer on one
+    global batch of ``[4, 512]``: one process, then ep 2 (2 ranks, 2 rows
+    each, ZeRO 0) on card 0 over gloo give its losses and grad norms to
+    1e-4.  The ep-2 ranks then save the narrow fp32 Mixtral (8 experts)
+    after two steps; one process loads it: every rank's slice of masters,
+    m and v bit-equal (sha256)."""
+    import shutil
+
+    from deepspeed_tpu_torch.launcher import launch
+    from deepspeed_tpu_torch.ops import op_builder
+
+    op_builder.build()
+    t0 = time.perf_counter()
+    cfg, ids = moe_agree_inputs(seed, dev)
+    want = moe_agree_steps(cfg, ids, dev, seed)
+    torch.cuda.empty_cache()
+    save_dir = ckpt_root()
+    rel, runs = {}, {}
+    walls = {"one_process": time.perf_counter() - t0}
+    for label, ep, dp, stage in MOE_AGREE_RUNS:
+        t1 = time.perf_counter()
+        runs[label] = ranks = launch(
+            moe_agree_rank, ep * dp, (seed, label, ep, dp, stage,
+                                      save_dir if label == "ep2" else None),
+            timeout=MOE_EP_TIMEOUT)
+        walls[label] = time.perf_counter() - t1
+        for r, got in enumerate(ranks):
+            for what in ("loss", "grad_norm"):
+                rel[f"{label}_rank{r}_{what}"] = e = _max_rel(got[what],
+                                                              want[what])
+                require(e <= 1e-4, f"train_moe_ep_agree {label} rank {r}: "
+                                   f"{what} {got[what]} != one process's "
+                                   f"{want[what]} (rel {e})")
+    engine = moe_ckpt_engine(dev, seed + 99)
+    engine.load_checkpoint(save_dir)
+    checked = 0
+    for r, got in enumerate(runs["ep2"]):
+        for name, row in got.pop("digests").items():
+            mine = boxed_digests(engine, name, row["box"])
+            require(all(mine[k] == row[k] for k in mine),
+                    f"train_moe_ep_agree: rank {r}'s {name} (box "
+                    f"{row['box']}) differs after the load")
+            checked += 1
+    require(engine.optimizer.count == 2, "train_moe_ep_agree: the loaded "
+                                         "step count is not 2")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return {"one_process": want, "runs": runs, "max_rel": rel,
+            "checkpoint": {"slices_bit_equal": checked,
+                           "model": "narrow fp32 Mixtral (H 256, 8 experts)"},
+            "layers": MOE_AGREE_LAYERS,
+            "global_batch": [MOE_AGREE_ROWS, MOE_AGREE_SEQ],
+            "wall_s_by_run": walls, "wall_s": time.perf_counter() - t0}
+
+
+def serving_moe_tp_rank(rank: int, seed: int) -> dict:
+    """One rank of serve_moe_tp and generate_moe_tp: Mixtral-8x7B at
+    ``MOE_TP_LAYERS`` layers, bf16, its ``I/tp`` expert columns and half
+    the heads, behind ``build_serving_frontend(mesh=...)`` with the
+    serve_moe phase's knobs and requests, then ``init_inference``."""
+    from deepspeed_tpu_torch import KVCacheConfig
+
+    model = tp_rank_model(seed, torch.bfloat16, MOE_TP_LAYERS, moe=True)
+    rng = np.random.default_rng(seed)
+    s = serve(model, rng, cache_config=KVCacheConfig(
+        num_blocks=1025, block_size=16, max_seq_len=2048), header_len=512,
+        requests=SERVE_REQUESTS, mesh=model.mesh, **SERVE_ENGINE)
+    s["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    ids = torch.from_numpy(rng.integers(0, model.config.vocab_size,
+                                        (V1_BATCH, V1_PROMPT)))
+    return {"serve": s, "generate": generate_v1(model, ids, V1_NEW)}
+
+
+def phase_serving_moe_tp(seed: int) -> dict:
+    """serve_moe_tp and generate_moe_tp: ``TP`` ranks on card 0 over gloo;
+    every budget returned, both ranks' tokens equal; on each rank #2b
+    ``L`` times a decode step, dispatch and combine ``L`` times a prefill
+    call (never in a decode burst: the dense rung), and in generate the
+    decode kernel ``L x 31`` times and dispatch and combine ``L`` times."""
+    from deepspeed_tpu_torch.launcher import launch
+    from deepspeed_tpu_torch.ops import op_builder
+
+    op_builder.build()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(serving_moe_tp_rank, TP, (seed,), timeout=TP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    L = MOE_TP_LAYERS
+    for r, res in enumerate(ranks):
+        la, lg = res["serve"]["launches"], res["generate"]["launches"]
+        steps, calls = (res["serve"]["decode_steps"],
+                        res["serve"]["prefill_calls"])
+        require(la["paged_decode_attention_tp"] == L * steps and
+                la["paged_decode_attention"] == 0 and
+                la["decode_attention"] == 0,
+                f"serve_moe_tp rank {r}: paged launches {la}, want #2b "
+                f"{L} x {steps} decode steps and no unsharded kernel")
+        for kernel in MOE_KERNELS:
+            require(la[kernel] == L * calls and lg[kernel] == L,
+                    f"moe tp rank {r}: {kernel} launched {la[kernel]} times "
+                    f"in serve (want {L} x {calls} prefill calls) and "
+                    f"{lg[kernel]} in generate (want {L})")
+        require(lg["decode_attention"] == L * (V1_NEW - 1) and
+                lg["paged_decode_attention_tp"] == 0,
+                f"generate_moe_tp rank {r}: decode launches {lg}")
+    for key in ("serve", "generate"):
+        require(all(res[key]["tokens"] == ranks[0][key]["tokens"]
+                    for res in ranks),
+                f"{key}_moe_tp: the ranks' tokens differ")
+    return {"ranks": ranks, "launch_wall_s": wall}
 
 
 # -- main ------------------------------------------------------------------
@@ -3013,7 +3492,9 @@ def main() -> int:
                          "train_8b_width, train_moe, train_agree, sparse, "
                          "serve_tp, generate_tp (one launch runs both), "
                          "agree_tp, train_zero, train_zero_agree, "
-                         "train_ckpt)")
+                         "train_ckpt, train_moe_ep, train_moe_ep_agree, "
+                         "serve_moe_tp, generate_moe_tp (one launch runs "
+                         "both), agree_moe_tp)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU path "
@@ -3069,8 +3550,11 @@ def main() -> int:
         ranks = out["ranks"]
         res["serve_tp"] = ranks[0]["serve"]
         for key, phase in (("serve", "serve_tp"), ("generate", "generate_tp")):
-            emit(dict(phase=phase, model="llama3_8b", layers=32, tp=TP,
-                      dtype="bfloat16", reduced=[], comm=TP_NOTE,
+            emit(dict(phase=phase, model="llama3_8b", layers=SERVE_TP_LAYERS,
+                      tp=TP, dtype="bfloat16", reduced=[
+                          f"num_layers 32 -> {SERVE_TP_LAYERS}",
+                          "cards 2 -> 1, NCCL -> gloo through the host"],
+                      comm=TP_NOTE,
                       ranks_tokens_equal=True,
                       launch_wall_s=out["launch_wall_s"],
                       **{f"rank{r}": without_tokens(x[key])
@@ -3089,6 +3573,32 @@ def main() -> int:
                          for r, x in enumerate(out["ranks"])}))
         emit(dict(phase="train_zero", launch_wall_s=out["launch_wall_s"],
                   peak_mem_bytes_rank0=out["peak_mem_bytes_rank0"]))
+
+    def serving_moe_tp():
+        out = phase_serving_moe_tp(args.seed)
+        ranks = out["ranks"]
+        res["serve_moe_tp"] = ranks[0]
+        for key, phase in (("serve", "serve_moe_tp"),
+                           ("generate", "generate_moe_tp")):
+            emit(dict(phase=phase, model="mixtral_8x7b",
+                      layers=MOE_TP_LAYERS, tp=TP, dtype="bfloat16",
+                      reduced=[f"num_layers 32 -> {MOE_TP_LAYERS}",
+                               "cards 2 -> 1, NCCL -> gloo through the "
+                               "host"], comm=TP_NOTE, ranks_tokens_equal=True,
+                      launch_wall_s=out["launch_wall_s"],
+                      card=nvidia_smi_line(),
+                      **{f"rank{r}": without_tokens(x[key])
+                         for r, x in enumerate(ranks)}))
+
+    def train_moe_ep():
+        out = phase_train_moe_ep(args.seed)
+        res["train_moe_ep"] = out["ranks"][0]
+        emit(dict(phase="train_moe_ep", model="mixtral_8x7b", ep=MOE_EP,
+                  global_batch=[MOE_EP, TRAIN_SEQ], dtype="bfloat16",
+                  fused_adam=True, reduced=[
+                      f"num_layers 32 -> {MOE_TRAIN_LAYERS}",
+                      "cards 2 -> 1, NCCL -> gloo through the host"],
+                  comm=MOE_EP_NOTE, card=nvidia_smi_line(), **out))
 
     def sparse():
         rows, res["sparse"] = phase_sparse(dev)
@@ -3174,7 +3684,20 @@ def main() -> int:
         "train_ckpt": lambda: emit(dict(
             phase="train_ckpt", model="bench.py headline", reduced=[
                 "zero: cards 2 -> 1, NCCL -> gloo through the host"],
-            card=nvidia_smi_line(), **phase_train_ckpt(dev, args.seed)))}
+            card=nvidia_smi_line(), **phase_train_ckpt(dev, args.seed))),
+        "train_moe_ep": train_moe_ep,
+        "train_moe_ep_agree": lambda: emit(dict(
+            phase="train_moe_ep_agree", model="mixtral_8x7b widths",
+            dtype="float32", reduced=[
+                f"num_layers 32 -> {MOE_AGREE_LAYERS}",
+                "cards 2 -> 1, NCCL -> gloo through the "
+                "host", "checkpoint: the narrow fp32 Mixtral"],
+            comm=MOE_EP_NOTE, card=nvidia_smi_line(),
+            **phase_train_moe_ep_agree(dev, args.seed))),
+        "serve_moe_tp": serving_moe_tp, "generate_moe_tp": serving_moe_tp,
+        "agree_moe_tp": lambda: emit(dict(
+            phase="agree_moe_tp", card=nvidia_smi_line(),
+            **phase_agree_tp(dev, args.seed, moe=True)))}
     only = [p for p in args.only.split(",") if p]
     unknown = set(only) - set(phases)
     if unknown:
@@ -3201,8 +3724,11 @@ def main() -> int:
     timing, flash, moe, adam, bs = (res["timing"], res["flash"], res["moe"],
                                     res["adam"], res["sparse_kernels"])
 
-    def moe_launches(kernel):  # every MoE main path
-        return sum(x["launches"][kernel] for x in (sm, gm, tm))
+    ep, smt = res["train_moe_ep"], res["serve_moe_tp"]
+
+    def moe_launches(kernel):  # every MoE main path (a rank's on EP, TP)
+        return sum(x["launches"][kernel] for x in (
+            sm, gm, tm, ep, smt["serve"], smt["generate"]))
 
     rows = {  # name: (source, TPU kernel, main-path launches, measured)
         "decode_attention": (decode_src, pallas + "decode_attention.py:98",
@@ -3212,10 +3738,12 @@ def main() -> int:
                                    pallas + "paged_attention.py:116",
                                    s["launches"]["paged_decode_attention"],
                                    timing["paged_decode_attention"]),
-        # the same kernel on one rank's heads; launches per rank of serve_tp
+        # the same kernel on one rank's heads; launches per rank of
+        # serve_tp and serve_moe_tp
         "paged_decode_attention_tp": (
             decode_src, pallas + "paged_attention.py:183",
-            res["serve_tp"]["launches"]["paged_decode_attention_tp"],
+            res["serve_tp"]["launches"]["paged_decode_attention_tp"]
+            + smt["serve"]["launches"]["paged_decode_attention_tp"],
             res["tp_kernels"]["paged_decode_attention_tp"]),
         "flash_fwd": (flash_src, pallas + "flash_attention.py:260",
                       t["launches"]["flash_fwd"], flash["flash_fwd"]),
@@ -3227,13 +3755,19 @@ def main() -> int:
                           flash["flash_bwd_dkv"]),
         "moe_dispatch": (moe_src, pallas + "moe_dispatch.py:194",
                          moe_launches("moe_dispatch"), moe["moe_dispatch"]),
+        # #11 at the expert-parallel pattern; launches: train_moe_ep's rank
+        "moe_dispatch_ep": (moe_src, pallas + "moe_dispatch.py:194",
+                            ep["launches"]["moe_dispatch"],
+                            moe["moe_dispatch_ep"]),
         "moe_combine": (moe_src, pallas + "moe_dispatch.py:215",
                         moe_launches("moe_combine"), moe["moe_combine"]),
         "multi_tensor_sqsum": (adam_src, pallas + "fused_optimizer.py:91",
-                               tm["launches"]["multi_tensor_sqsum"],
+                               tm["launches"]["multi_tensor_sqsum"]
+                               + ep["launches"]["multi_tensor_sqsum"],
                                adam["multi_tensor_sqsum"]),
         "fused_adam": (adam_src, pallas + "fused_optimizer.py:158",
-                       tm["launches"]["fused_adam"], adam["fused_adam"]),
+                       tm["launches"]["fused_adam"]
+                       + ep["launches"]["fused_adam"], adam["fused_adam"]),
         # the forward replaces the gather (:335) and resident (:523) forwards
         "block_sparse_fwd": (sparse_src,
                              pallas + "block_sparse_attention.py:335",

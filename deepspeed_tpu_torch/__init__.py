@@ -17,7 +17,10 @@ one process per rank (:func:`init_distributed`, :mod:`.comm`,
 ``utils.groups``, ``launcher.local``), with the paged kernel on each
 rank's heads; and the int8 quantizer kernel; and data parallelism with
 ZeRO stages 0-3 over ``torch.distributed`` (:mod:`.zero`: ``Init``,
-``GatheredParameters``), one process per rank.  Every
+``GatheredParameters``), one process per rank; and expert parallelism:
+Mixtral trained on ``expert`` x ``data`` axes with the gate routing the
+global micro-batch, served under tensor parallelism, and Residual-MoE
+(:class:`MoE`).  Every
 entry point runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run.
 """

@@ -7,9 +7,10 @@ the model's ``decode_step`` calls.  Tensor-parallel inference
 (``tensor_parallel={"tp_size": N}``) runs one process per rank: the engine
 takes the model's mesh, or builds one over the joined process group
 (joining it from the launcher's environment first) and splits a whole
-model's weights in place (``LlamaModel.shard_``, the reference's AutoTP).
-Each rank's decode kernel then runs on its own heads, and every rank
-returns the same tokens.
+model's weights in place (``LlamaModel.shard_``, the reference's AutoTP;
+a Mixtral's expert stacks keep their ``I/tp`` FFN columns).  Each rank's
+decode kernel then runs on its own heads, and every rank returns the same
+tokens.
 """
 
 from __future__ import annotations

@@ -21,7 +21,9 @@ Tensor-parallel serving: with a model built on a process mesh whose
 ``tensor`` axis has size ``tp``, every rank runs this engine over its own
 heads and its own pool ``[L, N, bs, kv_h/tp, d]`` (the JAX pool's
 ``PartitionSpec(None, None, None, "tensor", None)``); prefill attends over
-the local heads and the decode burst calls ``paged_decode_attention_tp``.
+the local heads and the decode burst calls ``paged_decode_attention_tp``
+(a Mixtral's prefill runs the dispatch and combine kernels over its
+``I/tp`` expert columns, every rank routing the same tokens alike).
 The model all-reduces each layer's row-parallel outputs and all-gathers the
 logits, so every rank samples the same tokens (the generators are seeded
 alike).  Every rank must be given the same requests in the same order: the

@@ -10,7 +10,8 @@ module per layer with ``nn.Linear`` weights ``[out, in]`` and the expert
 stacks in the JAX orientation.  The input is the JAX tree with every leaf
 already a numpy array (``jax.device_get``), so this module needs neither JAX
 nor the JAX package.  :func:`shard_llama_params` cuts a whole ``state_dict``
-into one tensor-parallel rank's.
+into one tensor-parallel rank's, :func:`shard_mixtral_params` a whole
+Mixtral's into one rank's of a tensor and an expert axis.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .llama import tp_shard
+from .llama import is_expert_leaf, split_block, tp_shard
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -80,6 +81,25 @@ def shard_llama_params(state_dict: Dict[str, torch.Tensor], tp: int,
         raise ValueError(f"rank {rank} out of range for tp={tp}")
     return {name: tp_shard(name, t, tp, rank)
             for name, t in state_dict.items()}
+
+
+def shard_mixtral_params(state_dict: Dict[str, torch.Tensor], tp: int,
+                         ep: int, tp_rank: int, ep_rank: int
+                         ) -> Dict[str, torch.Tensor]:
+    """The rank at ``(tp_rank, ep_rank)``'s ``state_dict`` of a Mixtral
+    split over ``tp`` tensor and ``ep`` expert ranks (JAX ``param_specs``):
+    the backbone as :func:`shard_llama_params`, the expert stacks
+    ``ep_rank``'s block of experts (dim 0, ``P(pipe, "expert", ...)``) and
+    ``tp_rank``'s block of the FFN dim (``w_gate`` / ``w_up`` dim 2,
+    ``w_down`` dim 1); the router is whole."""
+    if not (0 <= tp_rank < tp and 0 <= ep_rank < ep):
+        raise ValueError(f"rank ({tp_rank}, {ep_rank}) out of range for "
+                         f"tp={tp}, ep={ep}")
+    out = shard_llama_params(state_dict, tp, tp_rank)
+    for name, t in out.items():
+        if is_expert_leaf(name):
+            out[name] = split_block(t, 0, ep, ep_rank, name)
+    return out
 
 
 def mixtral_params_from_jax(params: Dict[str, Any]

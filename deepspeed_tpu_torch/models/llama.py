@@ -221,8 +221,9 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     return x.repeat_interleave(n_rep, dim=-2) if n_rep > 1 else x
 
 
-#: ``normal_(weight, fan_in, tp_dim=None)``: draw ``N(0, 1/fan_in)`` into
-#: ``weight``, this rank's slice along ``tp_dim`` of the whole weight;
+#: ``normal_(weight, fan_in, tp_dim=None, ep_dim=None)``: draw ``N(0,
+#: 1/fan_in)`` into ``weight``, this rank's slice along ``tp_dim`` (the
+#: tensor axis) and ``ep_dim`` (the expert axis) of the whole weight;
 #: ``ones_(weight)`` sets it to one
 Init = Callable[..., None]
 
@@ -231,6 +232,12 @@ Init = Callable[..., None]
 #: input columns (row-parallel); the JAX ``param_specs``' ``tensor`` entries
 LAYER_TP_DIMS = {"q_proj": 0, "k_proj": 0, "v_proj": 0, "o_proj": 1,
                  "gate_proj": 0, "up_proj": 0, "down_proj": 1}
+
+#: a Mixtral layer's expert stacks (``[E, H, I]``, ``[E, I, H]``) → the
+#: dim tensor parallelism splits, the FFN dim (JAX ``P(pipe, "expert",
+#: None, "tensor")`` and ``P(pipe, "expert", "tensor", None)``); expert
+#: parallelism splits dim 0, the experts
+EXPERT_TP_DIMS = {"w_gate": 2, "w_up": 2, "w_down": 1}
 
 
 def tp_split_dim(name: str) -> Optional[int]:
@@ -241,31 +248,53 @@ def tp_split_dim(name: str) -> Optional[int]:
     parts = name.split(".")
     if len(parts) == 4 and parts[0] == "layers" and parts[3] == "weight":
         return LAYER_TP_DIMS.get(parts[2])
+    if len(parts) == 3 and parts[0] == "layers":
+        return EXPERT_TP_DIMS.get(parts[2])
     return None
+
+
+def is_expert_leaf(name: str) -> bool:
+    """Whether state-dict entry ``name`` is an expert stack (expert
+    parallelism cuts its dim 0)."""
+    parts = name.split(".")
+    return len(parts) == 3 and parts[0] == "layers" and \
+        parts[2] in EXPERT_TP_DIMS
+
+
+def split_block(t: torch.Tensor, dim: int, parts: int, rank: int,
+                what: str) -> torch.Tensor:
+    """Block ``rank`` of ``parts`` contiguous blocks of ``t`` along
+    ``dim``, a copy (``t`` itself for one part)."""
+    if parts == 1:
+        return t
+    if t.shape[dim] % parts:
+        raise ValueError(f"{what}: dim {dim} of {tuple(t.shape)} does not "
+                         f"split over {parts} ranks")
+    n = t.shape[dim] // parts
+    return t.narrow(dim, rank * n, n).clone()
 
 
 def tp_shard(name: str, t: torch.Tensor, tp: int, rank: int) -> torch.Tensor:
     """Rank ``rank``'s contiguous block of state-dict entry ``name`` along
     its split dim (``t`` itself when every rank holds it whole)."""
     dim = tp_split_dim(name)
-    if dim is None or tp == 1:
+    if dim is None:
         return t
-    if t.shape[dim] % tp:
-        raise ValueError(f"{name}: dim {dim} of {tuple(t.shape)} does not "
-                         f"split over {tp} ranks")
-    n = t.shape[dim] // tp
-    return t.narrow(dim, rank * n, n).clone()
+    return split_block(t, dim, tp, rank, name)
 
 
 class LlamaDecoderLayer(nn.Module):
     """One decoder layer; under tensor parallelism (``tp > 1``) it holds
-    this rank's ``1/tp`` of the heads and of the FFN's intermediate dim."""
+    this rank's ``1/tp`` of the heads and of the FFN's intermediate dim
+    (and a Mixtral layer ``1/ep`` of the experts)."""
 
-    def __init__(self, c: LlamaConfig, device: DeviceLike, tp: int = 1):
+    def __init__(self, c: LlamaConfig, device: DeviceLike, tp: int = 1,
+                 ep: int = 1):
         super().__init__()
         H, hd = c.hidden_size, c.hd
         self.compute_dtype = c.dtype
         self.tp = tp
+        self.ep = ep
         kw = dict(bias=False, device=device, dtype=c.storage_dtype)
         self.attn_norm = nn.Parameter(torch.empty(H, device=device,
                                                   dtype=c.storage_dtype))
@@ -325,8 +354,9 @@ class LlamaModel(nn.Module):
     holds this rank's ZeRO-3 chunks."""
 
     layer_cls = LlamaDecoderLayer
-    #: whether the model's tensor-parallel split is ported
-    tp_ported = True
+    #: the model's expert-parallel split (a Mixtral's experts): 1, no experts
+    ep = 1
+    ep_rank = 0
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = "cuda",
                  seed: int = 0, mesh: Optional[ProcessMesh] = None):
@@ -338,7 +368,8 @@ class LlamaModel(nn.Module):
         # writes every weight, so a default init would be wasted work
         self.embed = nn.Embedding(c.vocab_size, c.hidden_size,
                                   device="meta", dtype=c.storage_dtype)
-        self.layers = nn.ModuleList(self.layer_cls(c, "meta", self.tp)
+        self.layers = nn.ModuleList(self.layer_cls(c, "meta", self.tp,
+                                                   self.ep)
                                     for _ in range(c.num_layers))
         self.final_norm = nn.Parameter(torch.empty(c.hidden_size,
                                                    device="meta",
@@ -356,10 +387,6 @@ class LlamaModel(nn.Module):
         c = self.config
         tp = int(mesh.shape[AXIS_TENSOR]) if mesh is not None else 1
         if tp > 1:
-            if not self.tp_ported:
-                raise NotImplementedError(
-                    f"{type(self).__name__} under tensor parallelism is not "
-                    "ported yet")
             for what, n in (("kv heads", c.num_kv_heads),
                             ("intermediate size", c.intermediate_size),
                             ("vocab size", None if c.tie_embeddings
@@ -377,18 +404,22 @@ class LlamaModel(nn.Module):
     @torch.no_grad()
     def shard_(self, mesh: ProcessMesh) -> "LlamaModel":
         """Keep this rank's tensor-parallel slice of a whole model's
-        weights, in place (the reference's AutoTP on a loaded module)."""
-        if self.tp != 1:
-            raise ValueError(f"the model is already split over {self.tp} "
-                             "ranks")
+        weights (and a Mixtral's expert-parallel slice of its experts), in
+        place (the reference's AutoTP on a loaded module)."""
+        if self.tp != 1 or self.ep != 1:
+            raise ValueError(f"the model is already split over "
+                             f"{self.tp * self.ep} ranks")
         self._set_mesh(mesh)
         for name, p in self.named_parameters():
-            p.data = tp_shard(name, p.data, self.tp, self.tp_rank)
+            t = tp_shard(name, p.data, self.tp, self.tp_rank)
+            if is_expert_leaf(name):
+                t = split_block(t, 0, self.ep, self.ep_rank, name)
+            p.data = t
         for module in self.modules():
             if isinstance(module, nn.Linear):
                 module.out_features, module.in_features = module.weight.shape
         for layer in self.layers:
-            layer.tp = self.tp
+            layer.tp, layer.ep = self.tp, self.ep
         return self
 
     def _tp_reduce(self, x: torch.Tensor) -> torch.Tensor:
@@ -415,17 +446,21 @@ class LlamaModel(nn.Module):
         gen = torch.Generator(device=dev).manual_seed(seed)
 
         def normal_(w: torch.Tensor, fan_in: int,
-                    tp_dim: Optional[int] = None) -> None:
+                    tp_dim: Optional[int] = None,
+                    ep_dim: Optional[int] = None) -> None:
             # the whole weight is drawn, so a rank's shard is exactly that
             # slice of the unsplit model from the same seed
+            splits = [(d, parts, rank) for d, parts, rank in (
+                (tp_dim, self.tp, self.tp_rank),
+                (ep_dim, self.ep, self.ep_rank)) if d is not None]
             shape = list(w.shape)
-            if tp_dim is not None:
-                shape[tp_dim] *= self.tp
+            for d, parts, _ in splits:
+                shape[d] *= parts
             full = torch.randn(shape, generator=gen, device=dev,
                                dtype=torch.float32).div_(math.sqrt(fan_in))
-            if tp_dim is not None:
-                n = w.shape[tp_dim]
-                full = full.narrow(tp_dim, self.tp_rank * n, n)
+            for d, _, rank in splits:
+                n = w.shape[d]
+                full = full.narrow(d, rank * n, n)
             materialize(w, dev, lambda t: t.copy_(full))
 
         def ones_(w: torch.Tensor) -> None:
@@ -613,7 +648,7 @@ class LlamaModel(nn.Module):
         if self.tp > 1:
             raise NotImplementedError("training under tensor parallelism is "
                                       "not ported yet (ROADMAP Queue 1 item "
-                                      "5)")
+                                      "5b)")
         c = self.config
         pos = torch.arange(input_ids.shape[1], device=self.device)
         x = self.embed_tokens(input_ids)

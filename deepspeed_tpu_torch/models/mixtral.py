@@ -12,6 +12,19 @@ kernels).  Training adds ``aux_loss_coef`` times the layers' summed
 load-balancing losses to the cross entropy (``LlamaModel.loss``); the
 serving hooks drop them.  Every token of a call counts toward the experts'
 capacity, padding included, as in the JAX model.
+
+On a process mesh (JAX ``param_specs``): the expert stacks hold this
+rank's ``E/ep`` experts (dim 0, the ``expert`` axis) and, under tensor
+parallelism, its ``I/tp`` columns (``w_gate`` / ``w_up`` dim 2,
+``w_down`` dim 1); the router is whole.  Each whole weight is drawn from
+the seed and narrowed, so every shard is a slice of the one-process model.
+Under tensor parallelism (serving) every rank routes the same tokens the
+same way and its experts' output is a partial sum that ``_tp_reduce``
+adds after the combine.  On data-parallel axes above 1 the MoE layer
+routes the global micro-batch and exchanges the experts' buffers over
+``expert`` (``moe/sharded_moe.py``).  The expert stacks carry
+``ds_expert`` (``runtime/zero/sharder.ExpertShard``): the engine reduces
+their gradients, and ZeRO cuts them, over the ``data`` axis alone.
 """
 
 from __future__ import annotations
@@ -24,9 +37,11 @@ from torch import nn
 
 from ..moe.layer import swiglu_expert_fn
 from ..moe.sharded_moe import MOELayer, TopKGate
-from ..parallel.mesh import ProcessMesh
+from ..parallel.mesh import AXIS_EXPERT, ProcessMesh
+from ..runtime.zero.sharder import ExpertShard, compute_weight
 from ..utils.device import DeviceLike
-from .llama import Init, LlamaConfig, LlamaDecoderLayer, LlamaModel
+from .llama import (EXPERT_TP_DIMS, Init, LlamaConfig, LlamaDecoderLayer,
+                    LlamaModel)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,42 +89,40 @@ class MixtralConfig(LlamaConfig):
 
 
 class MixtralDecoderLayer(LlamaDecoderLayer):
-    """Attention as Llama's; the FFN is the router and the expert stacks."""
+    """Attention as Llama's; the FFN is the router and this rank's slice
+    of the expert stacks."""
 
     def _build_ffn(self, c: MixtralConfig, device: DeviceLike) -> None:
-        H, I, E = c.hidden_size, c.intermediate_size, c.num_experts
+        H, I, E = c.hidden_size, c.intermediate_size // self.tp, \
+            c.num_experts // self.ep
 
         def param(*shape: int) -> nn.Parameter:
             return nn.Parameter(torch.empty(shape, device=device,
                                             dtype=c.storage_dtype))
 
-        self.wg = param(H, E)
+        self.wg = param(H, c.num_experts)
         self.w_gate = param(E, H, I)
         self.w_up = param(E, H, I)
         self.w_down = param(E, I, H)
 
     def _reset_ffn(self, normal_: Init) -> None:
-        H, I = self.w_gate.shape[1], self.w_gate.shape[2]
-        for w, fan_in in ((self.wg, H), (self.w_gate, H), (self.w_up, H),
-                          (self.w_down, I)):
-            normal_(w, fan_in)
+        H = self.w_gate.shape[1]
+        I = self.w_down.shape[1] * self.tp  # the whole FFN dim's fan-in
+        normal_(self.wg, H)
+        for name, fan_in in (("w_gate", H), ("w_up", H), ("w_down", I)):
+            normal_(getattr(self, name), fan_in, EXPERT_TP_DIMS[name], 0)
 
     def experts(self) -> dict:
-        return {"w_gate": self.w_gate, "w_up": self.w_up,
-                "w_down": self.w_down}
+        """The expert stacks as the experts read them: cast to the compute
+        dtype (gathered under ZeRO-3)."""
+        return {name: compute_weight(getattr(self, name), self.compute_dtype)
+                for name in EXPERT_TP_DIMS}
 
 
 class MixtralModel(LlamaModel):
     """Llama backbone + top-k routed SwiGLU experts."""
 
     layer_cls = MixtralDecoderLayer
-    #: the experts' tensor-parallel split (JAX ``models/mixtral.py``
-    #: ``param_specs``) is not ported: a mesh with ``tensor > 1`` raises
-    tp_ported = False
-    #: every rank routes only its own tokens, so capacity and the aux loss
-    #: would not be the global micro-batch's (JAX computes both over it):
-    #: ``initialize`` refuses a data axis above 1 until expert parallelism
-    data_parallel_ported = False
 
     def __init__(self, config: MixtralConfig, device: DeviceLike = "cuda",
                  seed: int = 0, mesh: Optional[ProcessMesh] = None):
@@ -118,11 +131,38 @@ class MixtralModel(LlamaModel):
                         capacity_factor=config.capacity_factor,
                         eval_capacity_factor=config.capacity_factor,
                         min_capacity=4)
-        self._moe_layer = MOELayer(gate, swiglu_expert_fn,
+        self._moe_layer = MOELayer(gate, swiglu_expert_fn, mesh=mesh,
                                    dispatch_impl=config.moe_dispatch_impl)
+        self._mark_experts()
+
+    def _set_mesh(self, mesh: Optional[ProcessMesh]) -> None:
+        """The tensor axis as Llama's, and the ``expert`` axis: this
+        rank's ``E/ep`` experts."""
+        super()._set_mesh(mesh)
+        c = self.config
+        ep = int(mesh.shape[AXIS_EXPERT]) if mesh is not None else 1
+        if c.num_experts % ep:
+            raise ValueError(f"expert size {ep} must divide the number of "
+                             f"experts ({c.num_experts})")
+        self.ep = ep
+        self.ep_rank = mesh.axis_rank(AXIS_EXPERT) if ep > 1 else 0
+
+    def _mark_experts(self) -> None:
+        for layer in self.layers:
+            for name in EXPERT_TP_DIMS:
+                getattr(layer, name).ds_expert = ExpertShard(self.ep,
+                                                             self.ep_rank)
+
+    def shard_(self, mesh: ProcessMesh) -> "MixtralModel":
+        super().shard_(mesh)
+        self._moe_layer.mesh = self._moe_layer.gate.mesh = mesh
+        self._mark_experts()
+        return self
 
     def _ffn(self, layer: MixtralDecoderLayer, h: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The routed FFN over every token of ``h [..., H]``."""
-        y, l_aux, _ = self._moe_layer(layer.wg, layer.experts(), h)
+        """The routed FFN over every token of ``h [..., H]`` (this rank's
+        rows on a data-parallel mesh)."""
+        y, l_aux, _ = self._moe_layer(
+            compute_weight(layer.wg, torch.float32), layer.experts(), h)
         return y, l_aux

@@ -1,5 +1,7 @@
-"""Mixture of experts on one device: top-k gating, the MoE layer and the
-reference-shaped ``MoE`` block."""
+"""Mixture of experts: top-k gating, the MoE layer (on a process mesh:
+global routing over the data-parallel ranks' tokens and the experts
+exchanged over the ``expert`` axis) and the reference-shaped ``MoE``
+block with Residual-MoE."""
 
 from .layer import MoE, swiglu_expert_fn
 from .sharded_moe import (GateIndices, GateMeta, MOELayer, TopKGate,

@@ -18,9 +18,36 @@ maximum; second choices queue behind every first choice; gates are
 renormalised after the capacity filter.  ``noisy_gate_policy="RSample"``
 and random token selection draw from a ``torch.Generator`` passed as
 ``noise_rng`` (the same generator: the noise first, then the priority
-permutation), so their bits differ from ``jax.random``'s.  The expert mesh
-(``_constrain``, ``pad_to_ep``) and the memory-ledger registration are not
-ported yet.
+permutation), so their bits differ from ``jax.random``'s.
+
+Expert and data parallelism (``MOELayer(mesh=...)`` on a process mesh whose
+data-parallel axes ``(expert, data)`` exceed 1): JAX routes the global
+micro-batch under GSPMD, so capacity, slots, drops and ``l_aux`` are
+functions of every rank's tokens.  The port runs one process a rank and
+makes that decision explicit:
+
+1. this rank's fp32 router logits ``[T_loc, E]`` are all-gathered over the
+   data-parallel group in its rank order (expert-major: the order in which
+   JAX shards the batch over ``("expert", "data")``) and the one routing
+   core runs on ``[T_glob, E]``: every rank holds the same capacity
+   (padded to a multiple of the expert axis), slots, drops and ``l_aux``;
+2. the global indices become this rank's view: a slot filled by another
+   rank's token is ``EMPTY_SLOT``, a local token's id loses the rank's
+   offset, and the combine reads this rank's rows of ``flat_idx``;
+3. the dispatch fills a local ``[E, C, H]``, which is reduce-scattered over
+   the ``expert`` group along E (each slot has one writer, so the sum is
+   exact): ``[E/ep, C, H]``, this coordinate's experts over the tokens of
+   its data group; the experts run on it and their output is all-gathered
+   back over the ``expert`` group before the combine.
+
+The collectives are autograd Functions, each the other's backward; the
+logits' all-gather sums its cotangents back, so every rank's copy of
+``l_aux`` contributes and the engine's division by ``gas x dp`` leaves the
+global gradient.  The rows of other data groups' slots are zeros that the
+experts still compute, as JAX's GSPMD plan does on its data replicas.  The
+memory-ledger registration (telemetry) is not ported; where JAX's
+``_constrain`` would drop a constraint and warn, an E that does not divide
+over the expert axis raises.
 """
 
 from __future__ import annotations
@@ -32,10 +59,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.kernels.moe_dispatch import (choose_dispatch_impl,
+from ..comm import comm
+from ..ops.kernels.moe_dispatch import (EMPTY_SLOT, choose_dispatch_impl,
                                         combine_reference,
                                         dispatch_reference, moe_combine,
                                         moe_dispatch, routing_to_indices)
+from ..parallel.mesh import AXIS_EXPERT, DP_AXES
 
 Tensor = torch.Tensor
 
@@ -203,7 +232,9 @@ def top_k_gating_indices(logits: Tensor, k: int, capacity: int,
 @dataclasses.dataclass
 class TopKGate:
     """Router configuration (the reference ``TopKGate`` constructor keys);
-    the router weight ``wg [H, E]`` lives with the caller."""
+    the router weight ``wg [H, E]`` lives with the caller.  With a ``mesh``
+    whose ``expert`` axis exceeds 1, :meth:`capacity` rounds up to a
+    multiple of it (``pad_to_ep``; False keeps the reference formula)."""
 
     num_experts: int
     k: int = 1
@@ -213,12 +244,24 @@ class TopKGate:
     noisy_gate_policy: Optional[str] = None
     drop_tokens: bool = True
     use_rts: bool = False
+    pad_to_ep: bool = True
+    mesh: Optional[Any] = None
+
+    def _ep_size(self) -> int:
+        if self.mesh is None:
+            return 1
+        return int(self.mesh.shape.get(AXIS_EXPERT, 1))
 
     def capacity(self, num_tokens: int, train: bool = True) -> int:
-        """``max(ceil(k · T · factor / E), min_capacity)``."""
+        """``max(ceil(k · T · factor / E), min_capacity)``, padded up to a
+        multiple of the expert axis."""
         f = self.capacity_factor if train else self.eval_capacity_factor
         cap = int(math.ceil(self.k * num_tokens * f / self.num_experts))
-        return max(cap, self.min_capacity)
+        cap = max(cap, self.min_capacity)
+        ep = self._ep_size()
+        if self.pad_to_ep and ep > 1:
+            cap = -(-cap // ep) * ep
+        return cap
 
     def _rts_rng(self, noise_rng: Optional[torch.Generator],
                  train: bool) -> Optional[torch.Generator]:
@@ -227,80 +270,174 @@ class TopKGate:
     def _logits(self, wg: Tensor, x: Tensor) -> Tensor:
         return x.float() @ wg.float()
 
+    def _kw(self, logits: Tensor, train: bool,
+            noise_rng: Optional[torch.Generator]) -> Dict[str, Any]:
+        return dict(k=self.k, capacity=self.capacity(logits.shape[0], train),
+                    noise_rng=noise_rng,
+                    noisy_gate_policy=(self.noisy_gate_policy if train
+                                       else None),
+                    drop_tokens=self.drop_tokens,
+                    rts_rng=self._rts_rng(noise_rng, train))
+
+    def gating(self, logits: Tensor, train: bool = True,
+               noise_rng: Optional[torch.Generator] = None):
+        """Router logits ``[T, E]`` → the dense gating tensors."""
+        return top_k_gating(logits, **self._kw(logits, train, noise_rng))
+
+    def route_logits(self, logits: Tensor, train: bool = True,
+                     noise_rng: Optional[torch.Generator] = None
+                     ) -> Tuple[GateIndices, Tensor, GateMeta]:
+        """Router logits ``[T, E]`` → the routing in index form."""
+        return top_k_gating_indices(logits,
+                                    **self._kw(logits, train, noise_rng))
+
     def __call__(self, wg: Tensor, x: Tensor, train: bool = True,
                  noise_rng: Optional[torch.Generator] = None):
         """``x [T, H]`` → the dense gating tensors (:func:`top_k_gating`)."""
-        return top_k_gating(self._logits(wg, x), self.k,
-                            self.capacity(x.shape[0], train),
-                            noise_rng=noise_rng,
-                            noisy_gate_policy=(self.noisy_gate_policy
-                                               if train else None),
-                            drop_tokens=self.drop_tokens,
-                            rts_rng=self._rts_rng(noise_rng, train))
+        return self.gating(self._logits(wg, x), train, noise_rng)
 
     def route(self, wg: Tensor, x: Tensor, train: bool = True,
               noise_rng: Optional[torch.Generator] = None
               ) -> Tuple[GateIndices, Tensor, GateMeta]:
         """The index form of :meth:`__call__`."""
-        return top_k_gating_indices(
-            self._logits(wg, x), self.k, self.capacity(x.shape[0], train),
-            noise_rng=noise_rng,
-            noisy_gate_policy=self.noisy_gate_policy if train else None,
-            drop_tokens=self.drop_tokens,
-            rts_rng=self._rts_rng(noise_rng, train))
+        return self.route_logits(self._logits(wg, x), train, noise_rng)
+
+
+class _AllGather(torch.autograd.Function):
+    """Forward: every rank's block concatenated along dim 0 over
+    ``group``; backward: the cotangent summed over the group, this rank's
+    block of it (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, group: Any) -> Tensor:
+        ctx.group = group
+        return comm.all_gather(x, group=group, dim=0)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return comm.reduce_scatter(g, group=ctx.group, dim=0), None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Forward: the sum over ``group``, this rank's block along dim 0;
+    backward: the blocks' cotangents all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, group: Any) -> Tensor:
+        ctx.group = group
+        return comm.reduce_scatter(x, group=group, dim=0)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return comm.all_gather(g, group=ctx.group, dim=0), None
 
 
 class MOELayer:
-    """The MoE layer (reference ``MOELayer``) on one device.
+    """The MoE layer (reference ``MOELayer``).
 
-    ``expert_fn(expert_params, x)`` maps ``[E, C, H] → [E, C, H]`` with
-    expert-stacked params (leading dim E).  ``dispatch_impl``: ``auto`` |
-    ``dense`` | ``sparse`` | ``pallas`` (see ``choose_dispatch_impl``).
+    ``expert_fn(expert_params, x)`` maps ``[E', C, H] → [E', C, H]`` with
+    expert-stacked params (leading dim E', this rank's experts: E / ep).
+    ``dispatch_impl``: ``auto`` | ``dense`` | ``sparse`` | ``pallas`` (see
+    ``choose_dispatch_impl``; chosen from the global token count, so every
+    rank takes the same rung).  ``mesh``: a process mesh; when its
+    data-parallel axes exceed 1 the gate routes the global micro-batch and
+    the experts are exchanged over the ``expert`` axis (module docstring).
     """
 
     def __init__(self, gate: TopKGate,
                  expert_fn: Callable[[Any, Tensor], Tensor],
-                 dispatch_impl: str = "auto"):
+                 mesh: Optional[Any] = None, dispatch_impl: str = "auto"):
         self.gate = gate
         self.expert_fn = expert_fn
+        self.mesh = mesh
+        if gate.mesh is None:
+            gate.mesh = mesh  # the capacity's pad sees the expert axis
         self.dispatch_impl = dispatch_impl
-        #: the rung the last call resolved to
+        #: the rung and the capacity of the last call
         self.last_impl: Optional[str] = None
+        self.last_capacity: Optional[int] = None
+
+    def _dp_size(self) -> int:
+        if self.mesh is None:
+            return 1
+        return math.prod(int(self.mesh.shape.get(a, 1)) for a in DP_AXES)
+
+    def _experts(self, expert_params: Any, expert_in: Tensor) -> Tensor:
+        """The experts over ``[E, C, H]``: with an ``expert`` axis above 1,
+        this coordinate's ``E/ep`` experts over the sum of its group's
+        buffers, the outputs gathered back to ``[E, C, H]``."""
+        ep = self.gate._ep_size()
+        if ep == 1:
+            return self.expert_fn(expert_params, expert_in)
+        group = self.mesh.group(AXIS_EXPERT)
+        mine = _ReduceScatter.apply(expert_in, group)
+        return _AllGather.apply(self.expert_fn(expert_params, mine), group)
 
     def __call__(self, wg: Tensor, expert_params: Any, x: Tensor,
                  train: bool = True,
                  noise_rng: Optional[torch.Generator] = None
                  ) -> Tuple[Tensor, Tensor, GateMeta]:
-        """``x [..., H]`` (every leading position a token) → ``(y [..., H],
-        l_aux, meta)``."""
+        """``x [..., H]`` (every leading position a token; this rank's rows
+        on a mesh) → ``(y [..., H], l_aux, meta)``; on a mesh ``l_aux`` and
+        ``meta`` are the global micro-batch's, equal on every rank."""
         H = x.shape[-1]
         tokens = x.reshape(-1, H)
-        T, E = tokens.shape[0], self.gate.num_experts
+        T_loc, E = tokens.shape[0], self.gate.num_experts
+        ep = self.gate._ep_size()
+        if E % ep:
+            raise ValueError(f"num_experts ({E}) does not split over the "
+                             f"expert axis ({ep})")
+        logits = self.gate._logits(wg, tokens)
+        off = 0
+        if self._dp_size() > 1:
+            group = self.mesh.group(*DP_AXES)
+            off = comm.get_rank(group) * T_loc
+            logits = _AllGather.apply(logits, group)
+        T = logits.shape[0]
         C = self.gate.capacity(T, train)
         impl = choose_dispatch_impl(self.dispatch_impl, T, E, C,
                                     device=x.device)
         dtype = x.dtype
         if impl == "dense":
-            combine, dispatch, l_aux, meta = self.gate(wg, tokens, train,
-                                                       noise_rng)
-            expert_in = torch.einsum("tec,th->ech", dispatch.to(dtype),
-                                     tokens)
-            expert_out = self.expert_fn(expert_params, expert_in)
-            y = torch.einsum("tec,ech->th", combine.to(dtype), expert_out)
+            combine, dispatch, l_aux, meta = self.gate.gating(
+                logits, train, noise_rng)
+            rows = slice(off, off + T_loc)
+            expert_in = torch.einsum("tec,th->ech",
+                                     dispatch[rows].to(dtype), tokens)
+            expert_out = self._experts(expert_params, expert_in)
+            y = torch.einsum("tec,ech->th", combine[rows].to(dtype),
+                             expert_out)
         else:
-            gi, l_aux, meta = self.gate.route(wg, tokens, train, noise_rng)
+            gi, l_aux, meta = self.gate.route_logits(logits, train,
+                                                     noise_rng)
             src_idx, flat_idx = routing_to_indices(
                 gi.expert_idx, gi.slot, gi.keep, E, C)
             gates_tk = gi.gate.t()  # [T, K]
+            if T != T_loc:  # this rank's view of the global routing
+                src_idx, flat_idx, gates_tk = local_routing(
+                    src_idx, flat_idx, gates_tk, off, T_loc)
             if impl == "pallas":
                 expert_in = moe_dispatch(tokens.contiguous(), src_idx)
-                expert_out = self.expert_fn(expert_params, expert_in)
-                y = moe_combine(expert_out.contiguous(), flat_idx,
-                                   gates_tk)
+                expert_out = self._experts(expert_params, expert_in)
+                y = moe_combine(expert_out.contiguous(), flat_idx, gates_tk)
             else:
                 expert_in = dispatch_reference(tokens, src_idx)
-                expert_out = self.expert_fn(expert_params, expert_in)
+                expert_out = self._experts(expert_params, expert_in)
                 y = combine_reference(expert_out, flat_idx, gates_tk)
             y = y.to(dtype)
-        self.last_impl = impl
+        self.last_impl, self.last_capacity = impl, C
         return y.reshape(x.shape), l_aux, GateMeta(meta)
+
+
+def local_routing(src_idx: Tensor, flat_idx: Tensor, gates: Tensor,
+                  offset: int, num_local: int
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One rank's view of a routing over the global tokens, whose own are
+    ``[offset, offset + num_local)``: ``src_idx [E, C]`` with every other
+    rank's slot ``EMPTY_SLOT`` and local token ids, and this rank's rows
+    of ``flat_idx`` and ``gates [T, K]``."""
+    mine = (src_idx >= offset) & (src_idx < offset + num_local)
+    src = torch.where(mine, src_idx - offset,
+                      torch.full_like(src_idx, EMPTY_SLOT))
+    rows = slice(offset, offset + num_local)
+    return src, flat_idx[rows].contiguous(), gates[rows]

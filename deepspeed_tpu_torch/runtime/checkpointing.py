@@ -9,10 +9,12 @@ Layout of ``<save_dir>/<tag>/`` (default tag ``global_step{N}``):
 
     dp_rank_{r:05d}.pt   rank r's state: per leaf its placement as plain
                          values (``dim``, ``dp``, ``rank``, ``full_shape``;
-                         None when whole), and tensors: of a cut leaf
-                         this rank's chunk of the fp32 master and of each
-                         optimizer state (m and v of Adam), of a whole
-                         leaf all of them, written by rank 0 only; the
+                         None when whole; an expert stack's also
+                         ``expert``: its block of the experts), and
+                         tensors: of a cut leaf this rank's chunk of the
+                         fp32 master and of each optimizer state (m and v
+                         of Adam), of a whole leaf all of them, written by
+                         rank 0 of the group that reduces it only; the
                          optimizer's type and step count, the loss
                          scaler's state and the skipped steps
     client_state.json    the JAX meta's keys: global_steps, micro_steps,
@@ -28,7 +30,11 @@ rank holds (the whole master at stages 0-2, the chunk at stage 3; the
 optimizer states' chunks of cut leaves) the parts of the saved slices that
 overlap it: any stage and any number of ranks load what any other saved.
 Names and shapes are checked first; a mismatch raises naming the leaf and
-nothing is written.  ZeRO-Infinity and offload state are not ported.
+nothing is written.  An expert stack's ``full_shape`` counts every expert:
+its box is this expert coordinate's block of dim 0 composed with its ZeRO
+chunk over the ``data`` group, so each rank writes its own experts and a
+save at one expert-parallel size loads at another.  ZeRO-Infinity and
+offload state are not ported.
 """
 
 from __future__ import annotations
@@ -62,24 +68,47 @@ Box = Tuple[Tuple[int, int], ...]
 
 # -- the layout -----------------------------------------------------------
 
-def placement_values(pl: Any) -> Optional[Dict[str, Any]]:
-    """A ``Placement`` as plain values (never its process group)."""
-    if pl is None:
+def placement_values(pl: Any, expert: Any = None
+                     ) -> Optional[Dict[str, Any]]:
+    """A ``Placement`` (and an expert stack's ``ExpertShard``) as plain
+    values (never a process group); None for a whole leaf."""
+    if pl is None and expert is None:
         return None
-    return {"dim": int(pl.dim), "dp": int(pl.dp), "rank": int(pl.rank),
-            "full_shape": [int(d) for d in pl.full_shape]}
+    out: Dict[str, Any] = {"dim": None, "dp": 1, "rank": 0}
+    if pl is not None:
+        out = {"dim": int(pl.dim), "dp": int(pl.dp), "rank": int(pl.rank),
+               "full_shape": [int(d) for d in pl.full_shape]}
+    if expert is not None:
+        out["expert"] = {"ep": int(expert.ep), "rank": int(expert.rank)}
+    return out
 
 
 def box_of(full_shape: Sequence[int],
            placement: Optional[Dict[str, Any]]) -> Box:
     """The region a tensor holds: all of the leaf, or chunk ``rank`` of
-    ``dp`` along ``dim``."""
+    ``dp`` along ``dim``, within an expert stack's block ``rank`` of
+    ``ep`` along dim 0."""
     box = [(0, int(d)) for d in full_shape]
-    if placement is not None:
-        d, n = placement["dim"], int(full_shape[placement["dim"]]) \
-            // placement["dp"]
-        box[d] = (placement["rank"] * n, (placement["rank"] + 1) * n)
+    if placement is None:
+        return tuple(box)
+    expert = placement.get("expert")
+    if expert is not None:
+        n = box[0][1] // expert["ep"]
+        box[0] = (expert["rank"] * n, (expert["rank"] + 1) * n)
+    d = placement["dim"]
+    if d is not None:
+        lo, hi = box[d]
+        n = (hi - lo) // placement["dp"]
+        box[d] = (lo + placement["rank"] * n, lo + (placement["rank"] + 1) * n)
     return tuple(box)
+
+
+def leaf_shape(engine, i: int) -> Tuple[int, ...]:
+    """Parameter ``i``'s whole shape (every expert of an expert stack)."""
+    pl, p, shard = engine.placements[i], engine.params[i], \
+        engine._experts[i]
+    local = tuple(pl.full_shape) if pl is not None else tuple(p.shape)
+    return shard.full_shape(local) if shard is not None else local
 
 
 @torch.no_grad()
@@ -192,14 +221,13 @@ def _rank_state(engine) -> Dict[str, Any]:
     names = engine.optimizer.state_names
     masters = engine._masters()
     leaves = {}
-    for i, (name, p, pl) in enumerate(zip(engine.param_names, engine.params,
-                                          engine.placements)):
-        if pl is None and rank != 0:
+    for i, (name, pl) in enumerate(zip(engine.param_names,
+                                       engine.placements)):
+        if pl is None and engine.leaf_group_rank(i) != 0:
             continue
         leaves[name] = {
-            "placement": placement_values(pl),
-            "full_shape": list(pl.full_shape if pl is not None
-                               else p.shape),
+            "placement": placement_values(pl, engine._experts[i]),
+            "full_shape": list(leaf_shape(engine, i)),
             "master": masters[i].detach(),
             "optim": {k: opt_state[k][i] for k in names}}
     scaler = engine.loss_scaler
@@ -284,11 +312,12 @@ def _held_boxes(engine) -> List[Tuple[Box, Box]]:
     """Per parameter, the region its master and its optimizer state hold
     on this rank."""
     out = []
-    for p, pl in zip(engine.params, engine.placements):
-        full = pl.full_shape if pl is not None else tuple(p.shape)
-        state = box_of(full, placement_values(pl))
-        out.append((state if engine.zero_stage == 3 else box_of(full, None),
-                    state))
+    for i, pl in enumerate(engine.placements):
+        full, shard = leaf_shape(engine, i), engine._experts[i]
+        state = box_of(full, placement_values(pl, shard))
+        master = state if engine.zero_stage == 3 else box_of(
+            full, placement_values(None, shard))
+        out.append((master, state))
     return out
 
 
@@ -306,11 +335,10 @@ def _check_leaves(engine, sources: Dict[str, Any], strict: bool,
                 f"{missing[:4]}{'...' if len(missing) > 4 else ''}, "
                 f"unexpected {extra[:4]}{'...' if len(extra) > 4 else ''}")
     todo = []
-    for i, (name, p, pl) in enumerate(zip(names, engine.params,
-                                          engine.placements)):
+    for i, name in enumerate(names):
         if name not in sources:
             continue
-        full = tuple(pl.full_shape) if pl is not None else tuple(p.shape)
+        full = leaf_shape(engine, i)
         if tuple(sources[name][0]) != full:
             raise ValueError(
                 f"checkpoint {where}: leaf {name!r} is "

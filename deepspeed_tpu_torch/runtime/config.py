@@ -16,6 +16,10 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` for the keys
   Adam step, for the Adam family);
 * ``checkpoint.checkpoint_engine.type`` (:class:`CheckpointConfig`:
   ``sync``, ``async`` or ``decoupled``);
+* ``moe`` (:class:`MoEConfig`: ``expert_parallel_size``, the size of the
+  mesh's ``expert`` axis; ``dispatch_impl``, ``capacity_factor``,
+  ``pad_capacity_to_ep`` and ``use_rts``, which ``initialize`` applies to
+  the model's gate and MoE layer);
 * ``curriculum_learning`` and ``data_efficiency.data_sampling.
   curriculum_learning`` (the seqlen curriculum of the dataloader
   ``initialize`` builds; :meth:`DeepSpeedConfig.curriculum`).
@@ -23,7 +27,7 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` for the keys
 What the port cannot do yet raises ``NotImplementedError`` ("not ported
 yet", naming its ``ROADMAP.md`` Queue 1 item): optimizer or parameter
 offload, MiCS, ZeRO++ (quantized weights or gradients, hpZ) and
-``kernels.overlap_collectives``, a tensor, sequence, pipeline or expert
+``kernels.overlap_collectives``, a tensor, sequence or pipeline
 dimension above 1, random-LTD (``data_efficiency.data_routing.
 random_ltd``).  The groups of :data:`ACCEPTED_WITHOUT_EFFECT`
 (telemetry, tuning, comms_logger, ...) are accepted and have no effect;
@@ -53,10 +57,12 @@ ACCEPTED_WITHOUT_EFFECT = (
     "zero_allow_untested_optimizer", "zero_force_ds_cpu_optimizer")
 
 #: (group, key, ROADMAP Queue 1 item) of the parallel dimensions other than
-#: data whose training is not ported: a value above 1 raises
+#: data and expert whose training is not ported: a value above 1 raises
 _PARALLEL_DIMS = (("tensor_parallel", "autotp_size", 5),
-                  ("sequence_parallel", "sp_size", 7), ("pipeline", "stages", 8),
-                  ("moe", "expert_parallel_size", 5))
+                  ("sequence_parallel", "sp_size", 7), ("pipeline", "stages", 8))
+
+#: the token dispatch rungs of the MoE layer
+DISPATCH_IMPLS = ("auto", "dense", "sparse", "pallas")
 
 
 @dataclasses.dataclass
@@ -171,6 +177,31 @@ class CheckpointConfig:
 
 
 @dataclasses.dataclass
+class MoEConfig:
+    """``moe`` (JAX ``MoEConfig``): the expert-parallel plane.
+    ``initialize`` builds the mesh with ``expert_parallel_size`` as its
+    ``expert`` axis (it must divide the data-parallel world) and pushes the
+    other keys onto the model's gate and MoE layer (``_apply_moe_config``):
+    the dispatch rung (``auto`` keeps the model's), the train and eval
+    capacity factor (0 keeps the model's), the capacity padded up to a
+    multiple of the expert axis, and random token selection."""
+
+    expert_parallel_size: int = 1
+    dispatch_impl: str = "auto"
+    capacity_factor: float = 0.0
+    pad_capacity_to_ep: bool = True
+    use_rts: bool = False
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if int(self.expert_parallel_size) < 1:
+            raise ValueError("moe.expert_parallel_size must be >= 1")
+        if self.dispatch_impl not in DISPATCH_IMPLS:
+            raise ValueError(f"moe.dispatch_impl {self.dispatch_impl!r} not "
+                             "in auto|dense|sparse|pallas")
+
+
+@dataclasses.dataclass
 class DataEfficiencyConfig:
     """``data_efficiency`` (JAX ``DataEfficiencyConfig``): its
     ``data_sampling.curriculum_learning`` is the nested form of the
@@ -219,6 +250,7 @@ class DeepSpeedConfig:
         default_factory=CheckpointConfig)
     data_efficiency: DataEfficiencyConfig = dataclasses.field(
         default_factory=DataEfficiencyConfig)
+    moe: MoEConfig = dataclasses.field(default_factory=MoEConfig)
     curriculum_learning: Dict[str, Any] = dataclasses.field(
         default_factory=dict)
     #: groups of :data:`ACCEPTED_WITHOUT_EFFECT` present in the input
@@ -230,7 +262,7 @@ class DeepSpeedConfig:
                "fp16": FP16Config, "bf16": BF16Config,
                "zero_optimization": ZeroConfig, "kernels": KernelsConfig,
                "checkpoint": CheckpointConfig,
-               "data_efficiency": DataEfficiencyConfig}
+               "data_efficiency": DataEfficiencyConfig, "moe": MoEConfig}
 
     @classmethod
     def from_dict(cls, data: Dict[str, Any]) -> "DeepSpeedConfig":

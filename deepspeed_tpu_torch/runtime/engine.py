@@ -40,6 +40,18 @@ flat buckets of ``reduce_bucket_size`` elements at the boundary):
 The norm is global: each rank sums the squares of its chunks, group rank 0
 adds the replicated leaves, and the partial sums are all-reduced.
 
+Expert parallelism (``expert_data_group``, the mesh's ``data`` axis): an
+expert stack (``sharder.expert_of``) holds this expert coordinate's
+experts, so its gradient is reduced over the ``data`` group alone, and
+ZeRO cuts it over that group; every other leaf goes over the whole
+data-parallel group.  Every microbatch's loss is still divided by the
+whole group's size: an expert's gradient sums the tokens of every rank
+that routed to it (the MoE layer's exchange), so the division leaves the
+global batch's mean.  In the norm each expert coordinate's Σg² counts once:
+a whole expert leaf is added by its ``data`` rank 0, a whole other leaf by
+the group's rank 0, and the partial sums are all-reduced over the group;
+the overflow flag is max-reduced over it.
+
 Under ``kernels.fused_adam`` (an Adam-family optimizer from the config;
 anything else logs and keeps the plain step, as the JAX engine's
 ``fused_ok`` gate does) steps 2-4 are the two CUDA kernels of
@@ -93,9 +105,9 @@ from .lr_schedules import (LRScheduler, Schedule, constant_lr,
                            get_lr_schedule)
 from .optimizers import Adam, base_lr, build_optimizer
 from .precision import (DynamicLossScaler, clip_grads_by_global_norm,
-                        global_grad_norm, has_overflow, partial_norm_terms)
+                        global_grad_norm, has_overflow)
 from .zero.sharder import (Placement, ZeroShardingPolicy, all_gather_flat,
-                           all_reduce_flat, placement_of)
+                           all_reduce_flat, expert_of, placement_of)
 
 LossFn = Callable[[Any], torch.Tensor]
 
@@ -109,7 +121,7 @@ class DeepSpeedEngine:
                  config: DeepSpeedConfig, module: Any = None,
                  device: DeviceLike = "cuda",
                  lr_schedule: Optional[Schedule] = None,
-                 dp_group: Any = None):
+                 dp_group: Any = None, expert_data_group: Any = None):
         self.device = resolve_device(device)
         self.config = config
         self.loss_fn = loss_fn
@@ -148,18 +160,38 @@ class DeepSpeedEngine:
         self.dp_group = dp_group
         self.dp_world_size = (comm.get_world_size(dp_group)
                               if dp_group is not None else 1)
+        #: the group an expert leaf's gradient is reduced over (the
+        #: ``data`` axis; None: the data-parallel group)
+        self.expert_data_group = (expert_data_group if self.dp_world_size
+                                  > 1 else None)
+        self._data_rank = (comm.get_rank(self.expert_data_group)
+                           if self.expert_data_group is not None else 0)
         zero = config.zero_optimization
         self.zero_stage = int(zero.stage)
         self.zero_policy = ZeroShardingPolicy.from_config(
             zero, self.dp_world_size)
+        self._expert_policy = ZeroShardingPolicy.from_config(
+            zero, comm.get_world_size(self.expert_data_group)
+            if self.expert_data_group is not None else self.dp_world_size)
         self._bucket = zero.reduce_bucket_elements
+        self._experts = [expert_of(p) for p in self.params]
+        for shard in self._experts:
+            if shard is not None and shard.ep > 1 and \
+                    self.expert_data_group is None:
+                raise ValueError(
+                    "the model's experts are split over an expert axis of "
+                    f"{shard.ep}; initialize needs the mesh (mesh=...) "
+                    "whose data axis reduces them")
         #: per parameter: its placement (this rank's chunk of a cut leaf)
         #: or None (replicated)
         self.placements: List[Optional[Placement]] = self._place()
         self._cut = [i for i, pl in enumerate(self.placements)
                      if pl is not None]
+        #: the whole leaves by the group that reduces their gradients
         self._whole = [i for i, pl in enumerate(self.placements)
-                       if pl is None]
+                       if pl is None and not self._is_expert(i)]
+        self._whole_expert = [i for i, pl in enumerate(self.placements)
+                              if pl is None and self._is_expert(i)]
         #: stage 2: each cut leaf's reduce-scattered gradient chunk
         self._grad_chunks: List[Optional[torch.Tensor]] = \
             [None] * len(self.params)
@@ -206,12 +238,25 @@ class DeepSpeedEngine:
 
     # -- ZeRO placement ---------------------------------------------------
 
+    def _is_expert(self, i: int) -> bool:
+        """Whether leaf ``i`` is reduced over the ``data`` group."""
+        return self._experts[i] is not None and \
+            self.expert_data_group is not None
+
+    def leaf_group_rank(self, i: int) -> int:
+        """This rank's place in the group leaf ``i`` is reduced over (a
+        whole leaf's state is written and counted by its rank 0)."""
+        if self._is_expert(i):
+            return self._data_rank
+        return comm.get_rank(self.dp_group) if self.dp_world_size > 1 else 0
+
     def _place(self) -> List[Optional[Placement]]:
         """Each parameter's placement under the stage; at stage 3 a cut
         parameter becomes this rank's chunk (one built inside ``zero.Init``
-        already is)."""
+        already is).  An expert leaf is cut over the ``data`` group, the
+        threshold counting its every expert."""
         places: List[Optional[Placement]] = []
-        for p in self.params:
+        for i, p in enumerate(self.params):
             have = placement_of(p)
             if have is not None:
                 if self.zero_stage != 3 or have.dp != self.dp_world_size:
@@ -222,11 +267,18 @@ class DeepSpeedEngine:
                         f"{self.dp_world_size} ranks)")
                 places.append(have)
                 continue
-            dim = self.zero_policy.opt_state_dim(tuple(p.shape))
+            if self._is_expert(i):
+                shard = self._experts[i]
+                dim = self._expert_policy.opt_state_dim(
+                    tuple(p.shape), p.numel() * shard.ep)
+                group = self.expert_data_group
+            else:
+                dim = self.zero_policy.opt_state_dim(tuple(p.shape))
+                group = self.dp_group
             if dim is None:
                 places.append(None)
                 continue
-            place = Placement.of(tuple(p.shape), dim, self.dp_group)
+            place = Placement.of(tuple(p.shape), dim, group)
             if self.zero_stage == 3:
                 with torch.no_grad():
                     p.data = place.cut(p.data)
@@ -283,17 +335,34 @@ class DeepSpeedEngine:
                 g = pl.reduce_scatter(g)
                 p.grad = None
             grads.append(g)
-        if self.dp_world_size > 1 and self._whole:
-            all_reduce_flat([grads[i] for i in self._whole], self.dp_group,
-                            self._bucket)
+        if self.dp_world_size > 1:
+            for whole, group in ((self._whole, self.dp_group),
+                                 (self._whole_expert,
+                                  self.expert_data_group)):
+                if whole and comm.get_world_size(group) > 1:
+                    all_reduce_flat([grads[i] for i in whole], group,
+                                    self._bucket)
         return grads
 
     def _norm_group(self) -> Any:
         """The group the norm's partial sums and the overflow flag are
-        reduced over: the data-parallel group when some leaf is cut (the
-        whole gradients are equal on every rank after their all-reduce)."""
-        return self.dp_group if self._cut and self.dp_world_size > 1 \
-            else None
+        reduced over: the data-parallel group when some leaf is cut or
+        some expert leaf differs across the expert axis (the whole
+        gradients of the other leaves are equal on every rank after their
+        all-reduce)."""
+        split = self._cut or (self._whole_expert and comm.get_world_size(
+            self.expert_data_group) < self.dp_world_size)
+        return self.dp_group if split and self.dp_world_size > 1 else None
+
+    def _norm_terms(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """What this rank adds to the global Σg² (:meth:`_norm_group`
+        sums it): its chunks of the cut leaves, and each whole leaf on the
+        rank 0 of the group that reduced it."""
+        if self._norm_group() is None:
+            return grads
+        return [grads[i] for i in self._cut] + [
+            grads[i] for i in self._whole + self._whole_expert
+            if self.leaf_group_rank(i) == 0]
 
     def _gather_masters(self, work: List[torch.Tensor]) -> None:
         """Stages 1-2: every rank's updated chunks into the whole masters."""
@@ -387,11 +456,6 @@ class DeepSpeedEngine:
                      f"loss_scale={scale:.0f}")
         return self.last_metrics
 
-    def _split(self, grads: List[torch.Tensor]
-               ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        return ([grads[i] for i in self._cut],
-                [grads[i] for i in self._whole])
-
     def _plain_step(self, grads: List[torch.Tensor], unscale: float,
                     lr: float) -> Tuple[bool, torch.Tensor]:
         """Unscale, overflow test, clip, then the optimizer's own step on
@@ -403,9 +467,7 @@ class DeepSpeedEngine:
                     else False)
         if overflow:
             torch._foreach_zero_(grads)
-        cut, whole = self._split(grads)
-        grad_norm = (global_grad_norm(cut, whole, group) if group is not None
-                     else global_grad_norm(grads))
+        grad_norm = global_grad_norm(self._norm_terms(grads), group)
         if self.gradient_clipping > 0:
             clip_grads_by_global_norm(grads, self.gradient_clipping,
                                       grad_norm)
@@ -422,8 +484,7 @@ class DeepSpeedEngine:
         with ``mult = clip factor x unscale``, updating the optimizer's
         ``m``, ``v`` and ``count``."""
         group = self._norm_group()
-        norm_terms = grads if group is None else \
-            partial_norm_terms(*self._split(grads), group)
+        norm_terms = self._norm_terms(grads)
         work = self._work_masters()
         if self._fused_plan is None and self.device.type == "cuda":
             self._fused_plan = MultiTensorPlan(work)

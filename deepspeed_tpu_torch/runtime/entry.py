@@ -2,14 +2,17 @@
 
 Counterpart of ``deepspeed_tpu/runtime/entry.py`` (``initialize``
 101-167): join the process group, take the data-parallel group from a
-``mesh=`` or ``mpu=`` or build the mesh from the world, resolve the batch
-sizes over the data-parallel ranks, make every rank hold rank 0's
-parameters, and build the engine (one data-parallel rank under
-``zero_optimization.stage``) and, from ``training_data``, this rank's
-dataloader (with the seqlen curriculum when the config enables one).  The
-JAX entry also builds the telemetry, tuning and resilience planes; none
-of those is ported yet, so their config groups are accepted without
-effect (``runtime/config.py``) and a client optimizer raises.
+``mesh=`` or ``mpu=`` or build the mesh from the world (its ``expert``
+axis ``moe.expert_parallel_size``), resolve the batch sizes over the
+data-parallel ranks, push the ``moe`` group onto a mixture-of-experts
+model (``_apply_moe_config``), make every rank hold rank 0's parameters
+(an expert leaf its ``data`` group's rank 0's), and build the engine (one
+data-parallel rank under ``zero_optimization.stage``) and, from
+``training_data``, this rank's dataloader (with the seqlen curriculum
+when the config enables one).  The JAX entry also builds the telemetry,
+tuning and resilience planes; none of those is ported yet, so their
+config groups are accepted without effect (``runtime/config.py``) and a
+client optimizer raises.
 """
 
 from __future__ import annotations
@@ -21,28 +24,35 @@ import torch
 import torch.distributed as dist
 
 from ..comm import comm
-from ..parallel.mesh import AXIS_PIPE, AXIS_SEQ, AXIS_TENSOR, DP_AXES
+from ..parallel.mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_PIPE, AXIS_SEQ,
+                             AXIS_TENSOR, DP_AXES)
 from ..utils.device import DeviceLike, resolve_device
 from .config import DeepSpeedConfig
 from .dataloader import DeepSpeedDataLoader
 from .engine import DeepSpeedEngine
 from .lr_schedules import LRScheduler
 from .optimizers import Optimizer
-from .zero.sharder import placement_of
+from .zero.sharder import expert_of, placement_of
 
 ConfigLike = Union[str, os.PathLike, Dict[str, Any], DeepSpeedConfig]
 
 
-def _data_parallel(mesh: Any, mpu: Any) -> Tuple[Any, int, Dict[str, int]]:
+def _data_parallel(mesh: Any, mpu: Any, ep: int = 1
+                   ) -> Tuple[Any, int, Dict[str, int], Any]:
     """(the data-parallel group or None, its size, the other parallel
-    sizes) from ``mesh`` (its ``DP_AXES``), else ``mpu``, else the world
-    (a mesh of data-parallel ranks built over it)."""
+    sizes, the mesh or None) from ``mesh`` (its ``DP_AXES``), else
+    ``mpu``, else the world (a mesh built over it whose ``expert`` axis is
+    ``ep``: it must divide the world, as JAX's ``initialize`` checks)."""
     from ..parallel.mesh import MeshLayout
     from ..utils import groups
 
     world = comm.get_world_size() if comm.is_initialized() else 1
-    if mesh is None and mpu is None and world > 1:
-        mesh = groups.initialize_mesh(MeshLayout.infer(world))
+    if mesh is None and mpu is None and (world > 1 or ep > 1):
+        if world % ep:
+            raise ValueError(
+                f"moe.expert_parallel_size={ep} must divide the DP world "
+                f"{world} (= world/(tp·pp·sp))")
+        mesh = groups.initialize_mesh(MeshLayout.infer(world, ep=ep))
     shape = getattr(mesh, "shape", None)
     if isinstance(shape, Mapping):
         dp = 1
@@ -57,15 +67,45 @@ def _data_parallel(mesh: Any, mpu: Any) -> Tuple[Any, int, Dict[str, int]]:
         others = {}
         what = f"the mpu's data-parallel world ({dp})"
         group = mpu.get_data_parallel_group if dp > 1 else None
+        mesh = None
     else:
-        return None, 1, {}
+        return None, 1, {}, None
     if dp > world:
         raise ValueError(f"{what} asks for more ranks than the process "
                          f"group holds ({world}): launch {dp} ranks and "
                          "join them (init_distributed) first")
     if group is None:
-        return None, dp, others
-    return group() or dist.group.WORLD, dp, others
+        return None, dp, others, mesh
+    return group() or dist.group.WORLD, dp, others, mesh
+
+
+def _apply_moe_config(cfg: DeepSpeedConfig, model: Any, mesh: Any) -> None:
+    """Push the ``moe`` group onto the model's MoE layer and gate (JAX
+    ``_apply_moe_config``): a model built before ``initialize`` saw the
+    config takes the mesh (a whole Mixtral keeps its experts' slice of an
+    ``expert`` axis above 1), the dispatch rung, the capacity padding,
+    random token selection and the capacity factor."""
+    layer = getattr(model, "_moe_layer", None) or getattr(
+        model, "moe_layer", None)
+    if layer is None:
+        return
+    moe = cfg.moe
+    if mesh is not None and getattr(model, "mesh", mesh) is None and \
+            int(mesh.shape.get(AXIS_EXPERT, 1)) > 1:
+        model.shard_(mesh)
+    if layer.mesh is None and mesh is not None:
+        layer.mesh = mesh
+    if layer.gate.mesh is None and mesh is not None:
+        layer.gate.mesh = mesh
+    if moe.dispatch_impl != "auto":
+        layer.dispatch_impl = moe.dispatch_impl
+    gate = layer.gate
+    gate.pad_to_ep = bool(moe.pad_capacity_to_ep)
+    if moe.use_rts:
+        gate.use_rts = True
+    if moe.capacity_factor and moe.capacity_factor > 0:
+        gate.capacity_factor = float(moe.capacity_factor)
+        gate.eval_capacity_factor = float(moe.capacity_factor)
 
 
 def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
@@ -95,9 +135,15 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     then feeds ``train_step`` its own ``micro x gas`` rows, and
     ``train_batch_size`` counts every rank's.  Rank 0's parameters are
     broadcast to the group first, so ranks that built the model from
-    different seeds train one model.  A mixture-of-experts model on more
-    than one data-parallel rank raises "not ported yet" (expert
-    parallelism).
+    different seeds train one model.
+
+    Expert parallelism: a mixture-of-experts model (``MixtralModel``)
+    routes the global micro-batch on any data axis; with
+    ``moe.expert_parallel_size`` ``ep`` above 1 (or a ``mesh`` whose
+    ``expert`` axis is) each rank holds ``E/ep`` experts: build the model
+    on the mesh (``utils.groups.initialize_mesh(MeshLayout.infer(world,
+    ep=ep))``) or whole, which ``initialize`` then cuts.  An expert leaf is
+    broadcast, reduced and cut under ZeRO over the ``data`` axis alone.
 
     ``training_data`` (an indexable of samples) gives a
     :class:`~.dataloader.DeepSpeedDataLoader` of ``train_batch_size``
@@ -121,16 +167,16 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     if dist_init_required or (dist_init_required is None and int(
             os.environ.get("WORLD_SIZE", "1")) > 1):
         comm.init_distributed(device=dev)
-    dp_group, dp, others = _data_parallel(mesh, mpu)
+    dp_group, dp, others, mesh = _data_parallel(
+        mesh, mpu, int(cfg.moe.expert_parallel_size))
     tp, pp, sp = (others.get(a, 1) for a in (AXIS_TENSOR, AXIS_PIPE,
                                              AXIS_SEQ))
     cfg.resolve_batch_sizes(world_size=dp * tp * pp * sp, tp=tp, pp=pp,
                             sp=sp)
     cfg.resolve_auto_precision()
-    if dp > 1 and not getattr(model, "data_parallel_ported", True):
-        raise NotImplementedError(
-            f"training {type(model).__name__} on a data axis of {dp} is not "
-            "ported yet (expert parallelism, ROADMAP Queue 1 item 5)")
+    _apply_moe_config(cfg, model, mesh)
+    data_group = mesh.group(AXIS_DATA) if mesh is not None and dp > 1 \
+        else None
 
     if callable(getattr(model, "loss", None)):
         loss_fn = model.loss
@@ -148,12 +194,17 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     if dp > 1:
         with torch.no_grad():  # DeepSpeed's _broadcast_model
             for p in params:
-                if placement_of(p) is None:  # zero.Init broadcast the rest
-                    comm.broadcast(p.data, 0, group=dp_group)
+                if placement_of(p) is not None:
+                    continue  # zero.Init broadcast it
+                # other expert coordinates hold other experts
+                group = data_group if expert_of(p) is not None and \
+                    data_group is not None else dp_group
+                if comm.get_world_size(group) > 1:
+                    comm.broadcast(p.data, 0, group=group)
     engine = DeepSpeedEngine(
         loss_fn, params, cfg, module=model, device=dev,
         lr_schedule=lr_scheduler if callable(lr_scheduler) else None,
-        dp_group=dp_group)
+        dp_group=dp_group, expert_data_group=data_group)
     dataloader = None
     if training_data is not None:
         dataloader = DeepSpeedDataLoader(

@@ -82,16 +82,6 @@ class DynamicLossScaler:
             self.growth_counter = 0
 
 
-def partial_norm_terms(grads: Sequence[torch.Tensor],
-                replicated: Sequence[torch.Tensor],
-                group: Any) -> List[torch.Tensor]:
-    """What this rank adds to a sum over the whole model: its chunks, and
-    the replicated leaves on group rank 0 only (every rank holds them)."""
-    if group is None or comm.get_rank(group) == 0:
-        return list(grads) + list(replicated)
-    return list(grads)
-
-
 def has_overflow(grads: Sequence[torch.Tensor],
                  group: Any = None) -> torch.Tensor:
     """0-dim bool: some gradient entry is not finite, on this rank or (with
@@ -110,15 +100,13 @@ def has_overflow(grads: Sequence[torch.Tensor],
 
 
 def global_grad_norm(grads: Sequence[torch.Tensor],
-                     replicated: Sequence[torch.Tensor] = (),
                      group: Any = None) -> torch.Tensor:
-    """0-dim fp32 ``sqrt(sum g^2)`` over the whole model (the plain version
-    of the fused step's Σg² kernel).  Without ``group`` the gradients are
-    whole (``replicated`` adds to them); with it, ``grads`` are this
-    rank's chunks of the cut leaves and ``replicated`` the leaves every
-    rank holds whole: each rank's partial sum is all-reduced, the
-    replicated leaves counted once."""
-    part = reference_sqsum(partial_norm_terms(grads, replicated, group))
+    """0-dim fp32 ``sqrt(sum g^2)`` (the plain version of the fused step's
+    Σg² kernel).  With ``group``, ``grads`` are this rank's terms of a
+    sum over the whole model (the engine's ``_norm_terms``: its chunks,
+    and each whole leaf on one rank) and the partial sums are
+    all-reduced."""
+    part = reference_sqsum(grads)
     if group is not None:
         comm.all_reduce(part, group=group)
     return part.sqrt()

@@ -54,7 +54,8 @@ class Init:
     ``data_parallel_group`` defaults to the mesh's data-parallel group
     (``utils.groups``); the stage is 3 whatever the config says, its
     persistence threshold applies.  ``enabled=False`` builds whole
-    models."""
+    models.  A mesh with an ``expert`` axis above 1 raises (its expert
+    leaves would need the ``data`` group alone)."""
 
     def __init__(self, module: Any = None, data_parallel_group: Any = None,
                  mem_efficient_linear: bool = True, remote_device: Any = None,
@@ -66,10 +67,20 @@ class Init:
         self.enabled = enabled
         zero = _zero_config(config_dict_or_path if config_dict_or_path
                             is not None else config)
-        if data_parallel_group is None and comm.is_initialized():
+        if comm.is_initialized():
             from ...utils import groups
-            data_parallel_group = (mesh.group(*DP_AXES) if mesh is not None
-                                   else groups.get_data_parallel_group())
+            if mesh is None and data_parallel_group is None:
+                mesh = groups.get_mesh()
+            layout = getattr(mesh, "layout", None)
+            if layout is not None and layout.ep > 1:
+                # an expert leaf would be broadcast and cut over the whole
+                # data-parallel group, whose ranks hold other experts
+                raise NotImplementedError(
+                    f"zero.Init on a mesh with an expert axis of {layout.ep} "
+                    "is not ported yet (ROADMAP Queue 1 item 5a): build the "
+                    "model whole and let initialize cut it at stage 3")
+            if data_parallel_group is None:
+                data_parallel_group = mesh.group(*DP_AXES)
         self.group = data_parallel_group
         dp = comm.get_world_size(self.group) if comm.is_initialized() else 1
         self.policy = ZeroShardingPolicy(

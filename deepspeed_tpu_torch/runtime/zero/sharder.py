@@ -18,14 +18,24 @@ dim, stays replicated.  What a stage cuts:
              model reads it, by :func:`compute_weight`.
 
 :class:`Placement` cuts one rank's chunk and all-gathers or
-reduce-scatters along its dim; :func:`all_reduce_flat` and
+reduce-scatters along its dim over its group; :func:`all_reduce_flat` and
 :func:`all_gather_flat` issue one collective per bucket of
 ``reduce_bucket_size`` elements rather than one per leaf.
+
+Expert leaves (a Mixtral's expert stacks, marked ``ds_expert`` with their
+:class:`ExpertShard`): each expert coordinate holds other experts, so the
+base placement already occupies the ``expert`` axis and ZeRO takes the
+free DP axis alone, ``data`` (JAX ``_shard_spec_for_shape``: "never reuse
+a mesh axis the base already occupies"): such a leaf is cut over the
+``data`` group on its largest divisible dim and its gradient is reduced
+over that group; every other leaf over the whole data-parallel group.  The
+persistence threshold counts the whole leaf, all experts.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -85,23 +95,45 @@ class ZeroShardingPolicy:
         return cls(stage=int(config.stage), dp_size=int(dp_size),
                    persistence_threshold=config.persistence_threshold)
 
-    def shard_dim(self, shape: Tuple[int, ...]) -> Optional[int]:
-        """The dim a cut leaf of ``shape`` is cut along (any stage)."""
-        n = 1
-        for d in shape:
-            n *= int(d)
+    def shard_dim(self, shape: Tuple[int, ...],
+                  numel: Optional[int] = None) -> Optional[int]:
+        """The dim a cut leaf of ``shape`` is cut along (any stage);
+        ``numel``: the whole leaf's elements, when ``shape`` is one
+        expert shard of it."""
+        n = numel if numel is not None else math.prod(int(d) for d in shape)
         if self.dp_size <= 1 or not shape or n <= self.persistence_threshold:
             return None
         return dp_shardable_dim(tuple(shape), self.dp_size)
 
-    def param_dim(self, shape: Tuple[int, ...]) -> Optional[int]:
-        return self.shard_dim(shape) if self.stage >= 3 else None
+    def param_dim(self, shape: Tuple[int, ...],
+                  numel: Optional[int] = None) -> Optional[int]:
+        return self.shard_dim(shape, numel) if self.stage >= 3 else None
 
-    def grad_dim(self, shape: Tuple[int, ...]) -> Optional[int]:
-        return self.shard_dim(shape) if self.stage >= 2 else None
+    def grad_dim(self, shape: Tuple[int, ...],
+                 numel: Optional[int] = None) -> Optional[int]:
+        return self.shard_dim(shape, numel) if self.stage >= 2 else None
 
-    def opt_state_dim(self, shape: Tuple[int, ...]) -> Optional[int]:
-        return self.shard_dim(shape) if self.stage >= 1 else None
+    def opt_state_dim(self, shape: Tuple[int, ...],
+                      numel: Optional[int] = None) -> Optional[int]:
+        return self.shard_dim(shape, numel) if self.stage >= 1 else None
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertShard:
+    """An expert stack's place on the ``expert`` axis: block ``rank`` of
+    ``ep`` along dim 0 (the experts) of the whole stack."""
+
+    ep: int
+    rank: int
+
+    def full_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The whole stack's shape, every expert."""
+        return (int(shape[0]) * self.ep,) + tuple(int(d) for d in shape[1:])
+
+
+def expert_of(t: Tensor) -> Optional[ExpertShard]:
+    """The expert shard of an expert stack (None for any other leaf)."""
+    return getattr(t, "ds_expert", None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,18 +260,22 @@ def all_reduce_flat(tensors: Sequence[Tensor], group: Any,
 def all_gather_flat(chunks: Sequence[Tensor], places: Sequence[Placement],
                     outs: Sequence[Tensor], bucket_elements: int) -> None:
     """Write every rank's chunks into the full tensors ``outs``: the
-    chunks (of one group, fp32) flattened into buckets of at most
-    ``bucket_elements`` elements, one all-gather a bucket, each leaf then
-    reassembled along its placement's dim."""
-    if not chunks:
-        return
-    dp, group = places[0].dp, places[0].group
-    for idx in _buckets([c.numel() for c in chunks], bucket_elements):
-        flat = torch.cat([chunks[i].reshape(-1) for i in idx])
-        got = comm.all_gather(flat, group=group).view(dp, -1)
-        off = 0
-        for i in idx:
-            n, place = chunks[i].numel(), places[i]
-            parts = got[:, off:off + n].reshape((dp,) + place.chunk_shape)
-            outs[i].copy_(torch.cat(parts.unbind(0), dim=place.dim))
-            off += n
+    chunks (fp32) of each placement group flattened into buckets of at
+    most ``bucket_elements`` elements, one all-gather a bucket, each leaf
+    then reassembled along its placement's dim."""
+    by_group: Dict[Any, List[int]] = {}
+    for i, place in enumerate(places):
+        by_group.setdefault(place.group, []).append(i)
+    for members in by_group.values():
+        dp, group = places[members[0]].dp, places[members[0]].group
+        for idx in _buckets([chunks[i].numel() for i in members],
+                            bucket_elements):
+            idx = [members[j] for j in idx]
+            flat = torch.cat([chunks[i].reshape(-1) for i in idx])
+            got = comm.all_gather(flat, group=group).view(dp, -1)
+            off = 0
+            for i in idx:
+                n, place = chunks[i].numel(), places[i]
+                parts = got[:, off:off + n].reshape((dp,) + place.chunk_shape)
+                outs[i].copy_(torch.cat(parts.unbind(0), dim=place.dim))
+                off += n

@@ -19,8 +19,9 @@ from typing import Any, Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
-from ..parallel.mesh import (AXIS_TENSOR, DP_AXES, MESH_AXIS_ORDER,
-                             MeshLayout, ProcessMesh, ProcessTopology)
+from ..parallel.mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_TENSOR, DP_AXES,
+                             MESH_AXIS_ORDER, MeshLayout, ProcessMesh,
+                             ProcessTopology)
 
 _mesh: Optional[ProcessMesh] = None
 
@@ -61,6 +62,11 @@ def reset_mesh() -> None:
     """Forget the mesh (its groups stay with the process group)."""
     global _mesh
     _mesh = None
+
+
+def current_mesh() -> Optional[ProcessMesh]:
+    """The active mesh, or None when none was built (never builds one)."""
+    return _mesh
 
 
 def get_mesh() -> ProcessMesh:
@@ -105,3 +111,28 @@ def get_data_parallel_group() -> Any:
 
 def get_data_parallel_world_size() -> int:
     return get_layout().dp_world_size
+
+
+def get_expert_parallel_group() -> Any:
+    """The ranks that hold the other experts of this rank's data replica
+    (the ``expert`` axis): the token exchange of the MoE layer runs over
+    it."""
+    return get_mesh().group(AXIS_EXPERT)
+
+
+def get_expert_parallel_world_size() -> int:
+    return get_layout().ep
+
+
+def get_expert_parallel_rank() -> int:
+    return get_mesh().axis_rank(AXIS_EXPERT)
+
+
+def get_expert_data_parallel_group() -> Any:
+    """The ranks that hold the same experts (the ``data`` axis): an expert
+    leaf's gradient is reduced, and its ZeRO chunks cut, over it."""
+    return get_mesh().group(AXIS_DATA)
+
+
+def get_expert_data_parallel_world_size() -> int:
+    return get_layout().dp

@@ -470,6 +470,40 @@ def test_cuda_moe_autograd_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rank", [0, 3])
+def test_cuda_moe_kernels_at_one_ranks_view_of_global_routing(cuda, dtype,
+                                                              rank):
+    """Expert parallelism's pattern: the routing of 4 ranks' 96 tokens
+    each, seen from one rank (``sharded_moe.local_routing``): most of
+    ``src_idx`` is ``EMPTY_SLOT`` and ``flat_idx`` indexes the global
+    ``[E, C]``; dispatch exact and combine within its tolerance."""
+    from deepspeed_tpu_torch.moe.sharded_moe import local_routing
+    from deepspeed_tpu_torch.ops.kernels import (combine_reference,
+                                                 dispatch_reference,
+                                                 moe_combine_fwd,
+                                                 moe_dispatch_fwd)
+    world, T, E, C, H, k = 4, 96, 8, 64, 256, 2
+    _, eo, src, flat, gates = _moe_case(world * T, E, C, H, k, dtype, 17,
+                                        cuda)
+    src, flat, gates = local_routing(src, flat, gates, rank * T, T)
+    tokens = torch.randn(T, H, generator=torch.Generator().manual_seed(
+        rank)).to(device=cuda, dtype=dtype)
+    assert (src < 0).float().mean() > 0.6 and (src >= 0).any()
+    assert (flat == E * C).any() and int(flat.max()) < E * C + 1
+    before = (moe_dispatch_fwd.launches, moe_combine_fwd.launches)
+    got = moe_dispatch_fwd(tokens, src)
+    assert torch.equal(got, dispatch_reference(tokens, src))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    y = moe_combine_fwd(eo, flat, gates)
+    torch.testing.assert_close(y.float(), combine_reference(
+        eo, flat, gates).float(), rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    assert (moe_dispatch_fwd.launches - before[0],
+            moe_combine_fwd.launches - before[1]) == (1, 1)
+
+
+@pytest.mark.cuda
 def test_cuda_moe_kernels_refuse_unaligned_rows(cuda):
     from deepspeed_tpu_torch.ops.kernels import moe_dispatch_fwd
     tokens, _, src, *_ = _moe_case(16, 4, 8, 64, 1, torch.float32, 0, cuda)

@@ -324,8 +324,13 @@ def test_rsample_noise_routes_deterministically_under_one_generator():
 def test_moe_block_surface():
     with pytest.raises(ValueError, match="use_tutel"):
         MoE(hidden_size=16, num_experts=4, use_tutel=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        MoE(hidden_size=16, num_experts=4, use_residual=True)
+    # Residual-MoE is ported: the residual MLP and the coefficient join
+    # the parameters, and the placement names every leaf (JAX's
+    # test_moe_residual_path)
+    res = MoE(hidden_size=16, num_experts=4, use_residual=True)
+    res_params = res.init_params(_gen(0), intermediate_size=32)
+    assert {"residual_mlp", "coefficient"} <= set(res_params)
+    assert set(res.param_specs()) == set(res_params)
     with pytest.raises(ValueError, match="ep_size"):
         MoE(hidden_size=16, num_experts=4, ep_size=3)
     moe = MoE(hidden_size=16, num_experts=4, k=2, capacity_factor=4.0,

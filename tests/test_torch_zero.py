@@ -22,8 +22,8 @@ a data mesh of as many of the 8 virtual CPU devices, at the same stage.
   ``ZeroShardingPolicy`` on a table of shapes and thresholds;
 * ``zero.Init`` and ``GatheredParameters`` (read only and with
   ``modifier_rank``), ``reduce_scatter`` along dims 0 and 1,
-  ``all_to_all_single``, and the refusals (Mixtral on a data axis of 2;
-  serving a model cut under ZeRO-3);
+  ``all_to_all_single``, Mixtral training on a data axis of 2, and the
+  refusal to serve a model cut under ZeRO-3;
 * the per-rank token mean the port takes (DeepSpeed's) beside JAX's
   global-batch mean when the ranks' rows count different labelled tokens.
 
@@ -270,9 +270,14 @@ def test_zero_init_and_gathered_parameters(port_runs):
 
 
 def test_mixtral_and_serving_a_cut_model_are_refused(port_runs):
-    for v in (r["refusals"] for r in port_runs(2)):
-        assert "not ported yet" in v["mixtral"]
-        assert "Queue 1 item 5" in v["mixtral"]
+    """Mixtral on a data axis of 2 trains now (its gate routes the global
+    micro-batch: one loss on both ranks, and it moves); serving a model cut
+    under ZeRO-3 is still refused."""
+    got = [r["refusals"] for r in port_runs(2)]
+    for v in got:
+        assert np.all(np.isfinite(v["mixtral"]))
+        assert v["mixtral"] == got[0]["mixtral"]
+        assert v["mixtral"][1] != v["mixtral"][0]
         for what in ("init_inference", "build_engine_v2"):
             assert "GatheredParameters" in v[what], v[what]
 

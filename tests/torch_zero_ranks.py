@@ -6,7 +6,8 @@ PyTorch alone.  Each rank joins a gloo group on the CPU (one thread a
 rank), runs every case of :data:`CASES` (a fresh model and engine each),
 and returns plain values: per case the metrics of every step and the
 parameters gathered after the steps, plus the checks of the collective
-verbs, ``zero.Init`` / ``GatheredParameters`` and the refusals.
+verbs, ``zero.Init`` / ``GatheredParameters``, Mixtral on the data axis
+and the refusals.
 """
 
 from typing import Any, Dict, List
@@ -209,16 +210,18 @@ def _uneven_eval(rank: int, world: int,
     return float(engine.eval_loss(rows))
 
 
-def _refusals() -> Dict[str, str]:
-    out = {}
+def _refusals(rank: int) -> Dict[str, Any]:
+    """Mixtral trains on the data axis (its routing is the global
+    micro-batch's: two steps' losses); serving a model cut under ZeRO-3
+    is refused."""
+    out: Dict[str, Any] = {}
     moe = MixtralModel(MixtralConfig.tiny(num_layers=1, dtype=torch.float32,
                                           param_dtype=torch.float32),
                        device="cpu")
-    try:
-        initialize(model=moe, config=BASE, device="cpu")
-        out["mixtral"] = "accepted"
-    except NotImplementedError as e:
-        out["mixtral"] = str(e)
+    engine, *_ = initialize(model=moe, config=BASE, device="cpu")
+    ids = torch.arange(16)[None] * 3 + 50 * rank
+    out["mixtral"] = [float(engine.train_step({"input_ids": ids})["loss"])
+                      for _ in range(2)]
     from deepspeed_tpu_torch import build_engine_v2, init_inference
     from deepspeed_tpu_torch.inference.v2 import KVCacheConfig
     with zero.Init(config_dict_or_path=case_config("stage3")):
@@ -250,7 +253,7 @@ def zero_rank(rank: int, weights: Dict[str, np.ndarray],
     out["verbs"] = _verbs(rank, world)
     if extras:
         out["init"] = _init_and_gathered(rank, world)
-        out["refusals"] = _refusals()
+        out["refusals"] = _refusals(rank)
         out["uneven_eval"] = _uneven_eval(rank, world, weights)
     return out
 
