@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, block-sparse attention and
-tensor-parallel serving paths on one NVIDIA GPU and hold its CUDA kernels
-against their plain PyTorch versions.
+"""Drive the PyTorch port's serving, training, block-sparse attention,
+tensor-parallel serving and ladder-model (BERT, ResNet, OPT) paths on one
+NVIDIA GPU and hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -167,13 +167,44 @@ The expert-parallel slice adds:
 - ``agree_moe_tp``: Mixtral-8x7B widths at 2 layers, ``tp=2`` against
   ``tp=1`` as ``agree_tp``.
 
+The ladder-model slice adds:
+
+- in ``kernels``, the rows ``decode_attention_opt`` and
+  ``paged_decode_attention_opt``: #1 and #2 at OPT-1.3B's multi-head
+  shape (32/32 heads, d 64: n_rep 1) over ``CHECKS``' lengths, bf16 and
+  fp32, timed at B 8 x 2048 keys beside their plain versions, SDPA (#1)
+  and the byte bound;
+- in ``flash_kernels``, the ``bert`` case (B 8, h 16, d 64, S 512,
+  non-causal, a pad tail of 0-200 a row as segment ids, row 0 without):
+  all three kernels in bf16, fp16 and fp32, the backward passes on a
+  random ``out`` there (``hold_bert_regime``), and timed beside SDPA with
+  the same-segment boolean mask and the bound of the live pairs;
+- ``train_bert``: BERT-large (24 x 1024, 16 heads, S 512) at ``[8, 512]``,
+  bf16 on fp32 masters, flash, AdamW, ZeRO 0, 8 steps on an MLM batch (15 %
+  of the real tokens labelled): a finite, falling loss, the flash
+  launches of the formula, step time, tokens/s, MFU and peak memory;
+- ``train_bert_zero``: BERT-large widths at 4 layers in two gloo ranks on
+  card 0, ZeRO 0, 1 and 2, 4 steps each: losses equal across ranks and
+  stages, each rank's state bytes those of the placement rule;
+- ``train_resnet``: ResNet-56 on a fixed ``[128, 32, 32, 3]`` batch, bf16
+  on fp32 masters, Adam lr 1e-3, 12 steps: a falling loss, step time and
+  images/s (plain PyTorch: no kernel of the port may launch);
+- ``serve_opt`` / ``generate_opt``: OPT-1.3B at full width and depth,
+  bf16, behind ``build_serving_frontend`` with ``serve``'s requests (the
+  paged kernel 24 a decode step) and v1 ``[4, 256]`` + 32 (the decode
+  kernel 24 x 31);
+- ``agree_opt``: fp32 OPT-1.3B widths at 4 layers: v2 greedy == v1
+  greedy == the CPU's.
+
 Ranks report to this process through a queue; only it prints.  Then a
 ``kernels`` line (every kernel's launches on the main paths: the
 decode kernels' from ``serve`` and ``generate``, #2b's per rank from
 ``serve_tp``, the flash kernels' from ``train``, the MoE kernels' from
 ``serve_moe``, ``generate_moe`` and ``train_moe``, the norm and Adam
 kernels' from ``train_moe``, the block-sparse kernels' from ``sparse``,
-the quantizer's from its path; times at the main paths' shapes),
+the quantizer's from its path; the ``_bert`` rows' from ``train_bert``,
+the ``_opt`` rows' from ``generate_opt`` and ``serve_opt``; times at the
+main paths' shapes),
 the card's name and power limit, and the result line.
 ``--only build,moe_kernels,...`` runs the named phases alone and prints
 neither of the last two lines.  TF32 is off for matmuls and cuDNN.  Length 0
@@ -194,6 +225,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -338,10 +370,11 @@ def phase_build() -> dict:
 
 # -- phase 2 ---------------------------------------------------------------
 
-def make_inputs(dtype, lengths, smax, gen, dev):
+def make_inputs(dtype, lengths, smax, gen, dev, heads=SLICE):
     """q; a padded cache of ``smax`` keys; a pool holding the same keys
-    behind a shuffled block table; one sequence per entry of ``lengths``."""
-    h, kv_h, d, bs = (SLICE[k] for k in ("h", "kv_h", "d", "bs"))
+    behind a shuffled block table; one sequence per entry of ``lengths``;
+    ``heads`` names h, kv_h, d and the page size bs."""
+    h, kv_h, d, bs = (heads[k] for k in ("h", "kv_h", "d", "bs"))
     B, mb = len(lengths), smax // bs
     q = torch.randn(B, h, d, generator=gen, device=dev).to(dtype)
     k = torch.randn(B, smax, kv_h, d, generator=gen, device=dev).to(dtype)
@@ -468,6 +501,82 @@ def time_main_path_shapes(gen, dev, cycles) -> dict:
     return out
 
 
+#: OPT-1.3B's decode shape: multi-head (32 query and 32 kv heads, n_rep 1)
+#: at head dim 64, pages of 16
+OPT_HEADS = dict(h=32, kv_h=32, d=64, bs=16)
+
+
+def opt_decode_rows(gen, dev, cycles) -> dict:
+    """Decode #1 and paged #2 at OPT-1.3B's shape: each against its plain
+    version, bf16 and fp32, at every ``CHECKS`` shape (B 8 over up to 2048
+    ragged keys; v1's B 4 over 257-288 keys); then timed in bf16 at B 8
+    with every sequence at 2048 keys beside its plain version, SDPA (for
+    #1) and its bound (K and V bytes over 3.35 TB/s)."""
+    from deepspeed_tpu_torch.ops.kernels import (decode_attention,
+                                                 decode_attention_plain,
+                                                 paged_decode_attention,
+                                                 paged_decode_attention_plain)
+
+    names = ("decode_attention", "paged_decode_attention")
+    errs = {name: {} for name in names}
+    for (case, lengths, smax, _), dtype in itertools.product(
+            CHECKS, (torch.bfloat16, torch.float32)):
+        q, k, v, kp, vp, tables, lens = make_inputs(dtype, lengths, smax,
+                                                    gen, dev, OPT_HEADS)
+        got = (decode_attention(q, k, v, lens),
+               paged_decode_attention(q, kp, vp, tables, lens))
+        want = (decode_attention_plain(q, k, v, lens),
+                paged_decode_attention_plain(q, kp, vp, tables, lens))
+        torch.cuda.synchronize()
+        for name, g, w in zip(names, got, want):
+            key = f"opt_{case}_{str(dtype).split('.')[-1]}"
+            errs[name][key] = check_close(f"{name} {key}", g, w, dtype)
+    smax = SLICE["smax"]
+    sets = [make_inputs(torch.bfloat16, [smax] * SLICE["B"], smax, gen, dev,
+                        OPT_HEADS) for _ in range(3)]
+    q0, k0, v0, *_, l0 = sets[0]
+    mask = torch.ones(SLICE["B"], 1, 1, smax, dtype=torch.bool, device=dev)
+
+    def sdpa(q, k, v, *_):
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask)[:, :, 0, :]
+
+    lib_err = (sdpa(q0, k0, v0).float()
+               - decode_attention_plain(q0, k0, v0, l0).float()).abs().max()
+    calls = {
+        "decode_attention": (
+            lambda q, k, v, kp, vp, t, n: decode_attention(q, k, v, n),
+            lambda q, k, v, kp, vp, t, n: decode_attention_plain(q, k, v, n),
+            sdpa),
+        "paged_decode_attention": (
+            lambda q, k, v, kp, vp, t, n: paged_decode_attention(q, kp, vp,
+                                                                 t, n),
+            lambda q, k, v, kp, vp, t, n: paged_decode_attention_plain(
+                q, kp, vp, t, n), None)}
+    out = {}
+    for name, (kernel, plain, library) in calls.items():
+        bound, by = decode_bound_ms(q0, l0, OPT_HEADS["kv_h"], smax,
+                                    name == "paged_decode_attention")
+        out[name] = dict(
+            kernel_time=time_ms([lambda s=s: kernel(*s) for s in sets],
+                                cycles),
+            plain_time=time_ms([lambda s=s: plain(*s) for s in sets],
+                               cycles),
+            library_time=(dict(time_ms([lambda s=s: library(*s)
+                                        for s in sets], cycles),
+                               max_abs_err_vs_plain=lib_err.item())
+                          if library else None),
+            library_call=("F.scaled_dot_product_attention(bool mask)"
+                          if library else "none: no single PyTorch call "
+                                          "attends through a block table"),
+            bound_ms=bound, bound_by=by,
+            max_abs_err=max(errs[name].values()),
+            max_abs_err_by_case=errs[name], heads=OPT_HEADS,
+            timed_at="bf16, B 8, every length 2048")
+    return out
+
+
 def phase_kernels(dev) -> dict:
     """One dict per kernel: its errors against its plain version, its
     times, its bound, and the launches this phase made."""
@@ -553,6 +662,8 @@ def phase_kernels(dev) -> dict:
                 "paged_decode_attention": paged_decode_attention.launches}
     for name, extra in time_main_path_shapes(gen, dev, cycles).items():
         timing[name].update(extra)
+    for name, row in opt_decode_rows(gen, dev, cycles).items():
+        timing[name + "_opt"] = row
     for name, with_tables in (("decode_attention", False),
                               ("paged_decode_attention", True)):
         bound, by = decode_bound_ms(q0, l0, SLICE["kv_h"], SLICE["smax"],
@@ -577,31 +688,65 @@ def phase_kernels(dev) -> dict:
 
 #: (case, B, h, d, S, causal, window, segments): every shape the training
 #: phases give the flash kernels (``headline``: bench.py's model, ``8b``:
-#: Llama-3-8B widths), and the masks and lengths the kernels promise besides:
+#: Llama-3-8B widths, ``bert``: BERT-large's non-causal attention with a
+#: pad tail a row), and the masks and lengths the kernels promise besides:
 #: a window with packed segments, an S that is not a multiple of the 64-row
-#: tile, and an S at which the TPU package streamed (S * d > 2M elements)
+#: tile, and an S at which the TPU package streamed (S * d > 2M elements).
+#: segments: False (none), "packed" (three sequences a row) or "pad" (1 on
+#: real tokens, 0 on a pad tail of 0-``BERT_MAX_PAD`` tokens; row 0 none)
 FLASH_CASES = [("headline", 8, 12, 64, 2048, True, None, False),
                ("8b", 1, 32, 128, 2048, True, None, False),
-               ("window_segments", 2, 8, 128, 2048, True, 512, True),
+               ("bert", 8, 16, 64, 512, False, None, "pad"),
+               ("window_segments", 2, 8, 128, 2048, True, 512, "packed"),
                ("ragged", 2, 4, 64, 1000, True, None, False),
                ("long", 1, 2, 128, 20480, True, None, False)]
-FLASH_TIMED = ("headline", "8b")  # bf16, the training phases' shapes
+#: bf16, the training phases' shapes
+FLASH_TIMED = ("headline", "8b", "bert")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+BERT_MAX_PAD = 200
+
+
+def pad_segments(B: int, S: int, gen, dev) -> torch.Tensor:
+    """int32 ``[B, S]``: 1 on real tokens, 0 on a pad tail of 0 to
+    ``BERT_MAX_PAD`` tokens a row (row 0 has none), BERT's padding as
+    segment ids."""
+    pads = torch.randint(0, BERT_MAX_PAD + 1, (B,), generator=gen,
+                         device=dev)
+    pads[0] = 0
+    pos = torch.arange(S, device=dev)
+    return (pos[None, :] < S - pads[:, None]).to(torch.int32).contiguous()
 
 
 def flash_inputs(case, dtype, gen, dev):
     """q, k, v, do ``[B, S, h, d]`` and int32 segment ids (three packed
-    sequences per row, cut at random points) or None."""
-    _, B, h, d, S, _, _, with_seg = case
+    sequences per row, cut at random points, or a pad tail) or None."""
+    _, B, h, d, S, _, _, segments = case
     q, k, v, do = (torch.randn(B, S, h, d, generator=gen, device=dev)
                    .to(dtype) for _ in range(4))
     seg = None
-    if with_seg:
+    if segments == "packed":
         cuts = torch.randint(1, S, (B, 2), generator=gen, device=dev)
         pos = torch.arange(S, device=dev)
         seg = (pos[None, :, None] >= cuts[:, None, :]).sum(-1).to(
             torch.int32).contiguous()
+    elif segments == "pad":
+        seg = pad_segments(B, S, gen, dev)
     return q, k, v, do, seg
+
+
+def segment_pairs(seg: Optional[torch.Tensor], S: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """Live (q, k) pairs of one head summed over the batch: the position
+    mask's without segments, else those whose two tokens share a segment
+    (non-causal, no window: the BERT case)."""
+    from deepspeed_tpu_torch.ops.kernels.lattice import live_pairs
+
+    if seg is None:
+        return live_pairs(S, causal, window)
+    require(not causal and window is None,
+            "segment_pairs counts non-causal, unwindowed segments only")
+    counts = torch.stack([(seg == s).sum(-1) for s in seg.unique()])
+    return int((counts.long() ** 2).sum())
 
 
 def attention_bounds(B: int, S: int, h: int, d: int, el: int, pairs: int,
@@ -678,20 +823,55 @@ def hold_regime(kernel_dq, kernel_dkv, plain, errs: dict, label: str,
                                               dtype) for g, w in outputs)
 
 
+#: the random-``out`` regime at the ``bert`` case: seeds, bf16 and fp16
+BERT_REGIME_SEEDS = (0, 1)
+
+
+def hold_bert_regime(errs: dict, dev) -> None:
+    """The dq and dk/dv passes at the ``bert`` case (B 8, S 512, h 16, d
+    64, non-causal, pad tails) on a random ``out`` and lse = |N(0, 1)| +
+    3, bf16 and fp16, each ``BERT_REGIME_SEEDS`` seed, within ``TOL`` of
+    the plain backward.  Errors go to ``errs[name][key]``."""
+    from deepspeed_tpu_torch.ops.kernels import (flash_attention_bwd_plain,
+                                                 flash_bwd_dkv, flash_bwd_dq)
+
+    case = next(c for c in FLASH_CASES if c[0] == "bert")
+    _, B, h, d, S, causal, window, _ = case
+    for dtype, seed in itertools.product((torch.bfloat16, torch.float16),
+                                         BERT_REGIME_SEEDS):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v, do, seg = flash_inputs(case, dtype, gen, dev)
+        out = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        lse = torch.randn(B, h, S, generator=gen, device=dev).abs() + 3.0
+        dq = flash_bwd_dq(q, k, v, out, lse, do, causal, window, seg)
+        dk, dv = flash_bwd_dkv(q, k, v, out, lse, do, causal, window, seg)
+        want = flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                         window, seg)
+        torch.cuda.synchronize()
+        key = f"random_out_bert_seed{seed}_{str(dtype).split('.')[-1]}"
+        errs["flash_bwd_dq"][key] = check_close(f"{key} dq", dq, want[0],
+                                                dtype)
+        errs["flash_bwd_dkv"][key] = max(
+            check_close(f"{key} {n}", g, w, dtype)
+            for n, g, w in (("dk", dk, want[1]), ("dv", dv, want[2])))
+        del q, k, v, do, out, lse, dq, dk, dv, want
+
+
 def phase_flash_kernels(dev) -> dict:
     """The three flash kernels against their plain versions at every
     ``FLASH_CASES`` shape, bf16, fp16 and fp32 (the backward passes start
     from the plain forward's out and lse, so each kernel is held alone),
-    and the backward passes on the random-``out`` regime (``hold_regime``);
-    then timed at the training shapes in bf16 beside the plain versions,
-    SDPA and the bound, and in fp16 beside SDPA."""
+    and the backward passes on the random-``out`` regime (``hold_regime``,
+    and at the ``bert`` case ``hold_bert_regime``); then timed at the
+    training shapes in bf16 beside the plain versions, SDPA (causal, or
+    with the same-segment boolean mask) and the bound, and in fp16 beside
+    SDPA."""
     from deepspeed_tpu_torch.ops.kernels import (flash_attention_bwd_plain,
                                                  flash_attention_fwd_plain,
                                                  flash_bwd_dkv, flash_bwd_dq,
                                                  flash_fwd)
     from deepspeed_tpu_torch.ops.kernels.flash_attention import \
         attention_delta
-    from deepspeed_tpu_torch.ops.kernels.lattice import live_pairs
 
     gen = torch.Generator(device=dev).manual_seed(4321)
     errs = {name: {} for name in FLASH_KERNELS}
@@ -735,28 +915,42 @@ def phase_flash_kernels(dev) -> dict:
                                                             do, True),
         {0: errs["flash_bwd_dq"], 1: errs["flash_bwd_dkv"]}, "random_out",
         dev)
+    hold_bert_regime(errs, dev)
 
     cycles = sleep_cycles_per_ms()
     timing = {name: {} for name in FLASH_KERNELS}
     for case in (c for c in FLASH_CASES if c[0] in FLASH_TIMED):
         name, B, h, d, S, causal, window, _ = case
-        sets = []
-        for _ in range(3):
-            q, k, v, do, _ = flash_inputs(case, torch.bfloat16, gen, dev)
-            out, lse = flash_attention_fwd_plain(q, k, v, causal, window)
-            sets.append((q, k, v, do, out, lse, attention_delta(out, do)))
 
-        def sdpa_fwd(q, k, v, *_):
+        def timing_sets(dtype):
+            """Three input sets: q, k, v, do, the plain forward's out and
+            lse, delta, the segment ids and SDPA's boolean keep mask."""
+            out = []
+            for _ in range(3):
+                q, k, v, do, seg = flash_inputs(case, dtype, gen, dev)
+                o, lse = flash_attention_fwd_plain(q, k, v, causal, window,
+                                                   seg)
+                keep = (None if seg is None else
+                        (seg[:, None, :, None] == seg[:, None, None, :]))
+                out.append((q, k, v, do, o, lse, attention_delta(o, do),
+                            seg, keep))
+            return out
+
+        sets = timing_sets(torch.bfloat16)
+
+        def sdpa_fwd(q, k, v, *rest):
+            keep = rest[-1]
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True)
+                attn_mask=keep, is_causal=keep is None)
 
         graphs = []
-        for q, k, v, do, *_ in sets:
+        for q, k, v, do, *rest in sets:
             leaves = [t.detach().transpose(1, 2).requires_grad_()
                       for t in (q, k, v)]
             graphs.append((leaves, F.scaled_dot_product_attention(
-                *leaves, is_causal=True), do.transpose(1, 2)))
+                *leaves, attn_mask=rest[-1], is_causal=rest[-1] is None),
+                do.transpose(1, 2)))
 
         def sdpa_bwd(i):
             leaves, o, g = graphs[i]
@@ -765,30 +959,33 @@ def phase_flash_kernels(dev) -> dict:
         lib_err = (sdpa_fwd(*sets[0]).transpose(1, 2).float()
                    - sets[0][4].float()).abs().max().item()
         run = {
-            "flash_fwd": (lambda q, k, v, do, o, l, dl:
-                          flash_fwd(q, k, v, causal),
-                          lambda q, k, v, do, o, l, dl:
-                          flash_attention_fwd_plain(q, k, v, causal)),
-            "flash_bwd_dq": (lambda q, k, v, do, o, l, dl:
-                             flash_bwd_dq(q, k, v, o, l, do, causal,
-                                          delta=dl),
-                             lambda q, k, v, do, o, l, dl:
+            "flash_fwd": (lambda q, k, v, do, o, l, dl, sg, kp:
+                          flash_fwd(q, k, v, causal, window, sg),
+                          lambda q, k, v, do, o, l, dl, sg, kp:
+                          flash_attention_fwd_plain(q, k, v, causal, window,
+                                                    sg)),
+            "flash_bwd_dq": (lambda q, k, v, do, o, l, dl, sg, kp:
+                             flash_bwd_dq(q, k, v, o, l, do, causal, window,
+                                          sg, delta=dl),
+                             lambda q, k, v, do, o, l, dl, sg, kp:
                              flash_attention_bwd_plain(q, k, v, o, l, do,
-                                                       causal)),
-            "flash_bwd_dkv": (lambda q, k, v, do, o, l, dl:
+                                                       causal, window, sg)),
+            "flash_bwd_dkv": (lambda q, k, v, do, o, l, dl, sg, kp:
                               flash_bwd_dkv(q, k, v, o, l, do, causal,
-                                            delta=dl),
-                              lambda q, k, v, do, o, l, dl:
+                                            window, sg, delta=dl),
+                              lambda q, k, v, do, o, l, dl, sg, kp:
                               flash_attention_bwd_plain(q, k, v, o, l, do,
-                                                        causal))}
-        bounds = attention_bounds(B, S, h, d, 2,
-                                  h * live_pairs(S, causal, window) * B)
-        half_sets = []
-        for _ in range(3):  # the same kernels' fp16 instances
-            q, k, v, do, _ = flash_inputs(case, torch.float16, gen, dev)
-            out, lse = flash_attention_fwd_plain(q, k, v, causal, window)
-            half_sets.append((q, k, v, do, out, lse,
-                              attention_delta(out, do)))
+                                                        causal, window,
+                                                        sg))}
+        seg0 = sets[0][7]
+        pairs = h * segment_pairs(seg0, S, causal, window) * (
+            B if seg0 is None else 1)
+        seg_bytes = 0 if seg0 is None else seg0.numel() * 4
+        bounds = attention_bounds(B, S, h, d, 2, pairs,
+                                  extra_bytes=(seg_bytes,) * 3)
+        half_sets = timing_sets(torch.float16)
+        mask_call = ("is_causal=True" if seg0 is None
+                     else "attn_mask=same-segment bool [B, 1, S, S]")
         for kernel, (fn, plain) in run.items():
             library = (sdpa_fwd if kernel == "flash_fwd" else None)
             timing[kernel][name] = dict(
@@ -800,13 +997,14 @@ def phase_flash_kernels(dev) -> dict:
                     [lambda s=s: sdpa_fwd(*s) for s in sets] if library
                     else [lambda i=i: sdpa_bwd(i) for i in range(3)],
                     cycles),
-                library_call=("F.scaled_dot_product_attention(is_causal="
-                              "True)" if library else
+                library_call=(f"F.scaled_dot_product_attention({mask_call})"
+                              if library else
                               "torch.autograd.grad of F.scaled_dot_product_"
-                              "attention(is_causal=True): dq, dk and dv in "
+                              f"attention({mask_call}): dq, dk and dv in "
                               "one backward"),
                 library_max_abs_err_vs_plain=lib_err,
                 bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1],
+                live_pairs=pairs,
                 shape=dict(B=B, h=h, d=d, S=S, causal=causal),
                 dtype="bfloat16",
                 kernel_time_fp16=time_ms(
@@ -824,7 +1022,8 @@ def phase_flash_kernels(dev) -> dict:
                     for c in FLASH_CASES},
         random_out_regime=dict(B=1, S=REGIME_S, h=REGIME_H, d=(64, 128),
                                seeds=REGIME_SEEDS, dead_rows=REGIME_DEAD,
-                               dtypes=("bfloat16", "float16"))
+                               dtypes=("bfloat16", "float16"),
+                               bert_case_seeds=BERT_REGIME_SEEDS)
         if kernel != "flash_fwd" else None,
         tolerance={str(t).split(".")[-1]: TOL[t] for t in FLASH_DTYPES},
         routes={"bfloat16": "flash_attention_mma.cu (mma.sync)",
@@ -1840,14 +2039,20 @@ AGREE_MOE = dict(num_experts=4, top_k=2, capacity_factor=2.0,
                  moe_dispatch_impl="pallas")
 
 
-def agree(dev, seed: int, moe: bool = False) -> dict:
+#: agree_opt's model: OPT-1.3B's widths in fp32, ``num_layers 24 -> 4``
+AGREE_OPT_LAYERS = 4
+
+
+def agree(dev, seed: int, moe: bool = False, opt: bool = False) -> dict:
     """v2 greedy == v1 greedy (both through the kernels on ``dev``) == the
     CPU plain path's v1 greedy, on a narrow fp32 model, with and without a
-    sliding window (``moe``: a Mixtral on the kernel rung, without
-    drops)."""
+    sliding window (``moe``: a Mixtral on the kernel rung, without drops;
+    ``opt``: OPT-1.3B's widths at ``AGREE_OPT_LAYERS`` layers, no
+    window)."""
     from deepspeed_tpu_torch import (KVCacheConfig, LlamaConfig, LlamaModel,
-                                     MixtralConfig, MixtralModel,
-                                     build_engine_v2, init_inference)
+                                     MixtralConfig, MixtralModel, OPTConfig,
+                                     OPTModel, build_engine_v2,
+                                     init_inference)
 
     rng = np.random.default_rng(seed + 1)
     cfg_cls, model_cls, extra = ((MixtralConfig, MixtralModel, AGREE_MOE)
@@ -1855,8 +2060,13 @@ def agree(dev, seed: int, moe: bool = False) -> dict:
     kernels = ["decode_attention", "paged_decode_attention"] + (
         list(MOE_KERNELS) if moe else [])
     out = {}
-    for window in (None, 48):
-        cfg = cfg_cls(**AGREE_MODEL, **extra, sliding_window=window)
+    for window in ((None,) if opt else (None, 48)):
+        if opt:
+            model_cls = OPTModel
+            cfg = OPTConfig.opt_1_3b(num_layers=AGREE_OPT_LAYERS,
+                                     dtype=torch.float32)
+        else:
+            cfg = cfg_cls(**AGREE_MODEL, **extra, sliding_window=window)
         model = model_cls(cfg, device=dev, seed=seed + 2)
         prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                    for n in (5, 37, 100, 260)]
@@ -1923,21 +2133,23 @@ def train_launches() -> dict:
 
 
 def train(model, steps: int, batch: int, seq: int, seed: int,
-          fused_adam: bool = False) -> dict:
+          fused_adam: bool = False, data: Optional[dict] = None) -> dict:
     """``initialize`` then ``steps`` ``train_step``s on one repeated batch
-    of random ids; each step timed with CUDA events (on a CPU model, with
-    the host clock).  The training kernels' launch counts are read from
-    zero around the steps.  MFU counts the parameters a token runs through
-    (a Mixtral's top-k experts)."""
+    (``data``, or random ids); each step timed with CUDA events (on a CPU
+    model, with the host clock).  The training kernels' launch counts are
+    read from zero around the steps.  MFU counts the parameters a token
+    runs through (a Mixtral's top-k experts): (6 N + 12 L S H) flops a
+    token over 989 TFLOP/s."""
     from deepspeed_tpu_torch import initialize
 
     dev, cfg = model.device, model.config
     engine, *_ = initialize(model=model,
                             config=ds_config(model, batch, fused_adam),
                             device=dev)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
-                        device=dev)
+    if data is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        data = {"input_ids": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                           generator=gen, device=dev)}
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.synchronize()
@@ -1950,7 +2162,7 @@ def train(model, steps: int, batch: int, seq: int, seed: int,
             a.record()
         else:
             t0 = time.perf_counter()
-        metrics.append(engine.train_step({"input_ids": ids}))
+        metrics.append(engine.train_step(data))
         if cuda:
             b.record()
             marks.append((a, b))
@@ -1973,7 +2185,9 @@ def train(model, steps: int, batch: int, seq: int, seed: int,
     return {"steps": steps, "batch": batch, "seq": seq, "params": n_params,
             "active_params": n_active, "fused_adam": fused_adam,
             "layers": cfg.num_layers, "hidden": cfg.hidden_size,
-            "heads": [cfg.num_heads, cfg.num_kv_heads], "head_dim": cfg.hd,
+            "heads": [cfg.num_heads, getattr(cfg, "num_kv_heads",
+                                             cfg.num_heads)],
+            "head_dim": cfg.hd,
             "dtype": str(cfg.dtype).split(".")[-1], "remat": cfg.remat,
             "attn_impl": cfg.attn_impl, "loss": losses,
             "grad_norm": [float(m["grad_norm"]) for m in metrics],
@@ -1983,6 +2197,8 @@ def train(model, steps: int, batch: int, seq: int, seed: int,
             "tokens_per_s": tokens / step_ms * 1e3,
             "model_flops_per_step": flops,
             "mfu": flops / (step_ms / 1e3) / PEAK_BF16,
+            "mfu_formula": "(6 N + 12 L S H) flops a token x tokens / step "
+                           "time / 989 TFLOP/s (bf16 peak)",
             "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                             if cuda else None),
             "launches": launches}
@@ -3415,6 +3631,231 @@ def phase_serving_moe_tp(seed: int) -> dict:
 
 # -- main ------------------------------------------------------------------
 
+# -- the ladder-model slice: BERT, ResNet, OPT ------------------------------
+
+#: train_bert: BERT-large at full width and depth, ``[8, 512]`` a step
+BERT_STEPS, BERT_BATCH, BERT_SEQ = 8, 8, 512
+#: the share of real tokens that carry an MLM label
+BERT_MLM_RATE = 0.15
+#: train_bert_zero: BERT-large widths at ``num_layers 24 -> 4`` on two gloo
+#: ranks, the global ``[8, 512]`` batch, ZeRO stages 0-2 (BASELINE config
+#: 2's ZeRO-1/2), ``BERT_ZERO_STEPS`` steps each
+BERT_ZERO_LAYERS, BERT_ZERO_STEPS = 4, 4
+BERT_ZERO_RUNS = (("stage0", 0), ("stage1", 1), ("stage2", 2))
+#: train_resnet: ResNet-56 on one fixed ``[128, 32, 32, 3]`` batch of seeded
+#: images, 10 classes, Adam lr 1e-3
+RESNET_STEPS, RESNET_BATCH = 12, 128
+#: serve_opt / generate_opt: OPT-1.3B at full width and depth, bf16
+OPT_NAME = "opt_1_3b"
+
+
+def bert_batch(vocab: int, rows: int, seed: int, dev) -> dict:
+    """An MLM batch from ``seed`` (the same on every rank): random ids,
+    a pad tail a row (``pad_segments``: 0-200 pads, row 0 none) as the
+    attention mask, token type 0 then 1 from the middle of the sequence,
+    and ``BERT_MLM_RATE`` of the real tokens labelled (a random id; -100
+    elsewhere and on pads)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, vocab, (rows, BERT_SEQ), generator=gen,
+                        device=dev)
+    mask = pad_segments(rows, BERT_SEQ, gen, dev)
+    types = (torch.arange(BERT_SEQ, device=dev) >= BERT_SEQ // 2).to(
+        torch.int32).expand(rows, BERT_SEQ).contiguous()
+    picked = (torch.rand(rows, BERT_SEQ, generator=gen, device=dev)
+              < BERT_MLM_RATE) & mask.bool()
+    targets = torch.randint(0, vocab, (rows, BERT_SEQ), generator=gen,
+                            device=dev)
+    labels = torch.where(picked, targets, torch.full_like(targets, -100))
+    return {"input_ids": ids, "attention_mask": mask,
+            "token_type_ids": types, "labels": labels}
+
+
+def bert_config(**kw):
+    from deepspeed_tpu_torch import BertConfig
+    return BertConfig.bert_large(dtype=torch.bfloat16,
+                                 param_dtype=torch.float32,
+                                 attn_impl="flash", **kw)
+
+
+def phase_train_bert(dev, seed: int) -> dict:
+    """train_bert: BERT-large (24 x 1024, 16 heads of 64, S 512) at
+    ``[8, 512]`` a step, bf16 on fp32 masters, non-causal flash with the
+    pads as segment ids, AdamW lr 1e-4, ZeRO 0, remat, ``BERT_STEPS``
+    steps: a finite, falling loss and the flash launches of the formula."""
+    from deepspeed_tpu_torch import BertModel
+
+    t0 = time.perf_counter()
+    model = BertModel(bert_config(), device=dev, seed=seed)
+    data = bert_batch(model.config.vocab_size, BERT_BATCH, seed + 1, dev)
+    t = train(model, BERT_STEPS, BERT_BATCH, BERT_SEQ, seed, data=data)
+    require_train_launches("train_bert", t)
+    t.update(real_tokens=int(data["attention_mask"].sum()),
+             mlm_labels=int((data["labels"] != -100).sum()),
+             wall_s=time.perf_counter() - t0)
+    del model
+    torch.cuda.empty_cache()
+    return t
+
+
+def predicted_state_bytes(shapes: list, stage: int, dp: int) -> int:
+    """A rank's fp32 training state under the placement rule
+    (``runtime/zero/sharder.py``): masters whole below stage 3; Adam's m
+    and v a cut leaf's chunk from stage 1; gradients a cut leaf's chunk
+    from stage 2; a leaf the rule keeps whole is whole in each."""
+    from deepspeed_tpu_torch.runtime.config import ZeroConfig
+    from deepspeed_tpu_torch.runtime.zero import ZeroShardingPolicy
+
+    policy = ZeroShardingPolicy.from_config(ZeroConfig(stage=stage), dp)
+    total = 0
+    for shape in shapes:
+        n = int(np.prod(shape))
+        chunk = n if policy.shard_dim(tuple(shape)) is None else n // dp
+        total += 4 * ((chunk if stage >= 3 else n)
+                      + 2 * (chunk if stage >= 1 else n)
+                      + (chunk if stage >= 2 else n))
+    return total
+
+
+def bert_zero_rank(rank: int, seed: int) -> dict:
+    """One rank of train_bert_zero: this rank's half of the global
+    ``[BERT_BATCH, 512]`` MLM batch, ``BERT_ZERO_STEPS`` steps of every
+    ``BERT_ZERO_RUNS`` stage (a fresh model from this rank's seed each:
+    the engine broadcasts rank 0's)."""
+    from deepspeed_tpu_torch import BertModel, initialize
+
+    dev = zero_rank_setup()
+    cfg = bert_config(num_layers=BERT_ZERO_LAYERS)
+    micro = BERT_BATCH // ZERO_RANKS
+    data = bert_batch(cfg.vocab_size, BERT_BATCH, seed + 1, dev)
+    rows = {k: v[rank * micro:(rank + 1) * micro] for k, v in data.items()}
+    out = {}
+    for label, stage in BERT_ZERO_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = BertModel(cfg, device=dev, seed=seed + rank)
+        shapes = [tuple(p.shape) for p in model.parameters()]
+        engine, *_ = initialize(model=model, config=ds_config(
+            model, micro, stage=stage), device=dev)
+        reset_counts()
+        metrics, marks = [], []
+        for _ in range(BERT_ZERO_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append(engine.train_step(rows))
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter() - t0) * 1e3)
+        out[label] = {
+            "stage": stage, "loss": [float(m["loss"]) for m in metrics],
+            "grad_norm": [float(m["grad_norm"]) for m in metrics],
+            "launches": train_launches(),
+            "state_bytes": zero_state_bytes(engine),
+            "predicted_state_bytes": predicted_state_bytes(
+                shapes, stage, ZERO_RANKS),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "host_step_ms": marks,
+            "cut_leaves": sum(p is not None for p in engine.placements),
+            "leaves": len(engine.params)}
+        del model, engine, metrics
+    return out
+
+
+def phase_train_bert_zero(seed: int) -> dict:
+    """train_bert_zero: two ranks on card 0 over gloo at ZeRO 0, 1 and 2:
+    finite, falling losses, equal on both ranks and each stage's equal to
+    stage 0's (``ZERO_STAGE_RTOL``); each rank's state bytes equal to the
+    byte of the placement rule; per rank and step 2 L flash forwards and L
+    of each backward pass."""
+    from deepspeed_tpu_torch.launcher import launch
+    from deepspeed_tpu_torch.ops import op_builder
+
+    op_builder.build()  # here, so the ranks do not both run nvcc
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(bert_zero_rank, ZERO_RANKS, (seed,),
+                   timeout=ZERO_TIMEOUT)
+    wall = time.perf_counter() - t0
+    base = ranks[0]["stage0"]["loss"]
+    rel = {}
+    for label, stage in BERT_ZERO_RUNS:
+        for r, res in enumerate(ranks):
+            row = res[label]
+            losses = row["loss"]
+            what = f"train_bert_zero {label} rank {r}"
+            require(all(np.isfinite(losses)), f"{what}: loss {losses}")
+            require(losses[-1] < losses[0],
+                    f"{what}: loss did not fall: {losses}")
+            require(losses == ranks[0][label]["loss"],
+                    f"{what}: losses {losses} != rank 0's")
+            require(row["state_bytes"]["total"]
+                    == row["predicted_state_bytes"],
+                    f"{what}: {row['state_bytes']['total']} state bytes, "
+                    f"predicted {row['predicted_state_bytes']}")
+            require_train_launches(what, dict(
+                layers=BERT_ZERO_LAYERS, steps=BERT_ZERO_STEPS, remat=True,
+                fused_adam=False, launches=row["launches"]))
+        rel[label] = _max_rel(ranks[0][label]["loss"], base)
+        require(rel[label] <= ZERO_STAGE_RTOL,
+                f"train_bert_zero {label}: losses {ranks[0][label]['loss']}"
+                f" != stage 0's {base} (rel {rel[label]})")
+    return {"ranks": ranks, "loss_rel_to_stage0": rel,
+            "launch_wall_s": wall}
+
+
+def phase_train_resnet(dev, seed: int) -> dict:
+    """train_resnet: ResNet-56 (855,578 parameters) on one fixed ``[128,
+    32, 32, 3]`` batch of seeded images with 10 random classes, bf16 on
+    fp32 masters, Adam lr 1e-3, ZeRO 0, ``RESNET_STEPS`` steps timed with
+    CUDA events: a finite, falling loss, the step time and images/s.  The
+    model is plain PyTorch (cuDNN convolutions): no kernel of the port
+    runs, and none may launch."""
+    from deepspeed_tpu_torch import ResNetConfig, ResNetModel, initialize
+
+    t0 = time.perf_counter()
+    cfg = ResNetConfig.resnet56(dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    model = ResNetModel(cfg, device=dev, seed=seed)
+    engine, *_ = initialize(model=model, config={
+        "train_micro_batch_size_per_gpu": RESNET_BATCH, "steps_per_print": 0,
+        "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+        "zero_optimization": {"stage": 0}, "bf16": {"enabled": True}},
+        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    batch = {"images": torch.randn(RESNET_BATCH, cfg.image_size,
+                                   cfg.image_size, 3, generator=gen,
+                                   device=dev),
+             "labels": torch.randint(0, cfg.num_classes, (RESNET_BATCH,),
+                                     generator=gen, device=dev)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    marks, losses = [], []
+    for _ in range(RESNET_STEPS):
+        a, b = event_pair()
+        a.record()
+        losses.append(engine.train_step(batch)["loss"])
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    marks = [a.elapsed_time(b) for a, b in marks]
+    losses = [float(x) for x in losses]
+    launches = read_counts()
+    require(all(np.isfinite(losses)), f"train_resnet: loss {losses}")
+    require(losses[-1] < losses[0],
+            f"train_resnet: loss did not fall: {losses}")
+    require(not any(launches.values()),
+            f"train_resnet: a port kernel ran: {launches}")
+    step_ms = statistics.median(marks[1:])
+    return {"model": "resnet56", "params": cfg.num_params(),
+            "batch": [RESNET_BATCH, cfg.image_size, cfg.image_size, 3],
+            "steps": RESNET_STEPS, "dtype": "bfloat16", "loss": losses,
+            "step_ms": step_ms, "step_ms_all": marks,
+            "first_step_ms": marks[0],
+            "images_per_s": RESNET_BATCH / step_ms * 1e3,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "wall_s": time.perf_counter() - t0}
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -3428,13 +3869,19 @@ def nvidia_smi_line() -> str:
 MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 24, 2, 5
 
 
-def run_serving(model, name: str, seed: int, reduced: list) -> tuple:
+def run_serving(model, name: str, seed: int, reduced: list,
+                phases: Optional[tuple] = None) -> tuple:
     """The ``serve`` and ``generate`` phases of one model (and their
-    launch checks); returns (serve, generate) results."""
+    launch checks), printed under ``phases`` (default: ``serve`` /
+    ``generate``, ``serve_moe`` / ``generate_moe`` for a Mixtral); returns
+    (serve, generate) results."""
     from deepspeed_tpu_torch import KVCacheConfig
 
     cfg = model.config
     moe = hasattr(cfg, "num_experts")
+    if phases is None:
+        phases = ("serve_moe", "generate_moe") if moe else ("serve",
+                                                            "generate")
     rng = np.random.default_rng(seed)
     s = serve(model, rng, cache_config=KVCacheConfig(
         num_blocks=1025, block_size=16, max_seq_len=2048),
@@ -3451,7 +3898,7 @@ def run_serving(model, name: str, seed: int, reduced: list) -> tuple:
         want = L * s["prefill_calls"] if moe else 0
         require(la[kernel] == want, f"serve ({name}): {kernel} launched "
                                     f"{la[kernel]} times, want {want}")
-    emit(dict(phase="serve_moe" if moe else "serve", model=name, layers=L,
+    emit(dict(phase=phases[0], model=name, layers=L,
               hidden=cfg.hidden_size, params=cfg.num_params(),
               dtype="bfloat16", reduced=reduced,
               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -3472,8 +3919,7 @@ def run_serving(model, name: str, seed: int, reduced: list) -> tuple:
         want = L if moe else 0
         require(la[kernel] == want, f"generate ({name}): {kernel} launched "
                                     f"{la[kernel]} times, want {want}")
-    emit(dict(phase="generate_moe" if moe else "generate", model=name,
-              **without_tokens(g)))
+    emit(dict(phase=phases[1], model=name, **without_tokens(g)))
     return s, g
 
 
@@ -3494,7 +3940,9 @@ def main() -> int:
                          "agree_tp, train_zero, train_zero_agree, "
                          "train_ckpt, train_moe_ep, train_moe_ep_agree, "
                          "serve_moe_tp, generate_moe_tp (one launch runs "
-                         "both), agree_moe_tp)")
+                         "both), agree_moe_tp, train_bert, train_bert_zero, "
+                         "train_resnet, serve_opt, generate_opt (one run "
+                         "gives both), agree_opt)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU path "
@@ -3656,6 +4104,37 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
 
+    def serving_opt():
+        from deepspeed_tpu_torch import OPTConfig, OPTModel
+
+        torch.cuda.reset_peak_memory_stats()
+        model = OPTModel(OPTConfig.opt_1_3b(), device=dev, seed=args.seed)
+        res["serve_opt"], res["generate_opt"] = run_serving(
+            model, OPT_NAME, args.seed, [],
+            phases=("serve_opt", "generate_opt"))
+        del model
+        torch.cuda.empty_cache()
+
+    def train_bert():
+        res["train_bert"] = phase_train_bert(dev, args.seed)
+        emit(dict(phase="train_bert", model="bert_large", reduced=[],
+                  card=nvidia_smi_line(), **res["train_bert"]))
+
+    def train_bert_zero():
+        out = phase_train_bert_zero(args.seed)
+        for label, stage in BERT_ZERO_RUNS:  # one line per stage
+            emit(dict(phase="train_bert_zero", run=label, stage=stage,
+                      model="bert_large", ranks=ZERO_RANKS,
+                      global_batch=[BERT_BATCH, BERT_SEQ], dtype="bfloat16",
+                      reduced=[f"num_layers 24 -> {BERT_ZERO_LAYERS}",
+                               "cards 2 -> 1, NCCL -> gloo through the "
+                               "host"], comm=ZERO_NOTE,
+                      loss_rel_to_stage0=out["loss_rel_to_stage0"][label],
+                      **{f"rank{r}": x[label]
+                         for r, x in enumerate(out["ranks"])}))
+        emit(dict(phase="train_bert_zero",
+                  launch_wall_s=out["launch_wall_s"]))
+
     phases = {
         "build": phase_build,
         "kernels": kernels, "flash_kernels": flash_kernels,
@@ -3697,7 +4176,17 @@ def main() -> int:
         "serve_moe_tp": serving_moe_tp, "generate_moe_tp": serving_moe_tp,
         "agree_moe_tp": lambda: emit(dict(
             phase="agree_moe_tp", card=nvidia_smi_line(),
-            **phase_agree_tp(dev, args.seed, moe=True)))}
+            **phase_agree_tp(dev, args.seed, moe=True))),
+        "train_bert": train_bert,
+        "train_bert_zero": train_bert_zero,
+        "train_resnet": lambda: emit(dict(
+            phase="train_resnet", reduced=[], card=nvidia_smi_line(),
+            **phase_train_resnet(dev, args.seed))),
+        "serve_opt": serving_opt, "generate_opt": serving_opt,
+        "agree_opt": lambda: emit(dict(
+            phase="agree_opt", model="opt_1_3b widths", dtype="float32",
+            reduced=[f"num_layers 24 -> {AGREE_OPT_LAYERS}"],
+            **agree(dev, args.seed, opt=True)))}
     only = [p for p in args.only.split(",") if p]
     unknown = set(only) - set(phases)
     if unknown:
@@ -3725,6 +4214,7 @@ def main() -> int:
                                     res["adam"], res["sparse_kernels"])
 
     ep, smt = res["train_moe_ep"], res["serve_moe_tp"]
+    tb, so, go = res["train_bert"], res["serve_opt"], res["generate_opt"]
 
     def moe_launches(kernel):  # every MoE main path (a rank's on EP, TP)
         return sum(x["launches"][kernel] for x in (
@@ -3783,13 +4273,35 @@ def main() -> int:
                                  bs["block_sparse_bwd_dkv"]),
         "quantize_int8": (quant_src, pallas + "quantizer.py:38",
                           res["quant"]["path"]["launches"]["quantize_int8"],
-                          res["quant"])}
+                          res["quant"]),
+        # the ladder-model slice: the flash kernels at BERT-large's
+        # non-causal, padded shape (launches: train_bert), decode and paged
+        # at OPT-1.3B's MHA d 64 (launches: generate_opt, serve_opt)
+        "flash_fwd_bert": (flash_src, pallas + "flash_attention.py:260",
+                           tb["launches"]["flash_fwd"], flash["flash_fwd"]),
+        "flash_bwd_dq_bert": (flash_src, pallas + "flash_attention.py:453",
+                              tb["launches"]["flash_bwd_dq"],
+                              flash["flash_bwd_dq"]),
+        "flash_bwd_dkv_bert": (flash_src, pallas + "flash_attention.py:472",
+                               tb["launches"]["flash_bwd_dkv"],
+                               flash["flash_bwd_dkv"]),
+        "decode_attention_opt": (decode_src, pallas + "decode_attention.py:98",
+                                 go["launches"]["decode_attention"],
+                                 timing["decode_attention_opt"]),
+        "paged_decode_attention_opt": (
+            decode_src, pallas + "paged_attention.py:116",
+            so["launches"]["paged_decode_attention"],
+            timing["paged_decode_attention_opt"])}
 
     def kernel_row(name, source, replaces, launches, m):
-        m = m["timed"]["headline"] if "timed" in m else m
+        if "timed" in m:
+            m = m["timed"]["bert" if name.endswith("_bert") else "headline"]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": rows[name][3]["max_abs_err"],
+                "max_abs_err": (max(
+                    e for case, e in rows[name][3]["max_abs_err_by_case"]
+                    .items() if "bert" in case) if name.endswith("_bert")
+                    else rows[name][3]["max_abs_err"]),
                 "ms": m["kernel_time"]["ms"],
                 "plain_ms": m["plain_time"]["ms"],
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],

@@ -20,7 +20,10 @@ ZeRO stages 0-3 over ``torch.distributed`` (:mod:`.zero`: ``Init``,
 ``GatheredParameters``), one process per rank; and expert parallelism:
 Mixtral trained on ``expert`` x ``data`` axes with the gate routing the
 global micro-batch, served under tensor parallelism, and Residual-MoE
-(:class:`MoE`).  Every
+(:class:`MoE`); and the other ladder models: BERT (masked-LM training on
+the flash kernels, non-causal with padding as segment ids), the CIFAR
+ResNet, OPT (served on the decode and paged kernels), and the Hugging Face
+checkpoint importers (``models.load_hf_*``).  Every
 entry point runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run.
 """
@@ -30,13 +33,18 @@ from .runtime import zero
 from .comm import init_distributed
 from .inference import init_inference
 from .inference.v2 import KVCacheConfig, build_engine_v2
-from .models import LlamaConfig, LlamaModel, MixtralConfig, MixtralModel
+from .models import (BertConfig, BertModel, LlamaConfig, LlamaModel,
+                     MixtralConfig, MixtralModel, OPTConfig, OPTModel,
+                     ResNetConfig, ResNetModel, load_hf_bert, load_hf_llama,
+                     load_hf_mistral, load_hf_mixtral, load_hf_opt)
 from .moe import MoE
 from .runtime import DeepSpeedConfig, DeepSpeedEngine, initialize
 from .serving import ServingParams, build_serving_frontend
 
-__all__ = ["DeepSpeedConfig", "DeepSpeedEngine", "KVCacheConfig",
-           "LlamaConfig", "LlamaModel", "MixtralConfig", "MixtralModel",
-           "MoE", "ServingParams", "build_engine_v2",
+__all__ = ["BertConfig", "BertModel", "DeepSpeedConfig", "DeepSpeedEngine",
+           "KVCacheConfig", "LlamaConfig", "LlamaModel", "MixtralConfig",
+           "MixtralModel", "MoE", "OPTConfig", "OPTModel", "ResNetConfig",
+           "ResNetModel", "ServingParams", "build_engine_v2",
            "build_serving_frontend", "comm", "init_distributed",
-           "init_inference", "initialize", "zero"]
+           "init_inference", "initialize", "load_hf_bert", "load_hf_llama",
+           "load_hf_mistral", "load_hf_mixtral", "load_hf_opt", "zero"]

@@ -24,7 +24,8 @@
 // than q, k, v, out and lse over 3.35 TB/s (chip_smoke.py attention_bounds);
 // the backward, the operations: per live (q, k) pair the dq pass does 6 D
 // flops and the dk/dv pass 8 D (each recomputes the scores; the split dS
-// adds 2 D to each), and every tile staged from device memory meets 64 rows
+// adds 2 D to each, the split P 2 D more to the dk/dv pass), and every
+// tile staged from device memory meets 64 rows
 // of work, so only the tensor cores come near the bound.
 //
 // The design: the flash kernels' tile (flash_attention_mma.cu), walking a
@@ -51,9 +52,11 @@
 //     S = Q.K^T, P = exp(S * scale - lse), dP = dO.V^T, dS = P (dP -
 //     delta), dQ += dS.K.  dk/dv pass: S^T = K.Q^T and dP^T = V.dO^T, so
 //     P^T and dS^T are A fragments, dV += P^T.dO, dK += dS^T.Q, lse and
-//     delta read per column.  P is rounded to 16 bits as an operand; dS
-//     goes in as hi = round(dS) and lo = round(dS - hi), both on the same B
-//     fragments (mma::acc_to_a_split), as JAX keeps ds in fp32;
+//     delta read per column.  dS goes in as hi = round(dS) and lo =
+//     round(dS - hi), both on the same B fragments (mma::acc_to_a_split),
+//     as JAX keeps ds in fp32; so does P^T in dV += P^T.dO (JAX keeps p in
+//     fp32 there too): on a saved lse below a row's scores P exceeds 1, and
+//     one rounding of it put dv past 2e-2 (ROADMAP Queue 3);
 //   * masks on the fragment, only on tiles that are not wholly live (a
 //     cell mask with a clear bit, the causal diagonal, the S tail): a row's
 //     (key's) cell bits, S and causality fold into one 64-bit word a tile
@@ -564,15 +567,20 @@ block_sparse_bwd_dkv_mma_kernel(Args a) {
     }
 
     // not unrolled: at d 128 (four steps of 16 queries) the unrolled steps
-    // spilled once dS went in as two parts; one step at d 64
+    // spilled once dS went in as two parts; one step at d 64.  Each step
+    // forms P^T and takes dV before it forms dP^T, so the two hi + lo
+    // pairs are never live beside both score fragments (with P^T split,
+    // the fused order spilled 8 bytes at d 128)
 #pragma unroll 1
     for (int qc = 0; qc < kTile; qc += NQ) {
-      // S^T = K.Q^T and dP^T = V.dO^T over queries qc .. qc + NQ
-      float s[NQT][4], dp[NQT][4];
+      // S^T = K.Q^T over queries qc .. qc + NQ, then P^T in place; column
+      // j is query qc + j, and bit qq of the key's keep word decides on a
+      // tile that is not wholly live
+      float s[NQT][4];
 #pragma unroll
       for (int n = 0; n < NQT; ++n)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) { s[n][i] = 0.f; dp[n][i] = 0.f; }
+        for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
 #pragma unroll
       for (int c = 0; c < KC; ++c) {
         uint32_t af[4], bf[4];
@@ -588,6 +596,56 @@ block_sparse_bwd_dkv_mma_kernel(Args a) {
           Op<T>::mma(s[n], af, bf[0], bf[1]);
           Op<T>::mma(s[n + 1], af, bf[2], bf[3]);
         }
+      }
+      if (masked) {
+        Keep keep[2];  // bits qc .. qc + NQ of the keys' words
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          keep[r] = static_cast<Keep>(keep_s[warp * 16 + g + 8 * r] >> qc);
+#pragma unroll
+        for (int n = 0; n < NQT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = i >> 1, qq = qc + n * 8 + 2 * t4 + (i & 1);
+            s[n][i] = (keep[r] >> (qq - qc)) & 1
+                          ? exp2f(fmaf(s[n][i], sl2, -ls[qq] * kLog2e))
+                          : 0.f;
+          }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NQT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int qq = qc + n * 8 + 2 * t4 + (i & 1);
+            s[n][i] = exp2f(fmaf(s[n][i], sl2, -ls[qq] * kLog2e));
+          }
+      }
+
+      // dV += P^T.dO, P^T as hi + lo 16-bit parts (JAX keeps p in fp32)
+#pragma unroll
+      for (int c = 0; c < NQ / 16; ++c) {
+        uint32_t hi[4], lo[4];
+        mma::acc_to_a_split<T>(hi, lo, s, c);
+#pragma unroll
+        for (int n = 0; n < DT; n += 2) {
+          uint32_t bf[4];
+          mma::load_b_kn(bf, dos, LD, n * 8, qc + c * 16, lane);
+          Op<T>::mma(dv[n], hi, bf[0], bf[1]);
+          Op<T>::mma(dv[n + 1], hi, bf[2], bf[3]);
+          Op<T>::mma(dv[n], lo, bf[0], bf[1]);
+          Op<T>::mma(dv[n + 1], lo, bf[2], bf[3]);
+        }
+      }
+
+      // dP^T = V.dO^T, then dS^T = P^T (dP^T - delta) in place
+      float dp[NQT][4];
+#pragma unroll
+      for (int n = 0; n < NQT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dp[n][i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        uint32_t af[4], bf[4];
         if constexpr (kHoldFrags) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) af[i] = vf[c][i];
@@ -601,56 +659,27 @@ block_sparse_bwd_dkv_mma_kernel(Args a) {
           Op<T>::mma(dp[n + 1], af, bf[2], bf[3]);
         }
       }
+#pragma unroll
+      for (int n = 0; n < NQT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qq = qc + n * 8 + 2 * t4 + (i & 1);
+          dp[n][i] = s[n][i] * (dp[n][i] - ds[qq]);
+        }
 
-      // P^T in s, dS^T = P^T (dP^T - delta) in dp; column j is query
-      // qc + j, and bit qq of the key's keep word decides on a tile that
-      // is not wholly live
-      if (masked) {
-        Keep keep[2];  // bits qc .. qc + NQ of the keys' words
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          keep[r] = static_cast<Keep>(keep_s[warp * 16 + g + 8 * r] >> qc);
-#pragma unroll
-        for (int n = 0; n < NQT; ++n)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = i >> 1, qq = qc + n * 8 + 2 * t4 + (i & 1);
-            const float p =
-                (keep[r] >> (qq - qc)) & 1
-                    ? exp2f(fmaf(s[n][i], sl2, -ls[qq] * kLog2e))
-                    : 0.f;
-            s[n][i] = p;
-            dp[n][i] = p * (dp[n][i] - ds[qq]);
-          }
-      } else {
-#pragma unroll
-        for (int n = 0; n < NQT; ++n)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int qq = qc + n * 8 + 2 * t4 + (i & 1);
-            const float p = exp2f(fmaf(s[n][i], sl2, -ls[qq] * kLog2e));
-            s[n][i] = p;
-            dp[n][i] = p * (dp[n][i] - ds[qq]);
-          }
-      }
-
-      // dV += P^T.dO, dK += dS^T.Q over these queries
+      // dK += dS^T.Q, dS^T as hi + lo, as in the dq pass
 #pragma unroll
       for (int c = 0; c < NQ / 16; ++c) {
-        uint32_t pa[4], sh[4], sl[4];  // dS^T as hi + lo, as in the dq pass
-        mma::acc_to_a<T>(pa, s, c);
-        mma::acc_to_a_split<T>(sh, sl, dp, c);
+        uint32_t hi[4], lo[4];
+        mma::acc_to_a_split<T>(hi, lo, dp, c);
 #pragma unroll
         for (int n = 0; n < DT; n += 2) {
           uint32_t bf[4];
-          mma::load_b_kn(bf, dos, LD, n * 8, qc + c * 16, lane);
-          Op<T>::mma(dv[n], pa, bf[0], bf[1]);
-          Op<T>::mma(dv[n + 1], pa, bf[2], bf[3]);
           mma::load_b_kn(bf, qs, LD, n * 8, qc + c * 16, lane);
-          Op<T>::mma(dk[n], sh, bf[0], bf[1]);
-          Op<T>::mma(dk[n + 1], sh, bf[2], bf[3]);
-          Op<T>::mma(dk[n], sl, bf[0], bf[1]);
-          Op<T>::mma(dk[n + 1], sl, bf[2], bf[3]);
+          Op<T>::mma(dk[n], hi, bf[0], bf[1]);
+          Op<T>::mma(dk[n + 1], hi, bf[2], bf[3]);
+          Op<T>::mma(dk[n], lo, bf[0], bf[1]);
+          Op<T>::mma(dk[n + 1], lo, bf[2], bf[3]);
         }
       }
     }

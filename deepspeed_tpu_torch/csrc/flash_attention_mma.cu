@@ -18,7 +18,8 @@
 // What bounds it: the operations (chip_smoke.py attention_bounds).  Per
 // live (q, k) pair the forward does 4 d flops, the dq pass 6 d and the
 // dk/dv pass 8 d (each pass recomputes the scores; the split dS adds 2 d
-// tensor-core flops to each backward pass); at the training shapes
+// tensor-core flops to each backward pass, the split P 2 d more to the
+// dk/dv pass); at the training shapes
 // each byte read meets hundreds of flops, so only the tensor cores' 989
 // TFLOP/s (bf16, fp16) come near the bound.
 //
@@ -44,12 +45,15 @@
 //   * dq pass: S = Q·Kᵀ, P = exp(S·scale − lse), dP = dO·Vᵀ,
 //     dS = P∘(dP − delta), dQ += dS·K; dk/dv pass: Sᵀ = K·Qᵀ and
 //     dPᵀ = V·dOᵀ directly, so Pᵀ and dSᵀ come out as A fragments,
-//     dV += Pᵀ·dO, dK += dSᵀ·Q.  P is rounded to 16 bits as an operand;
-//     dS goes in as two 16-bit parts, hi = round(dS) and lo = round(dS −
-//     hi), each multiplied on the same B fragments (mma::acc_to_a_split):
-//     JAX keeps ds in fp32 (:363-366), and where delta is far from dP one
-//     rounding of dS put dq and dk past 2e-2 of the fp32 backward
-//     (PERF.md); delta = rowsum(dO∘O) stays outside (JAX :443);
+//     dV += Pᵀ·dO, dK += dSᵀ·Q.  dS goes in as two 16-bit parts, hi =
+//     round(dS) and lo = round(dS − hi), each multiplied on the same B
+//     fragments (mma::acc_to_a_split): JAX keeps ds in fp32 (:363-366),
+//     and where delta is far from dP one rounding of dS put dq and dk past
+//     2e-2 of the fp32 backward (PERF.md); so does Pᵀ in dV += Pᵀ·dO
+//     (JAX keeps p in fp32 there too, :406): on a saved lse below the
+//     row's scores P exceeds 1, and one rounding of it put dv past 2e-2
+//     at BERT-large's shape (ROADMAP Queue 3); delta = rowsum(dO∘O) stays
+//     outside (JAX :443);
 //   * masks (causal, window, segments, the S tail) are applied on the
 //     accumulator fragment, only on tiles that need one
 //     (tile_needs_mask); segment ids, lse and delta of the walked tile are
@@ -548,23 +552,31 @@ flash_bwd_dkv_mma_kernel(Args a) {
           dp[n][i] = p * (dp[n][i] - ds[qq]);
         }
 
-      // dV += Pᵀ·dO, dK += dSᵀ·Q over these queries
+      // dV += Pᵀ·dO, then dK += dSᵀ·Q over these queries; Pᵀ and dSᵀ
+      // each go in as hi + lo 16-bit parts (the JAX kernel keeps both in
+      // fp32), one pair live at a time
 #pragma unroll
       for (int c = 0; c < NQ / 16; ++c) {
-        uint32_t pa[4], sh[4], sl[4];  // dS^T as hi + lo, as in the dq pass
-        mma::acc_to_a<T>(pa, s, c);
-        mma::acc_to_a_split<T>(sh, sl, dp, c);
+        uint32_t hi[4], lo[4];
+        mma::acc_to_a_split<T>(hi, lo, s, c);
 #pragma unroll
         for (int n = 0; n < DT; n += 2) {
           uint32_t bf[4];
           mma::load_b_kn(bf, dos, LD, n * 8, qc + c * 16, lane);
-          Op<T>::mma(dv[n], pa, bf[0], bf[1]);
-          Op<T>::mma(dv[n + 1], pa, bf[2], bf[3]);
+          Op<T>::mma(dv[n], hi, bf[0], bf[1]);
+          Op<T>::mma(dv[n + 1], hi, bf[2], bf[3]);
+          Op<T>::mma(dv[n], lo, bf[0], bf[1]);
+          Op<T>::mma(dv[n + 1], lo, bf[2], bf[3]);
+        }
+        mma::acc_to_a_split<T>(hi, lo, dp, c);
+#pragma unroll
+        for (int n = 0; n < DT; n += 2) {
+          uint32_t bf[4];
           mma::load_b_kn(bf, qs, LD, n * 8, qc + c * 16, lane);
-          Op<T>::mma(dk[n], sh, bf[0], bf[1]);
-          Op<T>::mma(dk[n + 1], sh, bf[2], bf[3]);
-          Op<T>::mma(dk[n], sl, bf[0], bf[1]);
-          Op<T>::mma(dk[n + 1], sl, bf[2], bf[3]);
+          Op<T>::mma(dk[n], hi, bf[0], bf[1]);
+          Op<T>::mma(dk[n + 1], hi, bf[2], bf[3]);
+          Op<T>::mma(dk[n], lo, bf[0], bf[1]);
+          Op<T>::mma(dk[n + 1], lo, bf[2], bf[3]);
         }
       }
     }

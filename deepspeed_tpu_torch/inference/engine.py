@@ -10,7 +10,7 @@ takes the model's mesh, or builds one over the joined process group
 model's weights in place (``LlamaModel.shard_``, the reference's AutoTP;
 a Mixtral's expert stacks keep their ``I/tp`` FFN columns).  Each rank's
 decode kernel then runs on its own heads, and every rank returns the same
-tokens.
+tokens.  A model without ``shard_`` (OPT) is served whole.
 """
 
 from __future__ import annotations
@@ -47,6 +47,10 @@ class InferenceEngine:
         check_module_device(model, self.device)
         refuse_cut(model, "init_inference")
         tp = int(config.tensor_parallel.get("tp_size", 1))
+        if tp > 1 and not hasattr(model, "shard_"):
+            raise NotImplementedError(
+                f"{type(model).__name__} under tensor parallelism is not "
+                "ported yet (ROADMAP Queue 1 item 6b)")
         if tp > 1 and model.tp == 1:
             if mesh is None:
                 from ..comm import comm

@@ -3,9 +3,9 @@
 Counterpart of ``deepspeed_tpu/inference/v2/adapters.py``: the engine owns
 paging, scheduling and the two programs (chunked prefill, decode burst);
 an adapter owns the architecture deltas.  Every hook works on flat token
-batches ``[N, ...]`` with positions ``[N]``.  Only the Llama family is
-ported (Llama and Mixtral, whose routed FFN runs inside ``post_attn``);
-the OPT adapter waits for ``models/opt.py``.
+batches ``[N, ...]`` with positions ``[N]``.  The Llama family (Llama and
+Mixtral, whose routed FFN runs inside ``post_attn``) and OPT (learned
+positions added at ``embed``, multi-head attention) are ported.
 """
 
 from __future__ import annotations
@@ -120,5 +120,31 @@ class LlamaV2Adapter(ModelAdapterV2):
         return self.model.logits(x)
 
 
+class OPTV2Adapter(ModelAdapterV2):
+    """OPT family: learned absolute positions (+2 offset, clamped at the
+    table's end), LayerNorm with bias, biased projections, ReLU MLP, tied
+    head (``models/opt.py``)."""
+
+    def layers(self):
+        return self.model.layers
+
+    def embed(self, tokens, positions):
+        return self.model.embed_tokens(tokens, positions)
+
+    def qkv(self, layer, x, positions):
+        del positions  # learned positions were added at embed time
+        return self.model.qkv(layer, x)
+
+    def post_attn(self, layer, x, attn):
+        return self.model.post_attn(layer, x, attn)
+
+    def finalize(self, x):
+        return self.model.finalize(x)
+
+    def logits(self, x):
+        return self.model.logits(x)
+
+
 _REGISTRY = {"LlamaModel": LlamaV2Adapter,
-             "MixtralModel": LlamaV2Adapter}
+             "MixtralModel": LlamaV2Adapter,
+             "OPTModel": OPTV2Adapter}

@@ -11,6 +11,13 @@ names::
     <out>/universal_metadata.json      step, source tag, per-name shapes
 
 ``runtime/checkpointing.load_universal_checkpoint`` reads it back.
+
+:func:`convert_jax_universal` carries a universal directory that the JAX
+package's ``ds_to_universal`` wrote (the same files, keyed by the JAX
+tree's ``/``-joined paths) into the port's names: each of ``fp32``,
+``exp_avg`` and ``exp_avg_sq`` is rebuilt as a JAX tree and renamed by the
+family's converter in ``models/convert.py`` (Adam's moments are
+elementwise, so the parameters' map holds for them).
 """
 
 from __future__ import annotations
@@ -23,8 +30,16 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from deepspeed_tpu_torch.models import convert as model_convert
 from deepspeed_tpu_torch.runtime import checkpointing
 from deepspeed_tpu_torch.utils.zero_to_fp32 import resolve_tag
+
+#: a JAX model family → its tree-to-``state_dict`` converter
+JAX_CONVERTERS = {"llama": model_convert.llama_params_from_jax,
+                  "mixtral": model_convert.mixtral_params_from_jax,
+                  "bert": model_convert.bert_params_from_jax,
+                  "opt": model_convert.opt_params_from_jax,
+                  "resnet": model_convert.resnet_params_from_jax}
 
 
 def convert(checkpoint_dir: str, output_dir: str,
@@ -48,6 +63,51 @@ def convert(checkpoint_dir: str, output_dir: str,
                                     "has_moments": bool(moments)}
     with open(os.path.join(output_dir,
                            checkpointing.UNIVERSAL_META), "w") as f:
+        json.dump(meta, f, indent=2)
+    return meta
+
+
+def _unflatten(paths: Dict[str, Any]) -> Dict[str, Any]:
+    """``{"a/b/c": x}`` → ``{"a": {"b": {"c": x}}}``."""
+    tree: Dict[str, Any] = {}
+    for key, arr in paths.items():
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+    return tree
+
+
+def convert_jax_universal(jax_dir: str, output_dir: str,
+                          family: str = "llama") -> Dict[str, Any]:
+    """A universal directory of the JAX package (a ``family`` model: one of
+    :data:`JAX_CONVERTERS`) → the port's universal layout in
+    ``output_dir``; returns the port's metadata.  The moments are carried
+    when the JAX directory holds them for every parameter."""
+    if family not in JAX_CONVERTERS:
+        raise ValueError(f"unknown model family {family!r}: one of "
+                         f"{sorted(JAX_CONVERTERS)}")
+    with open(os.path.join(jax_dir, checkpointing.UNIVERSAL_META)) as f:
+        jmeta = json.load(f)
+    moments = all(e.get("has_moments") for e in jmeta["params"].values())
+    fnames = ["fp32"] + (list(checkpointing.UNIVERSAL_MOMENTS.values())
+                         if moments else [])
+    port = {fname: JAX_CONVERTERS[family](_unflatten({
+        key: np.load(os.path.join(jax_dir, "zero", key, fname + ".npy"))
+        for key in jmeta["params"]})) for fname in fnames}
+    meta: Dict[str, Any] = {"step": int(jmeta["step"]),
+                            "source_tag": jmeta.get("source_tag"),
+                            "params": {}}
+    for name, t in port["fp32"].items():
+        pdir = os.path.join(output_dir, "zero", name)
+        os.makedirs(pdir, exist_ok=True)
+        for fname, sd in port.items():
+            np.save(os.path.join(pdir, fname + ".npy"), sd[name].numpy())
+        meta["params"][name] = {"shape": list(t.shape),
+                                "has_moments": moments}
+    with open(os.path.join(output_dir, checkpointing.UNIVERSAL_META),
+              "w") as f:
         json.dump(meta, f, indent=2)
     return meta
 

@@ -28,8 +28,10 @@ gloo ranks on the CPU (``launcher.local.launch``, rank bodies in
   optimizer raises naming the leaf or the type, and loads nothing;
 * against JAX: the JAX engine trains the tiny Llama 3 steps, saves, runs
   its ``ds_to_universal`` and trains 2 more; its universal arrays, mapped
-  to the port's names by ``llama_params_from_jax``, continue in the port
-  within rtol 3e-4 (``tests/unit/launcher/test_cli_parity.py``'s
+  to the port's names by the port's
+  ``ds_to_universal.convert_jax_universal`` (``llama_params_from_jax``),
+  continue in the port within rtol 3e-4
+  (``tests/unit/launcher/test_cli_parity.py``'s
   tolerance); the port's own ``ds_to_universal`` continues the two ranks'
   run.
 """
@@ -55,7 +57,6 @@ from deepspeed_tpu.utils import groups
 from deepspeed_tpu.utils.ds_to_universal import main as jax_ds_to_universal
 from deepspeed_tpu_torch.launcher import launch
 from deepspeed_tpu_torch.models import LlamaConfig, LlamaModel
-from deepspeed_tpu_torch.models import llama_params_from_jax
 from deepspeed_tpu_torch.runtime.checkpoint_engine import (
     CheckpointCorruptionError, DecoupledCheckpointEngine,
     verify_sidecar_manifest)
@@ -64,6 +65,7 @@ from deepspeed_tpu_torch.runtime.optimizers import (Adagrad, Adam, Lion,
 from deepspeed_tpu_torch.runtime.precision import DynamicLossScaler
 from deepspeed_tpu_torch.utils import ds_to_universal, zero_to_fp32
 from torch_zero_ranks import OVERFLOW_TOKEN
+from torch_parity import free_jax_cycles  # noqa: F401
 
 TIMEOUT = 240
 FP32_RTOL = 1e-5
@@ -434,22 +436,12 @@ def test_port_universal_continues_the_ranks(launched, tmp_path):
 
 # -- against JAX ---------------------------------------------------------------
 
-def _unflatten(paths):
-    tree = {}
-    for key, arr in paths.items():
-        node = tree
-        parts = key.split("/")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = arr
-    return tree
-
-
 def test_jax_universal_checkpoint_continues_in_the_port(tmp_path):
-    """JAX: 3 steps, save, ``ds_to_universal``, 2 steps more.  The port
-    loads JAX's universal arrays (renamed by ``llama_params_from_jax``;
-    Adam's moments are elementwise, so the same map holds) and gives JAX's
-    next 2 losses within rtol 3e-4."""
+    """JAX: 3 steps, save, ``ds_to_universal``, 2 steps more.  The port's
+    ``ds_to_universal.convert_jax_universal`` renames JAX's universal
+    arrays (by ``llama_params_from_jax``; Adam's moments are elementwise,
+    so the same map holds); the port loads them and gives JAX's next 2
+    losses within rtol 3e-4."""
     jcfg = JaxLlamaConfig.tiny(dtype=jnp.float32, num_layers=2)
     jm = JaxLlamaModel(jcfg)
     params = jm.init_params(jax.random.PRNGKey(0))
@@ -473,21 +465,11 @@ def test_jax_universal_checkpoint_continues_in_the_port(tmp_path):
                        .read_text())
     assert jmeta["step"] == 3
 
-    def tree(fname):
-        return _unflatten({k: np.load(tmp_path / "ju" / "zero" / k /
-                                      f"{fname}.npy")
-                           for k in jmeta["params"]})
-    port = {f: llama_params_from_jax(tree(f))
-            for f in ("fp32", "exp_avg", "exp_avg_sq")}
     out = tmp_path / "pu"
-    for name, t in port["fp32"].items():
-        (out / "zero" / name).mkdir(parents=True)
-        for f, sd in port.items():
-            np.save(out / "zero" / name / f"{f}.npy", sd[name].numpy())
-    (out / "universal_metadata.json").write_text(json.dumps({
-        "step": jmeta["step"], "source_tag": jmeta["source_tag"],
-        "params": {n: {"shape": list(t.shape), "has_moments": True}
-                   for n, t in port["fp32"].items()}}))
+    meta = ds_to_universal.convert_jax_universal(str(tmp_path / "ju"),
+                                                 str(out), "llama")
+    assert meta["step"] == 3 and meta["source_tag"] == jmeta["source_tag"]
+    assert all(e["has_moments"] for e in meta["params"].values())
 
     tm = LlamaModel(LlamaConfig(
         **{f: getattr(jcfg, f) for f in (

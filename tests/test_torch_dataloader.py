@@ -38,6 +38,7 @@ from deepspeed_tpu_torch.runtime.data_pipeline import (CurriculumDataLoader,
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader)
 from test_torch_train import BASE, training_pair
+from torch_parity import free_jax_cycles  # noqa: F401
 
 
 def _mesh():

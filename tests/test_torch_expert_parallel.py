@@ -67,6 +67,7 @@ from deepspeed_tpu_torch.runtime.checkpointing import full_tensors
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.utils import zero_to_fp32
 from test_torch_train import _assert_lr_equal, _assert_updates_close
+from torch_parity import free_jax_cycles  # noqa: F401
 
 TIMEOUT = 300
 EXPERT_LEAVES = ("w_gate", "w_up", "w_down")

@@ -31,6 +31,7 @@ from deepspeed_tpu_torch.ops.kernels import (flash_attention,
                                              flash_attention_fwd_plain,
                                              flash_fwd)
 from deepspeed_tpu_torch.ops.kernels import lattice as port_lattice
+from torch_parity import free_jax_cycles  # noqa: F401
 
 fa = importlib.import_module("deepspeed_tpu.ops.pallas.flash_attention")
 jax_lattice = importlib.import_module("deepspeed_tpu.ops.pallas.lattice")

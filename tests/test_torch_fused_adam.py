@@ -43,6 +43,7 @@ import deepspeed_tpu_torch as dst
 from deepspeed_tpu_torch.models import (LlamaConfig, LlamaModel,
                                         MixtralConfig, MixtralModel,
                                         llama_params_from_jax)
+from torch_parity import free_jax_cycles  # noqa: F401
 
 # the package exports the wrapper under the module's name
 tfa = importlib.import_module("deepspeed_tpu_torch.ops.kernels.fused_adam")

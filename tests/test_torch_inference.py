@@ -21,6 +21,7 @@ from deepspeed_tpu_torch.inference.v2 import (BlockAllocator, KVCacheConfig,
                                               RaggedScheduler, RequestState,
                                               build_engine_v2)
 from torch_parity import jax_tiny, port_model
+from torch_parity import free_jax_cycles  # noqa: F401
 
 PROMPT_LENS = (3, 9, 17, 21)   # prefill_chunk 8: up to three chunks
 N_NEW = 6

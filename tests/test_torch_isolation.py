@@ -2,8 +2,10 @@
 
 Every ``.py`` under ``deepspeed_tpu_torch/``, ``chip_smoke.py`` and the
 card tools under ``tools/`` is parsed with ``ast``; an import of ``jax``,
-``jaxlib`` or ``deepspeed_tpu`` (other than ``deepspeed_tpu_torch``) fails
-the test.  The entry points, called
+``jaxlib``, ``deepspeed_tpu`` (other than ``deepspeed_tpu_torch``),
+``transformers`` or ``safetensors`` fails the test: the card's machine has
+none of them (the HF importers read checkpoints on their own).  The entry
+points, called
 without a device while CUDA is absent, raise instead of running on the CPU.
 """
 
@@ -24,7 +26,8 @@ from deepspeed_tpu_torch.utils.device import check_module_device
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
-FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu", "transformers",
+             "safetensors")
 
 
 def _imported_modules(path: Path):
@@ -53,6 +56,8 @@ def test_no_jax_imports(path):
 def test_forbidden_rule_catches_the_jax_package():
     assert _forbidden("deepspeed_tpu.models.llama")
     assert _forbidden("jax.numpy") and _forbidden("jaxlib")
+    assert _forbidden("transformers.models.llama")
+    assert _forbidden("safetensors.torch")
     assert not _forbidden("deepspeed_tpu_torch.ops")
 
 
@@ -67,6 +72,24 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 def test_mixtral_entry_points_raise_without_cuda(no_cuda):
     _check_entry_points_raise(MixtralModel, MixtralConfig)
+
+
+@pytest.mark.parametrize("name", ["BertModel", "ResNetModel", "OPTModel"])
+def test_ladder_models_raise_without_cuda(no_cuda, name):
+    model_cls = getattr(deepspeed_tpu_torch, name)
+    cfg_cls = getattr(deepspeed_tpu_torch, name.replace("Model", "Config"))
+    cfg = cfg_cls.tiny(dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_cls(cfg)
+    model = model_cls(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize(model=model, config={"train_micro_batch_size_per_gpu": 1})
+    if name == "OPTModel":
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_inference(model)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_engine_v2(model, cache_config=KVCacheConfig(
+                num_blocks=8, block_size=4, max_seq_len=64), prefill_chunk=8)
 
 
 def _check_entry_points_raise(model_cls, cfg_cls):

@@ -143,6 +143,27 @@ def test_cuda_split_k_kernels_match_plain(cuda, n_rep, d, dtype, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [[1, 15, 16, 17, 1000, 2048, 640, 1999],
+                                     [257, 270, 287, 288]],
+                         ids=["serve", "generate"])
+def test_cuda_decode_kernels_at_opt_mha_shape(cuda, dtype, lengths):
+    """OPT-1.3B's decode: 32 query heads over 32 kv heads (n_rep 1), head
+    dim 64, ragged lengths over a 2048-key cache (served) and generate's B
+    4 over 257-288 keys."""
+    q, k, v, pk, pv, tables, lens = _split_case(1, 64, dtype, lengths, 64,
+                                                cuda, kv_h=32)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(
+        decode_attention(q, k, v, lens).float(),
+        decode_attention_plain(q, k, v, lens).float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(
+        paged_decode_attention(q, pk, pv, tables, lens).float(),
+        paged_decode_attention_plain(q, pk, pv, tables, lens).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_refuses_unsupported_head_dim(cuda):
     q, k, v, *_, lens = _cuda_case(2, 64, torch.float32, 0, cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -234,6 +255,52 @@ def test_cuda_flash_diagonal_window_edge_and_tail_tiles(cuda, dtype, d):
     seg[1, 900:] += 1
     _flash_check(q, k, v, do, seg.to(cuda), True, 130,
                  1e-4 if dtype == torch.float32 else 2e-2)
+
+
+def _pad_tails(B, S, seed, max_pad=200):
+    """BERT's padding as segment ids: 1 on real tokens, 0 on a pad tail of
+    0 to ``max_pad`` tokens a row (row 0 has none)."""
+    g = torch.Generator().manual_seed(seed)
+    pads = torch.randint(0, max_pad + 1, (B,), generator=g)
+    pads[0] = 0
+    return (torch.arange(S)[None, :] < S - pads[:, None]).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_cuda_flash_bert_pad_tails(cuda, dtype):
+    """BERT-large's attention (S 512, d 64; B 4 and 4 heads here),
+    non-causal with a pad tail a row as segments."""
+    q, k, v, do, _ = _flash_case(4, 512, 4, 64, dtype, 512, cuda, False)
+    seg = _pad_tails(4, 512, 3).to(cuda)
+    _flash_check(q, k, v, do, seg, False, None,
+                 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cuda_flash_bert_random_out(cuda, dtype, seed):
+    """The backward passes at BERT-large's full attention shape (B 8, h
+    16, S 512, d 64, pad tails) on a random ``out`` and lse = |N(0, 1)| +
+    3: P = exp(s - lse) reaches ~15 there, and one 16-bit rounding of P in
+    dV += Pᵀ·dO put dv past 2e-2 of the fp32 backward (ROADMAP Queue 3)."""
+    from deepspeed_tpu_torch.ops.kernels import (flash_attention_bwd_plain,
+                                                 flash_bwd_dkv, flash_bwd_dq)
+    q, k, v, do, _ = _flash_case(8, 512, 16, 64, dtype, 100 + seed, cuda,
+                                 False)
+    seg = _pad_tails(8, 512, seed).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    out = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    lse = torch.randn(8, 16, 512, generator=gen, device=cuda).abs() + 3.0
+    dq = flash_bwd_dq(q, k, v, out, lse, do, False, None, seg)
+    dk, dv = flash_bwd_dkv(q, k, v, out, lse, do, False, None, seg)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, False, None, seg)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        print(f"{name}: share of the bound {_of_bound(got, ref, 2e-2):.3f}")
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2, msg=name)
 
 
 # The backward passes on saved statistics that no forward of these inputs
@@ -731,6 +798,36 @@ def test_cuda_block_sparse_bwd_random_out_regime(cuda, dtype, d, seed,
     _hold_regime(f"block-sparse {layout} {dtype} d {d} seed {seed}",
                  (dq, dk, dv), want,
                  _bwd_ds_rounded(q, k, v, out, lse, do, mask), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cuda_block_sparse_bwd_random_out_wide(cuda, dtype, seed):
+    """The block-sparse backward passes on a random ``out`` and lse =
+    |N(0, 1)| + 3 at a wide shape (B 4, h 16, S 1024, d 64, a shared
+    BigBird layout of 64-token cells, non-causal): many live queries a
+    key, so P reaches well above 1, as at BERT's flash shape."""
+    from deepspeed_tpu_torch.ops.kernels import (block_sparse_bwd_dkv,
+                                                 block_sparse_bwd_dq,
+                                                 block_sparse_bwd_plain)
+    from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import (
+        _norm_layout, tile_plan)
+    B, S, h, d, cb = 4, 1024, 16, 64, 64
+    lay = _norm_layout(_bs_config("BigBirdSparsityConfig", h, cb, False)
+                       .make_layout(S), h)
+    plan = tile_plan(lay, cb, S, False)
+    q, k, v, do, _ = _flash_case(B, S, h, d, dtype, 200 + seed, cuda, False)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    out = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    lse = torch.randn(B, h, S, generator=gen, device=cuda).abs() + 3.0
+    dq = block_sparse_bwd_dq(q, k, v, out, lse, do, plan)
+    dk, dv = block_sparse_bwd_dkv(q, k, v, out, lse, do, plan)
+    want = block_sparse_bwd_plain(q, k, v, out, lse, do, lay, cb, False)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        print(f"{name}: share of the bound {_of_bound(got, ref, 2e-2):.3f}")
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2, msg=name)
 
 
 @pytest.mark.cuda

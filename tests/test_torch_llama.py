@@ -18,6 +18,7 @@ from deepspeed_tpu.models import llama as jax_llama
 from deepspeed_tpu_torch.models import LlamaModel, llama_params_from_jax
 from deepspeed_tpu_torch.models import llama as port_llama
 from torch_parity import jax_tiny, port_config, port_model
+from torch_parity import free_jax_cycles  # noqa: F401
 
 ATOL = 1e-4
 

@@ -31,6 +31,7 @@ from deepspeed_tpu_torch import (KVCacheConfig, MixtralConfig, MixtralModel,
                                  build_engine_v2, init_inference)
 from deepspeed_tpu_torch.models import (llama_grads_to_jax_layout,
                                         mixtral_params_from_jax)
+from torch_parity import free_jax_cycles  # noqa: F401
 
 _SHARED = ("vocab_size", "hidden_size", "intermediate_size", "num_layers",
            "num_heads", "num_kv_heads", "head_dim", "max_seq_len",

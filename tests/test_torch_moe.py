@@ -39,6 +39,7 @@ from deepspeed_tpu.ops.pallas import moe_dispatch as jmd
 from deepspeed_tpu_torch.moe import MoE, MOELayer, TopKGate
 from deepspeed_tpu_torch.moe import sharded_moe as tsm
 from deepspeed_tpu_torch.moe.layer import swiglu_expert_fn
+from torch_parity import free_jax_cycles  # noqa: F401
 
 # the package exports the wrapper under the module's name
 tmd = importlib.import_module("deepspeed_tpu_torch.ops.kernels.moe_dispatch")

@@ -26,6 +26,7 @@ from deepspeed_tpu_torch.ops.kernels import (decode_attention,
                                              paged_decode_attention,
                                              paged_decode_attention_plain)
 from deepspeed_tpu_torch.ops.masks import local_attention_mask
+from torch_parity import free_jax_cycles  # noqa: F401
 
 BS, MAX_BLOCKS, H, D = 8, 4, 8, 16
 FULL = BS * MAX_BLOCKS

@@ -27,6 +27,7 @@ from deepspeed_tpu.ops.pallas.quantizer import \
     quantize_int8 as jax_quantize_int8
 from deepspeed_tpu_torch.ops.kernels import (dequantize_int8, quantize_int8,
                                              quantize_int8_plain)
+from torch_parity import free_jax_cycles  # noqa: F401
 
 #: (case, shape): bench.py's shape, a rank-3 input, a zero row, and a row
 #: holding one value 1e4 times the rest

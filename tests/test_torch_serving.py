@@ -18,6 +18,7 @@ from deepspeed_tpu_torch.serving import (NoHealthyReplicaError, Replica,
                                          ServingFrontend, ServingParams,
                                          ServingScheduler)
 from torch_parity import jax_tiny, port_model
+from torch_parity import free_jax_cycles  # noqa: F401
 
 CACHE = dict(num_blocks=64, block_size=4, max_seq_len=64)
 ENGINE = dict(replicas=1, max_batch_slots=2, prefill_chunk=8,

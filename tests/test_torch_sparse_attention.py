@@ -30,6 +30,7 @@ import torch
 
 from deepspeed_tpu_torch.ops.kernels import (block_sparse_attention,
                                              block_sparse_kernel_attention)
+from torch_parity import free_jax_cycles  # noqa: F401
 
 # the packages bind these names to functions, which shadow the modules
 jax_sa = importlib.import_module("deepspeed_tpu.ops.sparse_attention")

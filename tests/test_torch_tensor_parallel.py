@@ -40,6 +40,7 @@ from deepspeed_tpu_torch.ops.kernels import (paged_decode_attention,
 from deepspeed_tpu_torch.parallel import (MESH_AXIS_ORDER, MeshLayout,
                                           ProcessMesh, ProcessTopology)
 from torch_parity import jax_tiny, port_config
+from torch_parity import free_jax_cycles  # noqa: F401
 
 #: every launch's limit: a rank that hangs fails the test, not the suite
 TIMEOUT = 120

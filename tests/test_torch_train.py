@@ -39,6 +39,7 @@ from deepspeed_tpu_torch.models import (LlamaConfig, LlamaModel,
                                         llama_grads_to_jax_layout,
                                         llama_params_from_jax,
                                         llama_tree_to_jax_layout)
+from torch_parity import free_jax_cycles  # noqa: F401
 
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
        "float16": jnp.float16}

@@ -58,6 +58,7 @@ from deepspeed_tpu_torch.runtime.zero import (ZeroShardingPolicy,
 from deepspeed_tpu_torch.launcher import launch
 from test_torch_train import (_assert_lr_equal, _assert_updates_close,
                               _jax_batch, _run)
+from torch_parity import free_jax_cycles  # noqa: F401
 
 #: a launch runs every case on every rank (one thread each)
 TIMEOUT = 300

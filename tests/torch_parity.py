@@ -3,11 +3,20 @@ reference model and the PyTorch port with the same weights.
 
 The JAX model draws its weights; ``llama_params_from_jax`` carries them into
 the port, which runs on the CPU (``device="cpu"``) in the same dtype.
+
+:func:`free_jax_cycles` is imported by every parity file that builds JAX
+objects: JAX engines and models left in reference cycles hold device
+arrays until the next full collection, and a later file in the same
+process (``tests/unit/telemetry/test_memory_ledger.py``, which counts the
+largest live arrays) would find them.
 """
+
+import gc
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from deepspeed_tpu.models import LlamaConfig as JaxLlamaConfig
@@ -42,3 +51,10 @@ def port_model(jax_model, params) -> LlamaModel:
     host = jax.tree.map(np.asarray, jax.device_get(params))
     model.load_state_dict(llama_params_from_jax(host), strict=True)
     return model
+
+
+@pytest.fixture(scope="module", autouse=True)
+def free_jax_cycles():
+    """After a test file: collect the cycles that hold its JAX arrays."""
+    yield
+    gc.collect()
