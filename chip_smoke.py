@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, block-sparse attention,
-tensor-parallel serving and ladder-model (BERT, ResNet, OPT) paths on one
-NVIDIA GPU and hold its CUDA kernels against their plain PyTorch versions.
+tensor-parallel serving, ladder-model (BERT, ResNet, OPT), offload and
+ZeRO-Infinity paths on one NVIDIA GPU and hold its CUDA kernels against
+their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -122,7 +123,7 @@ The tensor-parallel slice adds:
   ``paged_decode_attention_tp``, bit-equal to those heads of the unsharded
   kernel; timed beside its plain version and half of #2's bound;
 - ``serve_tp`` and ``generate_tp`` (one launch): Llama-3-8B at full width
-  and ``SERVE_TP_LAYERS`` (16) of its 32 layers, bf16, ``tp=2``: two
+  and ``SERVE_TP_LAYERS`` (8) of its 32 layers, bf16, ``tp=2``: two
   ranks that share card 0 over gloo through the host (NCCL needs one card
   per rank), spawned by ``launcher.local.launch``; every budget returned,
   both ranks' tokens equal, #2b ``L`` times a decode step and the decode
@@ -161,7 +162,7 @@ The expert-parallel slice adds:
   1e-4; the ep-2 ranks' save of a narrow fp32 Mixtral loads in one
   process bit for bit;
 - ``serve_moe_tp`` and ``generate_moe_tp`` (one launch): Mixtral-8x7B at
-  16 layers, bf16, ``tp=2`` over gloo, serve_moe's requests: budgets, both
+  8 layers, bf16, ``tp=2`` over gloo, serve_moe's requests: budgets, both
   ranks' tokens equal, #2b ``L`` a decode step, #11/#12 ``L`` a prefill
   call, decode ``L x 31`` in generate;
 - ``agree_moe_tp``: Mixtral-8x7B widths at 2 layers, ``tp=2`` against
@@ -196,6 +197,33 @@ The ladder-model slice adds:
 - ``agree_opt``: fp32 OPT-1.3B widths at 4 layers: v2 greedy == v1
   greedy == the CPU's.
 
+The offload and Infinity slice adds:
+
+- in ``flash_kernels``, the ``70b`` case (B 2, h 64, d 128, S 2048,
+  causal: Llama-3-70B's attention in a streamed layer) in all three dtypes,
+  timed beside SDPA and the bound;
+- ``train_infinity``: Llama-3-70B widths at ``INF_LAYERS`` (4) of 80
+  layers (fewer only if the host's ``MemAvailable`` cannot hold their
+  planes, never under 3), in a process of its own, bf16, flash, the cpu
+  tier through ``initialize`` with ``offload_param``, ``[2, 2048]``, 4
+  steps: finite falling losses, the trunk's two device buffers exactly
+  ``INF_PEAK_PARAM_BYTES``, no trunk leaf on the card, the peak allocation
+  under the resident state plus the activations and 80 GB, the flash
+  launches ``2 L`` / ``L`` / ``L`` a step; step time, one profiled step's
+  device idle share, host memory and thread counts;
+- ``train_infinity_nvme``: Llama-3-8B widths at 4 layers on the nvme tier
+  (files under ``build/nvme_smoke``, a ring of 2 slots), gas 2 with
+  clipping, 3 steps, beside the cpu tier: losses, grad norms and every
+  master equal; disk bytes a step, GB/s and the O_DIRECT split;
+- ``train_infinity_agree``: 8B widths at 2 fp32 layers: streamed within
+  2e-4 of the on-device engine, pipelined == serial bit for bit;
+- ``train_offload``: ZeRO-Offload at 8B widths, 4 layers, the bf16 wire:
+  losses, host state 12 B a parameter, the peak below ``train_8b_width``'s
+  and the step's split;
+- in ``train_zero``, the headline at ZeRO-2 with ``offload_optimizer`` in
+  the two ranks: each rank's host state its chunk to the byte, losses
+  equal to one process's with a rank's rows a microbatch.
+
 Ranks report to this process through a queue; only it prints.  Then a
 ``kernels`` line (every kernel's launches on the main paths: the
 decode kernels' from ``serve`` and ``generate``, #2b's per rank from
@@ -203,8 +231,9 @@ decode kernels' from ``serve`` and ``generate``, #2b's per rank from
 ``serve_moe``, ``generate_moe`` and ``train_moe``, the norm and Adam
 kernels' from ``train_moe``, the block-sparse kernels' from ``sparse``,
 the quantizer's from its path; the ``_bert`` rows' from ``train_bert``,
-the ``_opt`` rows' from ``generate_opt`` and ``serve_opt``; times at the
-main paths' shapes),
+the ``_opt`` rows' from ``generate_opt`` and ``serve_opt``, the ``_70b``
+rows' from ``train_infinity``; times at the main paths' shapes), a
+``timing`` line (seconds by phase),
 the card's name and power limit, and the result line.
 ``--only build,moe_kernels,...`` runs the named phases alone and prints
 neither of the last two lines.  TF32 is off for matmuls and cuDNN.  Length 0
@@ -699,9 +728,11 @@ FLASH_CASES = [("headline", 8, 12, 64, 2048, True, None, False),
                ("bert", 8, 16, 64, 512, False, None, "pad"),
                ("window_segments", 2, 8, 128, 2048, True, 512, "packed"),
                ("ragged", 2, 4, 64, 1000, True, None, False),
-               ("long", 1, 2, 128, 20480, True, None, False)]
-#: bf16, the training phases' shapes
-FLASH_TIMED = ("headline", "8b", "bert")
+               ("long", 1, 2, 128, 20480, True, None, False),
+               ("70b", 2, 64, 128, 2048, True, None, False)]
+#: bf16, the training phases' shapes (``70b``: train_infinity's streamed
+#: layers, h 64 with K/V repeated from 8)
+FLASH_TIMED = ("headline", "8b", "bert", "70b")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 BERT_MAX_PAD = 200
 
@@ -991,8 +1022,9 @@ def phase_flash_kernels(dev) -> dict:
             timing[kernel][name] = dict(
                 kernel_time=time_ms([lambda s=s: fn(*s) for s in sets],
                                     cycles),
+                # 3 calls a rep: a plain call is 1-30 ms of device time
                 plain_time=time_ms([lambda s=s: plain(*s) for s in sets],
-                                   cycles),
+                                   cycles, per_rep=3),
                 library_time=time_ms(
                     [lambda s=s: sdpa_fwd(*s) for s in sets] if library
                     else [lambda i=i: sdpa_bwd(i) for i in range(3)],
@@ -2109,15 +2141,19 @@ PEAK_BF16 = PEAK_FLOPS[torch.bfloat16]
 
 
 def ds_config(model, micro_batch: int, fused_adam: bool = False,
-              stage: int = 0) -> dict:
+              stage: int = 0, offload: bool = False) -> dict:
     """bench.build_engine's ds_config: AdamW lr 1e-4, ZeRO ``stage`` (0 by
     default), the model's dtype; the groups the port accepts without effect
-    stay in.  ``fused_adam`` turns on the two-kernel Adam step."""
+    stay in.  ``fused_adam`` turns on the two-kernel Adam step, ``offload``
+    ZeRO-Offload (``offload_optimizer`` cpu)."""
+    zero = {"stage": stage}
+    if offload:
+        zero["offload_optimizer"] = {"device": "cpu"}
     return {"train_micro_batch_size_per_gpu": micro_batch,
             "kernels": {"fused_adam": fused_adam},
             "gradient_accumulation_steps": 1,
             "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
-            "zero_optimization": {"stage": stage},
+            "zero_optimization": zero,
             "bf16": {"enabled": model.config.dtype == torch.bfloat16},
             "steps_per_print": 0,
             "telemetry": {"enabled": True, "jsonl": False,
@@ -2312,6 +2348,9 @@ ZERO_RANKS, ZERO_STEPS, ZERO_TIMEOUT = 2, 4, 900
 ZERO_RUNS = (("stage0", 0, False), ("stage1", 1, False),
              ("stage2", 2, False), ("stage3", 3, False),
              ("stage3_fused_adam", 3, True))
+#: the ZeRO-Offload run of train_zero: stage 2, the host Adam over each
+#: rank's chunk; its losses against one process's offload run
+ZERO_OFFLOAD_RUN, ZERO_OFFLOAD_STAGE = "stage2_offload", 2
 #: each stage's losses against stage 0's: the gradient sums and updates are
 #: the same operations (two ranks: every sum has two terms), so they are
 #: expected bit-equal
@@ -2402,7 +2441,46 @@ def zero_train_rank(rank: int, seed: int) -> dict:
             "cut_leaves": sum(p is not None for p in engine.placements),
             "leaves": len(engine.params)}
         del model, engine, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaModel(cfg, device=dev, seed=seed + rank)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    engine, *_ = initialize(model=model, config=ds_config(
+        model, micro, stage=ZERO_OFFLOAD_STAGE, offload=True), device=dev)
+    reset_counts()
+    metrics = [engine.train_step({"input_ids": rows})
+               for _ in range(ZERO_STEPS)]
+    out[ZERO_OFFLOAD_RUN] = {
+        "stage": ZERO_OFFLOAD_STAGE, "offload": "cpu",
+        "loss": [float(m["loss"]) for m in metrics],
+        "launches": train_launches(),
+        "host_state_bytes": engine.offload_opt.state_bytes,
+        "host_state_bytes_predicted": predicted_offload_bytes(
+            shapes, ZERO_RANKS),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     return out
+
+
+def offload_one_process(seed: int, dev) -> list:
+    """The headline with ``offload_optimizer`` in one process on the whole
+    global batch (rank 0's weights), a rank's rows a microbatch: the
+    losses train_zero's offload ranks must give.  The split matters under
+    the bf16 wire: each microbatch's weight gradient is rounded to bf16
+    before the fp32 sum, as each rank's is before the reduce-scatter."""
+    from deepspeed_tpu_torch import LlamaModel, initialize
+
+    model = LlamaModel(headline_cfg(), device=dev, seed=seed)
+    engine, *_ = initialize(model=model, config=dict(ds_config(
+        model, TRAIN_BATCH // ZERO_RANKS, offload=True),
+        gradient_accumulation_steps=ZERO_RANKS), device=dev)
+    ids = zero_batch(seed, model.config.vocab_size, TRAIN_BATCH, dev)
+    losses = [float(engine.train_step({"input_ids": ids})["loss"])
+              for _ in range(ZERO_STEPS)]
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
 
 
 def phase_train_zero(seed: int) -> dict:
@@ -2445,8 +2523,27 @@ def phase_train_zero(seed: int) -> dict:
     require(peaks[3] < peaks[0], f"train_zero: rank 0's peak at stage 3 "
                                  f"({peaks[3]} B) is not below stage 0's "
                                  f"({peaks[0]} B)")
+    one = offload_one_process(seed, torch.device("cuda", 0))
+    for r, res in enumerate(ranks):
+        row = res[ZERO_OFFLOAD_RUN]
+        require(row["host_state_bytes"] == row["host_state_bytes_predicted"],
+                f"train_zero offload rank {r}: host state "
+                f"{row['host_state_bytes']} B, the rank's chunk is "
+                f"{row['host_state_bytes_predicted']} B")
+        require(row["loss"] == ranks[0][ZERO_OFFLOAD_RUN]["loss"],
+                f"train_zero offload: rank {r}'s losses differ from rank 0's")
+        require_train_launches(f"train_zero offload rank {r}", dict(
+            layers=HEADLINE["num_layers"], steps=ZERO_STEPS, remat=True,
+            fused_adam=False, launches=row["launches"]))
+    off_rel = _max_rel(ranks[0][ZERO_OFFLOAD_RUN]["loss"], one)
+    require(off_rel <= ZERO_STAGE_RTOL,
+            f"train_zero offload: 2 ranks' losses "
+            f"{ranks[0][ZERO_OFFLOAD_RUN]['loss']} != one process's {one} "
+            f"(rel {off_rel})")
     return {"ranks": ranks, "loss_rel_to_stage0": rel,
-            "peak_mem_bytes_rank0": peaks, "launch_wall_s": wall}
+            "peak_mem_bytes_rank0": peaks, "launch_wall_s": wall,
+            "offload_one_process_loss": one,
+            "offload_rel_to_one_process": off_rel}
 
 
 def zero_agree_rank(rank: int, seed: int) -> dict:
@@ -2897,10 +2994,10 @@ QUANT_TIMED = (14336, 4096)
 #: tensor size of the TP phases; their ranks share card 0 over gloo
 TP = 2
 TP_TIMEOUT = 900
-#: serve_tp's depth: 16 of Llama-3-8B's 32 layers (gloo's host copies set
-#: the phase's time: 34.1-67.7 s at 32 layers on an H100 80GB HBM3 at
-#: 700 W)
-SERVE_TP_LAYERS = 16
+#: serve_tp's depth: 8 of Llama-3-8B's 32 layers (gloo's host copies set
+#: the phase's time: 34.1-67.7 s at 32 layers, 24.1-41.0 s at 16 on an
+#: H100 80GB HBM3 at 700 W; cut to keep the script inside its limit)
+SERVE_TP_LAYERS = 8
 #: serve_tp's requests (prompt length, max_new_tokens, class); the first
 #: two start with a shared 256-token header
 SERVE_TP_REQUESTS = [(320, 32, "interactive"), (448, 32, "batch"),
@@ -3305,8 +3402,9 @@ MOE_AGREE_RUNS = (("ep2", 2, 1, 0),)
 #: the checkpoint check's narrow fp32 Mixtral (train_agree's widths, the
 #: 8 experts and top-2 of Mixtral-8x7B): its save stays small
 MOE_CKPT_MODEL = dict(AGREE_TRAIN, num_experts=8, top_k=2)
-#: serve_moe_tp: Mixtral-8x7B at 16 of 32 layers, bf16, two ranks
-MOE_TP_LAYERS = 16
+#: serve_moe_tp: Mixtral-8x7B at 8 of 32 layers, bf16, two ranks (34.4-
+#: 43.2 s at 16 on an H100 80GB HBM3 at 700 W; cut as serve_tp)
+MOE_TP_LAYERS = 8
 
 
 def ep_mesh(ep: int, dp: int):
@@ -3856,6 +3954,508 @@ def phase_train_resnet(dev, seed: int) -> dict:
             "wall_s": time.perf_counter() - t0}
 
 
+# -- the offload and Infinity slice -------------------------------------------
+
+#: train_infinity: Llama-3-70B widths, 4 of its 80 layers (fewer only if the
+#: host's memory forces it, never under INF_MIN_LAYERS), [2, 2048], 4 steps
+INF_LAYERS, INF_MIN_LAYERS, INF_BATCH, INF_STEPS = 4, 3, 2, 4
+#: the trunk's two device buffers at 70B widths: 2 x 855,654,400 x 2 B
+INF_PEAK_PARAM_BYTES = 3_422_617_600
+#: train_infinity_nvme: Llama-3-8B widths at 4 layers, a ring of 2 slots,
+#: gas 2 with clipping (the stash path), 3 steps
+NVME_LAYERS, NVME_STEPS, NVME_GAS, NVME_SLOTS = 4, 3, 2, 2
+#: train_infinity_agree: Llama-3-8B widths at 2 layers, fp32, 3 steps
+INF_AGREE_LAYERS, INF_AGREE_STEPS, INF_AGREE_RTOL = 2, 3, 2e-4
+#: train_offload: Llama-3-8B widths at WIDE_LAYERS, 4 steps
+OFFLOAD_STEPS = 4
+INF_NOTE = ("host-bound by design: the trunk's layers cross PCIe each "
+            "pass and the C++ Adam runs on the host")
+
+
+def meminfo() -> dict:
+    """The host's ``MemTotal`` and ``MemAvailable`` in bytes."""
+    out = {}
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            key, rest = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(rest.split()[0]) * 1024
+    return out
+
+
+def host_cache_emptier():
+    """PyTorch's call that returns cached pinned host blocks to the OS, or
+    None where this build has none."""
+    return (getattr(torch.cuda.memory, "empty_host_cache", None)
+            or getattr(torch._C, "_host_emptyCache", None))
+
+
+def free_host_cache() -> None:
+    """Return an earlier phase's cached blocks, on the card and pinned on
+    the host."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty = host_cache_emptier()
+    if empty is not None:
+        empty()
+
+
+def layer_params(cfg) -> int:
+    """One decoder layer's parameters."""
+    H, I, hd = cfg.hidden_size, cfg.intermediate_size, cfg.hd
+    return (H * cfg.num_heads * hd * 2 + 2 * H * cfg.num_kv_heads * hd
+            + 3 * H * I + 2 * H)
+
+
+def infinity_host_need(cfg, layers: int) -> int:
+    """Host bytes the cpu tier needs at ``layers``: every layer's planes
+    (bf16 wire, fp32 master, m, v: 14 B an element), one layer's source
+    while it is filled, the fp32 resident leaves before they move to the
+    card, the pinned gradient staging (2 layers of bf16) and the worker's
+    fp32 gradient plane."""
+    n = layer_params(cfg)
+    resident = cfg.num_params() - cfg.num_layers * n
+    return layers * 14 * n + 4 * n + 4 * resident + 2 * 2 * n + 4 * n
+
+
+def infinity_config(micro: int, dtype=torch.bfloat16, gas: int = 1,
+                    clip: float = 0.0, nvme_path: Optional[str] = None,
+                    buffer_count: int = 4, pipelined: bool = True) -> dict:
+    """ZeRO-3 with ``offload_param`` (cpu, or nvme under ``nvme_path``) and
+    ``offload_optimizer`` cpu; AdamW lr 1e-4, as ``ds_config``."""
+    param = ({"device": "nvme", "nvme_path": nvme_path,
+              "buffer_count": buffer_count} if nvme_path else
+             {"device": "cpu", "buffer_count": buffer_count})
+    opt = {"device": "cpu"}
+    if not pipelined:
+        opt.update(pipeline_read=False, pipeline_write=False)
+    return {"train_micro_batch_size_per_gpu": micro,
+            "gradient_accumulation_steps": gas, "gradient_clipping": clip,
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+            "bf16": {"enabled": dtype == torch.bfloat16},
+            "steps_per_print": 0,
+            "zero_optimization": {"stage": 3, "offload_param": param,
+                                  "offload_optimizer": opt}}
+
+
+def stream_model(cfg, seed: int, dev):
+    """A model whose parameters live in host memory, drawn with the card's
+    generator (the weights of ``LlamaModel(cfg, device=dev, seed=seed)``)."""
+    from deepspeed_tpu_torch import LlamaModel
+    return LlamaModel(cfg, device="cpu", seed=seed, init_device=dev)
+
+
+def streamed_steps(engine, ids, steps: int) -> dict:
+    """``steps`` streamed steps on one batch; each step's host-clock time
+    (``train_step`` ends with a device synchronize) and its swapper byte
+    counts."""
+    sw = engine.infinity.swapper
+    out = {k: [] for k in ("loss", "grad_norm", "step_s")}
+    io = []
+    for _ in range(steps):
+        before = dict(sw.io_bytes)
+        t0 = time.perf_counter()
+        m = engine.train_step({"input_ids": ids})
+        out["step_s"].append(time.perf_counter() - t0)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        io.append({k: sw.io_bytes[k] - before[k] for k in before})
+    out["io_bytes_per_step"] = io[-1]
+    return out
+
+
+def state_copy(engine) -> list:
+    """Host copies of the resident leaves and every layer's fp32 masters."""
+    sw = engine.infinity.swapper
+    return [p.detach().cpu() for p in engine.params] + [
+        t for i in range(sw.L) for t in sw.layer_master_tree(i).values()]
+
+
+def same_state(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def require_stream_launches(what: str, launches: dict, layers: int,
+                            steps: int, gas: int = 1) -> dict:
+    """Per microbatch each layer's forward twice (streamed, then again in
+    the backward) and its backward once; no other training kernel."""
+    want = {k: 0 for k in TRAIN_KERNELS}
+    want.update(flash_fwd=2 * layers * gas * steps,
+                flash_bwd_dq=layers * gas * steps,
+                flash_bwd_dkv=layers * gas * steps)
+    require(launches == want, f"{what}: launches {launches}, want {want}")
+    return want
+
+
+def device_idle_share(step) -> dict:
+    """One call of ``step`` under ``torch.profiler`` (device events only):
+    the device's busy time and its idle share over the call's host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    require(events, "the profiler recorded no device events")
+    busy, end = 0.0, -np.inf
+    for a, b in events:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return {"host_s": wall, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / 1e6 / wall,
+            "device_events": len(events)}
+
+
+def phase_train_infinity(dev, seed: int) -> dict:
+    """train_infinity: ZeRO-Infinity through ``initialize`` at Llama-3-70B
+    widths, the trunk in the cpu tier: finite falling losses, the trunk's
+    device buffers exactly ``INF_PEAK_PARAM_BYTES``, no trunk parameter on
+    the card, the peak allocation under the resident state plus the
+    activations and under 80 GB, the flash launches of the formula; the
+    step on the host clock, the device's idle share in one profiled step,
+    host memory and threads."""
+    from deepspeed_tpu_torch import LlamaConfig, initialize
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import num_threads
+
+    free_host_cache()
+    full = LlamaConfig.llama3_70b()
+    mem0 = meminfo()
+    layers = INF_LAYERS
+    while layers > INF_MIN_LAYERS and infinity_host_need(
+            full, layers) > 0.9 * mem0["MemAvailable"]:
+        layers -= 1
+    need = infinity_host_need(full, layers)
+    require(need <= 0.9 * mem0["MemAvailable"],
+            f"train_infinity: {layers} layers need {need} B of host memory, "
+            f"{mem0['MemAvailable']} B available")
+    cfg = LlamaConfig.llama3_70b(num_layers=layers, dtype=torch.bfloat16,
+                                 param_dtype=torch.float32, attn_impl="flash")
+    t0 = time.perf_counter()
+    model = stream_model(cfg, seed, dev)
+    init_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=model, config=infinity_config(INF_BATCH),
+                            device=dev)
+    setup_s = time.perf_counter() - t0
+    inf = engine.infinity
+    sw = inf.swapper
+    n_layer = sw.n_elems
+    require(n_layer == layer_params(cfg), "train_infinity: layer plane size")
+    buf_bytes = sum(b.numel() * b.element_size() for b in sw._dev)
+    require(buf_bytes == inf.peak_device_param_bytes()
+            == INF_PEAK_PARAM_BYTES,
+            f"train_infinity: trunk device buffers {buf_bytes} B, want "
+            f"{INF_PEAK_PARAM_BYTES}")
+    on_card = [n for n, p in model.layers.named_parameters()
+               if p.device.type != "cpu"]
+    require(not on_card, f"train_infinity: trunk leaves on the card: "
+                         f"{on_card[:3]}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (INF_BATCH, TRAIN_SEQ),
+                        generator=gen, device=dev)
+    mem1 = meminfo()
+    reset_counts()
+    run = streamed_steps(engine, ids, INF_STEPS)
+    launches = train_launches()
+    want = require_stream_launches("train_infinity", launches, layers,
+                                   INF_STEPS)
+    losses = run["loss"]
+    require(all(np.isfinite(losses)), f"train_infinity: loss {losses}")
+    require(losses[-1] < losses[0], f"train_infinity: loss did not fall: "
+                                    f"{losses}")
+    peak = torch.cuda.max_memory_allocated()
+    resident = inf.resident_param_count()
+    H, I, S, B = cfg.hidden_size, cfg.intermediate_size, TRAIN_SEQ, INF_BATCH
+    # the resident leaves' fp32 master, gradient, m and v; the two layer
+    # buffers; the layers' inputs; one layer's recompute and backward
+    # (q, k, v repeated to 64 heads, attention out, three [B, S, I] FFN
+    # tensors and their gradients, bf16, four-fold); the logits' fp32
+    # log-softmax and its gradient (four [B, S, V] fp32)
+    budget = (16 * resident + INF_PEAK_PARAM_BYTES + layers * B * S * H * 2
+              + 4 * B * S * (6 * cfg.num_heads * cfg.hd + 3 * I) * 2 * 2
+              + 4 * B * S * cfg.vocab_size * 4)
+    require(peak < budget and peak < 80e9,
+            f"train_infinity: peak {peak} B over the budget {budget} B "
+            f"(resident state, trunk buffers, activations) or 80 GB")
+    step_s = statistics.median(run["step_s"][1:])
+    trace = device_idle_share(lambda: engine.train_step({"input_ids": ids}))
+    tokens = B * S
+    flops = (6 * cfg.num_params() + 12 * layers * S * H) * tokens
+    mem2 = meminfo()
+    out = dict(
+        layers=layers, batch=[B, S], steps=INF_STEPS, dtype="bfloat16",
+        attn_impl=cfg.attn_impl, tier="cpu", pipelined=sw._pipe is not None,
+        loss=losses, grad_norm=run["grad_norm"], step_s=run["step_s"],
+        step_s_median=step_s, tokens_per_s=tokens / step_s,
+        mfu=flops / step_s / PEAK_BF16,
+        trunk_params_off_device=n_layer * layers,
+        layer_params=n_layer, resident_params=resident,
+        total_params=inf.total_param_count(),
+        peak_device_param_bytes=buf_bytes,
+        max_memory_allocated=peak, memory_budget=budget,
+        host_plane_bytes=sw.host_plane_bytes(),
+        host_need_predicted=need, mem_available_before=mem0["MemAvailable"],
+        mem_available_after_setup=mem1["MemAvailable"],
+        mem_available_after=mem2["MemAvailable"],
+        mem_total=mem0["MemTotal"], model_init_s=init_s,
+        initialize_s=setup_s, io_bytes_per_step=run["io_bytes_per_step"],
+        last_step_split_s=inf.last_timings, profiled_step=trace,
+        threads={"torch_intra_op": torch.get_num_threads(),
+                 "cpu_adam_openmp": num_threads(),
+                 "host_cores": __import__("os").cpu_count()},
+        launches=launches, launches_want=want, card=nvidia_smi_line(),
+        host_cache_emptier=host_cache_emptier() is not None, note=INF_NOTE)
+    del engine, inf, sw, model
+    free_host_cache()
+    return out
+
+
+def infinity_rank(rank: int, seed: int) -> dict:
+    """train_infinity in a process of its own: the cpu tier's planes take
+    most of the host's memory, and a fresh heap holds nothing of the
+    earlier phases."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    return phase_train_infinity(dev, seed)
+
+
+def phase_train_infinity_nvme(dev, seed: int) -> dict:
+    """train_infinity_nvme: Llama-3-8B widths at ``NVME_LAYERS`` on the
+    cpu tier, then the same on the nvme tier (files under
+    ``build/nvme_smoke``, a ring of ``NVME_SLOTS`` host slots, so it
+    evicts), gas 2 with clipping (the stash path): the losses, grad norms
+    and the final state equal bit for bit; disk bytes a step, their rate
+    and the O_DIRECT / buffered split."""
+    import os
+    import shutil
+
+    from deepspeed_tpu_torch import LlamaConfig, initialize
+
+    free_host_cache()
+    cfg = LlamaConfig.llama3_8b(num_layers=NVME_LAYERS, dtype=torch.bfloat16,
+                                param_dtype=torch.float32, attn_impl="flash")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "nvme_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    need = NVME_LAYERS * 14 * layer_params(cfg)
+    disk = shutil.disk_usage(root).free
+    require(disk > 1.2 * need, f"train_infinity_nvme: {disk} B free on the "
+                               f"disk, the planes need {need}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (NVME_GAS, TRAIN_SEQ),
+                        generator=gen, device=dev)
+    runs, ref = {}, None
+    try:
+        for tier in ("cpu", "nvme"):
+            model = stream_model(cfg, seed, dev)
+            t0 = time.perf_counter()
+            engine, *_ = initialize(model=model, device=dev, config=(
+                infinity_config(1, gas=NVME_GAS, clip=1.0,
+                                nvme_path=os.path.join(root, "planes")
+                                if tier == "nvme" else None,
+                                buffer_count=NVME_SLOTS)))
+            setup_s = time.perf_counter() - t0
+            sw = engine.infinity.swapper
+            aio0 = sw.aio_stats()
+            reset_counts()
+            run = streamed_steps(engine, ids, NVME_STEPS)
+            launches = train_launches()
+            require_stream_launches(f"train_infinity_nvme {tier}", launches,
+                                    NVME_LAYERS, NVME_STEPS, NVME_GAS)
+            aio = sw.aio_stats()
+            io = run["io_bytes_per_step"]
+            step_s = statistics.median(run["step_s"][1:])
+            state = state_copy(engine)
+            if ref is None:
+                ref = state
+            runs[tier] = dict(
+                loss=run["loss"], grad_norm=run["grad_norm"],
+                step_s=run["step_s"], initialize_s=setup_s,
+                state_equal_to_cpu_tier=same_state(state, ref),
+                launches=launches,
+                io_bytes_per_step=io,
+                disk_gb_read_per_step=io["disk_read"] / 1e9,
+                disk_gb_written_per_step=io["disk_write"] / 1e9,
+                disk_gb_per_s=(io["disk_read"] + io["disk_write"])
+                / step_s / 1e9,
+                aio_direct_bytes=aio.get("direct_bytes", 0)
+                - aio0.get("direct_bytes", 0),
+                aio_buffered_bytes=aio.get("buffered_bytes", 0)
+                - aio0.get("buffered_bytes", 0),
+                host_plane_bytes=sw.host_plane_bytes(),
+                buffer_count=sw.buffer_count)
+            del engine, sw, model, state
+            free_host_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    nv, cpu = runs["nvme"], runs["cpu"]
+    for key in ("loss", "grad_norm"):
+        require(nv[key] == cpu[key], f"train_infinity_nvme: the nvme tier's "
+                                     f"{key} {nv[key]} != the cpu tier's "
+                                     f"{cpu[key]}")
+    require(nv["state_equal_to_cpu_tier"], "train_infinity_nvme: the nvme "
+                                           "tier's masters differ")
+    require(all(np.isfinite(nv["loss"])), f"train_infinity_nvme: {nv}")
+    require(nv["aio_direct_bytes"] + nv["aio_buffered_bytes"] > 0,
+            "train_infinity_nvme: the AIO engine moved nothing")
+    return dict(layers=NVME_LAYERS, gas=NVME_GAS, clip=1.0,
+                batch=[NVME_GAS, TRAIN_SEQ], steps=NVME_STEPS,
+                dtype="bfloat16", path="stash", tiers_bit_equal=True,
+                disk_free_bytes=disk, planes_on_disk_bytes=need, **runs)
+
+
+def phase_train_infinity_agree(dev, seed: int) -> dict:
+    """train_infinity_agree: Llama-3-8B widths at ``INF_AGREE_LAYERS`` in
+    fp32 on one ``[1, 2048]`` batch: the streamed engine (cpu tier, fused
+    path) gives the on-device ZeRO-0 engine's losses and grad norms within
+    ``INF_AGREE_RTOL``, and its pipelined host optimizer the serial one's
+    bit for bit."""
+    from deepspeed_tpu_torch import LlamaConfig, LlamaModel, initialize
+
+    free_host_cache()
+    cfg = LlamaConfig.llama3_8b(num_layers=INF_AGREE_LAYERS,
+                                dtype=torch.float32,
+                                param_dtype=torch.float32, attn_impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ), generator=gen,
+                        device=dev)
+    runs, ref = {}, None
+    for label, pipelined in (("pipelined", True), ("serial", False)):
+        engine, *_ = initialize(model=stream_model(cfg, seed, dev),
+                                config=infinity_config(
+                                    1, torch.float32, pipelined=pipelined),
+                                device=dev)
+        require((engine.infinity.swapper._pipe is not None) == pipelined,
+                f"train_infinity_agree: pipeline={pipelined} not taken")
+        run = streamed_steps(engine, ids, INF_AGREE_STEPS)
+        state = state_copy(engine)
+        ref = state if ref is None else ref
+        runs[label] = dict(loss=run["loss"], grad_norm=run["grad_norm"],
+                           step_s=run["step_s"],
+                           state_equal_to_pipelined=same_state(state, ref))
+        del engine, state
+        free_host_cache()
+    del ref
+    model = LlamaModel(cfg, device=dev, seed=seed)
+    engine, *_ = initialize(model=model, device=dev,
+                            config=ds_config(model, 1))
+    metrics = [engine.train_step({"input_ids": ids})
+               for _ in range(INF_AGREE_STEPS)]
+    dev_run = dict(loss=[float(m["loss"]) for m in metrics],
+                   grad_norm=[float(m["grad_norm"]) for m in metrics])
+    del engine, model
+    free_host_cache()
+    p, s = runs["pipelined"], runs["serial"]
+    for key in ("loss", "grad_norm", "state_equal_to_pipelined"):
+        require(p[key] == s[key], f"train_infinity_agree: pipelined {key} "
+                                  f"{p[key]} != serial {s[key]}")
+    rel = {k: _max_rel(p[k], dev_run[k]) for k in ("loss", "grad_norm")}
+    for k, r in rel.items():
+        require(r <= INF_AGREE_RTOL,
+                f"train_infinity_agree: streamed {k} {p[k]} vs on-device "
+                f"{dev_run[k]}: rel {r} > {INF_AGREE_RTOL}")
+    return dict(layers=INF_AGREE_LAYERS, dtype="float32",
+                batch=[1, TRAIN_SEQ], steps=INF_AGREE_STEPS,
+                pipelined_equals_serial=True, rel_to_on_device=rel,
+                tolerance=INF_AGREE_RTOL, on_device=dev_run, **runs)
+
+
+def phase_train_offload(dev, seed: int, wide_peak_gb: float) -> dict:
+    """train_offload: ZeRO-Offload at Llama-3-8B widths (``WIDE_LAYERS``),
+    bf16 wire, flash, AdamW, ZeRO 0: finite falling losses; the card's
+    parameters bf16 and no optimizer tensor on the card; host state 12 B a
+    parameter; the peak allocation below ``train_8b_width``'s (printed
+    beside it); each step split into the gradient program, the waits for
+    the gradients' copies, the host Adam and the copies back."""
+    from deepspeed_tpu_torch import LlamaConfig, LlamaModel, initialize
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import num_threads
+
+    free_host_cache()
+    cfg = LlamaConfig.llama3_8b(num_layers=WIDE_LAYERS, dtype=torch.bfloat16,
+                                param_dtype=torch.float32, attn_impl="flash")
+    model = LlamaModel(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    conf = ds_config(model, WIDE_BATCH)
+    conf["zero_optimization"] = {"stage": 0,
+                                 "offload_optimizer": {"device": "cpu"}}
+    engine, *_ = initialize(model=model, config=conf, device=dev)
+    opt = engine.offload_opt
+    require({p.dtype for p in engine.params} == {torch.bfloat16},
+            "train_offload: the card's parameters are not bf16")
+    host = [t for t in opt.masters + opt.opt.exp_avg + opt.opt.exp_avg_sq
+            if t.device.type != "cpu"]
+    require(not host, "train_offload: optimizer state on the card")
+    n = cfg.num_params()
+    require(opt.state_bytes == 12 * n,
+            f"train_offload: host state {opt.state_bytes} B, want 12 x {n}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (WIDE_BATCH, TRAIN_SEQ),
+                        generator=gen, device=dev)
+    reset_counts()
+    losses, split = [], []
+    for _ in range(OFFLOAD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = engine.train_step({"input_ids": ids})
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        losses.append(float(m["loss"]))
+        t = dict(opt.last_timings)
+        split.append({"step_s": total,
+                      "grad_program_s": total - t["step_s"],
+                      "d2h_wait_s": t["d2h_wait_s"],
+                      "host_adam_s": t["host_opt_s"], "h2d_s": t["h2d_s"]})
+    launches = train_launches()
+    require_train_launches("train_offload", dict(
+        layers=WIDE_LAYERS, steps=OFFLOAD_STEPS, remat=cfg.remat,
+        fused_adam=False, launches=launches))
+    require(all(np.isfinite(losses)), f"train_offload: loss {losses}")
+    require(losses[-1] < losses[0], f"train_offload: loss did not fall: "
+                                    f"{losses}")
+    peak = torch.cuda.max_memory_allocated()
+    require(peak / 1e9 < wide_peak_gb,
+            f"train_offload: peak {peak / 1e9:.2f} GB not below "
+            f"train_8b_width's {wide_peak_gb:.2f} GB")
+    out = dict(layers=WIDE_LAYERS, batch=[WIDE_BATCH, TRAIN_SEQ],
+               steps=OFFLOAD_STEPS, dtype="bfloat16 (wire)", zero_stage=0,
+               loss=losses, step_split=split,
+               step_s_median=statistics.median(s["step_s"]
+                                               for s in split[1:]),
+               params=n, host_state_bytes=opt.state_bytes,
+               host_staging_bytes=opt.staging_bytes,
+               peak_mem_gb=peak / 1e9, train_8b_width_peak_mem_gb=wide_peak_gb,
+               threads={"torch_intra_op": torch.get_num_threads(),
+                        "cpu_adam_openmp": num_threads()},
+               launches=launches)
+    del engine, model, opt
+    free_host_cache()
+    return out
+
+
+def predicted_offload_bytes(shapes: list, dp: int) -> int:
+    """A rank's host state under ZeRO-Offload at stages 1-3: fp32 master,
+    m and v (12 B an element) of each cut leaf's chunk and of each whole
+    leaf (the placement rule)."""
+    from deepspeed_tpu_torch.runtime.config import ZeroConfig
+    from deepspeed_tpu_torch.runtime.zero import ZeroShardingPolicy
+
+    policy = ZeroShardingPolicy.from_config(ZeroConfig(stage=2), dp)
+    return 12 * sum(int(np.prod(s)) // (1 if policy.shard_dim(tuple(s))
+                                        is None else dp) for s in shapes)
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -3942,7 +4542,9 @@ def main() -> int:
                          "serve_moe_tp, generate_moe_tp (one launch runs "
                          "both), agree_moe_tp, train_bert, train_bert_zero, "
                          "train_resnet, serve_opt, generate_opt (one run "
-                         "gives both), agree_opt)")
+                         "gives both), agree_opt, train_infinity, "
+                         "train_infinity_nvme, train_infinity_agree, "
+                         "train_offload)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU path "
@@ -4019,6 +4621,16 @@ def main() -> int:
                       loss_rel_to_stage0=out["loss_rel_to_stage0"][label],
                       **{f"rank{r}": x[label]
                          for r, x in enumerate(out["ranks"])}))
+        emit(dict(phase="train_zero", run=ZERO_OFFLOAD_RUN,
+                  stage=ZERO_OFFLOAD_STAGE, offload_optimizer="cpu",
+                  model="bench.py headline", ranks=ZERO_RANKS,
+                  global_batch=[TRAIN_BATCH, TRAIN_SEQ],
+                  reduced=["cards 2 -> 1, NCCL -> gloo through the host"],
+                  comm=ZERO_NOTE,
+                  one_process_loss=out["offload_one_process_loss"],
+                  rel_to_one_process=out["offload_rel_to_one_process"],
+                  **{f"rank{r}": x[ZERO_OFFLOAD_RUN]
+                     for r, x in enumerate(out["ranks"])}))
         emit(dict(phase="train_zero", launch_wall_s=out["launch_wall_s"],
                   peak_mem_bytes_rank0=out["peak_mem_bytes_rank0"]))
 
@@ -4115,6 +4727,30 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
 
+    def train_infinity():
+        from deepspeed_tpu_torch.launcher import launch
+        from deepspeed_tpu_torch.ops import op_builder
+
+        op_builder.build()
+        free_host_cache()
+        parent = meminfo()["MemAvailable"]
+        res["train_infinity"] = t = launch(infinity_rank, 1, (args.seed,),
+                                           timeout=900)[0]
+        t["mem_available_in_parent"] = parent
+        emit(dict(phase="train_infinity", model="llama3_70b",
+                  reduced=[f"num_layers 80 -> {t['layers']}"],
+                  offload_param="cpu", **t))
+
+    def train_offload():
+        if "train_8b_width" not in res:
+            training("train_8b_width")
+        res["train_offload"] = phase_train_offload(
+            dev, args.seed, res["train_8b_width"]["peak_mem_gb"])
+        emit(dict(phase="train_offload", model="llama3_8b",
+                  reduced=[f"num_layers 32 -> {WIDE_LAYERS}"],
+                  offload_optimizer="cpu", card=nvidia_smi_line(),
+                  **res["train_offload"]))
+
     def train_bert():
         res["train_bert"] = phase_train_bert(dev, args.seed)
         emit(dict(phase="train_bert", model="bert_large", reduced=[],
@@ -4186,16 +4822,32 @@ def main() -> int:
         "agree_opt": lambda: emit(dict(
             phase="agree_opt", model="opt_1_3b widths", dtype="float32",
             reduced=[f"num_layers 24 -> {AGREE_OPT_LAYERS}"],
-            **agree(dev, args.seed, opt=True)))}
+            **agree(dev, args.seed, opt=True))),
+        "train_infinity_agree": lambda: emit(dict(
+            phase="train_infinity_agree", model="llama3_8b",
+            reduced=[f"num_layers 32 -> {INF_AGREE_LAYERS}"],
+            **phase_train_infinity_agree(dev, args.seed))),
+        "train_offload": train_offload,
+        "train_infinity_nvme": lambda: emit(dict(
+            phase="train_infinity_nvme", model="llama3_8b",
+            reduced=[f"num_layers 32 -> {NVME_LAYERS}"],
+            offload_param="nvme, then cpu", card=nvidia_smi_line(),
+            **phase_train_infinity_nvme(dev, args.seed))),
+        "train_infinity": train_infinity}
     only = [p for p in args.only.split(",") if p]
     unknown = set(only) - set(phases)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     ran = set()
+    seconds = {}
     for name, run in phases.items():
         if (not only or name in only) and run not in ran:
             ran.add(run)
+            t_phase = time.perf_counter()
             run()
+            seconds[name] = time.perf_counter() - t_phase
+    emit({"phase": "timing", "seconds_by_phase": seconds,
+          "seconds": time.perf_counter() - t_start})
     if only:
         return 0
 
@@ -4215,6 +4867,7 @@ def main() -> int:
 
     ep, smt = res["train_moe_ep"], res["serve_moe_tp"]
     tb, so, go = res["train_bert"], res["serve_opt"], res["generate_opt"]
+    ti = res["train_infinity"]
 
     def moe_launches(kernel):  # every MoE main path (a rank's on EP, TP)
         return sum(x["launches"][kernel] for x in (
@@ -4291,16 +4944,33 @@ def main() -> int:
         "paged_decode_attention_opt": (
             decode_src, pallas + "paged_attention.py:116",
             so["launches"]["paged_decode_attention"],
-            timing["paged_decode_attention_opt"])}
+            timing["paged_decode_attention_opt"]),
+        # the offload and Infinity slice: the flash kernels at Llama-3-70B's
+        # attention in each streamed layer (launches: train_infinity)
+        "flash_fwd_70b": (flash_src, pallas + "flash_attention.py:260",
+                          ti["launches"]["flash_fwd"], flash["flash_fwd"]),
+        "flash_bwd_dq_70b": (flash_src, pallas + "flash_attention.py:453",
+                             ti["launches"]["flash_bwd_dq"],
+                             flash["flash_bwd_dq"]),
+        "flash_bwd_dkv_70b": (flash_src, pallas + "flash_attention.py:472",
+                              ti["launches"]["flash_bwd_dkv"],
+                              flash["flash_bwd_dkv"])}
+
+    def case_of(name):  # a flash row's timed case
+        for suffix in ("bert", "70b"):
+            if name.endswith("_" + suffix):
+                return suffix
+        return "headline"
 
     def kernel_row(name, source, replaces, launches, m):
         if "timed" in m:
-            m = m["timed"]["bert" if name.endswith("_bert") else "headline"]
+            m = m["timed"][case_of(name)]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": (max(
                     e for case, e in rows[name][3]["max_abs_err_by_case"]
-                    .items() if "bert" in case) if name.endswith("_bert")
+                    .items() if case_of(name) in case)
+                    if case_of(name) != "headline" and "timed" in rows[name][3]
                     else rows[name][3]["max_abs_err"]),
                 "ms": m["kernel_time"]["ms"],
                 "plain_ms": m["plain_time"]["ms"],

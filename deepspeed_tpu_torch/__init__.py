@@ -23,7 +23,10 @@ global micro-batch, served under tensor parallelism, and Residual-MoE
 (:class:`MoE`); and the other ladder models: BERT (masked-LM training on
 the flash kernels, non-causal with padding as segment ids), the CIFAR
 ResNet, OPT (served on the decode and paged kernels), and the Hugging Face
-checkpoint importers (``models.load_hf_*``).  Every
+checkpoint importers (``models.load_hf_*``); and ZeRO-Offload and
+ZeRO-Infinity (``zero_optimization.offload_optimizer`` / ``offload_param``:
+the host C++ optimizers of :mod:`.ops.adam`, the cpu and nvme tiers,
+layer streaming, :mod:`.runtime.swap_tensor`).  Every
 entry point runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run.
 """

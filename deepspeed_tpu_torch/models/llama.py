@@ -351,7 +351,10 @@ class LlamaModel(nn.Module):
     ``torch.Generator`` seeded with ``seed`` (see :meth:`init_params`).
     ``mesh`` (a process mesh of ``utils.groups``) makes the model this
     rank's tensor-parallel shard.  Built inside ``zero.Init``, the model
-    holds this rank's ZeRO-3 chunks."""
+    holds this rank's ZeRO-3 chunks.  ``init_device`` draws the weights
+    with that device's generator (one weight at a time) and stores them on
+    ``device``: a model for ZeRO-Infinity lives in host memory and may
+    draw on the card (the same weights as a model built there)."""
 
     layer_cls = LlamaDecoderLayer
     #: the model's expert-parallel split (a Mixtral's experts): 1, no experts
@@ -359,7 +362,8 @@ class LlamaModel(nn.Module):
     ep_rank = 0
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = "cuda",
-                 seed: int = 0, mesh: Optional[ProcessMesh] = None):
+                 seed: int = 0, mesh: Optional[ProcessMesh] = None,
+                 init_device: Optional[DeviceLike] = None):
         super().__init__()
         dev = resolve_device(device)
         self.config = c = config
@@ -380,7 +384,8 @@ class LlamaModel(nn.Module):
                                   dtype=c.storage_dtype))
         if zero_init_active() is None:
             self.to_empty(device=dev)
-        self.init_params(seed, dev)
+        self.init_params(seed, dev if init_device is None
+                         else resolve_device(init_device))
 
     def _set_mesh(self, mesh: Optional[ProcessMesh]) -> None:
         """Take ``mesh``'s tensor axis: this rank's split sizes and place."""
@@ -681,6 +686,49 @@ class LlamaModel(nn.Module):
                                 torch.full_like(input_ids[:, :1], -100)], 1)
         return input_ids, labels
 
+    # -- the layer-streaming protocol (ZeRO-Infinity) ----------------------
+    #
+    # Counterparts of the JAX model's ``embed_fwd`` (:527), ``decoder_layer``
+    # (:358) and ``head_loss`` (:755): pure functions of the weights they
+    # are handed, so ``runtime/swap_tensor/infinity_engine.py`` can run one
+    # layer at a time on weights streamed from the host.  ``params`` is a
+    # dict of the resident leaves by state-dict name (``embed.weight``,
+    # ``final_norm``, ``lm_head.weight``); ``layer_params`` one layer's by
+    # its local name (``q_proj.weight``, ...).  A layer runs without remat:
+    # the streaming engine's backward recomputes it once from its input.
+
+    def embed_fwd(self, params: Dict[str, torch.Tensor],
+                  input_ids: torch.Tensor) -> torch.Tensor:
+        """``[B, S]`` ids → ``[B, S, H]`` in the compute dtype."""
+        return F.embedding(input_ids.long(), compute_weight(
+            params["embed.weight"], self.config.dtype))
+
+    def decoder_layer(self, layer_params: Dict[str, torch.Tensor],
+                      x: torch.Tensor) -> Tuple[torch.Tensor, AuxLoss]:
+        """One decoder layer on ``layer_params`` over ``x [B, S, H]`` →
+        ``(x, aux loss)`` (``torch.func.functional_call`` of a layer of the
+        model's on the weights handed in)."""
+        if self.tp > 1:
+            raise NotImplementedError("layer streaming under tensor "
+                                      "parallelism is not ported yet "
+                                      "(ROADMAP Queue 1 item 9b)")
+        caller = _LayerCall(self, self.layers[0])
+        return torch.func.functional_call(
+            caller, {f"layer.{k}": v for k, v in layer_params.items()},
+            (x,))
+
+    def head_loss(self, params: Dict[str, torch.Tensor], x: torch.Tensor,
+                  batch: Any) -> torch.Tensor:
+        """The loss tail: the last layer's output → final norm → LM head →
+        cross entropy (fp32 scalar)."""
+        c = self.config
+        _, labels = self.batch_labels(batch)
+        hidden = _rms_norm(x, params["final_norm"], c.rms_norm_eps)
+        head = params["embed.weight" if c.tie_embeddings
+                      else "lm_head.weight"]
+        logits = F.linear(hidden, compute_weight(head, c.dtype)).float()
+        return masked_cross_entropy(logits, labels)
+
     def loss(self, batch: Any) -> torch.Tensor:
         """Next-token cross entropy plus ``aux_loss_coef`` times the summed
         router aux losses (fp32 scalar), with a gradient."""
@@ -688,3 +736,17 @@ class LlamaModel(nn.Module):
         hidden, aux = self.hidden_states(input_ids)
         ce = masked_cross_entropy(self.logits(hidden), labels)
         return ce + self.config.aux_loss_coef * aux
+
+
+class _LayerCall(nn.Module):
+    """``forward(x)``: the model's training layer on ``layer`` (whose
+    weights ``functional_call`` swaps in), positions from 0."""
+
+    def __init__(self, model: LlamaModel, layer: LlamaDecoderLayer):
+        super().__init__()
+        self.layer = layer
+        object.__setattr__(self, "_model", model)  # not a submodule
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, AuxLoss]:
+        pos = torch.arange(x.shape[1], device=x.device)
+        return self._model._train_layer(self.layer, x, pos)

@@ -125,8 +125,10 @@ class MixtralModel(LlamaModel):
     layer_cls = MixtralDecoderLayer
 
     def __init__(self, config: MixtralConfig, device: DeviceLike = "cuda",
-                 seed: int = 0, mesh: Optional[ProcessMesh] = None):
-        super().__init__(config, device=device, seed=seed, mesh=mesh)
+                 seed: int = 0, mesh: Optional[ProcessMesh] = None,
+                 init_device: Optional[DeviceLike] = None):
+        super().__init__(config, device=device, seed=seed, mesh=mesh,
+                         init_device=init_device)
         gate = TopKGate(num_experts=config.num_experts, k=config.top_k,
                         capacity_factor=config.capacity_factor,
                         eval_capacity_factor=config.capacity_factor,

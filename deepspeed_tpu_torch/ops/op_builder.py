@@ -11,6 +11,17 @@ The library lives in ``build/deepspeed_tpu_torch/`` beside the package
 flags, so a fresh checkout builds it on the first kernel call and a changed
 source never loads a stale library.  It builds only from the repo's
 sources, and raises when ``nvcc`` cannot be found.
+
+The host half of ZeRO-Offload and ZeRO-Infinity is two C++ sources in
+``csrc/host/`` (the roles of ``CPUAdamBuilder`` and ``AsyncIOBuilder`` of
+``deepspeed_tpu/ops/op_builder/builder.py``): :class:`HostBuilder` compiles
+each with ``g++ -O3 -march=native -shared -fPIC`` (``-fopenmp`` for the
+optimizers, ``-pthread`` for the file I/O engine) into
+``build/deepspeed_tpu_torch/host/``, keyed by the source, the flags and
+the host CPU (``-march=native`` code must never load on another CPU), and
+loads it with ``ctypes``.  A build writes a temporary name and renames it,
+so two processes building at once never load half a file.  There is no
+fallback: without ``g++`` the build raises.
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
@@ -26,6 +38,7 @@ from pathlib import Path
 from typing import List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+HOST_CSRC = CSRC / "host"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "deepspeed_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -178,3 +191,85 @@ def check(status: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+# -- the host (g++) sources ---------------------------------------------------
+
+def host_cpu_key() -> str:
+    """What ``-march=native`` compiles for: the machine, and the first
+    processor's model name and feature flags."""
+    parts = [platform.machine()]
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                key = line.split(":", 1)[0].strip()
+                if key in ("model name", "flags", "Features", "CPU part"):
+                    parts.append(line.strip())
+                if not line.strip() and len(parts) > 1:
+                    break  # the first processor's block
+    except OSError:
+        parts.append(platform.processor())
+    return hashlib.sha256("\n".join(parts).encode()).hexdigest()[:12]
+
+
+class HostBuilder:
+    """One C++ source of ``csrc/host/`` built with ``g++`` into a shared
+    library with a plain C interface, loaded once a process."""
+
+    FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+
+    def __init__(self, name: str, source: str, extra: List[str]):
+        self.name, self.source, self.extra = name, HOST_CSRC / source, extra
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    @property
+    def flags(self) -> List[str]:
+        return self.FLAGS + self.extra
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256(" ".join(self.flags).encode())
+        h.update(self.source.read_bytes())
+        h.update(host_cpu_key().encode())
+        return BUILD_DIR / "host" / f"{self.name}_{h.hexdigest()[:16]}.so"
+
+    def build(self) -> Path:
+        """Compile unless the keyed library exists; raises without
+        ``g++`` or when the compile fails."""
+        target = self.library_path()
+        if target.exists():
+            return target
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(
+                f"g++ not found on PATH: the host library {self.name} is "
+                f"built from {self.source.relative_to(CSRC.parent)} at first "
+                "use (offload and ZeRO-Infinity need it; there is no "
+                "fallback)")
+        target.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=target.parent,
+                                   prefix=target.stem + ".", suffix=".tmp")
+        os.close(fd)
+        try:
+            cmd = [gxx, *self.flags, str(self.source), "-o", tmp]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{proc.stderr}")
+            os.replace(tmp, target)  # atomic: a reader never sees half
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        return target
+
+    def load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                self._lib = ctypes.CDLL(str(self.build()))
+            return self._lib
+
+
+#: the fused host optimizers (``csrc/host/cpu_adam.cpp``)
+CPU_ADAM = HostBuilder("cpu_adam", "cpu_adam.cpp", ["-fopenmp"])
+#: the asynchronous file I/O engine (``csrc/host/aio_engine.cpp``)
+ASYNC_IO = HostBuilder("async_io", "aio_engine.cpp", ["-pthread"])

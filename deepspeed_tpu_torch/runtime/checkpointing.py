@@ -33,8 +33,21 @@ Names and shapes are checked first; a mismatch raises naming the leaf and
 nothing is written.  An expert stack's ``full_shape`` counts every expert:
 its box is this expert coordinate's block of dim 0 composed with its ZeRO
 chunk over the ``data`` group, so each rank writes its own experts and a
-save at one expert-parallel size loads at another.  ZeRO-Infinity and
-offload state are not ported.
+save at one expert-parallel size loads at another.
+
+ZeRO-Offload (JAX save :112-135, load :244-298): the masters and moments
+of a rank file are the host optimizer's, under the leaves' names, so a run
+saved with offload loads into an engine without it and the reverse (the
+Adam family's state is ``m`` and ``v`` either way); a load fills the host
+state and the card's parameters from the same slices.  ZeRO-Infinity
+writes the resident leaves in the rank file and the trunk one layer at a
+time, ``infinity_layer_{i:05d}.pt`` beside it (a layer's fp32 masters, m
+and v under the model's names), so a save never holds more than one
+layer's state beyond the tier's own; a load reads the layer files
+memory-mapped with the rank files (any engine, and ``zero_to_fp32``, sees
+every leaf) and installs each layer into the swapper.  A universal
+directory loads into both (the host masters and moments; the trunk layer
+by layer).
 """
 
 from __future__ import annotations
@@ -60,6 +73,7 @@ from .checkpoint_engine import (SIDECAR_MANIFEST, CheckpointCorruptionError,
 LATEST_FILE = "latest"
 META_FILE = "client_state.json"
 RANK_FILE = "dp_rank_{:05d}.pt"
+LAYER_FILE = "infinity_layer_{:05d}.pt"
 FORMAT_VERSION = 1
 
 #: a tensor's region in its leaf's full index space: (start, stop) per dim
@@ -152,6 +166,10 @@ def load_rank_states(tag_dir: str, engine: Optional[CheckpointEngine] = None
     verify_sidecar_manifest(tag_dir)
     loader = engine if engine is not None else CheckpointEngine()
     states = [loader.load(p) for p in rank_paths(tag_dir)]
+    for path in sorted(glob.glob(os.path.join(tag_dir,
+                                              "infinity_layer_*.pt"))):
+        # an Infinity trunk's layers join rank 0's leaves (memory-mapped)
+        states[0]["leaves"].update(loader.load(path)["leaves"])
     for r, st in enumerate(states):
         if st.get("version") != FORMAT_VERSION or st.get("rank") != r \
                 or st.get("dp") != len(states):
@@ -212,6 +230,20 @@ def resolve_tag(load_dir: str, tag: Optional[str]) -> Optional[str]:
 
 # -- save -----------------------------------------------------------------
 
+def opt_type(opt: Any) -> str:
+    """The optimizer type a rank file records (the offload optimizer's
+    state is its host optimizer's: ``Adam`` for the Adam family)."""
+    return opt.state_dict()["type"]
+
+
+def checkpoint_masters(engine) -> List[torch.Tensor]:
+    """Per parameter, the fp32 master a rank file holds: the host
+    optimizer's under offload, else the engine's."""
+    if engine.offload_opt is not None:
+        return engine.offload_opt.masters
+    return engine._masters()
+
+
 def _rank_state(engine) -> Dict[str, Any]:
     """This rank's file: its slices of the cut leaves and, on group rank
     0, the whole leaves; the tensors are the live ones (the checkpoint
@@ -219,7 +251,7 @@ def _rank_state(engine) -> Dict[str, Any]:
     rank = comm.get_rank(engine.dp_group) if engine.dp_world_size > 1 else 0
     opt_state = engine.optimizer.state_dict()
     names = engine.optimizer.state_names
-    masters = engine._masters()
+    masters = checkpoint_masters(engine)
     leaves = {}
     for i, (name, pl) in enumerate(zip(engine.param_names,
                                        engine.placements)):
@@ -239,7 +271,35 @@ def _rank_state(engine) -> Dict[str, Any]:
             "loss_scaler": scaler.state_dict() if scaler is not None
             else None,
             "skipped_steps": int(engine.skipped_steps),
+            "infinity": ({"layers": engine.infinity.L,
+                          "state_step": engine.infinity.swapper.state_step}
+                         if engine.infinity is not None else None),
             "leaves": leaves}
+
+
+@torch.no_grad()
+def _save_infinity_layers(engine, tag_dir: str) -> None:
+    """The streamed trunk, one layer file at a time (each written and
+    dropped before the next is read from its tier)."""
+    from .checkpoint_engine import _write
+
+    inf = engine.infinity
+    sw = inf.swapper
+    sw.flush()
+    for i in range(inf.L):
+        masters = sw.layer_master_tree(i)
+        moments = sw.layer_moments(i)
+        leaves = {}
+        for name, shape, off in sw.layout:
+            n = math.prod(shape)
+            leaves[f"layers.{i}.{name}"] = {
+                "placement": None, "full_shape": list(shape),
+                "master": masters[name],
+                "optim": {k: moments[k][off:off + n].view(shape).clone()
+                          for k in ("m", "v")}}
+        _write({"version": FORMAT_VERSION, "layer": i, "leaves": leaves},
+               os.path.join(tag_dir, LAYER_FILE.format(i)))
+        del masters, moments, leaves
 
 
 def _copy_zero_to_fp32(save_dir: str) -> None:
@@ -278,7 +338,10 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             os.remove(stale)
         meta = {"global_steps": engine.global_steps,
                 "micro_steps": engine.micro_steps,
-                "offload_step": 0, "infinity_step": 0,
+                "offload_step": (engine.offload_opt.count
+                                 if engine.offload_opt is not None else 0),
+                "infinity_step": (engine.infinity.swapper.state_step
+                                  if engine.infinity is not None else 0),
                 "lr_scheduler": engine.lr_scheduler.state_dict(),
                 "client_state": client_state or {},
                 "ds_config_stage": engine.zero_stage}
@@ -286,6 +349,8 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             json.dump(meta, fh, default=str)
         _copy_zero_to_fp32(save_dir)
     rank = comm.get_rank(group) if group is not None else 0
+    if engine.infinity is not None:
+        _save_infinity_layers(engine, tag_dir)
 
     def commit() -> None:
         if group is not None:
@@ -370,31 +435,47 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     states = load_rank_states(tag_dir, ceng)
     sources = leaf_sources(states)
     params_only = load_module_only or not load_optimizer_states
+    trunk = {}
+    if engine.infinity is not None:  # the streamed layers load apart
+        trunk = {n: v for n, v in sources.items() if n.startswith("layers.")}
+        sources = {n: v for n, v in sources.items() if n not in trunk}
     todo = _check_leaves(engine, sources, load_module_strict, tag_dir)
     opt = engine.optimizer
     saved_opt = states[0]["optimizer"]
     if not params_only:
-        if saved_opt["type"] != type(opt).__name__ or \
+        if saved_opt["type"] != opt_type(opt) or \
                 list(saved_opt["state_names"]) != list(opt.state_names):
             raise ValueError(
                 f"checkpoint {tag_dir}: optimizer state of "
                 f"{saved_opt['type']} ({saved_opt['state_names']}), the "
-                f"engine's optimizer is {type(opt).__name__} "
+                f"engine's optimizer is {opt_type(opt)} "
                 f"({list(opt.state_names)}); pass load_optimizer_states="
                 "False or load_module_only=True to load the weights alone")
+    if engine.infinity is not None:
+        _load_infinity_layers(engine, trunk, params_only, tag_dir)
     held = _held_boxes(engine)
     opt_state = opt.state_dict()
+    host = engine.offload_opt.masters if engine.offload_opt is not None \
+        else None
     for i in todo:
         name, (master_box, state_box) = engine.param_names[i], held[i]
         pieces = sources[name][1]
         fill(engine.params[i].data, master_box,
              [(e["master"], b) for e, b in pieces], name)
+        if host is not None:  # the host masters: this rank's part
+            fill(host[i], state_box, [(e["master"], b) for e, b in pieces],
+                 name)
         if not params_only:
             for k in opt.state_names:
                 fill(opt_state[k][i], state_box,
                      [(e["optim"][k], b) for e, b in pieces], f"{name} ({k})")
     if not params_only:
         opt.count = int(saved_opt["count"])
+        if engine.infinity is not None:
+            inf_state = states[0].get("infinity") or {}
+            engine.infinity.swapper.state_step = int(inf_state.get(
+                "state_step", saved_opt["count"]))
+            engine.infinity.global_steps = opt.count
         if engine.loss_scaler is not None and states[0]["loss_scaler"]:
             engine.loss_scaler.load_state_dict(states[0]["loss_scaler"])
         engine._skipped_steps = int(states[0]["skipped_steps"])
@@ -406,6 +487,40 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
         engine.lr_scheduler.load_state_dict(meta["lr_scheduler"])
     log_dist(f"loaded checkpoint {tag_dir}")
     return tag_dir, meta.get("client_state", {})
+
+
+@torch.no_grad()
+def _load_infinity_layers(engine, sources: Dict[str, Any], params_only: bool,
+                          where: str) -> None:
+    """Install every trunk layer's masters (and moments) from the
+    checkpoint's leaves into the swapper, one layer at a time."""
+    inf = engine.infinity
+    sw = inf.swapper
+    for i in range(inf.L):
+        masters: Dict[str, torch.Tensor] = {}
+        flat = {k: torch.empty(sw.n_elems, dtype=torch.float32)
+                for k in ("m", "v")}
+        for name, shape, off in sw.layout:
+            full = f"layers.{i}.{name}"
+            if full not in sources:
+                raise ValueError(f"checkpoint {where}: the streamed trunk's "
+                                 f"leaf {full!r} is missing")
+            saved_shape, pieces = sources[full]
+            if tuple(saved_shape) != tuple(shape):
+                raise ValueError(
+                    f"checkpoint {where}: leaf {full!r} is "
+                    f"{list(saved_shape)}, the model's is {list(shape)}")
+            box = box_of(shape, None)
+            t = torch.empty(shape, dtype=torch.float32)
+            fill(t, box, [(e["master"], b) for e, b in pieces], full)
+            masters[name] = t
+            if not params_only:
+                n = math.prod(shape)
+                for k in ("m", "v"):
+                    fill(flat[k][off:off + n].view(shape), box,
+                         [(e["optim"][k], b) for e, b in pieces],
+                         f"{full} ({k})")
+        sw.load_layer(i, masters, None if params_only else flat)
 
 
 # -- the universal layout ---------------------------------------------------
@@ -435,6 +550,8 @@ def load_universal_checkpoint(engine, universal_dir: str) -> None:
     opt = engine.optimizer
     moments = [k for k in opt.state_names if k in UNIVERSAL_MOMENTS]
     opt_state = opt.state_dict()
+    host = engine.offload_opt.masters if engine.offload_opt is not None \
+        else None
     for i, (master_box, state_box) in enumerate(_held_boxes(engine)):
         name = engine.param_names[i]
         entry = entries[name]
@@ -444,11 +561,34 @@ def load_universal_checkpoint(engine, universal_dir: str) -> None:
             arr = np.load(os.path.join(zero_dir, name, fname + ".npy"))
             return [(torch.from_numpy(np.asarray(arr, np.float32)), full)]
         fill(engine.params[i].data, master_box, piece("fp32"), name)
+        if host is not None:  # the host masters: this rank's part
+            fill(host[i], state_box, piece("fp32"), name)
         if entry.get("has_moments"):
             for k in moments:
                 fill(opt_state[k][i], state_box,
                      piece(UNIVERSAL_MOMENTS[k]), f"{name} ({k})")
     step = int(meta["step"])
+    if engine.infinity is not None:  # the streamed trunk, layer by layer
+        sw = engine.infinity.swapper
+        for i in range(engine.infinity.L):
+            masters, flat = {}, {}
+            for lname, shape, off in sw.layout:
+                path = os.path.join(zero_dir, f"layers.{i}.{lname}")
+                if not os.path.isdir(path):
+                    raise KeyError(f"universal checkpoint has no parameter "
+                                   f"'layers.{i}.{lname}'")
+                masters[lname] = torch.from_numpy(np.load(os.path.join(
+                    path, "fp32.npy")).astype(np.float32))
+                for k, fname in UNIVERSAL_MOMENTS.items():
+                    f = os.path.join(path, fname + ".npy")
+                    if os.path.exists(f):
+                        flat.setdefault(k, []).append(torch.from_numpy(
+                            np.load(f).astype(np.float32)).reshape(-1))
+            moments_i = ({k: torch.cat(v) for k, v in flat.items()}
+                         if len(flat) == 2 else None)
+            sw.load_layer(i, masters, moments_i)
+        sw.state_step = step
+        engine.infinity.global_steps = step
     opt.count = step
     engine.global_steps = step
     engine.lr_scheduler.last_step = step

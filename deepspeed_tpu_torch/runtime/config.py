@@ -24,9 +24,17 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` for the keys
   curriculum_learning`` (the seqlen curriculum of the dataloader
   ``initialize`` builds; :meth:`DeepSpeedConfig.curriculum`).
 
+* ``zero_optimization.offload_optimizer`` (ZeRO-Offload: masters and
+  moments in host memory, the C++ optimizer) and ``offload_param``
+  (ZeRO-Infinity: the trunk's layers streamed from the ``cpu`` or ``nvme``
+  tier), typed as :class:`OffloadOptimizerConfig` and
+  :class:`OffloadParamConfig`, and ``aio`` (:class:`AioConfig`: the NVMe
+  tier's file I/O engine).
+
 What the port cannot do yet raises ``NotImplementedError`` ("not ported
-yet", naming its ``ROADMAP.md`` Queue 1 item): optimizer or parameter
-offload, MiCS, ZeRO++ (quantized weights or gradients, hpZ) and
+yet", naming its ``ROADMAP.md`` Queue 1 item): ZeRO-Infinity on more than
+one rank (item 9b; ``initialize`` checks), MiCS, ZeRO++ (quantized weights
+or gradients, hpZ) and
 ``kernels.overlap_collectives``, a tensor, sequence or pipeline
 dimension above 1, random-LTD (``data_efficiency.data_routing.
 random_ltd``).  The groups of :data:`ACCEPTED_WITHOUT_EFFECT`
@@ -48,13 +56,13 @@ from .config_utils import group_from_dict, is_auto
 #: top-level groups of the JAX config whose planes are not ported: accepted,
 #: no effect
 ACCEPTED_WITHOUT_EFFECT = (
-    "activation_checkpointing", "aio", "amp", "autotuning",
+    "activation_checkpointing", "amp", "autotuning",
     "comms_logger", "compile", "compression_training", "csv_monitor",
     "disable_allgather", "dump_state", "elasticity", "flops_profiler", "gradient_predivide_factor",
     "hybrid_engine", "memory_breakdown", "monitor_config",
     "prescale_gradients", "resilience", "serving", "sparse_gradients",
     "telemetry", "tensorboard", "tuning", "wall_clock_breakdown", "wandb",
-    "zero_allow_untested_optimizer", "zero_force_ds_cpu_optimizer")
+    "zero_allow_untested_optimizer")
 
 #: (group, key, ROADMAP Queue 1 item) of the parallel dimensions other than
 #: data and expert whose training is not ported: a value above 1 raises
@@ -98,6 +106,82 @@ class SchedulerConfig:
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
+#: where an offload puts its state (JAX ``OffloadDeviceEnum``)
+OFFLOAD_DEVICES = ("none", "cpu", "nvme")
+
+
+def _offload_device(device: Any, where: str) -> str:
+    d = str(getattr(device, "value", device)).lower()
+    if d not in OFFLOAD_DEVICES:
+        raise ValueError(f"{where}.device={device!r}: use none, cpu or nvme")
+    return d
+
+
+@dataclasses.dataclass
+class OffloadParamConfig:
+    """``zero_optimization.offload_param`` (JAX
+    ``DeepSpeedZeroOffloadParamConfig``): ZeRO-Infinity.  ``device`` cpu
+    keeps every layer's planes in host memory, nvme in files under
+    ``nvme_path`` behind a ring of ``buffer_count`` host slots."""
+
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    max_in_cpu: int = 1_000_000_000
+    pin_memory: bool = False
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        self.device = _offload_device(self.device,
+                                      "zero_optimization.offload_param")
+
+
+@dataclasses.dataclass
+class OffloadOptimizerConfig:
+    """``zero_optimization.offload_optimizer`` (JAX
+    ``DeepSpeedZeroOffloadOptimizerConfig``): ZeRO-Offload.
+    ``pipeline_read`` / ``pipeline_write`` left unset (None) keep the
+    streaming engine's pipelined host optimizer; both set false run it
+    serially.  ``nvme`` keeps the state in host memory, as the JAX
+    engine does (only the streamed layers go to files)."""
+
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: Optional[bool] = None
+    pipeline_write: Optional[bool] = None
+    fast_init: bool = False
+    ratio: float = 1.0
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        self.device = _offload_device(self.device,
+                                      "zero_optimization.offload_optimizer")
+
+    @property
+    def pipelined(self) -> bool:
+        """JAX ``LayerStreamingEngine``: pipelined unless the pair is set
+        and both are false."""
+        if self.pipeline_read is None and self.pipeline_write is None:
+            return True
+        return bool(self.pipeline_read or self.pipeline_write)
+
+
+@dataclasses.dataclass
+class AioConfig:
+    """``aio`` (JAX ``AioConfig``): the NVMe tier's file I/O engine."""
+
+    block_size: int = 1048576
+    queue_depth: int = 8
+    thread_count: int = 1
+    single_submit: bool = False
+    overlap_events: bool = True
+    use_gds: bool = False
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
 #: the persistence threshold an unresolved ``"auto"`` counts as (JAX
 #: ``ZeroShardingPolicy.from_config``)
 AUTO_PERSISTENCE_THRESHOLD = 100_000
@@ -128,8 +212,8 @@ class ZeroConfig:
     stage3_prefetch_bucket_size: Union[int, str] = 50_000_000
     stage3_max_live_parameters: int = 1_000_000_000
     stage3_gather_16bit_weights_on_model_save: bool = False
-    offload_optimizer: Optional[Dict[str, Any]] = None
-    offload_param: Optional[Dict[str, Any]] = None
+    offload_optimizer: Optional[OffloadOptimizerConfig] = None
+    offload_param: Optional[OffloadParamConfig] = None
     cpu_offload: Optional[bool] = None
     mics_shard_size: int = -1
     zero_quantized_weights: bool = False
@@ -137,6 +221,26 @@ class ZeroConfig:
     zero_quantized_gradients: bool = False
     zero_hpz_partition_size: int = 1
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        for name, group in (("offload_optimizer", OffloadOptimizerConfig),
+                            ("offload_param", OffloadParamConfig)):
+            value = getattr(self, name)
+            if value is not None and not isinstance(value, group):
+                setattr(self, name, group_from_dict(
+                    group, value, f"zero_optimization.{name}"))
+
+    def offload_optimizer_device(self) -> str:
+        """none | cpu | nvme (the deprecated ``cpu_offload: true`` is
+        cpu)."""
+        if self.cpu_offload:
+            return "cpu"
+        o = self.offload_optimizer
+        return "none" if o is None else o.device
+
+    def offload_param_device(self) -> str:
+        o = self.offload_param
+        return "none" if o is None else o.device
 
     def resolve_auto_from_hidden_size(self, hidden_size: int) -> None:
         """The reference's ``"auto"`` heuristics: reduce bucket hidden²,
@@ -227,10 +331,6 @@ class KernelsConfig:
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
-def _offloads(spec: Optional[Dict[str, Any]]) -> bool:
-    return bool(spec) and str(spec.get("device", "none")).lower() != "none"
-
-
 @dataclasses.dataclass
 class DeepSpeedConfig:
     train_batch_size: Union[int, str, None] = None
@@ -251,6 +351,8 @@ class DeepSpeedConfig:
     data_efficiency: DataEfficiencyConfig = dataclasses.field(
         default_factory=DataEfficiencyConfig)
     moe: MoEConfig = dataclasses.field(default_factory=MoEConfig)
+    aio: AioConfig = dataclasses.field(default_factory=AioConfig)
+    zero_force_ds_cpu_optimizer: bool = True
     curriculum_learning: Dict[str, Any] = dataclasses.field(
         default_factory=dict)
     #: groups of :data:`ACCEPTED_WITHOUT_EFFECT` present in the input
@@ -262,7 +364,8 @@ class DeepSpeedConfig:
                "fp16": FP16Config, "bf16": BF16Config,
                "zero_optimization": ZeroConfig, "kernels": KernelsConfig,
                "checkpoint": CheckpointConfig,
-               "data_efficiency": DataEfficiencyConfig, "moe": MoEConfig}
+               "data_efficiency": DataEfficiencyConfig, "moe": MoEConfig,
+               "aio": AioConfig}
 
     @classmethod
     def from_dict(cls, data: Dict[str, Any]) -> "DeepSpeedConfig":
@@ -305,10 +408,8 @@ class DeepSpeedConfig:
         z = self.zero_optimization
         if int(z.stage) not in (0, 1, 2, 3):
             raise ValueError(f"zero_optimization.stage={z.stage}: use 0-3")
-        if (_offloads(z.offload_optimizer) or _offloads(z.offload_param)
-                or z.cpu_offload):
-            raise NotImplementedError("optimizer/parameter offload is not "
-                                      "ported yet (ROADMAP Queue 1 item 9)")
+        if z.offload_param_device() == "nvme" and not z.offload_param.nvme_path:
+            raise ValueError("offload_param.device=nvme requires nvme_path")
         if int(z.mics_shard_size or -1) > 0:
             raise NotImplementedError("MiCS sharding (mics_shard_size) is "
                                       "not ported yet (ROADMAP Queue 1 item "

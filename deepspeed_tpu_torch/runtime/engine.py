@@ -84,7 +84,28 @@ rank's slices of the state (fp32 masters, optimizer state, step count,
 loss scaler) through the configured checkpoint engine (sync or async),
 ``load_checkpoint`` loads any stage's and any rank count's checkpoint into
 this engine's placement, ``load_universal_checkpoint`` the universal
-layout.  Offload and the telemetry plane are not ported yet.
+layout.  The telemetry plane is not ported yet.
+
+ZeRO-Offload (``zero_optimization.offload_optimizer``, JAX
+``_build_grad_step`` / ``_offload_train_step``): the fp32 masters and the
+optimizer state of this rank's part of each leaf live in host memory
+(``runtime/zero/offload.py``); under ``bf16`` with the Adam family the
+card's parameters are bf16 (the wire: no fp32 master or moment stays on
+the card), each microbatch's gradient is summed in fp32 by a
+post-accumulate hook, and at the boundary the reduced, unscaled and
+clipped gradients go to the host, the C++ optimizer steps, and the
+updated values come back (all-gathered at stages 1-2, as the masters
+are).  fp16 skips the step on an overflow, as the JAX engine does.
+
+ZeRO-Infinity (``zero_optimization.offload_param``): the model must
+provide the layer-streaming protocol (``embed_fwd``, ``decoder_layer``,
+``head_loss``, ``batch_labels``; JAX ``engine.py:116-140``), and its
+parameters may live on the CPU: the trunk never goes to the card whole
+(``runtime/swap_tensor/``), only the resident subtree does.  ``train_step``
+and ``eval_loss`` run the streamed step; ``forward`` / ``backward`` /
+``step`` buffer the microbatches and stream them at the boundary (a
+partial boundary with its own accumulation count, JAX :2304).  Infinity
+on more than one rank is not ported yet (ROADMAP Queue 1 item 9b).
 """
 
 from __future__ import annotations
@@ -126,21 +147,10 @@ class DeepSpeedEngine:
         self.config = config
         self.loss_fn = loss_fn
         self.module = module
-        self.params = [p for p in params if p.requires_grad]
-        named = ({id(p): n for n, p in module.named_parameters()}
-                 if isinstance(module, torch.nn.Module) else {})
-        #: each parameter's name in checkpoints (the module's, else its
-        #: index among the trainable parameters)
-        self.param_names = [named.get(id(p), f"param_{i}")
-                            for i, p in enumerate(self.params)]
-        for p in self.params:
-            if p.device.type != self.device.type:
-                raise ValueError(f"a parameter is on {p.device}, the engine "
-                                 f"was asked to run on {self.device}")
-            if p.dtype != torch.float32:
-                raise TypeError(
-                    f"parameters must be fp32 masters, got {p.dtype}: build "
-                    "the model with LlamaConfig(param_dtype=torch.float32)")
+        zero = config.zero_optimization
+        self.infinity = None
+        self.offload_opt = None
+        self.offload_enabled = zero.offload_optimizer_device() != "none"
         self.compute_dtype = config.dtype()
         model_dtype = getattr(getattr(module, "config", None), "dtype", None)
         if model_dtype is not None and model_dtype != self.compute_dtype:
@@ -156,6 +166,33 @@ class DeepSpeedEngine:
         clip = config.gradient_clipping
         self.gradient_clipping = 0.0 if isinstance(clip, str) else float(clip)
         self.steps_per_print = config.steps_per_print
+        self.zero_stage = int(zero.stage)
+        if lr_schedule is not None:
+            self._schedule = lr_schedule
+        elif config.scheduler is not None:
+            self._schedule = get_lr_schedule(config.scheduler.type,
+                                             config.scheduler.params)
+        else:
+            self._schedule = constant_lr(base_lr(config))
+        self.lr_scheduler = LRScheduler(self._schedule)
+        if zero.offload_param_device() != "none":
+            self._init_infinity(dp_group)
+            return
+        self.params = [p for p in params if p.requires_grad]
+        named = ({id(p): n for n, p in module.named_parameters()}
+                 if isinstance(module, torch.nn.Module) else {})
+        #: each parameter's name in checkpoints (the module's, else its
+        #: index among the trainable parameters)
+        self.param_names = [named.get(id(p), f"param_{i}")
+                            for i, p in enumerate(self.params)]
+        for p in self.params:
+            if p.device.type != self.device.type:
+                raise ValueError(f"a parameter is on {p.device}, the engine "
+                                 f"was asked to run on {self.device}")
+            if p.dtype != torch.float32:
+                raise TypeError(
+                    f"parameters must be fp32 masters, got {p.dtype}: build "
+                    "the model with LlamaConfig(param_dtype=torch.float32)")
 
         self.dp_group = dp_group
         self.dp_world_size = (comm.get_world_size(dp_group)
@@ -166,8 +203,6 @@ class DeepSpeedEngine:
                                   > 1 else None)
         self._data_rank = (comm.get_rank(self.expert_data_group)
                            if self.expert_data_group is not None else 0)
-        zero = config.zero_optimization
-        self.zero_stage = int(zero.stage)
         self.zero_policy = ZeroShardingPolicy.from_config(
             zero, self.dp_world_size)
         self._expert_policy = ZeroShardingPolicy.from_config(
@@ -200,14 +235,6 @@ class DeepSpeedEngine:
                 self.params[i].register_post_accumulate_grad_hook(
                     self._reduce_scatter_hook(i))
 
-        if lr_schedule is not None:
-            self._schedule = lr_schedule
-        elif config.scheduler is not None:
-            self._schedule = get_lr_schedule(config.scheduler.type,
-                                             config.scheduler.params)
-        else:
-            self._schedule = constant_lr(base_lr(config))
-        self.lr_scheduler = LRScheduler(self._schedule)
         self.optimizer = build_optimizer(config, self._masters())
         self.fused_adam_enabled = False
         self._fused_plan: Optional[MultiTensorPlan] = None
@@ -224,7 +251,16 @@ class DeepSpeedEngine:
                          "AdamW: keeping the plain step")
         self.loss_scaler = (DynamicLossScaler.from_config(config.fp16)
                             if self.fp16_enabled else None)
+        #: per parameter, its fp32 gradient summed over the microbatches
+        #: when the card's parameters are 16-bit (the offload wire)
+        self._grad_acc: List[Optional[torch.Tensor]] = \
+            [None] * len(self.params)
+        self._fp32_grad_hooks = False
+        if self.offload_enabled:
+            self._init_offload()
+        self._init_counters()
 
+    def _init_counters(self) -> None:
         self.global_steps = 0     # train steps taken, skipped ones included
         self.micro_steps = 0
         self._skipped_steps = 0
@@ -232,9 +268,90 @@ class DeepSpeedEngine:
         self._loss_sum: Optional[torch.Tensor] = None
         self._accumulation_boundary_forced: Optional[bool] = None
         self.last_metrics: Dict[str, Any] = {}
-        self.checkpoint_engine = make_checkpoint_engine(config)
+        self.checkpoint_engine = make_checkpoint_engine(self.config)
         #: the seqlen curriculum's scheduler when ``initialize`` built one
         self.curriculum_scheduler = None
+        self._pending_batch: Any = None
+        self._buffered: List[Any] = []
+
+    # -- offload and Infinity -----------------------------------------------
+
+    def _init_offload(self) -> None:
+        """Masters and optimizer state to the host; under bf16 with the
+        Adam family the card's parameters become bf16 (JAX ``engine.py``
+        :751-780) and gradients are summed in fp32 by hooks."""
+        from .zero.offload import HOST_ADAM, CPUOffloadOptimizer
+
+        cfg = self.config
+        opt_cfg = cfg.optimizer
+        name = opt_cfg.type if opt_cfg is not None else "AdamW"
+        wire_bf16 = self.bf16_enabled and name.lower().replace(
+            "_", "") in HOST_ADAM
+        wire = torch.bfloat16 if wire_bf16 else torch.float32
+        if self.config.kernels.fused_adam:
+            log_dist("kernels.fused_adam requested but offload_optimizer "
+                     "runs the host optimizer: keeping it")
+        self.offload_opt = CPUOffloadOptimizer(
+            [m.detach() for m in self._masters()], name,
+            dict(opt_cfg.params) if opt_cfg is not None else {},
+            self.device, wire_dtype=wire)
+        self.optimizer = self.offload_opt
+        self.fused_adam_enabled = False
+        if wire_bf16:
+            with torch.no_grad():
+                for p in self.params:
+                    p.data = p.data.to(torch.bfloat16)
+            self._fp32_grad_hooks = True
+            for i, p in enumerate(self.params):
+                if not (self.zero_stage == 2 and self.placements[i]
+                        is not None):
+                    p.register_post_accumulate_grad_hook(
+                        self._fp32_grad_hook(i))
+
+    def _fp32_grad_hook(self, i: int) -> Callable[[torch.Tensor], None]:
+        acc = self._grad_acc
+
+        def hook(p: torch.Tensor) -> None:  # holds no engine: no cycle
+            g = p.grad.float()
+            acc[i] = g if acc[i] is None else acc[i].add_(g)
+            p.grad = None
+        return hook
+
+    def _init_infinity(self, dp_group: Any) -> None:
+        """ZeRO-Infinity (JAX ``engine.py:116-140`` and ``_init_state``
+        :662): the streaming executor owns the trunk; ``self.params`` are
+        the resident leaves on the card."""
+        from .swap_tensor import PROTOCOL, LayerStreamingEngine
+
+        config, module = self.config, self.module
+        if not all(callable(getattr(module, m, None)) for m in PROTOCOL):
+            raise ValueError(
+                "offload_param requires a layer-streamable module "
+                "(embed_fwd/decoder_layer/head_loss protocol — see "
+                "runtime/swap_tensor/infinity_engine.py); "
+                f"{type(module).__name__} does not implement it")
+        if dp_group is not None and comm.get_world_size(dp_group) > 1:
+            raise NotImplementedError(
+                "ZeRO-Infinity (offload_param) on more than one rank is not "
+                "ported yet (ROADMAP Queue 1 item 9b: per-process planes "
+                "and the in-graph gather and scatter)")
+        self.dp_group, self.dp_world_size = None, 1
+        self.expert_data_group, self._data_rank = None, 0
+        self.infinity = LayerStreamingEngine(module, config, self._schedule,
+                                             self.device)
+        inf = self.infinity
+        self.params = list(inf.resident.values())
+        self.param_names = list(inf.resident)
+        self.placements = [None] * len(self.params)
+        self._experts = [None] * len(self.params)
+        self._cut, self._whole, self._whole_expert = [], [], []
+        self._grad_chunks = [None] * len(self.params)
+        self._grad_acc = [None] * len(self.params)
+        self._fp32_grad_hooks = False
+        self.optimizer = inf.res_opt
+        self.fused_adam_enabled = False
+        self.loss_scaler = inf.scaler
+        self._init_counters()
 
     # -- ZeRO placement ---------------------------------------------------
 
@@ -313,7 +430,7 @@ class DeepSpeedEngine:
         place, chunks = self.placements[i], self._grad_chunks
 
         def hook(p: torch.Tensor) -> None:  # holds no engine: no cycle
-            chunk = place.reduce_scatter(p.grad)
+            chunk = place.reduce_scatter(p.grad.float())
             acc = chunks[i]
             chunks[i] = chunk if acc is None else acc.add_(chunk)
             p.grad = None
@@ -330,7 +447,10 @@ class DeepSpeedEngine:
                 grads.append(g if g is not None else p.new_zeros(
                     pl.chunk_shape))
                 continue
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            g = self._grad_acc[i] if self._fp32_grad_hooks else p.grad
+            if g is None:
+                g = torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device)
             if pl is not None and self.zero_stage == 1:
                 g = pl.reduce_scatter(g)
                 p.grad = None
@@ -388,13 +508,26 @@ class DeepSpeedEngine:
     def forward(self, batch: Any) -> torch.Tensor:
         """The microbatch's loss, with its graph (unscaled, this rank's
         rows)."""
+        if self.infinity is not None:
+            self._pending_batch = batch
+            return self.infinity.eval_loss(batch)
         return self.loss_fn(self._to_device(batch))
 
     __call__ = forward
 
     def backward(self, loss: torch.Tensor) -> torch.Tensor:
         """Accumulate ``d(loss * scale / (gas x dp))`` into the masters'
-        ``.grad`` (``scale`` is 1 without fp16)."""
+        ``.grad`` (``scale`` is 1 without fp16).  Under Infinity: queue
+        the microbatch of the last ``forward`` for the streamed step."""
+        if self.infinity is not None:
+            if self._pending_batch is None:
+                raise RuntimeError("backward() called without a prior "
+                                   "forward()")
+            self._buffered.append(self._pending_batch)
+            self._pending_batch = None
+            self._micro_in_step += 1
+            self.micro_steps += 1
+            return loss
         div = self.gradient_accumulation_steps * self.dp_world_size
         scaled = ((loss * self.loss_scale / div).float()
                   if self.fp16_enabled else loss / div)
@@ -424,6 +557,16 @@ class DeepSpeedEngine:
                 self._micro_in_step == 0:
             return None
         n, gas = self._micro_in_step, self.gradient_accumulation_steps
+        if self.infinity is not None:
+            buffered, self._buffered = self._buffered, []
+            self._micro_in_step = 0
+            batch = _cat_rows(buffered)
+            # a partial boundary streams its own count (JAX :2304)
+            saved, self.infinity.gas = self.infinity.gas, n
+            try:
+                return self._infinity_step(batch)
+            finally:
+                self.infinity.gas = saved
         grads = self._reduced_grads()
         mean_loss = self._loss_sum
         if self.dp_world_size > 1:
@@ -434,7 +577,9 @@ class DeepSpeedEngine:
         if unscale != 1.0:
             mean_loss = mean_loss * unscale
         lr = self._schedule(self.optimizer.count)
-        if self.fused_adam_enabled:
+        if self.offload_opt is not None:
+            overflow, grad_norm = self._offload_step(grads, unscale, lr)
+        elif self.fused_adam_enabled:
             overflow, grad_norm = self._fused_step(grads, unscale, lr)
         else:
             overflow, grad_norm = self._plain_step(grads, unscale, lr)
@@ -474,6 +619,28 @@ class DeepSpeedEngine:
         if not overflow:
             work = self._work_masters()
             self.optimizer.step(lr, work, grads)
+            self._gather_masters(work)
+        return overflow, grad_norm
+
+    def _offload_step(self, grads: List[torch.Tensor], unscale: float,
+                      lr: float) -> Tuple[bool, torch.Tensor]:
+        """Unscale, overflow test, norm and clip as the plain step; then
+        the host optimizer over this rank's parts, the updated values back
+        into the card's parameters (all-gathered at stages 1-2)."""
+        if unscale != 1.0:
+            torch._foreach_mul_(grads, unscale)
+        group = self._norm_group()
+        overflow = (bool(has_overflow(grads, group)) if self.fp16_enabled
+                    else False)
+        if overflow:
+            torch._foreach_zero_(grads)
+        grad_norm = global_grad_norm(self._norm_terms(grads), group)
+        if self.gradient_clipping > 0:
+            clip_grads_by_global_norm(grads, self.gradient_clipping,
+                                      grad_norm)
+        if not overflow:
+            work = self._work_masters()
+            self.offload_opt.step(grads, lr, work)
             self._gather_masters(work)
         return overflow, grad_norm
 
@@ -518,6 +685,8 @@ class DeepSpeedEngine:
         if self._micro_in_step:
             raise RuntimeError("train_step() called with microbatches from "
                                "backward() still pending a step()")
+        if self.infinity is not None:
+            return self._infinity_step(batch)
         gas = self.gradient_accumulation_steps
         batch = self._to_device(batch)
         rows = _rows(batch)
@@ -534,12 +703,32 @@ class DeepSpeedEngine:
         finally:
             self._accumulation_boundary_forced = forced
 
+    def _infinity_step(self, batch: Any) -> Dict[str, Any]:
+        """The streamed step (JAX dispatch :1606) and the engine's
+        counters."""
+        metrics = self.infinity.train_step(batch)
+        if bool(metrics["overflow"]):
+            self._skipped_steps += 1
+        self.global_steps += 1
+        self.lr_scheduler.last_step = self.optimizer.count
+        self.last_metrics = metrics
+        if self.steps_per_print and \
+                self.global_steps % int(self.steps_per_print) == 0:
+            log_dist(f"step={self.global_steps} "
+                     f"loss={float(metrics['loss']):.4f} "
+                     f"lr={metrics['lr']:.3e} "
+                     f"grad_norm={float(metrics['grad_norm']):.3f} "
+                     f"loss_scale={metrics['loss_scale']:.0f}")
+        return metrics
+
     # -- evaluation and introspection --------------------------------------
 
     @torch.no_grad()
     def eval_loss(self, batch: Any) -> torch.Tensor:
         """The loss of this rank's rows, averaged over the data-parallel
         group (every rank calls it)."""
+        if self.infinity is not None:
+            return self.infinity.eval_loss(batch)
         loss = self.loss_fn(self._to_device(batch))
         if self.dp_world_size > 1:
             loss = comm.all_reduce(loss.float().clone(), comm.ReduceOp.AVG,
@@ -613,6 +802,7 @@ class DeepSpeedEngine:
         for p in self.params:
             p.grad = None
         self._grad_chunks[:] = [None] * len(self.params)
+        self._grad_acc[:] = [None] * len(self.params)
 
     def train(self, mode: bool = True) -> "DeepSpeedEngine":
         return self
@@ -625,6 +815,15 @@ def _rows(batch: Any) -> int:
     if isinstance(batch, dict):
         return next(iter(batch.values())).shape[0]
     return batch.shape[0]
+
+
+def _cat_rows(batches: List[Any]) -> Any:
+    if len(batches) == 1:
+        return batches[0]
+    if isinstance(batches[0], dict):
+        return {k: torch.cat([torch.as_tensor(b[k]) for b in batches])
+                for k in batches[0]}
+    return torch.cat([torch.as_tensor(b) for b in batches])
 
 
 def _slice_rows(batch: Any, lo: int, hi: int) -> Any:

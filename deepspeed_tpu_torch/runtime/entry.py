@@ -12,7 +12,14 @@ data-parallel rank under ``zero_optimization.stage``) and, from
 when the config enables one).  The JAX entry also builds the telemetry,
 tuning and resilience planes; none of those is ported yet, so their
 config groups are accepted without effect (``runtime/config.py``) and a
-client optimizer raises.
+client optimizer raises (with ``offload_optimizer`` the JAX engine's
+refusal under ``zero_force_ds_cpu_optimizer``, else the host optimizer the
+config names replaces it).
+
+ZeRO-Offload and ZeRO-Infinity come from the config's
+``zero_optimization.offload_optimizer`` / ``offload_param``; with
+``offload_param`` the model's parameters may live on the CPU (a trunk
+larger than the card is never placed on it whole).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from ..comm import comm
 from ..parallel.mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_PIPE, AXIS_SEQ,
                              AXIS_TENSOR, DP_AXES)
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.logging import logger
 from .config import DeepSpeedConfig
 from .dataloader import DeepSpeedDataLoader
 from .engine import DeepSpeedEngine
@@ -156,14 +164,25 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     (the argparse namespace) and ``distributed_port`` (the environment's
     ``MASTER_PORT`` is used)."""
     del args, distributed_port
-    if optimizer is not None:
-        raise NotImplementedError("a client optimizer is not ported yet; "
-                                  "name it in the config's optimizer block")
     dev = resolve_device(device)
     spec = config if config is not None else config_params
     if spec is None:
         raise ValueError("initialize needs config= (a dict or a JSON path)")
     cfg = DeepSpeedConfig.load(spec)
+    zero = cfg.zero_optimization
+    if optimizer is not None:
+        if zero.offload_optimizer_device() == "none":
+            raise NotImplementedError("a client optimizer is not ported "
+                                      "yet; name it in the config's "
+                                      "optimizer block")
+        if cfg.zero_force_ds_cpu_optimizer:  # JAX engine.py:100-113
+            raise ValueError(
+                "a client optimizer cannot be combined with "
+                "offload_optimizer; remove it or set "
+                "zero_force_ds_cpu_optimizer: false to acknowledge the "
+                "config-derived CPU optimizer will be used instead")
+        logger.warning("offload_optimizer active: ignoring the client "
+                       "optimizer, using the config-derived CPU optimizer")
     if dist_init_required or (dist_init_required is None and int(
             os.environ.get("WORLD_SIZE", "1")) > 1):
         comm.init_distributed(device=dev)
@@ -171,6 +190,11 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
         mesh, mpu, int(cfg.moe.expert_parallel_size))
     tp, pp, sp = (others.get(a, 1) for a in (AXIS_TENSOR, AXIS_PIPE,
                                              AXIS_SEQ))
+    if zero.offload_param_device() != "none" and dp > 1:
+        raise NotImplementedError(
+            "ZeRO-Infinity (offload_param) on more than one rank is not "
+            "ported yet (ROADMAP Queue 1 item 9b: per-process planes and "
+            "the in-graph gather and scatter)")
     cfg.resolve_batch_sizes(world_size=dp * tp * pp * sp, tp=tp, pp=pp,
                             sp=sp)
     cfg.resolve_auto_precision()

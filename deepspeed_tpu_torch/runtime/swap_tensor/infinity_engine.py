@@ -1,0 +1,333 @@
+"""ZeRO-Infinity's layer-streaming executor: training a model whose
+parameters and optimizer state do not fit on the card.
+
+Counterpart of ``deepspeed_tpu/runtime/swap_tensor/infinity_engine.py``
+(:class:`LayerStreamingEngine`, single process).  The step is a Python
+pipeline over the layers, their weights streamed from the host planes of
+:class:`~.partitioned_param_swapper.PartitionedParamSwapper` into two
+device buffers:
+
+    forward:   copy layer i+1 in  ||  layer i's forward (no graph; only
+               each layer's input is kept)
+    backward:  copy layer i-1 in  ||  layer i's forward again and its
+               backward (``torch.autograd.grad``: dx and the layer's
+               weight gradients); the gradients copied off the card, the
+               host Adam over them, the planes written behind
+
+so the card holds two layers' wire weights, the layers' inputs and the
+resident subtree (embedding, final norm, LM head), which stays on the card
+in fp32 with the port's Adam (optax ``adamw``'s operation order,
+``runtime/optimizers.py``).  The model provides ``embed_fwd``,
+``decoder_layer`` and ``head_loss`` (``models/llama.py``; Mixtral's layer
+returns its router's aux loss, whose gradient flows through the
+backward's second cotangent, ``aux_loss_coef`` times the loss scale).
+
+Two update paths, as in JAX:
+
+* **fused** (``gas == 1``, no clipping, no fp16): each layer is updated as
+  soon as its gradients exist, on the pipeline's worker thread, behind the
+  remaining layers' backward;
+* **stash** (otherwise): the gradients land in fp32 host planes (summed
+  over the microbatches), the global norm is taken, and a second pass
+  applies every layer's update times the unscale and clip factor.  Under
+  fp16 the loss scaler lives on the host: a gradient that is not finite
+  skips every update and rolls the Adam count back (``cancel_step``).
+
+Flash launches a step under ``attn_impl="flash"``: each layer's forward
+runs twice (streamed, then recomputed in the backward) and its backward
+once, per microbatch: ``flash_fwd = 2 x L x gas``, ``flash_bwd_dq =
+flash_bwd_dkv = L x gas``; ``eval_loss`` adds ``L`` forwards.  A layer is
+never run under ``LlamaConfig.remat``: the recompute is the remat.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from ...utils.logging import log_dist
+from ..engine import _rows, _slice_rows
+from ..optimizers import Adam
+from .partitioned_param_swapper import PartitionedParamSwapper
+
+PROTOCOL = ("embed_fwd", "decoder_layer", "head_loss", "batch_labels")
+
+
+def _zeros_if_none(grads, like) -> List[torch.Tensor]:
+    return [g if g is not None else torch.zeros_like(t)
+            for g, t in zip(grads, like)]
+
+
+class LayerStreamingEngine:
+    """The streamed train step over ``model`` on ``device``, its trunk
+    (``model.layers``) in the swapper's tier."""
+
+    def __init__(self, model: Any, config: Any,
+                 schedule: Callable[[int], float], device: torch.device):
+        c = model.config
+        self.model = model
+        self.schedule = schedule
+        self.device = device
+        self.L = int(c.num_layers)
+        self.compute_dtype = config.dtype()
+        self.fp16 = config.fp16.enabled is True
+        self.scaler = None
+        if self.fp16:
+            from ..precision import DynamicLossScaler
+
+            self.scaler = DynamicLossScaler.from_config(config.fp16)
+
+        opt_cfg = config.optimizer
+        hp: Dict[str, Any] = {}
+        if opt_cfg is not None:
+            name = opt_cfg.type.lower().replace("_", "")
+            if name not in ("adam", "adamw", "cpuadam", "deepspeedcpuadam",
+                            "fusedadam"):
+                raise NotImplementedError(
+                    f"layer streaming drives the fused C++ Adam(W); optimizer "
+                    f"{opt_cfg.type!r} is not supported here (Adam, AdamW)")
+            for k in ("lr", "betas", "eps", "weight_decay"):
+                v = opt_cfg.params.get(k)
+                if v is not None and not isinstance(v, str):
+                    hp[k] = v
+            hp["adamw_mode"] = name not in ("adam", "fusedadam")
+        self.aux_coef = float(getattr(c, "aux_loss_coef", 0.0))
+
+        zcfg = config.zero_optimization
+        pcfg = zcfg.offload_param
+        nvme_path = pcfg.nvme_path if pcfg.device == "nvme" else None
+        ocfg = zcfg.offload_optimizer
+        pipeline = True if ocfg is None else ocfg.pipelined
+        wire = self.compute_dtype
+        resident = {n: p for n, p in model.named_parameters()
+                    if not n.startswith("layers.")}
+        # the trunk's planes one layer at a time; on the cpu tier each
+        # layer's parameters then become views of its fp32 masters (no
+        # second host copy of the trunk), on nvme one broadcast zero each
+        layers = [list(layer.named_parameters()) for layer in model.layers]
+
+        def on_filled(i: int, views: Optional[Dict[str, torch.Tensor]]
+                      ) -> None:
+            for name, p in model.layers[i].named_parameters():
+                p.requires_grad_(False)
+                p.data = (views[name] if views is not None else
+                          torch.zeros((), dtype=p.dtype).expand(p.shape))
+
+        self.swapper = PartitionedParamSwapper(
+            layers, device=device, wire_dtype=wire, nvme_path=nvme_path,
+            buffer_count=int(pcfg.buffer_count or 4),
+            aio_config=config.aio, adam_hparams=hp, pipeline=pipeline,
+            on_filled=on_filled)
+        del layers
+        with torch.no_grad():
+            for p in resident.values():
+                p.data = p.data.to(device=device, dtype=torch.float32)
+        self.resident = resident
+        b = hp.get("betas", (0.9, 0.999))
+        self.res_opt = Adam(list(resident.values()), betas=b,
+                            eps=float(hp.get("eps", 1e-8)),
+                            weight_decay=float(hp.get("weight_decay", 0.0)),
+                            decoupled=True)
+        gas = config.gradient_accumulation_steps
+        self.gas = int(gas) if isinstance(gas, int) else 1
+        clip = config.gradient_clipping
+        self.clip = 0.0 if isinstance(clip, str) else float(clip or 0.0)
+        self.global_steps = 0
+        self.last_metrics: Dict[str, Any] = {}
+        self.last_timings: Dict[str, float] = {}
+        log_dist(f"ZeRO-Infinity streaming engine: {self.L} layers, "
+                 f"{self.swapper.n_elems * self.L:,} trunk params off the "
+                 f"device ({'nvme' if nvme_path else 'cpu'} tier), "
+                 f"{self.resident_param_count():,} resident on {device}")
+
+    # -- the pieces -------------------------------------------------------
+
+    def _layer_fwd(self, lp: Dict[str, torch.Tensor], x: torch.Tensor):
+        with torch.no_grad():
+            return self.model.decoder_layer(lp, x)
+
+    def _layer_bwd(self, lp: Dict[str, torch.Tensor], x: torch.Tensor,
+                   dx: torch.Tensor, ls: float):
+        """The layer's forward again from its input, then ``(dx_prev,
+        {name: weight gradient})``: cotangents ``dx`` and, for a router's
+        aux loss, ``aux_loss_coef x ls``."""
+        leaves = {k: v.detach().requires_grad_() for k, v in lp.items()}
+        x_in = x.detach().requires_grad_()
+        with torch.enable_grad():
+            out, aux = self.model.decoder_layer(leaves, x_in)
+        outs, cots = [out], [dx]
+        if isinstance(aux, torch.Tensor) and aux.requires_grad:
+            outs.append(aux)
+            cots.append(torch.full_like(aux, self.aux_coef * ls))
+        inputs = [x_in] + list(leaves.values())
+        grads = torch.autograd.grad(outs, inputs, cots, allow_unused=True)
+        grads = _zeros_if_none(grads, inputs)
+        return grads[0], dict(zip(leaves, grads[1:]))
+
+    def _head_grad(self, x: torch.Tensor, batch: Any, ls: float):
+        """(loss, resident gradients of ``head_loss x ls``, dx)."""
+        res = {k: p.detach().requires_grad_() for k, p in
+               self.resident.items()}
+        x_in = x.detach().requires_grad_()
+        with torch.enable_grad():
+            loss = self.model.head_loss(res, x_in, batch)
+            inputs = list(res.values()) + [x_in]
+            grads = torch.autograd.grad(loss * ls, inputs, allow_unused=True)
+        grads = _zeros_if_none(grads, inputs)
+        return (loss.detach(), {k: g.float() for k, g in zip(res, grads)},
+                grads[-1])
+
+    def _embed_grad(self, ids: torch.Tensor, dx: torch.Tensor
+                    ) -> torch.Tensor:
+        """The embedding's gradient from the first layer's input gradient,
+        summed in fp32 (JAX ``embed_grad``: a scatter-add; here the sorted,
+        deterministic ``index_put_`` accumulation)."""
+        emb = self.resident["embed.weight"]
+        g = torch.zeros(emb.shape, dtype=torch.float32, device=emb.device)
+        g.index_put_((ids.reshape(-1).long(),),
+                     dx.reshape(-1, dx.shape[-1]).float(), accumulate=True)
+        return g
+
+    def _to_device(self, batch: Any) -> Any:
+        if isinstance(batch, dict):
+            return {k: self._to_device(v) for k, v in batch.items()}
+        if isinstance(batch, torch.Tensor):
+            return batch.to(self.device, non_blocking=True)
+        return torch.as_tensor(batch, device=self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- the streamed step -------------------------------------------------
+
+    def train_step(self, batch: Any) -> Dict[str, Any]:
+        model, sw, L, gas = self.model, self.swapper, self.L, self.gas
+        t0 = time.perf_counter()
+        fused = gas == 1 and self.clip <= 0.0 and not self.fp16
+        ls = float(self.scaler.scale) if self.fp16 else 1.0
+        lr = float(self.schedule(self.global_steps))
+        sw.begin_step()
+        batch = self._to_device(batch)
+        rows = _rows(batch)
+        if rows % gas:
+            raise ValueError(f"batch rows {rows} not divisible by "
+                             f"gradient_accumulation_steps {gas}")
+        micros = [_slice_rows(batch, k * rows // gas, (k + 1) * rows // gas)
+                  for k in range(gas)]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        norm_sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        g_res: Optional[Dict[str, torch.Tensor]] = None
+        for k, mb in enumerate(micros):
+            ids, _ = model.batch_labels(mb)
+            with torch.no_grad():
+                x = model.embed_fwd(self.resident, ids)
+            acts: List[Optional[torch.Tensor]] = []
+            aux_sum = 0.0
+            sw.prefetch(0)
+            for i in range(L):
+                lp = sw.get_device(i)
+                sw.prefetch(i + 1)
+                acts.append(x)
+                x, aux = self._layer_fwd(lp, x)
+                aux_sum = aux_sum + aux
+                sw.release(i)
+            loss, g_head, dx = self._head_grad(x, mb, ls)
+            loss_sum = loss_sum + loss + self.aux_coef * aux_sum
+            sw.prefetch(L - 1, full=fused)
+            for i in reversed(range(L)):
+                lp = sw.get_device(i)
+                sw.prefetch(i - 1, full=fused)
+                dx, dlp = self._layer_bwd(lp, acts[i], dx, ls)
+                acts[i] = None  # the activation is consumed
+                if fused:
+                    for g in dlp.values():
+                        norm_sq = norm_sq + g.float().square().sum()
+                    sw.step_layer_async(i, dlp, lr=lr)
+                else:
+                    sw.stash_grads(i, dlp, accumulate=k > 0)
+                del dlp
+                sw.release(i)
+            g_head["embed.weight"] = g_head["embed.weight"] + \
+                self._embed_grad(ids, dx)
+            g_res = g_head if g_res is None else {
+                n: g_res[n] + g_head[n] for n in g_res}
+        t_backward = time.perf_counter()
+
+        res_sq = sum(g.square().sum() for g in g_res.values())
+        overflow = False
+        if fused:
+            grad_norm = float(torch.sqrt(norm_sq + res_sq))
+            scale = 1.0
+        else:
+            trunk_sq = sw.stashed_sq_norm()
+            grad_norm = math.sqrt(trunk_sq + float(res_sq)) / (gas * ls)
+            overflow = self.fp16 and not math.isfinite(grad_norm)
+            scale = 1.0 / (gas * ls)
+            if not overflow:
+                if self.clip > 0.0 and grad_norm > self.clip:
+                    scale *= self.clip / grad_norm
+                sw.prefetch_host(0, full=True)
+                for i in range(L):
+                    # queued (its slot pinned) before the next layer's
+                    # read-ahead, which may then not evict it
+                    sw.apply_stashed_async(i, lr=lr, scale=scale)
+                    sw.prefetch_host(i + 1, full=True)
+            else:
+                sw.discard_stashed()
+                sw.cancel_step()
+        if not overflow:
+            grads = [g_res[n].mul_(scale) if scale != 1.0 else g_res[n]
+                     for n in self.resident]
+            self.res_opt.step(float(self.schedule(self.res_opt.count)),
+                              list(self.resident.values()), grads)
+            self.global_steps += 1
+        if self.scaler is not None:
+            self.scaler.update(overflow)
+        sw.flush()
+        self._sync()
+        t_end = time.perf_counter()
+        self.last_timings = {"step_s": t_end - t0,
+                             "to_optimizer_s": t_backward - t0,
+                             "after_backward_s": t_end - t_backward}
+        metrics = {"loss": loss_sum / gas, "lr": lr,
+                   "grad_norm": torch.tensor(grad_norm, dtype=torch.float32),
+                   "loss_scale": ls, "overflow": overflow}
+        self.last_metrics = metrics
+        return metrics
+
+    @torch.no_grad()
+    def eval_loss(self, batch: Any) -> torch.Tensor:
+        """The streamed forward's loss (no gradient, no update)."""
+        model, sw = self.model, self.swapper
+        sw.drain_updates()
+        batch = self._to_device(batch)
+        ids, _ = model.batch_labels(batch)
+        x = model.embed_fwd(self.resident, ids)
+        aux_sum = 0.0
+        sw.prefetch(0)
+        for i in range(self.L):
+            lp = sw.get_device(i)
+            sw.prefetch(i + 1)
+            x, aux = model.decoder_layer(lp, x)
+            aux_sum = aux_sum + aux
+            sw.release(i)
+        return model.head_loss(self.resident, x, batch) + \
+            self.aux_coef * aux_sum
+
+    # -- introspection -------------------------------------------------------
+
+    def peak_device_param_bytes(self) -> int:
+        """Trunk bytes on the device at the deepest point: the two layer
+        buffers."""
+        sw = self.swapper
+        return 2 * sw.n_elems * sw._wire_size()
+
+    def resident_param_count(self) -> int:
+        return sum(p.numel() for p in self.resident.values())
+
+    def total_param_count(self) -> int:
+        return self.swapper.n_elems * self.L + self.resident_param_count()

@@ -1,11 +1,16 @@
 """ZeRO over ``torch.distributed``: the placement rule and its collectives
-(:mod:`.sharder`), ``Init`` and ``GatheredParameters`` (:mod:`.init_ctx`);
-the stages themselves run in ``runtime/engine.py``."""
+(:mod:`.sharder`), ``Init`` and ``GatheredParameters`` (:mod:`.init_ctx`),
+the host optimizer of ZeRO-Offload (:mod:`.offload`) and the offload
+config groups; the stages themselves run in ``runtime/engine.py``."""
 
+from ..config import OffloadOptimizerConfig, OffloadParamConfig
 from .init_ctx import GatheredParameters, Init
+from .offload import CPUOffloadOptimizer
 from .sharder import (Placement, ZeroShardingPolicy, compute_weight,
                       dp_shardable_dim, placement_of, reshard_layout_report)
 
-__all__ = ["GatheredParameters", "Init", "Placement", "ZeroShardingPolicy",
+__all__ = ["CPUOffloadOptimizer", "GatheredParameters", "Init",
+           "OffloadOptimizerConfig", "OffloadParamConfig", "Placement",
+           "ZeroShardingPolicy",
            "compute_weight", "dp_shardable_dim", "placement_of",
            "reshard_layout_report"]

@@ -53,6 +53,27 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_builders_read_only_the_ports_sources():
+    """``nvcc`` compiles the top-level ``.cu`` files of the port's
+    ``csrc/``, ``g++`` the two host sources of ``csrc/host/``; the repo's
+    root ``csrc/`` (the JAX package's) never reaches either."""
+    from deepspeed_tpu_torch.ops import op_builder
+
+    port_csrc = ROOT / "deepspeed_tpu_torch" / "csrc"
+    assert op_builder.CSRC == port_csrc
+    cuda = op_builder.sources()
+    assert cuda and all(p.parent == port_csrc and p.suffix == ".cu"
+                        for p in cuda)
+    host = [b.source for b in (op_builder.CPU_ADAM, op_builder.ASYNC_IO)]
+    assert sorted(p.name for p in host) == ["aio_engine.cpp",
+                                           "cpu_adam.cpp"]
+    assert all(p.parent == port_csrc / "host" and p.is_file()
+               for p in host)
+    text = (ROOT / "deepspeed_tpu_torch" / "ops" / "op_builder.py"
+            ).read_text()
+    assert "parents[2] / \"csrc\"" not in text and "\"csrc/" not in text
+
+
 def test_forbidden_rule_catches_the_jax_package():
     assert _forbidden("deepspeed_tpu.models.llama")
     assert _forbidden("jax.numpy") and _forbidden("jaxlib")

@@ -343,8 +343,7 @@ def test_initialize_refuses_what_is_not_ported():
     for bad in ({"zero_optimization": {"stage": 2,
                                        "zero_quantized_gradients": True}},
                 {"zero_optimization": {"stage": 1, "mics_shard_size": 2}},
-                {"zero_optimization": {"offload_optimizer":
-                                       {"device": "cpu"}}},
+                {"pipeline": {"stages": 2}},
                 {"tensor_parallel": {"autotp_size": 2}},
                 {"optimizer": {"type": "Lamb", "params": {}}}):
         with pytest.raises(NotImplementedError, match="not ported yet"):

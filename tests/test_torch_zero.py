@@ -104,7 +104,7 @@ def port_runs(weights):
 def _jax_run(name, world):
     """(params before, the step metrics, params after) of the JAX engine on
     a ``world``-device data mesh at the case's stage and config."""
-    _, dtype, _ = {**ranks.STAGE_CASES, **ranks.EXTRA_CASES}[name]
+    _, dtype, _ = ranks.all_cases()[name]
     jm = _jax_model(dtype)
     params = jm.init_params(jax.random.PRNGKey(0))
     if "overflow" in name:
@@ -129,8 +129,10 @@ JAX_STAGE = {"stage1": "stage0", "stage2": "stage0"}
 def _check_case(got_ranks, name, world):
     got = got_ranks[0]
     before, want, after = _jax_run(JAX_STAGE.get(name, name), world)
-    fp32 = {**ranks.STAGE_CASES, **ranks.EXTRA_CASES}[name][1] == "float32"
+    fp32 = ranks.all_cases()[name][1] == "float32"
     loss_tol, norm_tol = (1e-5, 1e-5) if fp32 else (2e-2, 5e-2)
+    if name in ranks.OFFLOAD_CASES:  # the offload tolerance of JAX's tests
+        loss_tol = norm_tol = 2e-4
     _assert_lr_equal(got["lr"], want["lr"])
     assert got["loss_scale"] == want["loss_scale"]
     assert got["skipped"] == want["skipped"]
@@ -172,14 +174,32 @@ def test_two_rank_cases_match_jax(port_runs, name):
                                         2.0 ** 13, 2.0 ** 14]
 
 
+@pytest.mark.parametrize("name", sorted(ranks.OFFLOAD_CASES))
+def test_offload_ranks_match_jax_offload(port_runs, name):
+    """ZeRO-Offload on two ranks against JAX's offload engine on a
+    two-device data mesh; each rank's host state is its chunk of the cut
+    leaves and the whole norms, to the byte, all on the host."""
+    got = [r[name] for r in port_runs(2)]
+    _check_case(got, name, 2)
+    stage = ranks.OFFLOAD_CASES[name][0]
+    total = sum(v.size for v in got[0]["params"].values())
+    norms = 5 * ranks.MODEL["hidden_size"]
+    for r in got:
+        assert r["host_numel"] == (total - norms) // 2 + norms
+        assert r["host_state_bytes"] == r["host_numel"] * 12
+        assert r["host_devices"] == ["cpu"]
+        assert r["cut"] == 2 * 7 + 2
+        if stage == 3:
+            assert r["chunk_numel"] == r["host_numel"]
+
+
 @pytest.mark.parametrize("world", [2, 4])
 def test_ranks_seeded_differently_end_up_equal(port_runs, world, weights):
     """Ranks other than 0 drew other weights; after ``initialize`` and the
     steps every rank holds the same parameters, bit for bit."""
     got = port_runs(world)
-    cases = [k for k in got[0] if k in ranks.STAGE_CASES
-             or k in ranks.EXTRA_CASES]
-    assert len(cases) == (4 if world == 4 else 7)
+    cases = [k for k in got[0] if k in ranks.all_cases()]
+    assert len(cases) == (4 if world == 4 else 10)
     for name in cases:
         for r in got[1:]:
             for k, v in got[0][name]["params"].items():
@@ -273,7 +293,8 @@ def test_zero_init_and_gathered_parameters(port_runs):
 def test_mixtral_and_serving_a_cut_model_are_refused(port_runs):
     """Mixtral on a data axis of 2 trains now (its gate routes the global
     micro-batch: one loss on both ranks, and it moves); serving a model cut
-    under ZeRO-3 is still refused."""
+    under ZeRO-3 is still refused, and so is ZeRO-Infinity on two ranks
+    (ROADMAP Queue 1 item 9b)."""
     got = [r["refusals"] for r in port_runs(2)]
     for v in got:
         assert np.all(np.isfinite(v["mixtral"]))
@@ -281,6 +302,8 @@ def test_mixtral_and_serving_a_cut_model_are_refused(port_runs):
         assert v["mixtral"][1] != v["mixtral"][0]
         for what in ("init_inference", "build_engine_v2"):
             assert "GatheredParameters" in v[what], v[what]
+        assert "not ported yet (ROADMAP Queue 1 item 9b" in \
+            v["infinity_2_ranks"], v["infinity_2_ranks"]
 
 
 def test_uneven_labels_per_rank_mean_beside_jax_global_mean(port_runs,
@@ -323,7 +346,7 @@ def test_zero_config_fields_and_refusals():
             "stage3_prefetch_bucket_size",
             "stage3_gather_16bit_weights_on_model_save"} <= fields
     for bad, item in (
-            ({"zero_optimization": {"offload_param": {"device": "cpu"}}}, 9),
+            ({"pipeline": {"stages": 2}}, 8),
             ({"zero_optimization": {"mics_shard_size": 2}}, 10),
             ({"zero_optimization": {"zero_quantized_weights": True}}, 4),
             ({"zero_optimization": {"zero_quantized_gradients": True}}, 4),

@@ -55,17 +55,30 @@ EXTRA_CASES = {
     "stage3_fused_adam_clip": (3, "float32", {
         "kernels": {"fused_adam": True}, "gradient_clipping": 0.5}),
 }
+#: ZeRO-Offload on two ranks: this rank's chunk of the masters and
+#: moments in host memory, the C++ Adam over it
+OFFLOAD_CASES = {
+    f"offload_stage{s}": (s, "float32", {
+        "zero_optimization": {"stage": s,
+                              "stage3_param_persistence_threshold":
+                              THRESHOLD,
+                              "offload_optimizer": {"device": "cpu"}}})
+    for s in (1, 2, 3)}
 DTYPES = {"float32": torch.float32, "float16": torch.float16}
 #: the overflow case's final-norm weight (ones times this)
 OVERFLOW_NORM = 4.0
 OVERFLOW_TOKEN = 7
 
 
+def all_cases() -> Dict[str, Any]:
+    return {**STAGE_CASES, **EXTRA_CASES, **OFFLOAD_CASES}
+
+
 def case_config(name: str) -> Dict[str, Any]:
-    stage, _, overrides = {**STAGE_CASES, **EXTRA_CASES}[name]
-    return dict(BASE, zero_optimization={
+    stage, _, overrides = all_cases()[name]
+    return {**BASE, "zero_optimization": {
         "stage": stage, "stage3_param_persistence_threshold": THRESHOLD},
-        **overrides)
+        **overrides}
 
 
 def global_batches(name: str, world: int) -> List[np.ndarray]:
@@ -105,7 +118,7 @@ def _gathered(model) -> Dict[str, np.ndarray]:
 
 def _run_case(rank: int, world: int, name: str,
               weights: Dict[str, np.ndarray]) -> Dict[str, Any]:
-    _, dtype, _ = {**STAGE_CASES, **EXTRA_CASES}[name]
+    _, dtype, _ = all_cases()[name]
     # rank 0 holds the reference weights; the others draw their own, which
     # initialize replaces with rank 0's
     model = _model(DTYPES[dtype], seed=100 + rank)
@@ -121,6 +134,12 @@ def _run_case(rank: int, world: int, name: str,
                                            "loss_scale", "skipped")}
     out["cut"] = sum(p is not None for p in engine.placements)
     out["chunk_numel"] = sum(p.numel() for p in engine.params)
+    if engine.offload_opt is not None:  # this rank's share, on the host
+        opt = engine.offload_opt
+        out["host_state_bytes"] = opt.state_bytes
+        out["host_numel"] = sum(m.numel() for m in opt.masters)
+        out["host_devices"] = sorted({str(t.device) for t in opt.masters
+                                      + opt.opt.exp_avg})
     for batch in global_batches(name, world):
         m = engine.train_step({"input_ids": torch.from_numpy(
             local_rows(batch, rank, world))})
@@ -237,6 +256,13 @@ def _refusals(rank: int) -> Dict[str, Any]:
             out[what] = "accepted"
         except ValueError as e:
             out[what] = str(e)
+    try:  # ZeRO-Infinity on more than one rank: item 9b
+        initialize(model=_model(torch.float32, seed=0), config=dict(
+            BASE, zero_optimization={"stage": 3, "offload_param": {
+                "device": "cpu"}}), device="cpu")
+        out["infinity_2_ranks"] = "accepted"
+    except NotImplementedError as e:
+        out["infinity_2_ranks"] = str(e)
     return out
 
 
@@ -247,7 +273,8 @@ def zero_rank(rank: int, weights: Dict[str, np.ndarray],
     torch.set_num_threads(1)
     init_distributed(device="cpu")
     world = comm.get_world_size()
-    names = list(STAGE_CASES) + (list(EXTRA_CASES) if extras else [])
+    names = list(STAGE_CASES) + (list(EXTRA_CASES) + list(OFFLOAD_CASES)
+                                 if extras else [])
     out: Dict[str, Any] = {name: _run_case(rank, world, name, weights)
                            for name in names}
     out["verbs"] = _verbs(rank, world)
@@ -258,7 +285,7 @@ def zero_rank(rank: int, weights: Dict[str, np.ndarray],
     return out
 
 
-__all__ = ["BASE", "EXTRA_CASES", "MODEL", "OVERFLOW_NORM", "STAGE_CASES",
-           "STEPS",
+__all__ = ["BASE", "EXTRA_CASES", "MODEL", "OFFLOAD_CASES", "OVERFLOW_NORM",
+           "STAGE_CASES", "STEPS", "all_cases",
            "THRESHOLD", "case_config", "global_batches", "local_rows",
            "uneven_batch", "zero_rank"]
