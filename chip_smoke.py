@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, block-sparse attention,
-tensor-parallel serving, ladder-model (BERT, ResNet, OPT), offload and
-ZeRO-Infinity paths on one NVIDIA GPU and hold its CUDA kernels against
-their plain PyTorch versions.
+tensor-parallel serving, ladder-model (BERT, ResNet, OPT), offload,
+ZeRO-Infinity and sequence-parallel paths on one NVIDIA GPU and hold its
+CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -123,13 +123,13 @@ The tensor-parallel slice adds:
   ``paged_decode_attention_tp``, bit-equal to those heads of the unsharded
   kernel; timed beside its plain version and half of #2's bound;
 - ``serve_tp`` and ``generate_tp`` (one launch): Llama-3-8B at full width
-  and ``SERVE_TP_LAYERS`` (8) of its 32 layers, bf16, ``tp=2``: two
+  and ``SERVE_TP_LAYERS`` (4) of its 32 layers, bf16, ``tp=2``: two
   ranks that share card 0 over gloo through the host (NCCL needs one card
   per rank), spawned by ``launcher.local.launch``; every budget returned,
   both ranks' tokens equal, #2b ``L`` times a decode step and the decode
   kernel ``L x 31`` times on each rank.  Their times are gloo through the host, two ranks
   on one card: not a TP speed;
-- ``agree_tp``: Llama-3-8B widths at 4 layers, ``tp=2`` against ``tp=1``:
+- ``agree_tp``: Llama-3-8B widths at 2 layers, ``tp=2`` against ``tp=1``:
   fp32 greedy tokens (v2 and v1) equal and logits within 1e-4; bf16
   logits no further from the fp32 ones than ``BF16_TP_SLACK`` times the
   bf16 ``tp=1`` logits are, the token agreement reported.
@@ -154,7 +154,7 @@ The expert-parallel slice adds:
   ``index_select`` and its bound;
 - ``train_moe_ep``: Mixtral-8x7B widths, 2 layers, bf16 on fp32 masters,
   ``moe.expert_parallel_size`` 2 in two ranks on card 0 over gloo (4 of
-  the 8 experts a rank, ``[1, 2048]`` a rank, fused Adam, 4 steps):
+  the 8 experts a rank, ``[1, 2048]`` a rank, fused Adam, 3 steps):
   finite falling losses and one ``l_aux`` on both ranks, the launch
   formula on each, each rank's state bytes to the byte of the prediction;
 - ``train_moe_ep_agree``: Mixtral-8x7B widths at 1 layer in fp32 on one
@@ -162,10 +162,10 @@ The expert-parallel slice adds:
   1e-4; the ep-2 ranks' save of a narrow fp32 Mixtral loads in one
   process bit for bit;
 - ``serve_moe_tp`` and ``generate_moe_tp`` (one launch): Mixtral-8x7B at
-  8 layers, bf16, ``tp=2`` over gloo, serve_moe's requests: budgets, both
+  4 layers, bf16, ``tp=2`` over gloo, serve_moe's requests: budgets, both
   ranks' tokens equal, #2b ``L`` a decode step, #11/#12 ``L`` a prefill
   call, decode ``L x 31`` in generate;
-- ``agree_moe_tp``: Mixtral-8x7B widths at 2 layers, ``tp=2`` against
+- ``agree_moe_tp``: Mixtral-8x7B widths at 1 layer, ``tp=2`` against
   ``tp=1`` as ``agree_tp``.
 
 The ladder-model slice adds:
@@ -184,8 +184,8 @@ The ladder-model slice adds:
   bf16 on fp32 masters, flash, AdamW, ZeRO 0, 8 steps on an MLM batch (15 %
   of the real tokens labelled): a finite, falling loss, the flash
   launches of the formula, step time, tokens/s, MFU and peak memory;
-- ``train_bert_zero``: BERT-large widths at 4 layers in two gloo ranks on
-  card 0, ZeRO 0, 1 and 2, 4 steps each: losses equal across ranks and
+- ``train_bert_zero``: BERT-large widths at 2 layers in two gloo ranks on
+  card 0, ZeRO 0, 1 and 2, 3 steps each: losses equal across ranks and
   stages, each rank's state bytes those of the placement rule;
 - ``train_resnet``: ResNet-56 on a fixed ``[128, 32, 32, 3]`` batch, bf16
   on fp32 masters, Adam lr 1e-3, 12 steps: a falling loss, step time and
@@ -202,18 +202,19 @@ The offload and Infinity slice adds:
 - in ``flash_kernels``, the ``70b`` case (B 2, h 64, d 128, S 2048,
   causal: Llama-3-70B's attention in a streamed layer) in all three dtypes,
   timed beside SDPA and the bound;
-- ``train_infinity``: Llama-3-70B widths at ``INF_LAYERS`` (4) of 80
-  layers (fewer only if the host's ``MemAvailable`` cannot hold their
-  planes, never under 3), in a process of its own, bf16, flash, the cpu
-  tier through ``initialize`` with ``offload_param``, ``[2, 2048]``, 4
+- ``train_infinity``: Llama-3-70B widths at ``INF_LAYERS`` (3) of 80
+  layers (more than the trunk's two device buffers; the phase fails if the
+  host's ``MemAvailable`` cannot hold their planes), in a process of its
+  own, bf16, flash, the cpu
+  tier through ``initialize`` with ``offload_param``, ``[2, 2048]``, 3
   steps: finite falling losses, the trunk's two device buffers exactly
   ``INF_PEAK_PARAM_BYTES``, no trunk leaf on the card, the peak allocation
   under the resident state plus the activations and 80 GB, the flash
   launches ``2 L`` / ``L`` / ``L`` a step; step time, one profiled step's
   device idle share, host memory and thread counts;
-- ``train_infinity_nvme``: Llama-3-8B widths at 4 layers on the nvme tier
+- ``train_infinity_nvme``: Llama-3-8B widths at 3 layers on the nvme tier
   (files under ``build/nvme_smoke``, a ring of 2 slots), gas 2 with
-  clipping, 3 steps, beside the cpu tier: losses, grad norms and every
+  clipping, 2 steps, beside the cpu tier: losses, grad norms and every
   master equal; disk bytes a step, GB/s and the O_DIRECT split;
 - ``train_infinity_agree``: 8B widths at 2 fp32 layers: streamed within
   2e-4 of the on-device engine, pipelined == serial bit for bit;
@@ -224,6 +225,25 @@ The offload and Infinity slice adds:
   the two ranks: each rank's host state its chunk to the byte, losses
   equal to one process's with a rank's rows a microbatch.
 
+The sequence-parallel slice adds:
+
+- in ``flash_kernels``, the ``sp`` case (B 1, h 16, d 128, S 8192,
+  causal: train_sp's Ulysses shape, the full sequence on 32/2 heads) in
+  all three dtypes, timed beside SDPA and the bound;
+- ``train_sp``: Llama-3-8B widths at ``SP_LAYERS`` (2) of 32 layers,
+  ``sequence_parallel.sp_size`` 2 in two ranks on card 0 over gloo, one
+  ``[1, 8192]`` row (4096 tokens a rank), bf16, flash, remat,
+  ``loss_tiles`` 8, 3 steps: finite falling losses equal on both ranks,
+  per rank and step 2 L flash forwards, L dq and L dk/dv passes and 12 L
+  all-to-alls, each rank's peak memory and state bytes; then one process
+  at sp 1 on the same weights and row: losses and grad norms within the
+  bf16 bounds of ``tests/test_torch_train.py``.  Its times are gloo
+  through the host, two ranks on one card: not an SP speed;
+- ``train_sp_agree`` (the same launch): ``AGREE_TRAIN``'s fp32 widths on
+  ``[2, 256]``, 3 steps: Ulysses sp 2 against one process at sp 1 to
+  1e-5, the ring at sp 2 to 1e-4, ``loss_tiles`` 4 against 1 (both sp
+  2) to 1e-6.
+
 Ranks report to this process through a queue; only it prints.  Then a
 ``kernels`` line (every kernel's launches on the main paths: the
 decode kernels' from ``serve`` and ``generate``, #2b's per rank from
@@ -232,7 +252,8 @@ decode kernels' from ``serve`` and ``generate``, #2b's per rank from
 kernels' from ``train_moe``, the block-sparse kernels' from ``sparse``,
 the quantizer's from its path; the ``_bert`` rows' from ``train_bert``,
 the ``_opt`` rows' from ``generate_opt`` and ``serve_opt``, the ``_70b``
-rows' from ``train_infinity``; times at the main paths' shapes), a
+rows' from ``train_infinity``, the ``_sp`` rows' from ``train_sp``'s
+rank 0; times at the main paths' shapes), a
 ``timing`` line (seconds by phase),
 the card's name and power limit, and the result line.
 ``--only build,moe_kernels,...`` runs the named phases alone and prints
@@ -729,10 +750,12 @@ FLASH_CASES = [("headline", 8, 12, 64, 2048, True, None, False),
                ("window_segments", 2, 8, 128, 2048, True, 512, "packed"),
                ("ragged", 2, 4, 64, 1000, True, None, False),
                ("long", 1, 2, 128, 20480, True, None, False),
-               ("70b", 2, 64, 128, 2048, True, None, False)]
+               ("70b", 2, 64, 128, 2048, True, None, False),
+               ("sp", 1, 16, 128, 8192, True, None, False)]
 #: bf16, the training phases' shapes (``70b``: train_infinity's streamed
-#: layers, h 64 with K/V repeated from 8)
-FLASH_TIMED = ("headline", "8b", "bert", "70b")
+#: layers, h 64 with K/V repeated from 8; ``sp``: train_sp's Ulysses
+#: shape, the full S 8192 on 32/2 heads)
+FLASH_TIMED = ("headline", "8b", "bert", "70b", "sp")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 BERT_MAX_PAD = 200
 
@@ -1850,7 +1873,7 @@ def phase_sparse(dev) -> tuple:
     flash_ms = {}
     for row, (case, cfg, leaves, do, entry) in zip(rows, held):
         name, B, S, h, d, family, kw, causal, backward, dense = case
-        per_rep = 30 if S <= 4096 else (10 if S <= 8192 else 3)
+        per_rep = 15 if S <= 4096 else (5 if S <= 8192 else 2)
 
         def fwd():
             with torch.no_grad():
@@ -2343,7 +2366,7 @@ def train_agree(dev, seed: int) -> dict:
 
 # -- the data-parallel slice --------------------------------------------------
 
-ZERO_RANKS, ZERO_STEPS, ZERO_TIMEOUT = 2, 4, 900
+ZERO_RANKS, ZERO_STEPS, ZERO_TIMEOUT = 2, 3, 900
 #: train_zero's runs: (label, ZeRO stage, fused Adam)
 ZERO_RUNS = (("stage0", 0, False), ("stage1", 1, False),
              ("stage2", 2, False), ("stage3", 3, False),
@@ -2355,7 +2378,7 @@ ZERO_OFFLOAD_RUN, ZERO_OFFLOAD_STAGE = "stage2_offload", 2
 #: the same operations (two ranks: every sum has two terms), so they are
 #: expected bit-equal
 ZERO_STAGE_RTOL = 1e-6
-ZERO_AGREE_LAYERS, ZERO_AGREE_STEPS, ZERO_AGREE_ROWS = 4, 3, 4
+ZERO_AGREE_LAYERS, ZERO_AGREE_STEPS, ZERO_AGREE_ROWS = 2, 3, 4
 ZERO_NOTE = ("2 ranks on card 0 over gloo, every collective through pinned "
              "host memory: a correctness and memory check, the step time "
              "on the host clock is not a DP speed")
@@ -2584,7 +2607,7 @@ def zero_agree_model(cfg, seed: int, dev):
 def phase_train_zero_agree(dev, seed: int) -> dict:
     """train_zero_agree: two ranks on card 0 over gloo at stages 0 and 3
     give the one-process run's loss and grad-norm sequences on the same
-    global batch, to 1e-4 (fp32, headline width, 4 layers)."""
+    global batch, to 1e-4 (fp32, headline width, 2 layers)."""
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.launcher import launch
 
@@ -2994,10 +3017,9 @@ QUANT_TIMED = (14336, 4096)
 #: tensor size of the TP phases; their ranks share card 0 over gloo
 TP = 2
 TP_TIMEOUT = 900
-#: serve_tp's depth: 8 of Llama-3-8B's 32 layers (gloo's host copies set
-#: the phase's time: 34.1-67.7 s at 32 layers, 24.1-41.0 s at 16 on an
-#: H100 80GB HBM3 at 700 W; cut to keep the script inside its limit)
-SERVE_TP_LAYERS = 8
+#: serve_tp's depth: 4 of Llama-3-8B's 32 layers (gloo's host copies set
+#: the phase's time; cut to keep the script inside its limit)
+SERVE_TP_LAYERS = 4
 #: serve_tp's requests (prompt length, max_new_tokens, class); the first
 #: two start with a shared 256-token header
 SERVE_TP_REQUESTS = [(320, 32, "interactive"), (448, 32, "batch"),
@@ -3007,10 +3029,10 @@ SERVE_TP_HEADER = 256
 #: the serve phase's engine knobs, per rank
 SERVE_ENGINE = dict(max_batch_slots=8, prefill_chunk=256, prefill_batch=2,
                     decode_burst=8)
-#: agree_tp: Llama-3-8B widths at 4 of 32 layers, these prompts, 16 tokens
-AGREE_TP_LAYERS, AGREE_TP_PROMPTS, AGREE_TP_NEW = 4, (37, 100, 260), 16
-#: agree_moe_tp: Mixtral-8x7B widths at 2 of 32 layers
-AGREE_MOE_TP_LAYERS = 2
+#: agree_tp: Llama-3-8B widths at 2 of 32 layers, these prompts, 16 tokens
+AGREE_TP_LAYERS, AGREE_TP_PROMPTS, AGREE_TP_NEW = 2, (37, 100, 260), 16
+#: agree_moe_tp: Mixtral-8x7B widths at 1 of 32 layers
+AGREE_MOE_TP_LAYERS = 1
 #: in bf16, how much further from the fp32 logits the ``tp=2`` logits may
 #: lie than the ``tp=1`` ones: the partial sums add roundings of bf16's own
 #: size (random-weight logits carry ~5e-2 of bf16 error against fp32)
@@ -3384,7 +3406,7 @@ def phase_agree_tp(dev, seed: int, moe: bool = False) -> dict:
 
 # -- the expert-parallel slice -------------------------------------------------
 
-MOE_EP, MOE_EP_STEPS, MOE_EP_TIMEOUT = 2, 4, 900
+MOE_EP, MOE_EP_STEPS, MOE_EP_TIMEOUT = 2, 3, 900
 MOE_EP_NOTE = ("2 ranks on card 0 over gloo, every collective (the experts' "
                "exchange included) through pinned host memory: a "
                "correctness and memory check, the step time on the host "
@@ -3402,9 +3424,9 @@ MOE_AGREE_RUNS = (("ep2", 2, 1, 0),)
 #: the checkpoint check's narrow fp32 Mixtral (train_agree's widths, the
 #: 8 experts and top-2 of Mixtral-8x7B): its save stays small
 MOE_CKPT_MODEL = dict(AGREE_TRAIN, num_experts=8, top_k=2)
-#: serve_moe_tp: Mixtral-8x7B at 8 of 32 layers, bf16, two ranks (34.4-
-#: 43.2 s at 16 on an H100 80GB HBM3 at 700 W; cut as serve_tp)
-MOE_TP_LAYERS = 8
+#: serve_moe_tp: Mixtral-8x7B at 4 of 32 layers, bf16, two ranks (cut as
+#: serve_tp)
+MOE_TP_LAYERS = 4
 
 
 def ep_mesh(ep: int, dp: int):
@@ -3735,10 +3757,10 @@ def phase_serving_moe_tp(seed: int) -> dict:
 BERT_STEPS, BERT_BATCH, BERT_SEQ = 8, 8, 512
 #: the share of real tokens that carry an MLM label
 BERT_MLM_RATE = 0.15
-#: train_bert_zero: BERT-large widths at ``num_layers 24 -> 4`` on two gloo
+#: train_bert_zero: BERT-large widths at ``num_layers 24 -> 2`` on two gloo
 #: ranks, the global ``[8, 512]`` batch, ZeRO stages 0-2 (BASELINE config
 #: 2's ZeRO-1/2), ``BERT_ZERO_STEPS`` steps each
-BERT_ZERO_LAYERS, BERT_ZERO_STEPS = 4, 4
+BERT_ZERO_LAYERS, BERT_ZERO_STEPS = 2, 3
 BERT_ZERO_RUNS = (("stage0", 0), ("stage1", 1), ("stage2", 2))
 #: train_resnet: ResNet-56 on one fixed ``[128, 32, 32, 3]`` batch of seeded
 #: images, 10 classes, Adam lr 1e-3
@@ -3956,18 +3978,19 @@ def phase_train_resnet(dev, seed: int) -> dict:
 
 # -- the offload and Infinity slice -------------------------------------------
 
-#: train_infinity: Llama-3-70B widths, 4 of its 80 layers (fewer only if the
-#: host's memory forces it, never under INF_MIN_LAYERS), [2, 2048], 4 steps
-INF_LAYERS, INF_MIN_LAYERS, INF_BATCH, INF_STEPS = 4, 3, 2, 4
+#: train_infinity: Llama-3-70B widths, 3 of its 80 layers (more than the
+#: trunk's two device buffers), [2, 2048], 3 steps
+INF_LAYERS, INF_BATCH, INF_STEPS = 3, 2, 3
 #: the trunk's two device buffers at 70B widths: 2 x 855,654,400 x 2 B
 INF_PEAK_PARAM_BYTES = 3_422_617_600
-#: train_infinity_nvme: Llama-3-8B widths at 4 layers, a ring of 2 slots,
-#: gas 2 with clipping (the stash path), 3 steps
-NVME_LAYERS, NVME_STEPS, NVME_GAS, NVME_SLOTS = 4, 3, 2, 2
+#: train_infinity_nvme: Llama-3-8B widths at 3 layers, a ring of 2 slots
+#: (so it still evicts), gas 2 with clipping (the stash path), 2 steps on
+#: each tier
+NVME_LAYERS, NVME_STEPS, NVME_GAS, NVME_SLOTS = 3, 2, 2, 2
 #: train_infinity_agree: Llama-3-8B widths at 2 layers, fp32, 3 steps
 INF_AGREE_LAYERS, INF_AGREE_STEPS, INF_AGREE_RTOL = 2, 3, 2e-4
-#: train_offload: Llama-3-8B widths at WIDE_LAYERS, 4 steps
-OFFLOAD_STEPS = 4
+#: train_offload: Llama-3-8B widths at WIDE_LAYERS, 3 steps
+OFFLOAD_STEPS = 3
 INF_NOTE = ("host-bound by design: the trunk's layers cross PCIe each "
             "pass and the C++ Adam runs on the host")
 
@@ -4127,9 +4150,6 @@ def phase_train_infinity(dev, seed: int) -> dict:
     full = LlamaConfig.llama3_70b()
     mem0 = meminfo()
     layers = INF_LAYERS
-    while layers > INF_MIN_LAYERS and infinity_host_need(
-            full, layers) > 0.9 * mem0["MemAvailable"]:
-        layers -= 1
     need = infinity_host_need(full, layers)
     require(need <= 0.9 * mem0["MemAvailable"],
             f"train_infinity: {layers} layers need {need} B of host memory, "
@@ -4456,6 +4476,241 @@ def predicted_offload_bytes(shapes: list, dp: int) -> int:
                                         is None else dp) for s in shapes)
 
 
+
+# -- the sequence-parallel slice ------------------------------------------------
+
+#: train_sp: Llama-3-8B widths at SP_LAYERS of its 32 layers on SP ranks of
+#: card 0 over gloo, one [1, SP_SEQ] batch (the model's published context:
+#: 4096 tokens a rank), bf16 on fp32 masters, flash, remat, the loss in
+#: SP_TILES tiles (a tile's fp32 logits 0.26 GB, a rank's 4096 tokens whole
+#: 2.1 GB), SP_STEPS steps
+SP, SP_LAYERS, SP_SEQ, SP_STEPS, SP_TILES = 2, 2, 8192, 3, 8
+#: all-to-alls a layer a step on the Ulysses route: q, k, v and the output
+#: forward, the same four again in the remat recompute, four in the backward
+SP_A2A_PER_LAYER_STEP = 12
+SP_TIMEOUT = 900
+SP_NOTE = "gloo through the host, two ranks on one card: not an SP speed"
+#: train_sp's fp32 agreements at AGREE_TRAIN's widths (4 heads: Ulysses at
+#: sp 2), one [2, SP_AGREE_SEQ] batch, SP_AGREE_STEPS steps: name ->
+#: (attn_impl, loss_tiles, the run it is held against, relative tolerance
+#: of the losses, of the grad norms); "one_process" is the sp-1 run on the
+#: card in this process.  The tiled loss sums the same terms in another
+#: order: its losses hold to 1e-6, its grad norms (through two Adam
+#: updates of last-bit differences) to Ulysses' 1e-5
+SP_AGREE_SEQ, SP_AGREE_STEPS = 256, 3
+SP_AGREE_RUNS = {"ulysses": ("flash", 1, "one_process", (1e-5, 1e-5)),
+                 "ring": ("ring", 1, "one_process", (1e-4, 1e-4)),
+                 "ulysses_tiles4": ("flash", 4, "ulysses", (1e-6, 1e-5))}
+#: the bf16 bounds of tests/test_torch_train.py (loss, grad norm), for sp 2
+#: against one process
+SP_BF16_RTOL = (2e-2, 5e-2)
+
+
+def sp_model_config(**kw):
+    from deepspeed_tpu_torch import LlamaConfig
+    return LlamaConfig.llama3_8b(num_layers=SP_LAYERS, dtype=torch.bfloat16,
+                                 param_dtype=torch.float32,
+                                 attn_impl="flash", loss_tiles=SP_TILES, **kw)
+
+
+def sp_agree_config(attn: str, tiles: int):
+    from deepspeed_tpu_torch import LlamaConfig
+    return LlamaConfig(**dict(AGREE_TRAIN, attn_impl=attn), loss_tiles=tiles)
+
+
+def sp_steps(engine, ids, steps: int) -> dict:
+    """``steps`` train steps on one batch: losses, grad norms, host-clock
+    step times (each ends in a synchronize), the training kernels' and the
+    all-to-all's counts from 0 around them."""
+    from deepspeed_tpu_torch import comm
+
+    reset_counts()
+    comm.all_to_all_in_graph.calls = 0
+    out = {"loss": [], "grad_norm": [], "host_step_ms": []}
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = engine.train_step({"input_ids": ids})
+        torch.cuda.synchronize()
+        out["host_step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    out["launches"] = train_launches()
+    out["all_to_all"] = comm.all_to_all_in_graph.calls
+    return out
+
+
+def sp_ids(seed: int, vocab: int, dev) -> torch.Tensor:
+    """train_sp's one whole row, the same on every rank."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    return torch.randint(0, vocab, (1, SP_SEQ), generator=gen, device=dev)
+
+
+def sp_agree_ids(seed: int, dev) -> torch.Tensor:
+    return zero_batch(seed + 6, AGREE_TRAIN["vocab_size"], 2, dev)[
+        :, :SP_AGREE_SEQ]
+
+
+def sp_agree_run(cfg, seed: int, dev, sp: int) -> dict:
+    """The fp32 agreement model (rank 0's weights: seed + 4) through
+    ``initialize`` at ``sp``, ``SP_AGREE_STEPS`` steps on one batch."""
+    from deepspeed_tpu_torch import LlamaModel, initialize
+
+    model = LlamaModel(cfg, device=dev, seed=seed + 4)
+    engine, *_ = initialize(model=model, config=dict(
+        ds_config(model, 2), sequence_parallel={"sp_size": sp},
+        optimizer={"type": "AdamW", "params": {"lr": 1e-3}}), device=dev)
+    out = sp_steps(engine, sp_agree_ids(seed, dev), SP_AGREE_STEPS)
+    del model, engine
+    return out
+
+
+def sp_train_rank(rank: int, seed: int) -> dict:
+    """One rank of train_sp: the 8B-width model through ``initialize``
+    with ``sequence_parallel.sp_size`` SP on the whole ``[1, SP_SEQ]`` row
+    (its 4096-token chunk from the embedding to the loss), then the fp32
+    agreement runs at sp 2."""
+    from deepspeed_tpu_torch import LlamaModel, initialize
+
+    dev = zero_rank_setup()
+    cfg = sp_model_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaModel(cfg, device=dev, seed=seed + rank)
+    engine, *_ = initialize(model=model, config=dict(
+        ds_config(model, 1), sequence_parallel={"sp_size": SP}), device=dev)
+    setup_s = time.perf_counter() - t0
+    ids = sp_ids(seed, cfg.vocab_size, dev)
+    out = {"train": dict(sp_steps(engine, ids, SP_STEPS),
+                         setup_s=setup_s, sp_rank=engine.sp_rank,
+                         state_bytes=zero_state_bytes(engine),
+                         peak_mem_bytes=torch.cuda.max_memory_allocated())}
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, (attn, tiles, _, _) in SP_AGREE_RUNS.items():
+        out[label] = sp_agree_run(sp_agree_config(attn, tiles), seed, dev,
+                                  SP)
+    return out
+
+
+
+def require_sp_launches(what: str, run: dict, attn: str, layers: int,
+                        steps: int, sp: int) -> None:
+    """The flash launches of the formula (none on the ring) and, on the
+    Ulysses route at sp above 1, ``SP_A2A_PER_LAYER_STEP`` all-to-alls a
+    layer a step (none otherwise)."""
+    require_train_launches(what, dict(
+        layers=layers if attn == "flash" else 0, steps=steps, remat=True,
+        fused_adam=False, launches=run["launches"]))
+    want = (steps * layers * SP_A2A_PER_LAYER_STEP
+            if attn == "flash" and sp > 1 else 0)
+    require(run["all_to_all"] == want, f"{what}: {run['all_to_all']} "
+                                       f"all-to-alls, want {want}")
+
+
+def phase_train_sp(dev, seed: int) -> dict:
+    """train_sp: ``SP`` ranks on card 0 over gloo (one launch) train the
+    8B-width model at sp 2: finite, falling losses equal on both ranks;
+    per rank and step 2 L flash forwards (remat), L dq and L dk/dv passes
+    at the Ulysses shape (B 1, the full S on h/sp heads) and
+    ``SP_A2A_PER_LAYER_STEP`` L all-to-alls; then one process trains the
+    same model, weights and row at sp 1 on the card: the losses and grad
+    norms within ``SP_BF16_RTOL``.  The fp32 agreements of the same launch
+    (``SP_AGREE_RUNS``) against the sp-1 run in this process, or the
+    Ulysses run."""
+    from deepspeed_tpu_torch import LlamaModel, initialize
+    from deepspeed_tpu_torch.launcher import launch
+    from deepspeed_tpu_torch.ops import op_builder
+
+    op_builder.build()  # here, so the ranks do not both run nvcc
+    free_host_cache()
+    t0 = time.perf_counter()
+    ranks = launch(sp_train_rank, SP, (seed,), timeout=SP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    L = SP_LAYERS
+    base = ranks[0]["train"]
+    for r, res in enumerate(ranks):
+        t = res["train"]
+        require(all(np.isfinite(t["loss"])),
+                f"train_sp rank {r}: non-finite loss {t['loss']}")
+        require(t["loss"][-1] < t["loss"][0],
+                f"train_sp rank {r}: loss did not fall: {t['loss']}")
+        require(t["loss"] == base["loss"] and
+                t["grad_norm"] == base["grad_norm"],
+                f"train_sp: rank {r}'s losses {t['loss']} / grad norms "
+                f"{t['grad_norm']} != rank 0's")
+        require_sp_launches(f"train_sp rank {r}", t, "flash", L, SP_STEPS,
+                            SP)
+    free_host_cache()
+    cfg = sp_model_config()
+    model = LlamaModel(cfg, device=dev, seed=seed)  # rank 0's weights
+    engine, *_ = initialize(model=model, config=ds_config(model, 1),
+                            device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    one = sp_steps(engine, sp_ids(seed, cfg.vocab_size, dev), SP_STEPS)
+    one["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    require_sp_launches("train_sp one process", one, "flash", L, SP_STEPS, 1)
+    del model, engine
+    free_host_cache()
+    rel = {}
+    for what, tol in zip(("loss", "grad_norm"), SP_BF16_RTOL):
+        rel[what] = _max_rel(base[what], one[what])
+        require(rel[what] <= tol, f"train_sp: sp {SP}'s {what} "
+                                  f"{base[what]} != one process's "
+                                  f"{one[what]} (rel {rel[what]} > {tol})")
+    agree = {"one_process": sp_agree_run(sp_agree_config("flash", 1), seed,
+                                         dev, 1)}
+    require_sp_launches("train_sp_agree one_process", agree["one_process"],
+                        "flash", AGREE_TRAIN["num_layers"], SP_AGREE_STEPS,
+                        1)
+    agree_rel = {}
+    for label, (attn, tiles, against, tols) in SP_AGREE_RUNS.items():
+        agree[label] = run = ranks[0][label]
+        require(all(r[label]["loss"] == run["loss"] for r in ranks),
+                f"train_sp_agree {label}: the ranks' losses differ")
+        require_sp_launches(f"train_sp_agree {label}", run, attn,
+                            AGREE_TRAIN["num_layers"], SP_AGREE_STEPS, SP)
+        for what, tol in zip(("loss", "grad_norm"), tols):
+            agree_rel[f"{label}_{what}"] = e = _max_rel(
+                run[what], agree[against][what])
+            require(e <= tol, f"train_sp_agree {label}: {what} "
+                              f"{run[what]} != {against}'s "
+                              f"{agree[against][what]} (rel {e} > {tol})")
+    tokens = SP_SEQ
+    step_ms = statistics.median(base["host_step_ms"][1:])
+    return {"train": dict(
+        layers=L, sp=SP, batch=[1, SP_SEQ], tokens_per_rank=SP_SEQ // SP,
+        steps=SP_STEPS, dtype="bfloat16", attn_impl="flash",
+        loss_tiles=SP_TILES, remat=True, params=cfg.num_params(),
+        heads_per_rank=cfg.num_heads // SP,
+        ranks=[r["train"] for r in ranks], one_process=one,
+        rel_to_one_process=rel, tolerance=dict(zip(("loss", "grad_norm"),
+                                                   SP_BF16_RTOL)),
+        all_to_all_formula=f"{SP_A2A_PER_LAYER_STEP} x layers x steps",
+        host_step_ms=step_ms, tokens_per_s_host=tokens / step_ms * 1e3,
+        launch_wall_s=wall),
+        "agree": dict(
+            model=dict((k, v) for k, v in AGREE_TRAIN.items()
+                       if k not in ("dtype", "param_dtype")),
+            batch=[2, SP_AGREE_SEQ], steps=SP_AGREE_STEPS, sp=SP,
+            runs=agree, max_rel=agree_rel,
+            tolerance={label: {"against": against, "loss": tols[0],
+                               "grad_norm": tols[1]}
+                       for label, (_, _, against, tols)
+                       in SP_AGREE_RUNS.items()})}
+
+
+def emit_train_sp(out: dict) -> None:
+    """The train_sp and train_sp_agree lines of one launch."""
+    reduced = ["cards 2 -> 1, NCCL -> gloo through the host"]
+    emit(dict(phase="train_sp", model="llama3_8b",
+              reduced=[f"num_layers 32 -> {SP_LAYERS}"] + reduced,
+              comm=SP_NOTE, card=nvidia_smi_line(), **out["train"]))
+    emit(dict(phase="train_sp_agree", dtype="float32", reduced=reduced,
+              comm=SP_NOTE, **out["agree"]))
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -4544,7 +4799,8 @@ def main() -> int:
                          "train_resnet, serve_opt, generate_opt (one run "
                          "gives both), agree_opt, train_infinity, "
                          "train_infinity_nvme, train_infinity_agree, "
-                         "train_offload)")
+                         "train_offload, train_sp, train_sp_agree (one "
+                         "launch runs both))")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU path "
@@ -4616,7 +4872,8 @@ def main() -> int:
             emit(dict(phase="train_zero", run=label, stage=stage,
                       fused_adam=fused, model="bench.py headline",
                       ranks=ZERO_RANKS, global_batch=[TRAIN_BATCH, TRAIN_SEQ],
-                      reduced=["cards 2 -> 1, NCCL -> gloo through the host"],
+                      reduced=["cards 2 -> 1, NCCL -> gloo through the host",
+                               "steps 4 -> 3 (the script's length)"],
                       comm=ZERO_NOTE,
                       loss_rel_to_stage0=out["loss_rel_to_stage0"][label],
                       **{f"rank{r}": x[label]
@@ -4625,7 +4882,8 @@ def main() -> int:
                   stage=ZERO_OFFLOAD_STAGE, offload_optimizer="cpu",
                   model="bench.py headline", ranks=ZERO_RANKS,
                   global_batch=[TRAIN_BATCH, TRAIN_SEQ],
-                  reduced=["cards 2 -> 1, NCCL -> gloo through the host"],
+                  reduced=["cards 2 -> 1, NCCL -> gloo through the host",
+                           "steps 4 -> 3 (the script's length)"],
                   comm=ZERO_NOTE,
                   one_process_loss=out["offload_one_process_loss"],
                   rel_to_one_process=out["offload_rel_to_one_process"],
@@ -4657,14 +4915,17 @@ def main() -> int:
                   global_batch=[MOE_EP, TRAIN_SEQ], dtype="bfloat16",
                   fused_adam=True, reduced=[
                       f"num_layers 32 -> {MOE_TRAIN_LAYERS}",
-                      "cards 2 -> 1, NCCL -> gloo through the host"],
+                      "cards 2 -> 1, NCCL -> gloo through the host",
+                      "steps 4 -> 3 (the script's length)"],
                   comm=MOE_EP_NOTE, card=nvidia_smi_line(), **out))
 
     def sparse():
         rows, res["sparse"] = phase_sparse(dev)
         for row in rows:  # one line per case
             emit(dict(phase="sparse", dtype="bfloat16", **row))
-        emit(dict(phase="sparse", launches=res["sparse"]))
+        emit(dict(phase="sparse", launches=res["sparse"], reduced=[
+            "timed calls a rep 30 / 10 / 3 -> 15 / 5 / 2 at S <= 4096 / "
+            "8192 / above (the script's length)"]))
 
     def serving(moe: bool):
         cfg = (MixtralConfig.mixtral_8x7b(num_layers=MOE_SERVE_LAYERS)
@@ -4738,7 +4999,8 @@ def main() -> int:
                                            timeout=900)[0]
         t["mem_available_in_parent"] = parent
         emit(dict(phase="train_infinity", model="llama3_70b",
-                  reduced=[f"num_layers 80 -> {t['layers']}"],
+                  reduced=[f"num_layers 80 -> {t['layers']} (4 -> 3 and "
+                           "steps 4 -> 3 for the script's length)"],
                   offload_param="cpu", **t))
 
     def train_offload():
@@ -4747,9 +5009,15 @@ def main() -> int:
         res["train_offload"] = phase_train_offload(
             dev, args.seed, res["train_8b_width"]["peak_mem_gb"])
         emit(dict(phase="train_offload", model="llama3_8b",
-                  reduced=[f"num_layers 32 -> {WIDE_LAYERS}"],
+                  reduced=[f"num_layers 32 -> {WIDE_LAYERS}",
+                           "steps 4 -> 3 (the script's length)"],
                   offload_optimizer="cpu", card=nvidia_smi_line(),
                   **res["train_offload"]))
+
+    def train_sp():
+        out = phase_train_sp(dev, args.seed)
+        res["train_sp"] = out["train"]["ranks"][0]
+        emit_train_sp(out)
 
     def train_bert():
         res["train_bert"] = phase_train_bert(dev, args.seed)
@@ -4764,7 +5032,8 @@ def main() -> int:
                       global_batch=[BERT_BATCH, BERT_SEQ], dtype="bfloat16",
                       reduced=[f"num_layers 24 -> {BERT_ZERO_LAYERS}",
                                "cards 2 -> 1, NCCL -> gloo through the "
-                               "host"], comm=ZERO_NOTE,
+                               "host", "steps 4 -> 3 (the script's "
+                               "length)"], comm=ZERO_NOTE,
                       loss_rel_to_stage0=out["loss_rel_to_stage0"][label],
                       **{f"rank{r}": x[label]
                          for r, x in enumerate(out["ranks"])}))
@@ -4830,10 +5099,12 @@ def main() -> int:
         "train_offload": train_offload,
         "train_infinity_nvme": lambda: emit(dict(
             phase="train_infinity_nvme", model="llama3_8b",
-            reduced=[f"num_layers 32 -> {NVME_LAYERS}"],
+            reduced=[f"num_layers 32 -> {NVME_LAYERS} (4 -> 3 and steps "
+                     "3 -> 2 a tier for the script's length)"],
             offload_param="nvme, then cpu", card=nvidia_smi_line(),
             **phase_train_infinity_nvme(dev, args.seed))),
-        "train_infinity": train_infinity}
+        "train_infinity": train_infinity,
+        "train_sp": train_sp, "train_sp_agree": train_sp}
     only = [p for p in args.only.split(",") if p]
     unknown = set(only) - set(phases)
     if unknown:
@@ -4867,7 +5138,7 @@ def main() -> int:
 
     ep, smt = res["train_moe_ep"], res["serve_moe_tp"]
     tb, so, go = res["train_bert"], res["serve_opt"], res["generate_opt"]
-    ti = res["train_infinity"]
+    ti, tsp = res["train_infinity"], res["train_sp"]
 
     def moe_launches(kernel):  # every MoE main path (a rank's on EP, TP)
         return sum(x["launches"][kernel] for x in (
@@ -4954,10 +5225,20 @@ def main() -> int:
                              flash["flash_bwd_dq"]),
         "flash_bwd_dkv_70b": (flash_src, pallas + "flash_attention.py:472",
                               ti["launches"]["flash_bwd_dkv"],
-                              flash["flash_bwd_dkv"])}
+                              flash["flash_bwd_dkv"]),
+        # the sequence-parallel slice: the flash kernels at the Ulysses
+        # shape, the full S 8192 on h/sp heads (launches: train_sp, a rank)
+        "flash_fwd_sp": (flash_src, pallas + "flash_attention.py:260",
+                         tsp["launches"]["flash_fwd"], flash["flash_fwd"]),
+        "flash_bwd_dq_sp": (flash_src, pallas + "flash_attention.py:453",
+                            tsp["launches"]["flash_bwd_dq"],
+                            flash["flash_bwd_dq"]),
+        "flash_bwd_dkv_sp": (flash_src, pallas + "flash_attention.py:472",
+                             tsp["launches"]["flash_bwd_dkv"],
+                             flash["flash_bwd_dkv"])}
 
     def case_of(name):  # a flash row's timed case
-        for suffix in ("bert", "70b"):
+        for suffix in ("bert", "70b", "sp"):
             if name.endswith("_" + suffix):
                 return suffix
         return "headline"

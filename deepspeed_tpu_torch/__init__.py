@@ -26,7 +26,11 @@ ResNet, OPT (served on the decode and paged kernels), and the Hugging Face
 checkpoint importers (``models.load_hf_*``); and ZeRO-Offload and
 ZeRO-Infinity (``zero_optimization.offload_optimizer`` / ``offload_param``:
 the host C++ optimizers of :mod:`.ops.adam`, the cpu and nvme tiers,
-layer streaming, :mod:`.runtime.swap_tensor`).  Every
+layer streaming, :mod:`.runtime.swap_tensor`); and sequence parallelism:
+Ulysses and ring attention over a ``seq`` axis with ALST's tiled loss
+and MLP (``sequence_parallel.sp_size``, :mod:`.runtime.sequence_parallel`,
+:class:`DistributedAttention`), the flash kernels on each rank's heads.
+Every
 entry point runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run.
 """
@@ -42,12 +46,20 @@ from .models import (BertConfig, BertModel, LlamaConfig, LlamaModel,
                      load_hf_mistral, load_hf_mixtral, load_hf_opt)
 from .moe import MoE
 from .runtime import DeepSpeedConfig, DeepSpeedEngine, initialize
+from .runtime import sequence_parallel
+from .sequence import DistributedAttention
 from .serving import ServingParams, build_serving_frontend
+from .utils.groups import (get_sequence_parallel_group,
+                           get_sequence_parallel_rank,
+                           get_sequence_parallel_world_size)
 
 __all__ = ["BertConfig", "BertModel", "DeepSpeedConfig", "DeepSpeedEngine",
-           "KVCacheConfig", "LlamaConfig", "LlamaModel", "MixtralConfig",
-           "MixtralModel", "MoE", "OPTConfig", "OPTModel", "ResNetConfig",
-           "ResNetModel", "ServingParams", "build_engine_v2",
-           "build_serving_frontend", "comm", "init_distributed",
+           "DistributedAttention", "KVCacheConfig", "LlamaConfig",
+           "LlamaModel", "MixtralConfig", "MixtralModel", "MoE", "OPTConfig",
+           "OPTModel", "ResNetConfig", "ResNetModel", "ServingParams",
+           "build_engine_v2", "build_serving_frontend", "comm",
+           "get_sequence_parallel_group", "get_sequence_parallel_rank",
+           "get_sequence_parallel_world_size", "init_distributed",
            "init_inference", "initialize", "load_hf_bert", "load_hf_llama",
-           "load_hf_mistral", "load_hf_mixtral", "load_hf_opt", "zero"]
+           "load_hf_mistral", "load_hf_mixtral", "load_hf_opt",
+           "sequence_parallel", "zero"]

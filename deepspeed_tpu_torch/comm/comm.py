@@ -5,9 +5,14 @@ Counterpart of ``deepspeed_tpu/comm/comm.py`` (the reference's
 environment (``MASTER_ADDR`` / ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
 ``LOCAL_RANK``), the rank queries, ``ReduceOp`` and the eager verbs
 ``all_reduce``, ``all_gather``, ``reduce_scatter``, ``all_to_all_single``,
-``broadcast``, ``barrier`` and ``new_group``.  The JAX package's verbs run XLA collectives over a mesh of
-one controller; here every rank is a process and a verb is a
-``torch.distributed`` collective over a process group.  A ``group`` is a
+``broadcast``, ``barrier`` and ``new_group``, and the two collectives the
+sequence-parallel layers differentiate through: ``all_to_all_in_graph``
+(the Ulysses all-to-all, tiled, along any split and concat axes) and
+``ppermute`` (the ring's send/receive pairs), each a
+``torch.autograd.Function`` whose backward is the inverse exchange.  The
+JAX package's verbs run XLA collectives over a mesh of one controller;
+here every rank is a process and a verb is a ``torch.distributed``
+collective over a process group.  A ``group`` is a
 ``torch.distributed`` group, ``None`` for the whole world, or the name of
 a mesh axis (or a tuple of them), resolved through
 :mod:`deepspeed_tpu_torch.utils.groups`.
@@ -248,3 +253,110 @@ def broadcast(tensor: torch.Tensor, src: int = 0,
 
 def barrier(group: GroupLike = None) -> None:
     dist.barrier(group=_resolve(group))
+
+
+def _all_to_all_tiled(tensor: torch.Tensor, group: Any, split_axis: int,
+                      concat_axis: int) -> torch.Tensor:
+    """Cut ``tensor`` into ``n`` equal blocks along ``split_axis``, send
+    block ``j`` to group rank ``j``, and concatenate the blocks received
+    along ``concat_axis`` in group-rank order (``jax.lax.all_to_all`` with
+    ``tiled=True``)."""
+    n = dist.get_world_size(group)
+    if tensor.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of "
+                         f"{tuple(tensor.shape)} does not split over {n} "
+                         "ranks")
+    all_to_all_in_graph.calls += 1
+    send = torch.stack(tensor.chunk(n, dim=split_axis))
+    return torch.cat(all_to_all_single(send, group).unbind(0),
+                     dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    """Forward: the tiled all-to-all; backward: the inverse one (split and
+    concat axes swapped), the reference's ``_SeqAllToAll``."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return _all_to_all_tiled(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_axis, concat_axis = ctx.axes
+        return (_all_to_all_tiled(grad.contiguous(), ctx.group, concat_axis,
+                                  split_axis), None, None, None)
+
+
+def all_to_all_in_graph(x: torch.Tensor, group: GroupLike = None,
+                        split_axis: int = 0, concat_axis: int = 0,
+                        tiled: bool = True) -> torch.Tensor:
+    """The Ulysses / MoE all-to-all with a gradient (JAX
+    ``all_to_all_in_graph``): ``x`` cut along ``split_axis``, the blocks
+    exchanged, and what arrives concatenated along ``concat_axis``; the
+    backward sends the gradient back the same way.  Only the tiled form is
+    ported.  ``all_to_all_in_graph.calls`` counts the exchanges (backward
+    ones included) since the caller last set it to 0."""
+    if not tiled:
+        raise NotImplementedError("all_to_all_in_graph: only tiled=True is "
+                                  "ported")
+    group = _resolve(group)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+all_to_all_in_graph.calls = 0
+
+
+def _ppermute(tensor: torch.Tensor, perm: Sequence[Tuple[int, int]],
+              group: Any) -> torch.Tensor:
+    """Each ``(src, dst)`` pair of group ranks: ``src``'s ``tensor`` lands on
+    ``dst``; a rank no pair sends to gets zeros (``jax.lax.ppermute``).  The
+    pairs run as one batch of ``isend`` / ``irecv``."""
+    me = dist.get_rank(group)
+    src = tensor.contiguous()
+    if _through_host(src, group):
+        src = _pinned_copy(src)
+    out = torch.zeros_like(src)
+
+    def peer(r: int) -> int:
+        return r if group is None else dist.get_global_rank(group, r)
+
+    ops = []
+    for s, d in perm:
+        if s == me and d == me:
+            out.copy_(src)
+        elif s == me:
+            ops.append(dist.P2POp(dist.isend, src, peer(d), group))
+        elif d == me:
+            ops.append(dist.P2POp(dist.irecv, out, peer(s), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out.to(tensor.device)
+
+
+class _PPermute(torch.autograd.Function):
+    """Forward: the permutation; backward: the gradient along the inverse
+    permutation."""
+
+    @staticmethod
+    def forward(ctx, x, perm, group):
+        ctx.perm, ctx.group = perm, group
+        return _ppermute(x, perm, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        return _ppermute(grad, inverse, ctx.group), None, None
+
+
+def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
+             group: GroupLike = None) -> torch.Tensor:
+    """Send/receive pairs over the group with a gradient (JAX
+    ``ppermute``): ``perm`` lists ``(source, destination)`` group ranks;
+    every rank of the group calls it with the same pairs."""
+    group = _resolve(group)
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    return _PPermute.apply(x, perm, group)

@@ -34,8 +34,23 @@ and the norms are whole.  Rank ``r`` owns query heads ``[r·h/tp,
 one rank.  The outputs of ``o_proj`` and ``down_proj`` are all-reduced over
 the tensor group in the compute dtype (Megatron's *g*, the JAX model's
 ``_tp_reduce``), and the logits' vocabulary blocks are all-gathered.
-Training under tensor parallelism, pipeline and sequence parallelism and
-``loss_tiles`` are not ported yet.
+Training under tensor parallelism and pipeline parallelism is not
+ported yet.
+
+Sequence parallelism (training; ``runtime/sequence_parallel``): on a mesh
+whose ``seq`` axis has size ``sp`` above 1 (``initialize`` hands the model
+its mesh), :meth:`LlamaModel.loss` takes the rank's full-sequence rows,
+makes the labels from the whole sequence, and keeps its own ``S/sp``
+chunk from the embedding to the loss, RoPE at global positions.  At each
+attention the Ulysses all-to-all gives the rank the full sequence on
+``h/sp`` heads (GQA K/V repeated first, as the JAX model does), or, under
+``attn_impl="ring"``, the K/V blocks travel the ring at their kv width.
+The loss is the rank's Σ nll over the valid-label count summed over
+``seq``, so the ranks' losses (and, summed by the engine, their
+gradients) add up to the token mean of the whole sequence.
+``config.loss_tiles`` above 1 forms the logits and the loss a tile of the
+sequence at a time (:func:`~..runtime.sequence_parallel.ulysses_sp.
+sequence_tiled_nll`), with or without a ``seq`` axis.
 
 Data parallelism (``runtime/engine.py``): every read of a weight goes
 through ``runtime/zero/sharder.compute_weight``, a cast to the compute
@@ -63,7 +78,11 @@ from ..comm import comm
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.masks import local_attention_mask
-from ..parallel.mesh import AXIS_TENSOR, ProcessMesh
+from ..parallel.mesh import AXIS_SEQ, AXIS_TENSOR, ProcessMesh
+from ..runtime.sequence_parallel.ring import ring_attention
+from ..runtime.sequence_parallel.ulysses_sp import (seq_group_of,
+                                                    sequence_tiled_nll,
+                                                    ulysses_attention)
 from ..runtime.zero.init_ctx import active as zero_init_active
 from ..runtime.zero.init_ctx import materialize
 from ..runtime.zero.sharder import compute_weight
@@ -99,9 +118,15 @@ class LlamaConfig:
     #: ``dots_with_no_batch_dims_saveable``)
     remat: bool = True
     #: training attention: "flash" runs the CUDA flash kernels, "xla" the
-    #: plain einsum + softmax (the JAX config's flash block sizes have no
-    #: counterpart: the Hopper kernels fix their own 64 x 64 tile)
+    #: plain einsum + softmax, "ring" ring attention over a ``seq`` axis
+    #: above 1 (plain attention without one); the JAX config's flash block
+    #: sizes have no counterpart: the Hopper kernels fix their own 64 x 64
+    #: tile
     attn_impl: str = "xla"
+    #: above 1: the final projection and the loss run a tile of
+    #: ``S/loss_tiles`` positions at a time, so the ``[B, S, V]`` logits are
+    #: never whole (ALST's sequence-tiled loss; S % loss_tiles: one tile)
+    loss_tiles: int = 1
     #: weight of the routers' load-balancing loss in ``loss`` (the JAX
     #: model's ``aux_loss_coef``; a dense model has no router)
     aux_loss_coef: float = 0.0
@@ -167,16 +192,22 @@ def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (x32 * torch.rsqrt(var + eps)).to(dt) * compute_weight(w, dt)
 
 
-def masked_cross_entropy(logits: torch.Tensor,
-                         labels: torch.Tensor) -> torch.Tensor:
-    """Token-mean cross entropy in fp32 with -100 ignore positions (HF
-    convention)."""
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(Σ nll, valid count)`` in fp32 with -100 ignore positions (HF
+    convention); the count carries no gradient."""
     valid = labels != -100
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None].long())[..., 0]
-    return (torch.where(valid, nll, torch.zeros_like(nll)).sum()
-            / valid.sum().clamp(min=1))
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum(), valid.sum()
+
+
+def masked_cross_entropy(logits: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross entropy in fp32 with -100 ignore positions."""
+    total, count = masked_nll(logits, labels)
+    return total / count.clamp(min=1)
 
 
 #: forward ops whose outputs remat keeps: the weight matmuls (F.linear lowers
@@ -360,6 +391,9 @@ class LlamaModel(nn.Module):
     #: the model's expert-parallel split (a Mixtral's experts): 1, no experts
     ep = 1
     ep_rank = 0
+    #: trains on a mesh whose ``seq`` axis is above 1 (``initialize``
+    #: refuses such a mesh for a model without this)
+    sequence_parallel = True
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = "cuda",
                  seed: int = 0, mesh: Optional[ProcessMesh] = None,
@@ -625,37 +659,67 @@ class LlamaModel(nn.Module):
 
     # -- training (loss with a gradient) -----------------------------------
 
+    def _seq(self) -> Tuple[Any, int]:
+        """``(the seq group or None, sp)`` of the model's mesh."""
+        if self.mesh is None:
+            return None, 1
+        group, sp = seq_group_of(self.mesh)
+        if sp > 1 and not self.sequence_parallel:
+            raise NotImplementedError(
+                f"{type(self).__name__} under a seq axis is not ported yet "
+                "(ROADMAP Queue 1 item 7b: a MoE layer's capacity and aux "
+                "loss are over the global tokens)")
+        return group, sp
+
+    def _attention(self, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+        """Causal attention over a whole sequence ``[B, S, h, d]``
+        (positions 0 .. S-1): the flash kernels or the plain einsum."""
+        c = self.config
+        if c.attn_impl == "flash":
+            return flash_attention(q, k, v, True, window=c.sliding_window)
+        if c.attn_impl in ("xla", "ring"):
+            pos = torch.arange(q.shape[1], device=q.device)
+            return _attention(q, k, v, local_attention_mask(
+                pos, pos, causal=True, window=c.sliding_window))
+        raise ValueError(f"attn_impl {c.attn_impl!r} is not ported (use "
+                         "'flash', 'xla' or 'ring')")
+
     def _train_layer(self, layer: LlamaDecoderLayer, x: torch.Tensor,
                      pos: torch.Tensor) -> Tuple[torch.Tensor, AuxLoss]:
-        """One decoder layer over ``x [B, S, H]`` → ``(x, aux loss)``: GQA
-        K/V repeated to the query heads before attention, as the JAX model
-        does (the gradient of the repeat sums back into the kv heads)."""
+        """One decoder layer over ``x [B, S, H]`` (under a ``seq`` axis
+        this rank's chunk, ``pos`` its global positions) → ``(x, aux
+        loss)``.  GQA K/V are repeated to the query heads before attention
+        and before the Ulysses all-to-all, as the JAX model does (the
+        gradient of the repeat sums back into the kv heads); the ring
+        rotates them at their kv width."""
         c = self.config
         q, k, v = self.qkv(layer, x, pos[None])
-        n_rep = c.num_heads // c.num_kv_heads
-        k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-        if c.attn_impl == "flash":
-            attn = flash_attention(q, k, v, True, window=c.sliding_window)
-        elif c.attn_impl == "xla":
-            attn = _attention(q, k, v, local_attention_mask(
-                pos, pos, causal=True, window=c.sliding_window))
+        group, sp = self._seq()
+        if c.attn_impl == "ring" and sp > 1:
+            attn = ring_attention(q, k, v, True, window=c.sliding_window,
+                                  group=group)
         else:
-            raise ValueError(f"attn_impl {c.attn_impl!r} is not ported "
-                             "(use 'flash' or 'xla')")
+            n_rep = c.num_heads // c.num_kv_heads
+            k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+            attn = (ulysses_attention(self._attention, q, k, v, group=group)
+                    if sp > 1 else self._attention(q, k, v))
         return self._post_attn(layer, x, attn)
 
-    def hidden_states(self, input_ids: torch.Tensor
+    def hidden_states(self, input_ids: torch.Tensor, offset: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``[B, S]`` ids → (final-norm'd ``[B, S, H]``, the layers' aux
-        losses summed, fp32), with a gradient.  Under ``config.remat`` each
-        layer is recomputed in the backward, keeping only its weight
-        matmuls' outputs."""
+        """``[B, S]`` ids at positions ``offset ..`` → (final-norm'd
+        ``[B, S, H]``, the layers' aux losses summed, fp32), with a
+        gradient.  Under ``config.remat`` each layer is recomputed in the
+        backward, keeping only its weight matmuls' outputs (the recompute
+        re-runs the layer's all-to-alls: every ``seq`` rank issues them in
+        the same order)."""
         if self.tp > 1:
             raise NotImplementedError("training under tensor parallelism is "
                                       "not ported yet (ROADMAP Queue 1 item "
                                       "5b)")
         c = self.config
-        pos = torch.arange(input_ids.shape[1], device=self.device)
+        pos = offset + torch.arange(input_ids.shape[1], device=self.device)
         x = self.embed_tokens(input_ids)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         remat = c.remat and torch.is_grad_enabled()
@@ -726,16 +790,59 @@ class LlamaModel(nn.Module):
         hidden = _rms_norm(x, params["final_norm"], c.rms_norm_eps)
         head = params["embed.weight" if c.tie_embeddings
                       else "lm_head.weight"]
-        logits = F.linear(hidden, compute_weight(head, c.dtype)).float()
-        return masked_cross_entropy(logits, labels)
+        total, count = self._nll(head, hidden, labels)
+        return total / count.clamp(min=1)
+
+    def _nll(self, head: torch.Tensor, hidden: torch.Tensor,
+             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(Σ nll, valid count)`` of the LM head ``head [V, H]`` (cast at
+        use) over final-norm'd ``hidden``; tiled over the sequence when
+        ``config.loss_tiles`` is above 1 (JAX ``_ce_from_hidden``)."""
+        c = self.config
+        w = compute_weight(head, c.dtype)
+
+        def logits(h: torch.Tensor) -> torch.Tensor:
+            return F.linear(h, w)
+
+        if c.loss_tiles > 1:
+            return sequence_tiled_nll(logits, hidden, labels, c.loss_tiles)
+        return masked_nll(logits(hidden), labels)
+
+    def _seq_chunk(self, input_ids: torch.Tensor, labels: torch.Tensor,
+                   sp: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """This ``seq`` rank's ``S/sp`` positions of the ids and of the
+        labels made from the whole sequence (a chunk's last label is the
+        next chunk's first token), and the chunk's first position."""
+        c = self.config
+        S = input_ids.shape[1]
+        if S % sp:
+            raise ValueError(f"sequence length {S} not divisible by sp={sp}")
+        if c.attn_impl != "ring" and c.num_heads % sp:
+            raise ValueError(f"num_heads {c.num_heads} not divisible by "
+                             f"sp={sp}: Ulysses gives each seq rank h/sp "
+                             "heads; use attn_impl='ring'")
+        n = S // sp
+        lo = self.mesh.axis_rank(AXIS_SEQ) * n
+        return input_ids[:, lo:lo + n], labels[:, lo:lo + n], lo
 
     def loss(self, batch: Any) -> torch.Tensor:
         """Next-token cross entropy plus ``aux_loss_coef`` times the summed
-        router aux losses (fp32 scalar), with a gradient."""
+        router aux losses (fp32 scalar), with a gradient.  ``batch`` holds
+        whole rows; under a ``seq`` axis this rank's share: its chunk's Σ
+        nll over the valid labels of the whole sequence (the count summed
+        over ``seq``, without a gradient)."""
         input_ids, labels = self.batch_labels(batch)
-        hidden, aux = self.hidden_states(input_ids)
-        ce = masked_cross_entropy(self.logits(hidden), labels)
-        return ce + self.config.aux_loss_coef * aux
+        group, sp = self._seq()
+        offset = 0
+        if sp > 1:
+            input_ids, labels, offset = self._seq_chunk(input_ids, labels,
+                                                        sp)
+        hidden, aux = self.hidden_states(input_ids, offset)
+        total, count = self._nll(self.head_weight(), hidden, labels)
+        if sp > 1:
+            count = comm.all_reduce(count, group=group)
+        return (total / count.clamp(min=1)
+                + self.config.aux_loss_coef * aux)
 
 
 class _LayerCall(nn.Module):

@@ -123,6 +123,9 @@ class MixtralModel(LlamaModel):
     """Llama backbone + top-k routed SwiGLU experts."""
 
     layer_cls = MixtralDecoderLayer
+    #: the router's capacity and aux loss are over the global tokens
+    #: (ROADMAP Queue 1 item 7b)
+    sequence_parallel = False
 
     def __init__(self, config: MixtralConfig, device: DeviceLike = "cuda",
                  seed: int = 0, mesh: Optional[ProcessMesh] = None,

@@ -186,6 +186,12 @@ class CheckpointEngine:
         self.wait()
         return True
 
+    def defer_commit(self, commit_fn: Commit) -> None:
+        """Run ``commit_fn`` where a save's commit would run, for a rank
+        that writes nothing (a ``seq`` rank other than 0): now for a
+        synchronous engine."""
+        commit_fn()
+
     def wait(self) -> None:
         """Join an in-flight save and run its commit (nothing for a
         synchronous engine)."""
@@ -263,6 +269,11 @@ class DecoupledCheckpointEngine(CheckpointEngine):
             torch.cuda.current_stream(dev).synchronize()
         return host
 
+    def defer_commit(self, commit_fn: Commit) -> None:
+        """At the next :meth:`wait`, as an async save's commit."""
+        self.wait()
+        self._pending_commit = commit_fn
+
     def save(self, state_tree: Any, path: str, commit_fn: Commit = None
              ) -> None:
         self.wait()
@@ -289,6 +300,9 @@ class DecoupledCheckpointEngine(CheckpointEngine):
 
     def wait(self) -> None:
         if self._pending is None:
+            commit, self._pending_commit = self._pending_commit, None
+            if commit is not None:  # a deferred commit: nothing written
+                commit()
             return
         self._thread.join()
         pending, commit = self._pending, self._pending_commit

@@ -25,6 +25,11 @@ and ``<save_dir>/zero_to_fp32.py``, then ``<save_dir>/latest`` (the tag),
 written last: after every rank's file and the manifest are on disk (behind
 a barrier over the ranks, after the async engine's ``wait()``).
 
+Under sequence parallelism the ``seq`` ranks of one data-parallel
+coordinate hold the same state: only ``seq`` rank 0 writes the rank file
+(named by the rank in the data-parallel group), the others wait at the
+commit's barriers (over the data axes and ``seq``), and every rank loads.
+
 A load reads each file memory-mapped and copies into every tensor this
 rank holds (the whole master at stages 0-2, the chunk at stage 3; the
 optimizer states' chunks of cut leaves) the parts of the saved slices that
@@ -316,8 +321,10 @@ def _copy_zero_to_fp32(save_dir: str) -> None:
 
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
                     client_state: Optional[Dict[str, Any]] = None) -> str:
-    """Write this rank's state under ``<save_dir>/<tag>/``; every rank of
-    the data-parallel group calls it.  Returns the tag directory."""
+    """Write this rank's state under ``<save_dir>/<tag>/`` (``seq`` rank 0
+    only: the other ``seq`` ranks hold the same state); every rank of the
+    data-parallel and ``seq`` groups calls it.  Returns the tag
+    directory."""
     ceng = engine.checkpoint_engine
     ceng.wait()  # at most one save in flight
     if engine._micro_in_step:
@@ -327,8 +334,10 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             "state; save at an accumulation boundary (after step())")
     tag = tag if tag is not None else f"global_step{engine.global_steps}"
     tag_dir = os.path.abspath(os.path.join(save_dir, tag))
-    group = engine.dp_group if engine.dp_world_size > 1 else None
-    lead = group is None or comm.get_rank(group) == 0
+    group = engine._sum_group  # the data axes and seq
+    rank = comm.get_rank(engine.dp_group) if engine.dp_world_size > 1 else 0
+    writer = engine.sp_rank == 0
+    lead = writer and rank == 0
     os.makedirs(tag_dir, exist_ok=True)
     # the scheduler counts applied steps (fp16 overflow skips excluded)
     engine.lr_scheduler.last_step = engine.optimizer.count
@@ -348,7 +357,6 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         with open(os.path.join(tag_dir, META_FILE), "w") as fh:
             json.dump(meta, fh, default=str)
         _copy_zero_to_fp32(save_dir)
-    rank = comm.get_rank(group) if group is not None else 0
     if engine.infinity is not None:
         _save_infinity_layers(engine, tag_dir)
 
@@ -364,9 +372,11 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         if group is not None:
             comm.barrier(group)  # every rank sees `latest`
 
-    ceng.save(_rank_state(engine), os.path.join(tag_dir,
-                                                 RANK_FILE.format(rank)),
-              commit_fn=commit)
+    if writer:
+        ceng.save(_rank_state(engine), os.path.join(
+            tag_dir, RANK_FILE.format(rank)), commit_fn=commit)
+    else:
+        ceng.defer_commit(commit)
     log_dist(f"saved checkpoint {tag_dir}")
     return tag_dir
 

@@ -22,7 +22,9 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` for the keys
   the model's gate and MoE layer);
 * ``curriculum_learning`` and ``data_efficiency.data_sampling.
   curriculum_learning`` (the seqlen curriculum of the dataloader
-  ``initialize`` builds; :meth:`DeepSpeedConfig.curriculum`).
+  ``initialize`` builds; :meth:`DeepSpeedConfig.curriculum`);
+* ``sequence_parallel`` (:class:`SequenceParallelConfig`: ``sp_size``,
+  the size of the mesh's ``seq`` axis ``initialize`` builds).
 
 * ``zero_optimization.offload_optimizer`` (ZeRO-Offload: masters and
   moments in host memory, the C++ optimizer) and ``offload_param``
@@ -35,7 +37,7 @@ What the port cannot do yet raises ``NotImplementedError`` ("not ported
 yet", naming its ``ROADMAP.md`` Queue 1 item): ZeRO-Infinity on more than
 one rank (item 9b; ``initialize`` checks), MiCS, ZeRO++ (quantized weights
 or gradients, hpZ) and
-``kernels.overlap_collectives``, a tensor, sequence or pipeline
+``kernels.overlap_collectives``, a tensor or pipeline
 dimension above 1, random-LTD (``data_efficiency.data_routing.
 random_ltd``).  The groups of :data:`ACCEPTED_WITHOUT_EFFECT`
 (telemetry, tuning, comms_logger, ...) are accepted and have no effect;
@@ -65,9 +67,10 @@ ACCEPTED_WITHOUT_EFFECT = (
     "zero_allow_untested_optimizer")
 
 #: (group, key, ROADMAP Queue 1 item) of the parallel dimensions other than
-#: data and expert whose training is not ported: a value above 1 raises
+#: data, expert and sequence whose training is not ported: a value above 1
+#: raises
 _PARALLEL_DIMS = (("tensor_parallel", "autotp_size", 5),
-                  ("sequence_parallel", "sp_size", 7), ("pipeline", "stages", 8))
+                  ("pipeline", "stages", 8))
 
 #: the token dispatch rungs of the MoE layer
 DISPATCH_IMPLS = ("auto", "dense", "sparse", "pallas")
@@ -306,6 +309,19 @@ class MoEConfig:
 
 
 @dataclasses.dataclass
+class SequenceParallelConfig:
+    """``sequence_parallel`` (JAX ``SequenceParallelConfig``): ``sp_size``
+    is the mesh's ``seq`` axis (an mpu's ``get_sequence_parallel_world_size``
+    wins); ``seq_length_is_variable`` and ``attention_backend`` are
+    recorded and have no effect, as in the JAX package."""
+
+    sp_size: int = 1
+    seq_length_is_variable: bool = True
+    attention_backend: str = "auto"
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
 class DataEfficiencyConfig:
     """``data_efficiency`` (JAX ``DataEfficiencyConfig``): its
     ``data_sampling.curriculum_learning`` is the nested form of the
@@ -351,6 +367,8 @@ class DeepSpeedConfig:
     data_efficiency: DataEfficiencyConfig = dataclasses.field(
         default_factory=DataEfficiencyConfig)
     moe: MoEConfig = dataclasses.field(default_factory=MoEConfig)
+    sequence_parallel: SequenceParallelConfig = dataclasses.field(
+        default_factory=SequenceParallelConfig)
     aio: AioConfig = dataclasses.field(default_factory=AioConfig)
     zero_force_ds_cpu_optimizer: bool = True
     curriculum_learning: Dict[str, Any] = dataclasses.field(
@@ -365,6 +383,7 @@ class DeepSpeedConfig:
                "zero_optimization": ZeroConfig, "kernels": KernelsConfig,
                "checkpoint": CheckpointConfig,
                "data_efficiency": DataEfficiencyConfig, "moe": MoEConfig,
+               "sequence_parallel": SequenceParallelConfig,
                "aio": AioConfig}
 
     @classmethod

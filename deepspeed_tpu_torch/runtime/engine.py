@@ -40,6 +40,16 @@ flat buckets of ``reduce_bucket_size`` elements at the boundary):
 The norm is global: each rank sums the squares of its chunks, group rank 0
 adds the replicated leaves, and the partial sums are all-reduced.
 
+Sequence parallelism (``seq_group``, the mesh's ``seq`` axis, and
+``dp_seq_group``, its data axes and ``seq`` together): every weight is
+whole on each ``seq`` rank, and each rank's loss is its share of the token
+mean (``LlamaModel.loss``), so every gradient is summed over ``seq``: a
+whole leaf's in one all-reduce over ``dp_seq_group``, a cut leaf's chunk
+(ZeRO still cuts over the data axes alone) after its data-parallel
+reduce-scatter.  The gradients, hence the norm, the overflow flag and the
+step, are then the same on every ``seq`` rank; the reported loss and
+``eval_loss`` are summed over ``seq`` before the data-parallel mean.
+
 Expert parallelism (``expert_data_group``, the mesh's ``data`` axis): an
 expert stack (``sharder.expert_of``) holds this expert coordinate's
 experts, so its gradient is reduced over the ``data`` group alone, and
@@ -142,7 +152,8 @@ class DeepSpeedEngine:
                  config: DeepSpeedConfig, module: Any = None,
                  device: DeviceLike = "cuda",
                  lr_schedule: Optional[Schedule] = None,
-                 dp_group: Any = None, expert_data_group: Any = None):
+                 dp_group: Any = None, expert_data_group: Any = None,
+                 seq_group: Any = None, dp_seq_group: Any = None):
         self.device = resolve_device(device)
         self.config = config
         self.loss_fn = loss_fn
@@ -176,7 +187,7 @@ class DeepSpeedEngine:
             self._schedule = constant_lr(base_lr(config))
         self.lr_scheduler = LRScheduler(self._schedule)
         if zero.offload_param_device() != "none":
-            self._init_infinity(dp_group)
+            self._init_infinity(dp_group, seq_group)
             return
         self.params = [p for p in params if p.requires_grad]
         named = ({id(p): n for n, p in module.named_parameters()}
@@ -197,6 +208,7 @@ class DeepSpeedEngine:
         self.dp_group = dp_group
         self.dp_world_size = (comm.get_world_size(dp_group)
                               if dp_group is not None else 1)
+        self._init_seq(seq_group, dp_seq_group)
         #: the group an expert leaf's gradient is reduced over (the
         #: ``data`` axis; None: the data-parallel group)
         self.expert_data_group = (expert_data_group if self.dp_world_size
@@ -260,6 +272,19 @@ class DeepSpeedEngine:
             self._init_offload()
         self._init_counters()
 
+    def _init_seq(self, seq_group: Any, dp_seq_group: Any) -> None:
+        """The ``seq`` group (None at sp 1) and the group the whole leaves'
+        gradients and the loss are summed over: the data axes and ``seq``
+        (None in a world of one)."""
+        self.sp_world_size = (comm.get_world_size(seq_group)
+                              if seq_group is not None else 1)
+        self.seq_group = seq_group if self.sp_world_size > 1 else None
+        self.sp_rank = (comm.get_rank(self.seq_group)
+                        if self.seq_group is not None else 0)
+        self._sum_group = (dp_seq_group if self.seq_group is not None
+                           else self.dp_group if self.dp_world_size > 1
+                           else None)
+
     def _init_counters(self) -> None:
         self.global_steps = 0     # train steps taken, skipped ones included
         self.micro_steps = 0
@@ -317,7 +342,7 @@ class DeepSpeedEngine:
             p.grad = None
         return hook
 
-    def _init_infinity(self, dp_group: Any) -> None:
+    def _init_infinity(self, dp_group: Any, seq_group: Any) -> None:
         """ZeRO-Infinity (JAX ``engine.py:116-140`` and ``_init_state``
         :662): the streaming executor owns the trunk; ``self.params`` are
         the resident leaves on the card."""
@@ -330,12 +355,15 @@ class DeepSpeedEngine:
                 "(embed_fwd/decoder_layer/head_loss protocol — see "
                 "runtime/swap_tensor/infinity_engine.py); "
                 f"{type(module).__name__} does not implement it")
-        if dp_group is not None and comm.get_world_size(dp_group) > 1:
+        if any(g is not None and comm.get_world_size(g) > 1
+               for g in (dp_group, seq_group)):
             raise NotImplementedError(
                 "ZeRO-Infinity (offload_param) on more than one rank is not "
                 "ported yet (ROADMAP Queue 1 item 9b: per-process planes "
-                "and the in-graph gather and scatter)")
+                "and the in-graph gather and scatter, with Infinity x "
+                "Ulysses)")
         self.dp_group, self.dp_world_size = None, 1
+        self._init_seq(None, None)
         self.expert_data_group, self._data_rank = None, 0
         self.infinity = LayerStreamingEngine(module, config, self._schedule,
                                              self.device)
@@ -437,9 +465,9 @@ class DeepSpeedEngine:
         return hook
 
     def _reduced_grads(self) -> List[torch.Tensor]:
-        """Per parameter, its gradient summed over the group: this rank's
-        chunk of a cut leaf, the whole of a replicated one (all-reduced in
-        flat buckets)."""
+        """Per parameter, its gradient summed over the group (and over
+        ``seq``): this rank's chunk of a cut leaf, the whole of a
+        replicated one (all-reduced in flat buckets)."""
         grads: List[torch.Tensor] = []
         for i, (p, pl) in enumerate(zip(self.params, self.placements)):
             if pl is not None and self.zero_stage == 2:
@@ -455,13 +483,16 @@ class DeepSpeedEngine:
                 g = pl.reduce_scatter(g)
                 p.grad = None
             grads.append(g)
-        if self.dp_world_size > 1:
-            for whole, group in ((self._whole, self.dp_group),
-                                 (self._whole_expert,
-                                  self.expert_data_group)):
-                if whole and comm.get_world_size(group) > 1:
-                    all_reduce_flat([grads[i] for i in whole], group,
-                                    self._bucket)
+        for whole, group in ((self._whole, self._sum_group),
+                             (self._whole_expert, self.expert_data_group)):
+            if whole and group is not None and \
+                    comm.get_world_size(group) > 1:
+                all_reduce_flat([grads[i] for i in whole], group,
+                                self._bucket)
+        rest = self._cut + self._whole_expert
+        if self.seq_group is not None and rest:
+            all_reduce_flat([grads[i] for i in rest], self.seq_group,
+                            self._bucket)
         return grads
 
     def _norm_group(self) -> Any:
@@ -569,8 +600,8 @@ class DeepSpeedEngine:
                 self.infinity.gas = saved
         grads = self._reduced_grads()
         mean_loss = self._loss_sum
-        if self.dp_world_size > 1:
-            comm.all_reduce(mean_loss, group=self.dp_group)
+        if self._sum_group is not None:
+            comm.all_reduce(mean_loss, group=self._sum_group)
         scale = self.loss_scale
         # 1/scale (fp16) and gas/n (a forced partial boundary) in one factor
         unscale = (1.0 / scale if self.fp16_enabled else 1.0) * gas / n
@@ -725,14 +756,15 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def eval_loss(self, batch: Any) -> torch.Tensor:
-        """The loss of this rank's rows, averaged over the data-parallel
-        group (every rank calls it)."""
+        """The loss of this rank's rows (summed over ``seq``), averaged
+        over the data-parallel group (every rank calls it)."""
         if self.infinity is not None:
             return self.infinity.eval_loss(batch)
         loss = self.loss_fn(self._to_device(batch))
-        if self.dp_world_size > 1:
-            loss = comm.all_reduce(loss.float().clone(), comm.ReduceOp.AVG,
-                                   group=self.dp_group)
+        if self._sum_group is not None:
+            loss = comm.all_reduce(loss.float().clone(),
+                                   group=self._sum_group).div_(
+                                       self.dp_world_size)
         return loss
 
     def get_lr(self) -> List[float]:

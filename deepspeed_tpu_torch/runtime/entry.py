@@ -3,11 +3,15 @@
 Counterpart of ``deepspeed_tpu/runtime/entry.py`` (``initialize``
 101-167): join the process group, take the data-parallel group from a
 ``mesh=`` or ``mpu=`` or build the mesh from the world (its ``expert``
-axis ``moe.expert_parallel_size``), resolve the batch sizes over the
-data-parallel ranks, push the ``moe`` group onto a mixture-of-experts
-model (``_apply_moe_config``), make every rank hold rank 0's parameters
-(an expert leaf its ``data`` group's rank 0's), and build the engine (one
-data-parallel rank under ``zero_optimization.stage``) and, from
+axis ``moe.expert_parallel_size``, its ``seq`` axis
+``sequence_parallel.sp_size`` or an mpu's sequence-parallel size),
+resolve the batch sizes over the data-parallel ranks, push the ``moe``
+group onto a mixture-of-experts model (``_apply_moe_config``) and the
+mesh onto a model that trains under a ``seq`` axis, make every rank hold
+rank 0's parameters (an expert leaf its ``data`` group's rank 0's), and
+build the engine (one data-parallel rank under
+``zero_optimization.stage``, the gradients also summed over ``seq``) and,
+from
 ``training_data``, this rank's dataloader (with the seqlen curriculum
 when the config enables one).  The JAX entry also builds the telemetry,
 tuning and resilience planes; none of those is ported yet, so their
@@ -33,6 +37,7 @@ import torch.distributed as dist
 from ..comm import comm
 from ..parallel.mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_PIPE, AXIS_SEQ,
                              AXIS_TENSOR, DP_AXES)
+from ..utils import groups
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import logger
 from .config import DeepSpeedConfig
@@ -45,22 +50,33 @@ from .zero.sharder import expert_of, placement_of
 ConfigLike = Union[str, os.PathLike, Dict[str, Any], DeepSpeedConfig]
 
 
-def _data_parallel(mesh: Any, mpu: Any, ep: int = 1
+def _data_parallel(mesh: Any, mpu: Any, ep: int = 1, sp: int = 1
                    ) -> Tuple[Any, int, Dict[str, int], Any]:
     """(the data-parallel group or None, its size, the other parallel
     sizes, the mesh or None) from ``mesh`` (its ``DP_AXES``), else
-    ``mpu``, else the world (a mesh built over it whose ``expert`` axis is
-    ``ep``: it must divide the world, as JAX's ``initialize`` checks)."""
+    ``mpu`` (one with data-parallel getters), else the world (a mesh built
+    over it whose ``seq`` axis is ``sp`` and ``expert`` axis ``ep``: each
+    must divide what is left of the world, as JAX's ``initialize``
+    checks)."""
     from ..parallel.mesh import MeshLayout
-    from ..utils import groups
 
     world = comm.get_world_size() if comm.is_initialized() else 1
-    if mesh is None and mpu is None and (world > 1 or ep > 1):
-        if world % ep:
+    if mpu is not None and not hasattr(mpu, "get_data_parallel_world_size"):
+        mpu = None  # the sequence getters alone: they gave sp
+    if mpu is not None and sp > 1:
+        raise NotImplementedError(
+            "an mpu's data-parallel group with a seq axis is not ported: "
+            "pass mesh= (utils.groups.initialize_mesh(MeshLayout.infer("
+            "world, sp=...)))")
+    if mesh is None and mpu is None and (world > 1 or ep > 1 or sp > 1):
+        if world % sp:
+            raise ValueError(f"sequence_parallel.sp_size={sp} must divide "
+                             f"the world {world}")
+        if world // sp % ep:
             raise ValueError(
                 f"moe.expert_parallel_size={ep} must divide the DP world "
-                f"{world} (= world/(tp·pp·sp))")
-        mesh = groups.initialize_mesh(MeshLayout.infer(world, ep=ep))
+                f"{world // sp} (= world/(tp·pp·sp))")
+        mesh = groups.initialize_mesh(MeshLayout.infer(world, ep=ep, sp=sp))
     shape = getattr(mesh, "shape", None)
     if isinstance(shape, Mapping):
         dp = 1
@@ -116,6 +132,24 @@ def _apply_moe_config(cfg: DeepSpeedConfig, model: Any, mesh: Any) -> None:
         gate.eval_capacity_factor = float(moe.capacity_factor)
 
 
+def _apply_sequence_parallel(model: Any, mesh: Any) -> None:
+    """Hand a model built without a mesh the one with the ``seq`` axis;
+    refuse a model that cannot train under it."""
+    if getattr(model, "sequence_parallel", False):
+        if model.mesh is None:
+            model.mesh = mesh
+        return
+    if getattr(model, "_moe_layer", None) is not None or \
+            getattr(model, "moe_layer", None) is not None:
+        why = ("a MoE layer's capacity and aux loss are over the global "
+               "tokens")
+    else:
+        why = "its attention and loss are not cut over seq"
+    raise NotImplementedError(
+        f"{type(model).__name__} under a seq axis is not ported yet "
+        f"(ROADMAP Queue 1 item 7b: {why})")
+
+
 def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
                model_parameters: Any = None, training_data: Any = None,
                lr_scheduler: Any = None, distributed_port: Any = None,
@@ -144,6 +178,17 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     ``train_batch_size`` counts every rank's.  Rank 0's parameters are
     broadcast to the group first, so ranks that built the model from
     different seeds train one model.
+
+    Sequence parallelism: ``sequence_parallel.sp_size`` (or an mpu's
+    ``get_sequence_parallel_world_size``, or a ``mesh`` whose ``seq`` axis
+    is) above 1 cuts every row's sequence over that many ranks: each rank
+    of a ``seq`` group feeds ``train_step`` the same whole rows (its data
+    coordinate's), and the model (a ``LlamaModel``, which ``initialize``
+    hands the mesh) keeps its ``S/sp`` chunk, runs Ulysses or the ring at
+    each attention and returns its share of the token mean; the engine
+    sums every gradient over ``seq``.  ZeRO still cuts over the data axes
+    alone.  Not ported under ``seq`` (ROADMAP Queue 1): ZeRO-Infinity
+    (item 9b), MoE and the other ladder models (item 7b).
 
     Expert parallelism: a mixture-of-experts model (``MixtralModel``)
     routes the global micro-batch on any data axis; with
@@ -186,21 +231,29 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     if dist_init_required or (dist_init_required is None and int(
             os.environ.get("WORLD_SIZE", "1")) > 1):
         comm.init_distributed(device=dev)
+    sp = int(cfg.sequence_parallel.sp_size or 1)
+    if hasattr(mpu, "get_sequence_parallel_world_size"):
+        sp = int(mpu.get_sequence_parallel_world_size())
     dp_group, dp, others, mesh = _data_parallel(
-        mesh, mpu, int(cfg.moe.expert_parallel_size))
+        mesh, mpu, int(cfg.moe.expert_parallel_size), sp)
     tp, pp, sp = (others.get(a, 1) for a in (AXIS_TENSOR, AXIS_PIPE,
                                              AXIS_SEQ))
-    if zero.offload_param_device() != "none" and dp > 1:
+    if zero.offload_param_device() != "none" and dp * tp * pp * sp > 1:
         raise NotImplementedError(
             "ZeRO-Infinity (offload_param) on more than one rank is not "
             "ported yet (ROADMAP Queue 1 item 9b: per-process planes and "
-            "the in-graph gather and scatter)")
+            "the in-graph gather and scatter, with Infinity x Ulysses)")
     cfg.resolve_batch_sizes(world_size=dp * tp * pp * sp, tp=tp, pp=pp,
                             sp=sp)
     cfg.resolve_auto_precision()
     _apply_moe_config(cfg, model, mesh)
     data_group = mesh.group(AXIS_DATA) if mesh is not None and dp > 1 \
         else None
+    seq_group = dp_seq_group = None
+    if sp > 1:
+        _apply_sequence_parallel(model, mesh)
+        seq_group = mesh.group(AXIS_SEQ)
+        dp_seq_group = groups.axes_group(DP_AXES + (AXIS_SEQ,), mesh)
 
     if callable(getattr(model, "loss", None)):
         loss_fn = model.loss
@@ -215,20 +268,24 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
         raise ValueError("model_parameters (the fp32 master tensors) is "
                          "required with a bare loss function")
     params = list(model_parameters)
-    if dp > 1:
+    if dp * sp > 1:
         with torch.no_grad():  # DeepSpeed's _broadcast_model
             for p in params:
                 if placement_of(p) is not None:
-                    continue  # zero.Init broadcast it
-                # other expert coordinates hold other experts
-                group = data_group if expert_of(p) is not None and \
-                    data_group is not None else dp_group
-                if comm.get_world_size(group) > 1:
+                    # zero.Init broadcast it over the data axes
+                    group = seq_group
+                elif expert_of(p) is not None and data_group is not None:
+                    # other expert coordinates hold other experts
+                    group = data_group
+                else:
+                    group = dp_seq_group or dp_group
+                if group is not None and comm.get_world_size(group) > 1:
                     comm.broadcast(p.data, 0, group=group)
     engine = DeepSpeedEngine(
         loss_fn, params, cfg, module=model, device=dev,
         lr_schedule=lr_scheduler if callable(lr_scheduler) else None,
-        dp_group=dp_group, expert_data_group=data_group)
+        dp_group=dp_group, expert_data_group=data_group,
+        seq_group=seq_group, dp_seq_group=dp_seq_group)
     dataloader = None
     if training_data is not None:
         dataloader = DeepSpeedDataLoader(

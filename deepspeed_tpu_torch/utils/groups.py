@@ -19,9 +19,9 @@ from typing import Any, Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
-from ..parallel.mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_TENSOR, DP_AXES,
-                             MESH_AXIS_ORDER, MeshLayout, ProcessMesh,
-                             ProcessTopology)
+from ..parallel.mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_SEQ, AXIS_TENSOR,
+                             DP_AXES, MESH_AXIS_ORDER, MeshLayout,
+                             ProcessMesh, ProcessTopology)
 
 _mesh: Optional[ProcessMesh] = None
 
@@ -78,10 +78,12 @@ def get_layout() -> MeshLayout:
     return get_mesh().layout
 
 
-def axes_group(axes: Sequence[str]) -> Any:
-    """The group over ``axes`` that holds this rank, built on first use
-    (every rank must ask for the same axes in the same order)."""
-    mesh = get_mesh()
+def axes_group(axes: Sequence[str], mesh: Optional[ProcessMesh] = None
+               ) -> Any:
+    """The group over ``axes`` of ``mesh`` (default: the active mesh) that
+    holds this rank, built on first use (every rank must ask for the same
+    axes in the same order)."""
+    mesh = mesh if mesh is not None else get_mesh()
     axes = tuple(axes)
     if axes not in mesh.groups:
         mesh.groups[axes] = _build_group(mesh.layout, axes)
@@ -136,3 +138,23 @@ def get_expert_data_parallel_group() -> Any:
 
 def get_expert_data_parallel_world_size() -> int:
     return get_layout().dp
+
+
+# The sequence-parallel getters: the names accelerate and HF import.
+def get_sequence_parallel_group() -> Any:
+    """The ranks that hold the other sequence chunks of this rank's rows
+    (the ``seq`` axis)."""
+    return get_mesh().group(AXIS_SEQ)
+
+
+def get_sequence_parallel_world_size() -> int:
+    return get_layout().sp
+
+
+def get_sequence_parallel_rank() -> int:
+    return get_mesh().axis_rank(AXIS_SEQ)
+
+
+_get_sequence_parallel_group = get_sequence_parallel_group
+_get_sequence_parallel_world_size = get_sequence_parallel_world_size
+_get_sequence_parallel_rank = get_sequence_parallel_rank

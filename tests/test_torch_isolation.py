@@ -143,3 +143,10 @@ def test_engine_refuses_a_model_on_another_device():
 def test_package_exports():
     for name in deepspeed_tpu_torch.__all__:
         assert hasattr(deepspeed_tpu_torch, name), name
+    # the sequence-parallel surface, where the JAX package has it
+    assert {"sequence_parallel", "DistributedAttention",
+            "get_sequence_parallel_group", "get_sequence_parallel_rank",
+            "get_sequence_parallel_world_size"} <= set(
+                deepspeed_tpu_torch.__all__)
+    from deepspeed_tpu.runtime import sequence_parallel as jax_sp
+    assert deepspeed_tpu_torch.sequence_parallel.__all__ == jax_sp.__all__

@@ -257,6 +257,16 @@ def test_cuda_flash_diagonal_window_edge_and_tail_tiles(cuda, dtype, d):
                  1e-4 if dtype == torch.float32 else 2e-2)
 
 
+@pytest.mark.cuda
+def test_cuda_flash_sequence_parallel_shape(cuda):
+    """The shape the Ulysses route gives the kernels at Llama-3-8B widths
+    and sp 2: B 1, the full S 8192 on h 32/2 = 16 heads, d 128, causal,
+    bf16 (``chip_smoke.py`` ``train_sp``)."""
+    q, k, v, do, _ = _flash_case(1, 8192, 16, 128, torch.bfloat16, 8192,
+                                 cuda, False)
+    _flash_check(q, k, v, do, None, True, None, 2e-2)
+
+
 def _pad_tails(B, S, seed, max_pad=200):
     """BERT's padding as segment ids: 1 on real tokens, 0 on a pad tail of
     0 to ``max_pad`` tokens a row (row 0 has none)."""
