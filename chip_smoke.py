@@ -233,7 +233,7 @@ The sequence-parallel slice adds:
 - ``train_sp``: Llama-3-8B widths at ``SP_LAYERS`` (2) of 32 layers,
   ``sequence_parallel.sp_size`` 2 in two ranks on card 0 over gloo, one
   ``[1, 8192]`` row (4096 tokens a rank), bf16, flash, remat,
-  ``loss_tiles`` 8, 3 steps: finite falling losses equal on both ranks,
+  ``loss_tiles`` 8, 2 steps: finite falling losses equal on both ranks,
   per rank and step 2 L flash forwards, L dq and L dk/dv passes and 12 L
   all-to-alls, each rank's peak memory and state bytes; then one process
   at sp 1 on the same weights and row: losses and grad norms within the
@@ -244,6 +244,25 @@ The sequence-parallel slice adds:
   1e-5, the ring at sp 2 to 1e-4, ``loss_tiles`` 4 against 1 (both sp
   2) to 1e-6.
 
+The multi-rank Infinity slice adds:
+
+- ``train_infinity_sp`` (in train_sp's launch): ZeRO-Infinity x Ulysses,
+  the model and row of ``train_sp`` built in host memory, sp 2, bf16,
+  flash, ``loss_tiles`` 8, the cpu tier on the fused path, 2 steps, each
+  rank's host planes its half of every layer: losses and grad norms
+  bit-equal on the ranks and within the bf16 bounds of train_sp's
+  on-device sp-2 run, flash ``2 L`` / ``L`` / ``L`` and 12 L all-to-alls
+  a rank a step, the trunk's device buffers ``2 x n_pad x 2`` bytes, the
+  host plane bytes half of one process's; step time and its split, peak
+  memory a rank, gather and reduce-scatter bytes a step;
+- ``train_infinity_sp_agree`` (the same launch): ``AGREE_TRAIN``'s fp32
+  widths on ``[2, 256]``, sp 2 streamed, against train_sp_agree's Ulysses
+  run to ``INF_AGREE_RTOL``;
+- in ``train_zero``, ``AGREE_TRAIN`` fp32 on the two ranks under
+  ``offload_param`` (dp 2, the stash path with clipping, 2 steps): the
+  ranks bit-equal, against one process's Infinity with a rank's rows a
+  microbatch to ``INF_AGREE_RTOL``.
+
 Ranks report to this process through a queue; only it prints.  Then a
 ``kernels`` line (every kernel's launches on the main paths: the
 decode kernels' from ``serve`` and ``generate``, #2b's per rank from
@@ -253,7 +272,8 @@ kernels' from ``train_moe``, the block-sparse kernels' from ``sparse``,
 the quantizer's from its path; the ``_bert`` rows' from ``train_bert``,
 the ``_opt`` rows' from ``generate_opt`` and ``serve_opt``, the ``_70b``
 rows' from ``train_infinity``, the ``_sp`` rows' from ``train_sp``'s
-rank 0; times at the main paths' shapes), a
+rank 0, the ``_inf_sp`` rows' from ``train_infinity_sp``'s rank 0; times
+at the main paths' shapes), a
 ``timing`` line (seconds by phase),
 the card's name and power limit, and the result line.
 ``--only build,moe_kernels,...`` runs the named phases alone and prints
@@ -2366,7 +2386,7 @@ def train_agree(dev, seed: int) -> dict:
 
 # -- the data-parallel slice --------------------------------------------------
 
-ZERO_RANKS, ZERO_STEPS, ZERO_TIMEOUT = 2, 3, 900
+ZERO_RANKS, ZERO_STEPS, ZERO_TIMEOUT = 2, 2, 900
 #: train_zero's runs: (label, ZeRO stage, fused Adam)
 ZERO_RUNS = (("stage0", 0, False), ("stage1", 1, False),
              ("stage2", 2, False), ("stage3", 3, False),
@@ -2379,6 +2399,10 @@ ZERO_OFFLOAD_RUN, ZERO_OFFLOAD_STAGE = "stage2_offload", 2
 #: expected bit-equal
 ZERO_STAGE_RTOL = 1e-6
 ZERO_AGREE_LAYERS, ZERO_AGREE_STEPS, ZERO_AGREE_ROWS = 2, 3, 4
+#: train_zero's ZeRO-Infinity run: AGREE_TRAIN in fp32, one [1, 256] row a
+#: rank, the stash path (clipping), ZERO_INF_STEPS steps; held against one
+#: process with a rank's row a microbatch
+ZERO_INF_RUN, ZERO_INF_STEPS, ZERO_INF_CLIP = "infinity_dp2", 2, 1.0
 ZERO_NOTE = ("2 ranks on card 0 over gloo, every collective through pinned "
              "host memory: a correctness and memory check, the step time "
              "on the host clock is not a DP speed")
@@ -2482,6 +2506,42 @@ def zero_train_rank(rank: int, seed: int) -> dict:
         "host_state_bytes_predicted": predicted_offload_bytes(
             shapes, ZERO_RANKS),
         "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    del model, engine, metrics
+    out[ZERO_INF_RUN] = zero_infinity_run(seed, dev, rank)
+    return out
+
+
+def zero_inf_ids(seed: int, dev) -> torch.Tensor:
+    """train_zero's Infinity batch: one ``[1, 256]`` row a rank."""
+    return zero_batch(seed + 9, AGREE_TRAIN["vocab_size"], ZERO_RANKS,
+                      dev)[:, :AGREE_TRAIN["max_seq_len"]]
+
+
+def zero_infinity_run(seed: int, dev, rank: Optional[int]) -> dict:
+    """``AGREE_TRAIN`` in fp32 under ``offload_param`` (cpu tier, the stash
+    path: clipping): on rank ``rank``'s row at dp 2, or (``rank`` None) in
+    one process on both rows, a row a microbatch (gas 2)."""
+    from deepspeed_tpu_torch import LlamaConfig, initialize
+
+    cfg = LlamaConfig(**AGREE_TRAIN)
+    ids = zero_inf_ids(seed, dev)
+    one = rank is None
+    engine, *_ = initialize(
+        model=stream_model(cfg, seed + 4 + (rank or 0), dev),
+        config=infinity_config(1, torch.float32, gas=ZERO_RANKS if one
+                               else 1, clip=ZERO_INF_CLIP), device=dev)
+    rows = ids if one else ids[rank:rank + 1]
+    sw = engine.infinity.swapper
+    reset_counts()
+    ms = [engine.train_step({"input_ids": rows})
+          for _ in range(ZERO_INF_STEPS)]
+    out = {"loss": [float(m["loss"]) for m in ms],
+           "grad_norm": [float(m["grad_norm"]) for m in ms],
+           "launches": train_launches(), "n_elems": sw.n_elems,
+           "n_pad": sw.n_pad, "n_plane": sw.n_plane,
+           "host_plane_bytes": sw.host_plane_bytes()}
+    del engine, sw
+    free_host_cache()
     return out
 
 
@@ -2563,10 +2623,36 @@ def phase_train_zero(seed: int) -> dict:
             f"train_zero offload: 2 ranks' losses "
             f"{ranks[0][ZERO_OFFLOAD_RUN]['loss']} != one process's {one} "
             f"(rel {off_rel})")
+    inf_one = zero_infinity_run(seed, torch.device("cuda", 0), None)
+    inf = ranks[0][ZERO_INF_RUN]
+    for r, res in enumerate(ranks):
+        row = res[ZERO_INF_RUN]
+        require(row["loss"] == inf["loss"] and
+                row["grad_norm"] == inf["grad_norm"],
+                f"train_zero infinity: rank {r}'s losses {row['loss']} / "
+                f"grad norms {row['grad_norm']} != rank 0's")
+        require(row["n_plane"] * ZERO_RANKS == row["n_pad"] and
+                row["host_plane_bytes"] * ZERO_RANKS
+                == inf_one["host_plane_bytes"] * row["n_pad"]
+                // row["n_elems"],
+                f"train_zero infinity rank {r}: planes {row['n_plane']} of "
+                f"{row['n_pad']}, {row['host_plane_bytes']} B against one "
+                f"process's {inf_one['host_plane_bytes']} B")
+        require_stream_launches(f"train_zero infinity rank {r}",
+                                row["launches"],
+                                AGREE_TRAIN["num_layers"], ZERO_INF_STEPS)
+    inf_rel = {k: _max_rel(inf[k], inf_one[k]) for k in ("loss",
+                                                         "grad_norm")}
+    for k, e in inf_rel.items():
+        require(e <= INF_AGREE_RTOL,
+                f"train_zero infinity: 2 ranks' {k} {inf[k]} != one "
+                f"process's {inf_one[k]} (rel {e} > {INF_AGREE_RTOL})")
     return {"ranks": ranks, "loss_rel_to_stage0": rel,
             "peak_mem_bytes_rank0": peaks, "launch_wall_s": wall,
             "offload_one_process_loss": one,
-            "offload_rel_to_one_process": off_rel}
+            "offload_rel_to_one_process": off_rel,
+            "infinity_one_process": inf_one,
+            "infinity_rel_to_one_process": inf_rel}
 
 
 def zero_agree_rank(rank: int, seed: int) -> dict:
@@ -4484,7 +4570,7 @@ def predicted_offload_bytes(shapes: list, dp: int) -> int:
 #: 4096 tokens a rank), bf16 on fp32 masters, flash, remat, the loss in
 #: SP_TILES tiles (a tile's fp32 logits 0.26 GB, a rank's 4096 tokens whole
 #: 2.1 GB), SP_STEPS steps
-SP, SP_LAYERS, SP_SEQ, SP_STEPS, SP_TILES = 2, 2, 8192, 3, 8
+SP, SP_LAYERS, SP_SEQ, SP_STEPS, SP_TILES = 2, 2, 8192, 2, 8
 #: all-to-alls a layer a step on the Ulysses route: q, k, v and the output
 #: forward, the same four again in the remat recompute, four in the backward
 SP_A2A_PER_LAYER_STEP = 12
@@ -4591,6 +4677,64 @@ def sp_train_rank(rank: int, seed: int) -> dict:
     for label, (attn, tiles, _, _) in SP_AGREE_RUNS.items():
         out[label] = sp_agree_run(sp_agree_config(attn, tiles), seed, dev,
                                   SP)
+    out["infinity"] = sp_infinity_run(seed, dev, rank)
+    out["infinity_agree"] = sp_infinity_agree_run(seed, dev)
+    return out
+
+
+def sp_infinity_run(seed: int, dev, rank: int) -> dict:
+    """train_infinity_sp on one rank: train_sp's model (drawn in host
+    memory with the card's generator: rank 0's weights are train_sp's) and
+    row through ``initialize`` with ``offload_param`` (cpu tier, fused
+    path) at sp ``SP``; the steps' metrics, launches, all-to-alls, byte
+    counts and peak memory."""
+    from deepspeed_tpu_torch import comm, initialize
+
+    free_host_cache()
+    cfg = sp_model_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = stream_model(cfg, seed + rank, dev)
+    engine, *_ = initialize(model=model, config=dict(
+        infinity_config(1), sequence_parallel={"sp_size": SP}), device=dev)
+    setup_s = time.perf_counter() - t0
+    inf = engine.infinity
+    sw = inf.swapper
+    ids = sp_ids(seed, cfg.vocab_size, dev)
+    reset_counts()
+    comm.all_to_all_in_graph.calls = 0
+    run = streamed_steps(engine, ids, SP_STEPS)
+    out = dict(run, launches=train_launches(),
+               all_to_all=comm.all_to_all_in_graph.calls,
+               last_step_split_s=inf.last_timings, setup_s=setup_s,
+               sp_rank=engine.sp_rank, n_elems=sw.n_elems, n_pad=sw.n_pad,
+               n_plane=sw.n_plane, segments=sw.segments,
+               device_buffer_bytes=sum(b.numel() * b.element_size()
+                                       for b in sw._dev),
+               peak_device_param_bytes=inf.peak_device_param_bytes(),
+               host_plane_bytes=sw.host_plane_bytes(),
+               resident_params=inf.resident_param_count(),
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del model, engine, inf, sw
+    free_host_cache()
+    return out
+
+
+def sp_infinity_agree_run(seed: int, dev) -> dict:
+    """train_infinity_sp_agree on one rank: the fp32 Ulysses agreement
+    model and batch of ``SP_AGREE_RUNS['ulysses']`` streamed from the cpu
+    tier at sp ``SP``."""
+    from deepspeed_tpu_torch import initialize
+
+    cfg = sp_agree_config("flash", 1)
+    engine, *_ = initialize(model=stream_model(cfg, seed + 4, dev),
+                            config=dict(
+        infinity_config(2, torch.float32), sequence_parallel={
+            "sp_size": SP}, optimizer={"type": "AdamW",
+                                       "params": {"lr": 1e-3}}), device=dev)
+    out = sp_steps(engine, sp_agree_ids(seed, dev), SP_AGREE_STEPS)
+    del engine
+    free_host_cache()
     return out
 
 
@@ -4677,9 +4821,11 @@ def phase_train_sp(dev, seed: int) -> dict:
             require(e <= tol, f"train_sp_agree {label}: {what} "
                               f"{run[what]} != {against}'s "
                               f"{agree[against][what]} (rel {e} > {tol})")
+    inf = check_infinity_sp(ranks, base, cfg)
     tokens = SP_SEQ
     step_ms = statistics.median(base["host_step_ms"][1:])
-    return {"train": dict(
+    return {"infinity": inf["train"], "infinity_agree": inf["agree"],
+            "train": dict(
         layers=L, sp=SP, batch=[1, SP_SEQ], tokens_per_rank=SP_SEQ // SP,
         steps=SP_STEPS, dtype="bfloat16", attn_impl="flash",
         loss_tiles=SP_TILES, remat=True, params=cfg.num_params(),
@@ -4701,14 +4847,105 @@ def phase_train_sp(dev, seed: int) -> dict:
                        in SP_AGREE_RUNS.items()})}
 
 
+def check_infinity_sp(ranks: list, on_device: dict, cfg) -> dict:
+    """train_infinity_sp and its agreement, from train_sp's launch: the
+    ranks bit-equal, the launches and all-to-alls of the formula, the
+    trunk's device buffers and host planes to the byte, the losses and
+    grad norms within ``SP_BF16_RTOL`` of train_sp's on-device sp-2 run
+    (``on_device``, rank 0's), and the fp32 streamed run within
+    ``INF_AGREE_RTOL`` of train_sp_agree's Ulysses run."""
+    L = SP_LAYERS
+    n = layer_params(cfg)
+    n_pad = -(-n // SP) * SP
+    base = ranks[0]["infinity"]
+    for r, res in enumerate(ranks):
+        t = res["infinity"]
+        require(all(np.isfinite(t["loss"])) and t["loss"][-1] < t["loss"][0],
+                f"train_infinity_sp rank {r}: losses {t['loss']}")
+        require(t["loss"] == base["loss"] and
+                t["grad_norm"] == base["grad_norm"],
+                f"train_infinity_sp: rank {r}'s losses {t['loss']} / grad "
+                f"norms {t['grad_norm']} != rank 0's")
+        require_stream_launches(f"train_infinity_sp rank {r}",
+                                t["launches"], L, SP_STEPS)
+        want = SP_STEPS * L * SP_A2A_PER_LAYER_STEP
+        require(t["all_to_all"] == want, f"train_infinity_sp rank {r}: "
+                                         f"{t['all_to_all']} all-to-alls, "
+                                         f"want {want}")
+        require(t["n_elems"] == n and t["n_pad"] == n_pad and
+                t["n_plane"] * SP == n_pad and
+                t["device_buffer_bytes"] == t["peak_device_param_bytes"]
+                == 2 * n_pad * 2,
+                f"train_infinity_sp rank {r}: planes {t['n_plane']} of "
+                f"{t['n_pad']} (layer {t['n_elems']}), device buffers "
+                f"{t['device_buffer_bytes']} B, want {2 * n_pad * 2}")
+        # bf16 wire, fp32 master, m and v: half of one process's L x n x 14
+        require(t["host_plane_bytes"] == L * n_pad // SP * 14,
+                f"train_infinity_sp rank {r}: host planes "
+                f"{t['host_plane_bytes']} B, want {L * n_pad // SP * 14}")
+    rel = {}
+    for what, tol in zip(("loss", "grad_norm"), SP_BF16_RTOL):
+        rel[what] = e = _max_rel(base[what], on_device[what])
+        require(e <= tol, f"train_infinity_sp: streamed {what} {base[what]} "
+                          f"!= train_sp's on-device {on_device[what]} (rel "
+                          f"{e} > {tol})")
+    agree = ranks[0]["infinity_agree"]
+    ulysses = ranks[0]["ulysses"]
+    agree_rel = {}
+    for r, res in enumerate(ranks):
+        a = res["infinity_agree"]
+        require(a["loss"] == agree["loss"] and
+                a["grad_norm"] == agree["grad_norm"],
+                f"train_infinity_sp_agree: rank {r}'s metrics differ")
+        require_stream_launches(f"train_infinity_sp_agree rank {r}",
+                                a["launches"], AGREE_TRAIN["num_layers"],
+                                SP_AGREE_STEPS)
+        want = SP_AGREE_STEPS * AGREE_TRAIN["num_layers"] * \
+            SP_A2A_PER_LAYER_STEP
+        require(a["all_to_all"] == want, f"train_infinity_sp_agree rank "
+                                         f"{r}: {a['all_to_all']} "
+                                         f"all-to-alls, want {want}")
+    for what in ("loss", "grad_norm"):
+        agree_rel[what] = e = _max_rel(agree[what], ulysses[what])
+        require(e <= INF_AGREE_RTOL,
+                f"train_infinity_sp_agree: streamed {what} {agree[what]} "
+                f"!= Ulysses' {ulysses[what]} (rel {e} > {INF_AGREE_RTOL})")
+    step_s = statistics.median(base["step_s"][1:])
+    return {"train": dict(
+        layers=L, sp=SP, batch=[1, SP_SEQ], tokens_per_rank=SP_SEQ // SP,
+        steps=SP_STEPS, dtype="bfloat16", attn_impl="flash",
+        loss_tiles=SP_TILES, tier="cpu", path="fused",
+        params=cfg.num_params(), layer_params=n,
+        ranks=[r["infinity"] for r in ranks], rel_to_on_device=rel,
+        on_device_sp2=dict(loss=on_device["loss"],
+                           grad_norm=on_device["grad_norm"],
+                           peak_mem_bytes=on_device["peak_mem_bytes"]),
+        tolerance=dict(zip(("loss", "grad_norm"), SP_BF16_RTOL)),
+        step_s_median=step_s, tokens_per_s_host=SP_SEQ / step_s),
+        "agree": dict(batch=[2, SP_AGREE_SEQ], steps=SP_AGREE_STEPS, sp=SP,
+                      against="train_sp_agree ulysses", runs=dict(
+                          streamed=agree, ulysses=ulysses),
+                      max_rel=agree_rel, tolerance=INF_AGREE_RTOL)}
+
+
 def emit_train_sp(out: dict) -> None:
-    """The train_sp and train_sp_agree lines of one launch."""
+    """The train_sp, train_sp_agree, train_infinity_sp and
+    train_infinity_sp_agree lines of one launch."""
     reduced = ["cards 2 -> 1, NCCL -> gloo through the host"]
+    steps = [f"steps 3 -> {SP_STEPS} (the script's length)"]
     emit(dict(phase="train_sp", model="llama3_8b",
-              reduced=[f"num_layers 32 -> {SP_LAYERS}"] + reduced,
+              reduced=[f"num_layers 32 -> {SP_LAYERS}"] + reduced + steps,
               comm=SP_NOTE, card=nvidia_smi_line(), **out["train"]))
     emit(dict(phase="train_sp_agree", dtype="float32", reduced=reduced,
               comm=SP_NOTE, **out["agree"]))
+    emit(dict(phase="train_infinity_sp", model="llama3_8b",
+              offload_param="cpu",
+              reduced=[f"num_layers 32 -> {SP_LAYERS}"] + reduced + steps,
+              comm=SP_NOTE, note=INF_NOTE, card=nvidia_smi_line(),
+              **out["infinity"]))
+    emit(dict(phase="train_infinity_sp_agree", dtype="float32",
+              offload_param="cpu", reduced=reduced, comm=SP_NOTE,
+              **out["infinity_agree"]))
 
 
 def nvidia_smi_line() -> str:
@@ -4799,8 +5036,9 @@ def main() -> int:
                          "train_resnet, serve_opt, generate_opt (one run "
                          "gives both), agree_opt, train_infinity, "
                          "train_infinity_nvme, train_infinity_agree, "
-                         "train_offload, train_sp, train_sp_agree (one "
-                         "launch runs both))")
+                         "train_offload, train_sp, train_sp_agree, "
+                         "train_infinity_sp, train_infinity_sp_agree (one "
+                         "launch runs all four))")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU path "
@@ -4873,7 +5111,7 @@ def main() -> int:
                       fused_adam=fused, model="bench.py headline",
                       ranks=ZERO_RANKS, global_batch=[TRAIN_BATCH, TRAIN_SEQ],
                       reduced=["cards 2 -> 1, NCCL -> gloo through the host",
-                               "steps 4 -> 3 (the script's length)"],
+                               "steps 4 -> 2 (the script's length)"],
                       comm=ZERO_NOTE,
                       loss_rel_to_stage0=out["loss_rel_to_stage0"][label],
                       **{f"rank{r}": x[label]
@@ -4883,11 +5121,22 @@ def main() -> int:
                   model="bench.py headline", ranks=ZERO_RANKS,
                   global_batch=[TRAIN_BATCH, TRAIN_SEQ],
                   reduced=["cards 2 -> 1, NCCL -> gloo through the host",
-                           "steps 4 -> 3 (the script's length)"],
+                           "steps 4 -> 2 (the script's length)"],
                   comm=ZERO_NOTE,
                   one_process_loss=out["offload_one_process_loss"],
                   rel_to_one_process=out["offload_rel_to_one_process"],
                   **{f"rank{r}": x[ZERO_OFFLOAD_RUN]
+                     for r, x in enumerate(out["ranks"])}))
+        emit(dict(phase="train_zero", run=ZERO_INF_RUN,
+                  offload_param="cpu", model="AGREE_TRAIN widths",
+                  dtype="float32", ranks=ZERO_RANKS, path="stash",
+                  clip=ZERO_INF_CLIP, steps=ZERO_INF_STEPS,
+                  global_batch=[ZERO_RANKS, AGREE_TRAIN["max_seq_len"]],
+                  reduced=["cards 2 -> 1, NCCL -> gloo through the host"],
+                  comm=ZERO_NOTE, one_process=out["infinity_one_process"],
+                  rel_to_one_process=out["infinity_rel_to_one_process"],
+                  tolerance=INF_AGREE_RTOL,
+                  **{f"rank{r}": x[ZERO_INF_RUN]
                      for r, x in enumerate(out["ranks"])}))
         emit(dict(phase="train_zero", launch_wall_s=out["launch_wall_s"],
                   peak_mem_bytes_rank0=out["peak_mem_bytes_rank0"]))
@@ -5017,6 +5266,7 @@ def main() -> int:
     def train_sp():
         out = phase_train_sp(dev, args.seed)
         res["train_sp"] = out["train"]["ranks"][0]
+        res["train_infinity_sp"] = out["infinity"]["ranks"][0]
         emit_train_sp(out)
 
     def train_bert():
@@ -5104,7 +5354,8 @@ def main() -> int:
             offload_param="nvme, then cpu", card=nvidia_smi_line(),
             **phase_train_infinity_nvme(dev, args.seed))),
         "train_infinity": train_infinity,
-        "train_sp": train_sp, "train_sp_agree": train_sp}
+        "train_sp": train_sp, "train_sp_agree": train_sp,
+        "train_infinity_sp": train_sp, "train_infinity_sp_agree": train_sp}
     only = [p for p in args.only.split(",") if p]
     unknown = set(only) - set(phases)
     if unknown:
@@ -5139,6 +5390,7 @@ def main() -> int:
     ep, smt = res["train_moe_ep"], res["serve_moe_tp"]
     tb, so, go = res["train_bert"], res["serve_opt"], res["generate_opt"]
     ti, tsp = res["train_infinity"], res["train_sp"]
+    tisp = res["train_infinity_sp"]
 
     def moe_launches(kernel):  # every MoE main path (a rank's on EP, TP)
         return sum(x["launches"][kernel] for x in (
@@ -5235,7 +5487,21 @@ def main() -> int:
                             flash["flash_bwd_dq"]),
         "flash_bwd_dkv_sp": (flash_src, pallas + "flash_attention.py:472",
                              tsp["launches"]["flash_bwd_dkv"],
-                             flash["flash_bwd_dkv"])}
+                             flash["flash_bwd_dkv"]),
+        # the multi-rank Infinity slice: the same kernels at the Ulysses
+        # shape inside each streamed layer (launches: train_infinity_sp,
+        # a rank)
+        "flash_fwd_inf_sp": (flash_src, pallas + "flash_attention.py:260",
+                             tisp["launches"]["flash_fwd"],
+                             flash["flash_fwd"]),
+        "flash_bwd_dq_inf_sp": (flash_src,
+                                pallas + "flash_attention.py:453",
+                                tisp["launches"]["flash_bwd_dq"],
+                                flash["flash_bwd_dq"]),
+        "flash_bwd_dkv_inf_sp": (flash_src,
+                                 pallas + "flash_attention.py:472",
+                                 tisp["launches"]["flash_bwd_dkv"],
+                                 flash["flash_bwd_dkv"])}
 
     def case_of(name):  # a flash row's timed case
         for suffix in ("bert", "70b", "sp"):

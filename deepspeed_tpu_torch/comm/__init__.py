@@ -1,12 +1,14 @@
 """Communication of the PyTorch port over ``torch.distributed``
 (counterpart of ``deepspeed_tpu/comm``)."""
 
-from .comm import (ReduceOp, all_gather, all_reduce, all_to_all_in_graph,
-                   all_to_all_single, barrier, broadcast, get_local_rank,
-                   get_rank, get_world_size, init_distributed,
-                   is_initialized, new_group, ppermute, reduce_scatter)
+from .comm import (ReduceOp, all_gather, all_gather_into, all_reduce,
+                   all_to_all_in_graph, all_to_all_single, barrier,
+                   broadcast, get_local_rank, get_rank, get_world_size,
+                   init_distributed, is_initialized, new_group, ppermute,
+                   reduce_scatter)
 
-__all__ = ["ReduceOp", "all_gather", "all_reduce", "all_to_all_in_graph",
-           "all_to_all_single", "barrier", "broadcast", "get_local_rank",
-           "get_rank", "get_world_size", "init_distributed",
-           "is_initialized", "new_group", "ppermute", "reduce_scatter"]
+__all__ = ["ReduceOp", "all_gather", "all_gather_into", "all_reduce",
+           "all_to_all_in_graph", "all_to_all_single", "barrier",
+           "broadcast", "get_local_rank", "get_rank", "get_world_size",
+           "init_distributed", "is_initialized", "new_group", "ppermute",
+           "reduce_scatter"]

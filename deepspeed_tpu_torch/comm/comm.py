@@ -195,6 +195,21 @@ def all_gather(tensor: torch.Tensor, group: GroupLike = None,
     return torch.cat(parts, dim=dim).to(tensor.device)
 
 
+def all_gather_into(out: torch.Tensor, tensor: torch.Tensor,
+                    group: GroupLike = None) -> torch.Tensor:
+    """Every rank's ``tensor`` (``out.numel() / n`` elements each) written
+    into the flat ``out`` in group-rank order, in place; ``tensor`` may be
+    this rank's block of ``out`` itself.  Returns ``out``."""
+    group = _resolve(group)
+    src = tensor.reshape(-1)
+    if _through_host(out, group):
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        dist.all_gather_into_tensor(host, _pinned_copy(src), group=group)
+        return out.copy_(host)
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out
+
+
 def reduce_scatter(tensor: torch.Tensor, op: str = ReduceOp.SUM,
                    group: GroupLike = None, dim: int = 0) -> torch.Tensor:
     """Reduce ``tensor`` (the same shape on every rank) over the group and

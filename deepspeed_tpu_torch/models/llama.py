@@ -760,6 +760,10 @@ class LlamaModel(nn.Module):
     # ``final_norm``, ``lm_head.weight``); ``layer_params`` one layer's by
     # its local name (``q_proj.weight``, ...).  A layer runs without remat:
     # the streaming engine's backward recomputes it once from its input.
+    # Under a ``seq`` axis ``x`` and the batch are this rank's chunk
+    # (``_seq_chunk``): the layer runs at the chunk's global positions,
+    # with Ulysses (or the ring) inside it, and ``head_loss`` returns the
+    # chunk's share of the token mean.
 
     def embed_fwd(self, params: Dict[str, torch.Tensor],
                   input_ids: torch.Tensor) -> torch.Tensor:
@@ -774,8 +778,10 @@ class LlamaModel(nn.Module):
         model's on the weights handed in)."""
         if self.tp > 1:
             raise NotImplementedError("layer streaming under tensor "
-                                      "parallelism is not ported yet "
-                                      "(ROADMAP Queue 1 item 9b)")
+                                      "parallelism is not ported yet: it "
+                                      "needs training under tensor "
+                                      "parallelism first (ROADMAP Queue 1 "
+                                      "item 5b)")
         caller = _LayerCall(self, self.layers[0])
         return torch.func.functional_call(
             caller, {f"layer.{k}": v for k, v in layer_params.items()},
@@ -784,13 +790,17 @@ class LlamaModel(nn.Module):
     def head_loss(self, params: Dict[str, torch.Tensor], x: torch.Tensor,
                   batch: Any) -> torch.Tensor:
         """The loss tail: the last layer's output → final norm → LM head →
-        cross entropy (fp32 scalar)."""
+        cross entropy (fp32 scalar); under ``seq`` the chunk's Σ nll over
+        the valid count summed over ``seq`` (as :meth:`loss`)."""
         c = self.config
         _, labels = self.batch_labels(batch)
         hidden = _rms_norm(x, params["final_norm"], c.rms_norm_eps)
         head = params["embed.weight" if c.tie_embeddings
                       else "lm_head.weight"]
         total, count = self._nll(head, hidden, labels)
+        group, sp = self._seq()
+        if sp > 1:
+            count = comm.all_reduce(count, group=group)
         return total / count.clamp(min=1)
 
     def _nll(self, head: torch.Tensor, hidden: torch.Tensor,
@@ -847,7 +857,8 @@ class LlamaModel(nn.Module):
 
 class _LayerCall(nn.Module):
     """``forward(x)``: the model's training layer on ``layer`` (whose
-    weights ``functional_call`` swaps in), positions from 0."""
+    weights ``functional_call`` swaps in) at ``x``'s global positions: from
+    0, or under a ``seq`` axis from this rank's chunk's first."""
 
     def __init__(self, model: LlamaModel, layer: LlamaDecoderLayer):
         super().__init__()
@@ -855,5 +866,8 @@ class _LayerCall(nn.Module):
         object.__setattr__(self, "_model", model)  # not a submodule
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, AuxLoss]:
-        pos = torch.arange(x.shape[1], device=x.device)
-        return self._model._train_layer(self.layer, x, pos)
+        model, n = self._model, x.shape[1]
+        _, sp = model._seq()
+        lo = model.mesh.axis_rank(AXIS_SEQ) * n if sp > 1 else 0
+        pos = lo + torch.arange(n, device=x.device)
+        return model._train_layer(self.layer, x, pos)

@@ -283,9 +283,11 @@ def _rank_state(engine) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def _save_infinity_layers(engine, tag_dir: str) -> None:
+def _save_infinity_layers(engine, tag_dir: str, write: bool) -> None:
     """The streamed trunk, one layer file at a time (each written and
-    dropped before the next is read from its tier)."""
+    dropped before the next is read from its tier).  On more than one rank
+    every rank gathers each layer's segments and only ``write`` (rank 0 of
+    the data axes and ``seq``) writes it: the same one file a layer."""
     from .checkpoint_engine import _write
 
     inf = engine.infinity
@@ -302,8 +304,10 @@ def _save_infinity_layers(engine, tag_dir: str) -> None:
                 "master": masters[name],
                 "optim": {k: moments[k][off:off + n].view(shape).clone()
                           for k in ("m", "v")}}
-        _write({"version": FORMAT_VERSION, "layer": i, "leaves": leaves},
-               os.path.join(tag_dir, LAYER_FILE.format(i)))
+        if write:
+            _write({"version": FORMAT_VERSION, "layer": i,
+                    "leaves": leaves},
+                   os.path.join(tag_dir, LAYER_FILE.format(i)))
         del masters, moments, leaves
 
 
@@ -358,7 +362,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             json.dump(meta, fh, default=str)
         _copy_zero_to_fp32(save_dir)
     if engine.infinity is not None:
-        _save_infinity_layers(engine, tag_dir)
+        _save_infinity_layers(engine, tag_dir, lead)
 
     def commit() -> None:
         if group is not None:
@@ -503,7 +507,8 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
 def _load_infinity_layers(engine, sources: Dict[str, Any], params_only: bool,
                           where: str) -> None:
     """Install every trunk layer's masters (and moments) from the
-    checkpoint's leaves into the swapper, one layer at a time."""
+    checkpoint's leaves into the swapper, one layer at a time (whole: each
+    rank keeps its segment, so any rank count loads any save)."""
     inf = engine.infinity
     sw = inf.swapper
     for i in range(inf.L):

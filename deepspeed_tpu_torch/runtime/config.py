@@ -34,9 +34,9 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` for the keys
   tier's file I/O engine).
 
 What the port cannot do yet raises ``NotImplementedError`` ("not ported
-yet", naming its ``ROADMAP.md`` Queue 1 item): ZeRO-Infinity on more than
-one rank (item 9b; ``initialize`` checks), MiCS, ZeRO++ (quantized weights
-or gradients, hpZ) and
+yet", naming its ``ROADMAP.md`` Queue 1 item): ZeRO-Infinity under a
+tensor axis (item 5b; ``initialize`` checks), MiCS, ZeRO++ (quantized
+weights or gradients, hpZ) and
 ``kernels.overlap_collectives``, a tensor or pipeline
 dimension above 1, random-LTD (``data_efficiency.data_routing.
 random_ltd``).  The groups of :data:`ACCEPTED_WITHOUT_EFFECT`

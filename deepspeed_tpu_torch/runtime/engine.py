@@ -114,8 +114,10 @@ parameters may live on the CPU: the trunk never goes to the card whole
 (``runtime/swap_tensor/``), only the resident subtree does.  ``train_step``
 and ``eval_loss`` run the streamed step; ``forward`` / ``backward`` /
 ``step`` buffer the microbatches and stream them at the boundary (a
-partial boundary with its own accumulation count, JAX :2304).  Infinity
-on more than one rank is not ported yet (ROADMAP Queue 1 item 9b).
+partial boundary with its own accumulation count, JAX :2304).  On the
+data axes and ``seq`` each rank's host planes hold its ``1/world`` of every
+layer (the swapper gathers the wire and reduce-scatters the gradients);
+the resident leaves are rank 0's on every rank, as the trunk's layers are.
 """
 
 from __future__ import annotations
@@ -187,7 +189,7 @@ class DeepSpeedEngine:
             self._schedule = constant_lr(base_lr(config))
         self.lr_scheduler = LRScheduler(self._schedule)
         if zero.offload_param_device() != "none":
-            self._init_infinity(dp_group, seq_group)
+            self._init_infinity(dp_group, seq_group, dp_seq_group)
             return
         self.params = [p for p in params if p.requires_grad]
         named = ({id(p): n for n, p in module.named_parameters()}
@@ -342,10 +344,13 @@ class DeepSpeedEngine:
             p.grad = None
         return hook
 
-    def _init_infinity(self, dp_group: Any, seq_group: Any) -> None:
+    def _init_infinity(self, dp_group: Any, seq_group: Any,
+                       dp_seq_group: Any) -> None:
         """ZeRO-Infinity (JAX ``engine.py:116-140`` and ``_init_state``
         :662): the streaming executor owns the trunk; ``self.params`` are
-        the resident leaves on the card."""
+        the resident leaves on the card, broadcast from rank 0 of the data
+        axes and ``seq`` (the swapper broadcasts each trunk layer as it
+        fills the planes, so no rank holds a second copy of the trunk)."""
         from .swap_tensor import PROTOCOL, LayerStreamingEngine
 
         config, module = self.config, self.module
@@ -355,19 +360,19 @@ class DeepSpeedEngine:
                 "(embed_fwd/decoder_layer/head_loss protocol — see "
                 "runtime/swap_tensor/infinity_engine.py); "
                 f"{type(module).__name__} does not implement it")
-        if any(g is not None and comm.get_world_size(g) > 1
-               for g in (dp_group, seq_group)):
-            raise NotImplementedError(
-                "ZeRO-Infinity (offload_param) on more than one rank is not "
-                "ported yet (ROADMAP Queue 1 item 9b: per-process planes "
-                "and the in-graph gather and scatter, with Infinity x "
-                "Ulysses)")
-        self.dp_group, self.dp_world_size = None, 1
-        self._init_seq(None, None)
+        self.dp_group = dp_group
+        self.dp_world_size = (comm.get_world_size(dp_group)
+                              if dp_group is not None else 1)
+        self._init_seq(seq_group, dp_seq_group)
         self.expert_data_group, self._data_rank = None, 0
-        self.infinity = LayerStreamingEngine(module, config, self._schedule,
-                                             self.device)
+        self.infinity = LayerStreamingEngine(
+            module, config, self._schedule, self.device,
+            group=self._sum_group, seq_group=self.seq_group)
         inf = self.infinity
+        if self._sum_group is not None:
+            with torch.no_grad():
+                for p in inf.resident.values():
+                    comm.broadcast(p.data, 0, group=self._sum_group)
         self.params = list(inf.resident.values())
         self.param_names = list(inf.resident)
         self.placements = [None] * len(self.params)
@@ -757,7 +762,8 @@ class DeepSpeedEngine:
     @torch.no_grad()
     def eval_loss(self, batch: Any) -> torch.Tensor:
         """The loss of this rank's rows (summed over ``seq``), averaged
-        over the data-parallel group (every rank calls it)."""
+        over the data-parallel group (every rank calls it; the streamed
+        engine averages its own)."""
         if self.infinity is not None:
             return self.infinity.eval_loss(batch)
         loss = self.loss_fn(self._to_device(batch))

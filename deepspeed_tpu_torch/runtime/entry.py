@@ -187,8 +187,12 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     hands the mesh) keeps its ``S/sp`` chunk, runs Ulysses or the ring at
     each attention and returns its share of the token mean; the engine
     sums every gradient over ``seq``.  ZeRO still cuts over the data axes
-    alone.  Not ported under ``seq`` (ROADMAP Queue 1): ZeRO-Infinity
-    (item 9b), MoE and the other ladder models (item 7b).
+    alone.  ZeRO-Infinity (``offload_param``) runs on the data axes and
+    ``seq``: each rank's host planes hold its ``1/world`` of every layer.
+    Not ported under ``seq`` (ROADMAP Queue 1): MoE and the other ladder
+    models (item 7b); not ported under ``offload_param``: a tensor axis
+    (item 5b) and a pipe axis (layer streaming is itself
+    layer-sequential, as JAX refuses it).
 
     Expert parallelism: a mixture-of-experts model (``MixtralModel``)
     routes the global micro-batch on any data axis; with
@@ -238,11 +242,16 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
         mesh, mpu, int(cfg.moe.expert_parallel_size), sp)
     tp, pp, sp = (others.get(a, 1) for a in (AXIS_TENSOR, AXIS_PIPE,
                                              AXIS_SEQ))
-    if zero.offload_param_device() != "none" and dp * tp * pp * sp > 1:
+    infinity = zero.offload_param_device() != "none"
+    if infinity and tp > 1:
         raise NotImplementedError(
-            "ZeRO-Infinity (offload_param) on more than one rank is not "
-            "ported yet (ROADMAP Queue 1 item 9b: per-process planes and "
-            "the in-graph gather and scatter, with Infinity x Ulysses)")
+            "ZeRO-Infinity (offload_param) under tensor parallelism is not "
+            "ported yet: layer streaming under TP needs training under TP "
+            "first (ROADMAP Queue 1 item 5b); use the data axes and seq")
+    if infinity and pp > 1:
+        raise NotImplementedError(
+            "layer streaming is itself layer-sequential; combine "
+            "offload_param with the data axes and seq, not pipe")
     cfg.resolve_batch_sizes(world_size=dp * tp * pp * sp, tp=tp, pp=pp,
                             sp=sp)
     cfg.resolve_auto_precision()
@@ -268,7 +277,9 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
         raise ValueError("model_parameters (the fp32 master tensors) is "
                          "required with a bare loss function")
     params = list(model_parameters)
-    if dp * sp > 1:
+    # under offload_param the engine broadcasts the resident leaves and the
+    # swapper each trunk layer as it fills its planes
+    if dp * sp > 1 and not infinity:
         with torch.no_grad():  # DeepSpeed's _broadcast_model
             for p in params:
                 if placement_of(p) is not None:

@@ -2,7 +2,7 @@
 parameters and optimizer state do not fit on the card.
 
 Counterpart of ``deepspeed_tpu/runtime/swap_tensor/infinity_engine.py``
-(:class:`LayerStreamingEngine`, single process).  The step is a Python
+(:class:`LayerStreamingEngine`).  The step is a Python
 pipeline over the layers, their weights streamed from the host planes of
 :class:`~.partitioned_param_swapper.PartitionedParamSwapper` into two
 device buffers:
@@ -38,6 +38,24 @@ runs twice (streamed, then recomputed in the backward) and its backward
 once, per microbatch: ``flash_fwd = 2 x L x gas``, ``flash_bwd_dq =
 flash_bwd_dkv = L x gas``; ``eval_loss`` adds ``L`` forwards.  A layer is
 never run under ``LlamaConfig.remat``: the recompute is the remat.
+
+On more than one rank (``group``: the data-parallel and ``seq`` ranks;
+JAX's multi-process engine, ``proc_world > 1``) each rank feeds its own
+rows (every ``seq`` rank of a data coordinate the same whole rows) and the
+swapper holds this rank's segment of every layer (its gathered wire, its
+reduce-scattered gradients: ``partitioned_param_swapper``).  Under a
+``seq`` axis each micro-batch is cut to this rank's ``S/sp`` chunk, the
+labels made from the whole row first (``LlamaModel._seq_chunk``); the
+layers run Ulysses inside ``decoder_layer`` (12 all-to-alls a layer a
+micro-batch: 4 in the streamed forward, 4 in the backward's recompute, 4
+in its backward) and ``head_loss`` returns the chunk's share of the token
+mean.  The resident gradients are summed over the group and divided by
+``dp`` (the data ranks averaged, ``seq`` summed) before the port's Adam,
+so the resident leaves stay equal on every rank; the trunk's squared norm
+is the sum of the ranks' segment norms in one scalar all-reduce (JAX
+``_host_sum``), and a gradient that is not finite on any rank makes every
+rank skip.  The reported loss and ``eval_loss`` are summed over ``seq``
+and averaged over the data ranks.
 """
 
 from __future__ import annotations
@@ -48,9 +66,11 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from ...comm import comm
 from ...utils.logging import log_dist
 from ..engine import _rows, _slice_rows
 from ..optimizers import Adam
+from ..zero.sharder import all_reduce_flat
 from .partitioned_param_swapper import PartitionedParamSwapper
 
 PROTOCOL = ("embed_fwd", "decoder_layer", "head_loss", "batch_labels")
@@ -63,10 +83,13 @@ def _zeros_if_none(grads, like) -> List[torch.Tensor]:
 
 class LayerStreamingEngine:
     """The streamed train step over ``model`` on ``device``, its trunk
-    (``model.layers``) in the swapper's tier."""
+    (``model.layers``) in the swapper's tier; ``group`` (the data-parallel
+    and ``seq`` ranks, None in one process) of which ``seq_group`` is the
+    ``seq`` part."""
 
     def __init__(self, model: Any, config: Any,
-                 schedule: Callable[[int], float], device: torch.device):
+                 schedule: Callable[[int], float], device: torch.device,
+                 group: Any = None, seq_group: Any = None):
         c = model.config
         self.model = model
         self.schedule = schedule
@@ -95,8 +118,17 @@ class LayerStreamingEngine:
                     hp[k] = v
             hp["adamw_mode"] = name not in ("adam", "fusedadam")
         self.aux_coef = float(getattr(c, "aux_loss_coef", 0.0))
+        self.group = group if group is not None and \
+            comm.get_world_size(group) > 1 else None
+        self.world = (comm.get_world_size(self.group)
+                      if self.group is not None else 1)
+        self.sp = (comm.get_world_size(seq_group)
+                   if seq_group is not None else 1)
+        #: the data-parallel ranks: the divisor of the summed gradients
+        self.dp = self.world // self.sp
 
         zcfg = config.zero_optimization
+        self._bucket = zcfg.reduce_bucket_elements
         pcfg = zcfg.offload_param
         nvme_path = pcfg.nvme_path if pcfg.device == "nvme" else None
         ocfg = zcfg.offload_optimizer
@@ -104,9 +136,10 @@ class LayerStreamingEngine:
         wire = self.compute_dtype
         resident = {n: p for n, p in model.named_parameters()
                     if not n.startswith("layers.")}
-        # the trunk's planes one layer at a time; on the cpu tier each
-        # layer's parameters then become views of its fp32 masters (no
-        # second host copy of the trunk), on nvme one broadcast zero each
+        # the trunk's planes one layer at a time; on the cpu tier in one
+        # process each layer's parameters then become views of its fp32
+        # masters (no second host copy of the trunk), on nvme or on more
+        # ranks (a segment) one broadcast zero each
         layers = [list(layer.named_parameters()) for layer in model.layers]
 
         def on_filled(i: int, views: Optional[Dict[str, torch.Tensor]]
@@ -120,7 +153,7 @@ class LayerStreamingEngine:
             layers, device=device, wire_dtype=wire, nvme_path=nvme_path,
             buffer_count=int(pcfg.buffer_count or 4),
             aio_config=config.aio, adam_hparams=hp, pipeline=pipeline,
-            on_filled=on_filled)
+            on_filled=on_filled, group=self.group, grad_scale=1.0 / self.dp)
         del layers
         with torch.no_grad():
             for p in resident.values():
@@ -140,7 +173,8 @@ class LayerStreamingEngine:
         self.last_timings: Dict[str, float] = {}
         log_dist(f"ZeRO-Infinity streaming engine: {self.L} layers, "
                  f"{self.swapper.n_elems * self.L:,} trunk params off the "
-                 f"device ({'nvme' if nvme_path else 'cpu'} tier), "
+                 f"device ({'nvme' if nvme_path else 'cpu'} tier, "
+                 f"{self.world} ranks, sp {self.sp}), "
                  f"{self.resident_param_count():,} resident on {device}")
 
     # -- the pieces -------------------------------------------------------
@@ -202,6 +236,28 @@ class LayerStreamingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _micro(self, batch: Any) -> Any:
+        """The batch a rank streams: under ``seq`` its chunk of the ids and
+        of the labels made from the whole rows."""
+        if self.sp == 1:
+            return batch
+        ids, labels = self.model.batch_labels(batch)
+        ids, labels, _ = self.model._seq_chunk(ids, labels, self.sp)
+        return {"input_ids": ids, "labels": labels}
+
+    def _group_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the group (itself in one process)."""
+        if self.group is None:
+            return x
+        return comm.all_reduce(x.clone(), group=self.group)
+
+    def _group_mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """A rank's loss summed over ``seq``, averaged over the data
+        ranks."""
+        if self.group is None:
+            return loss
+        return self._group_sum(loss.float()).div_(self.dp)
+
     # -- the streamed step -------------------------------------------------
 
     def train_step(self, batch: Any) -> Dict[str, Any]:
@@ -216,7 +272,8 @@ class LayerStreamingEngine:
         if rows % gas:
             raise ValueError(f"batch rows {rows} not divisible by "
                              f"gradient_accumulation_steps {gas}")
-        micros = [_slice_rows(batch, k * rows // gas, (k + 1) * rows // gas)
+        micros = [self._micro(_slice_rows(batch, k * rows // gas,
+                                          (k + 1) * rows // gas))
                   for k in range(gas)]
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         norm_sq = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -243,13 +300,17 @@ class LayerStreamingEngine:
                 sw.prefetch(i - 1, full=fused)
                 dx, dlp = self._layer_bwd(lp, acts[i], dx, ls)
                 acts[i] = None  # the activation is consumed
-                if fused:
-                    for g in dlp.values():
-                        norm_sq = norm_sq + g.float().square().sum()
-                    sw.step_layer_async(i, dlp, lr=lr)
-                else:
-                    sw.stash_grads(i, dlp, accumulate=k > 0)
+                # one process: the leaves; more: this rank's reduced segment
+                g_layer = sw.reduce_layer_grads(dlp)
                 del dlp
+                if fused:
+                    for g in (g_layer.values() if isinstance(g_layer, dict)
+                              else (g_layer,)):
+                        norm_sq = norm_sq + g.float().square().sum()
+                    sw.step_layer_async(i, g_layer, lr=lr)
+                else:
+                    sw.stash_grads(i, g_layer, accumulate=k > 0)
+                del g_layer
                 sw.release(i)
             g_head["embed.weight"] = g_head["embed.weight"] + \
                 self._embed_grad(ids, dx)
@@ -257,13 +318,23 @@ class LayerStreamingEngine:
                 n: g_res[n] + g_head[n] for n in g_res}
         t_backward = time.perf_counter()
 
+        if self.group is not None:
+            # summed over the ranks, the data ranks averaged
+            flat = list(g_res.values())
+            all_reduce_flat(flat, self.group, self._bucket)
+            if self.dp > 1:
+                torch._foreach_div_(flat, float(self.dp))
+            loss_sum = self._group_mean_loss(loss_sum)
         res_sq = sum(g.square().sum() for g in g_res.values())
         overflow = False
         if fused:
-            grad_norm = float(torch.sqrt(norm_sq + res_sq))
+            grad_norm = float(torch.sqrt(self._group_sum(norm_sq) + res_sq))
             scale = 1.0
         else:
             trunk_sq = sw.stashed_sq_norm()
+            if self.group is not None:
+                trunk_sq = float(self._group_sum(torch.tensor(
+                    trunk_sq, dtype=torch.float64, device=self.device)))
             grad_norm = math.sqrt(trunk_sq + float(res_sq)) / (gas * ls)
             overflow = self.fp16 and not math.isfinite(grad_norm)
             scale = 1.0 / (gas * ls)
@@ -304,7 +375,7 @@ class LayerStreamingEngine:
         """The streamed forward's loss (no gradient, no update)."""
         model, sw = self.model, self.swapper
         sw.drain_updates()
-        batch = self._to_device(batch)
+        batch = self._micro(self._to_device(batch))
         ids, _ = model.batch_labels(batch)
         x = model.embed_fwd(self.resident, ids)
         aux_sum = 0.0
@@ -315,16 +386,16 @@ class LayerStreamingEngine:
             x, aux = model.decoder_layer(lp, x)
             aux_sum = aux_sum + aux
             sw.release(i)
-        return model.head_loss(self.resident, x, batch) + \
-            self.aux_coef * aux_sum
+        return self._group_mean_loss(model.head_loss(self.resident, x, batch)
+                                     + self.aux_coef * aux_sum)
 
     # -- introspection -------------------------------------------------------
 
     def peak_device_param_bytes(self) -> int:
         """Trunk bytes on the device at the deepest point: the two layer
-        buffers."""
+        buffers (``n_pad`` wire elements each)."""
         sw = self.swapper
-        return 2 * sw.n_elems * sw._wire_size()
+        return 2 * sw.n_pad * sw._wire_size()
 
     def resident_param_count(self) -> int:
         return sum(p.numel() for p in self.resident.values())

@@ -23,12 +23,13 @@ in flight, read ahead and written behind through the port's
 :class:`~deepspeed_tpu_torch.ops.aio.AIOHandle`, the least recently used
 slot evicted first.  Host memory is then ``buffer_count`` layers, not all.
 
-The device side is two flat buffers of ``n_elems`` in the wire dtype,
+The device side is two flat buffers of ``n_pad`` in the wire dtype,
 allocated once: layer ``i`` goes into buffer ``i % 2`` and its leaves are
 views into it, so the caching allocator sees no per-layer allocation and
-the parameter bytes on the device peak at exactly ``2 x n_elems x`` the
-wire's element size.  On the card the copies run on side streams, ordered
-by CUDA events where the JAX package relied on ``device_put``:
+the parameter bytes on the device peak at exactly ``2 x n_pad x`` the
+wire's element size (``n_pad`` is ``n_elems`` in one process).  On the
+card the copies run on side streams, ordered by CUDA events where the JAX
+package relied on ``device_put``:
 
 * a host-to-device copy into a buffer waits for the compute stream's
   :meth:`release` of the layer that held it, and :meth:`get_device` makes
@@ -44,6 +45,23 @@ updates master, m and v and writes the new bf16 wire (an fp16 or fp32 wire
 is cast from the master).  ``pipeline=True`` runs it on a worker thread
 (:class:`_OptPipeline`) while the main thread keeps the card busy; the
 result is the same, bit for bit, as the serial run.
+
+On more than one rank (``group``: the data-parallel and ``seq`` ranks;
+JAX's per-process planes, ``shard``) each layer's flat plane is padded to
+``n_pad``, a multiple of the group's size, and each rank's planes hold one
+contiguous segment of it, ``[rank x n_plane, (rank + 1) x n_plane)``:
+host memory, nvme files (``layer_{i:05d}.r{rank}.{kind}``) and the host
+Adam's work are ``1/world`` of one process's.  :meth:`get_device` copies
+the rank's wire segment into its place in the device buffer and
+all-gathers the buffer over the group; :meth:`reduce_layer_grads` lays a
+layer's gradients end to end in one fp32 ``[n_pad]`` device buffer,
+reduce-scatters it (a sum) over the group and multiplies the rank's
+segment by ``grad_scale`` (``1/dp``: the data ranks are averaged, ``seq``
+is summed), and only that segment crosses to the host.  Every collective
+runs on the caller's thread, in the order of the calls, which every rank
+makes alike; the worker thread issues none.  The checkpoint surface
+(:meth:`layer_master_tree`, :meth:`layer_moments`, :meth:`load_layer`)
+speaks whole layers: it gathers the segments, or takes its own.
 """
 
 from __future__ import annotations
@@ -55,7 +73,9 @@ import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ...comm import comm
 from ...ops.adam.cpu_adam import adam_step
 from ...utils.logging import log_dist
 
@@ -151,7 +171,10 @@ class PartitionedParamSwapper:
     them one layer at a time and ``on_filled(i, masters)`` (when given) is
     called after layer ``i``'s, with its master leaves by name on the cpu
     tier (None on nvme), so the caller can drop its own copy (the engine
-    makes the model's parameters those views).
+    makes the model's parameters those views).  On more than one rank
+    (``group``) each layer's leaves are first made group rank 0's
+    (broadcast), the planes keep this rank's segment, and ``on_filled``
+    gets None: a segment cannot back whole leaves.
     """
 
     def __init__(self, layers: Sequence[Sequence[Tuple[str, torch.Tensor]]],
@@ -159,7 +182,8 @@ class PartitionedParamSwapper:
                  nvme_path: Optional[str] = None, buffer_count: int = 4,
                  aio_config: Any = None,
                  adam_hparams: Optional[Dict[str, Any]] = None,
-                 pipeline: bool = False, on_filled=None):
+                 pipeline: bool = False, on_filled=None, group: Any = None,
+                 grad_scale: float = 1.0):
         if not layers:
             raise ValueError("need at least one layer")
         self.device = device
@@ -170,6 +194,19 @@ class PartitionedParamSwapper:
                            for _, s, _ in self.layout)
         self.wire_dtype = wire_dtype
         self.nvme_dir = nvme_path
+        # this rank's share: one contiguous segment of the padded plane
+        # (JAX ``shard``; no permuted device order under torch.distributed)
+        self.group = group if group is not None and \
+            comm.get_world_size(group) > 1 else None
+        self.shard_world = (comm.get_world_size(self.group)
+                            if self.group is not None else 1)
+        self.shard_rank = (comm.get_rank(self.group)
+                           if self.group is not None else 0)
+        self.n_pad = -(-self.n_elems // self.shard_world) * self.shard_world
+        self.n_plane = self.n_pad // self.shard_world
+        lo = self.shard_rank * self.n_plane
+        self.segments = [(lo, lo + self.n_plane)]
+        self.grad_scale = float(grad_scale)
         if pipeline and int(buffer_count) < 2:
             # the worker pins the layer it updates; with one slot the
             # read-ahead could find every slot pinned and deadlock
@@ -186,9 +223,11 @@ class PartitionedParamSwapper:
         self.adamw_mode = bool(hp.get("adamw_mode", True))
         self.bias_correction = bool(hp.get("bias_correction", True))
         self.state_step = 0
-        #: bytes moved, by lane: h2d, d2h, disk_read, disk_write
+        #: bytes moved, by lane: h2d, d2h, disk_read, disk_write, and on
+        #: more than one rank the layers gathered (``n_pad`` wire elements
+        #: each) and the gradients reduce-scattered (``n_pad`` fp32 each)
         self.io_bytes = {"h2d": 0, "d2h": 0, "disk_read": 0,
-                         "disk_write": 0}
+                         "disk_write": 0, "gather": 0, "reduce_scatter": 0}
         self._lock = threading.RLock()
         #: layers whose update is queued or running: their slots stay
         self._pinned: set = set()
@@ -199,11 +238,12 @@ class PartitionedParamSwapper:
         if self.nvme_dir is None:
             self._resident: Optional[List[_Planes]] = []
             for i, named in enumerate(layers):
-                planes = _Planes(self.n_elems, wire_dtype, self.cuda)
-                self._fill(planes, named)
+                planes = _Planes(self.n_plane, wire_dtype, self.cuda)
+                self._fill(planes, self._from_rank0(named))
                 self._resident.append(planes)
                 if on_filled is not None:
-                    on_filled(i, self.views(planes.master))
+                    on_filled(i, self.views(planes.master)
+                              if self.shard_world == 1 else None)
             self._aio = None
         else:
             from ...ops.aio import AIOHandle
@@ -216,15 +256,15 @@ class PartitionedParamSwapper:
                 single_submit=getattr(ac, "single_submit", False),
                 overlap_events=getattr(ac, "overlap_events", True),
                 thread_count=getattr(ac, "thread_count", 2))
-            scratch = _Planes(self.n_elems, wire_dtype, False)
+            scratch = _Planes(self.n_plane, wire_dtype, False)
             for i, named in enumerate(layers):
-                self._fill(scratch, named)
+                self._fill(scratch, self._from_rank0(named))
                 self._write_layer_sync(i, scratch)
                 if on_filled is not None:
                     on_filled(i, None)
             del scratch
             self._resident = None
-            self._slots = [_Planes(self.n_elems, wire_dtype, self.cuda)
+            self._slots = [_Planes(self.n_plane, wire_dtype, self.cuda)
                            for _ in range(self.buffer_count)]
             self._slot_of: Dict[int, int] = {}     # layer -> slot
             self._slot_full: Dict[int, bool] = {}  # layer -> master/m/v read
@@ -233,7 +273,7 @@ class PartitionedParamSwapper:
             self._dirty_writes = 0
 
         # the two device buffers and their bookkeeping
-        self._dev = [torch.empty((self.n_elems,), dtype=wire_dtype,
+        self._dev = [torch.empty((self.n_pad,), dtype=wire_dtype,
                                  device=device) for _ in range(2)]
         self._dev_layer: List[Optional[int]] = [None, None]
         self._dev_busy: List[bool] = [False, False]
@@ -242,9 +282,13 @@ class PartitionedParamSwapper:
         if self.cuda:
             self._h2d_stream = torch.cuda.Stream(device)
             self._d2h_stream = torch.cuda.Stream(device)
-        # pinned gradient staging: the fused path's double buffer
-        self._stage = [_host(self.n_elems, wire_dtype, self.cuda)
+        # pinned gradient staging: the fused path's double buffer (the
+        # wire dtype in one process, the reduced fp32 segment on more)
+        self._stage = [_host(self.n_plane, wire_dtype if self.shard_world
+                             == 1 else torch.float32, self.cuda)
                        for _ in range(2)]
+        #: the flat fp32 gradient reduce-scattered on more than one rank
+        self._gflat: Optional[torch.Tensor] = None
         self._stage_free: "queue.Queue" = queue.Queue()
         for k in range(2):
             self._stage_free.put(k)
@@ -252,11 +296,11 @@ class PartitionedParamSwapper:
         self._scratch_g: Optional[torch.Tensor] = None
         self._pipe = _OptPipeline(self._pipe_step) if pipeline else None
         tier = "nvme" if self.nvme_dir else "cpu"
-        per_layer = self.n_elems * (12 + self._wire_size())
-        held = self.buffer_count if self.nvme_dir else self.L
         log_dist(f"ZeRO-Infinity swapper: {self.L} layers x "
                  f"{self.n_elems:,} params, tier={tier}, host planes "
-                 f"{held * per_layer / 2**30:.2f} GiB, pipeline={pipeline}")
+                 f"{self.host_plane_bytes() / 2**30:.2f} GiB (rank "
+                 f"{self.shard_rank} of {self.shard_world}), "
+                 f"pipeline={pipeline}")
 
     # -- planes ---------------------------------------------------------
 
@@ -264,20 +308,42 @@ class PartitionedParamSwapper:
         return torch.empty((), dtype=self.wire_dtype).element_size()
 
     def host_plane_bytes(self) -> int:
-        """Host bytes of the planes this tier holds (wire, master, m, v;
-        stashed gradients and staging not counted)."""
+        """Host bytes of the planes this tier holds on this rank (wire,
+        master, m, v; stashed gradients and staging not counted)."""
         held = self.buffer_count if self.nvme_dir else self.L
-        return held * self.n_elems * (12 + self._wire_size())
+        return held * self.n_plane * (12 + self._wire_size())
+
+    @torch.no_grad()
+    def _from_rank0(self, named: Sequence[Tuple[str, torch.Tensor]]
+                    ) -> Sequence[Tuple[str, torch.Tensor]]:
+        """On more than one rank, a layer's leaves made group rank 0's, in
+        place (through the card when the group carries no host tensors)."""
+        if self.shard_world == 1:
+            return named
+        on_host = dist.get_backend(self.group) == "gloo"
+        for _, t in named:
+            if on_host:
+                comm.broadcast(t.data, 0, self.group)
+            else:
+                d = t.detach().to(self.device)
+                t.data.copy_(comm.broadcast(d, 0, self.group))
+        return named
 
     @torch.no_grad()
     def _fill(self, planes: _Planes, named: Sequence[Tuple[str, Any]],
               zero_moments: bool = True) -> None:
-        """Masters (and wires, cast) from a layer's leaves."""
+        """This rank's segment of the masters (and wires, cast) from a
+        layer's whole leaves; the padding past ``n_elems`` zero."""
         self._check_layout(named)
+        lo, hi = self.segments[0]
         for (name, shape, off), (_, t) in zip(self.layout, named):
             n = int(torch.Size(shape).numel())
-            planes.master[off:off + n].copy_(
-                torch.as_tensor(t).detach().reshape(-1))
+            a, b = max(off, lo), min(off + n, hi)
+            if a < b:
+                planes.master[a - lo:b - lo].copy_(
+                    torch.as_tensor(t).detach().reshape(-1)[a - off:b - off])
+        if hi > self.n_elems:
+            planes.master[max(self.n_elems, lo) - lo:].zero_()
         self._sync_wire(planes)
         if zero_moments:
             planes.m.zero_()
@@ -294,14 +360,17 @@ class PartitionedParamSwapper:
         planes.wire.copy_(planes.master)  # round to nearest even
 
     def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """A flat plane's leaves by name, as views."""
+        """A whole flat layer's leaves by name, as views (a device buffer,
+        a gathered plane, or a host plane in one process: on more, a host
+        plane is a segment)."""
         return {name: flat[off:off + int(torch.Size(s).numel())].view(s)
                 for name, s, off in self.layout}
 
     # -- nvme files -----------------------------------------------------
 
     def _path(self, i: int, kind: str) -> str:
-        return os.path.join(self.nvme_dir, f"layer_{i:05d}.{kind}")
+        rank = f".r{self.shard_rank}" if self.shard_world > 1 else ""
+        return os.path.join(self.nvme_dir, f"layer_{i:05d}{rank}.{kind}")
 
     def _aio_wait(self, what: str) -> None:
         failed = self._aio.wait()
@@ -425,29 +494,39 @@ class PartitionedParamSwapper:
                 "it")
         planes = self._ensure_host(i)
         src = planes.wire
+        lo, hi = self.segments[0]
+        dst = self._dev[b][lo:hi]
         if self.cuda:
             with torch.cuda.stream(self._h2d_stream):
                 if self._dev_free[b] is not None:
                     self._h2d_stream.wait_event(self._dev_free[b])
-                self._dev[b].copy_(src, non_blocking=True)
+                dst.copy_(src, non_blocking=True)
                 ev = torch.cuda.Event()
                 ev.record(self._h2d_stream)
             self._dev_ready[b] = ev
             with self._lock:
                 self._wire_read[i] = ev
         else:
-            self._dev[b].copy_(src)
-        self.io_bytes["h2d"] += self.n_elems * self._wire_size()
+            dst.copy_(src)
+        self.io_bytes["h2d"] += self.n_plane * self._wire_size()
         self._dev_layer[b] = i
         return b
 
     def get_device(self, i: int) -> Dict[str, torch.Tensor]:
         """Layer ``i``'s leaves on the device (views of its buffer, in the
-        wire dtype); the compute stream waits for their copy."""
+        wire dtype); the compute stream waits for their copy.  On more
+        than one rank the buffer is all-gathered over the group first, at
+        every call (so the collectives do not depend on which layers a
+        rank's ring still holds)."""
         b = self._to_device(i)
         if self.cuda and self._dev_ready[b] is not None:
             torch.cuda.current_stream(self.device).wait_event(
                 self._dev_ready[b])
+        if self.shard_world > 1:
+            lo, hi = self.segments[0]
+            comm.all_gather_into(self._dev[b], self._dev[b][lo:hi],
+                                 self.group)
+            self.io_bytes["gather"] += self.n_pad * self._wire_size()
         self._dev_busy[b] = True
         return self.views(self._dev[b])
 
@@ -465,14 +544,37 @@ class PartitionedParamSwapper:
 
     # -- gradients off the device ------------------------------------------
 
-    def _grads_to_stage(self, grads: Dict[str, torch.Tensor]
-                        ) -> Tuple[int, Any]:
-        """Copy a layer's gradient leaves into a free pinned staging
-        buffer; ``(buffer, event of the copy)``."""
+    @torch.no_grad()
+    def reduce_layer_grads(self, grads: Dict[str, torch.Tensor]) -> Any:
+        """What the update of a layer consumes: its gradient leaves in one
+        process; on more, this rank's segment of their sum over the group
+        times ``grad_scale`` (fp32 ``[n_plane]`` on the device), from one
+        flat fp32 ``[n_pad]`` buffer (the padding stays zero)."""
+        if self.shard_world == 1:
+            return grads
+        if self._gflat is None:
+            self._gflat = torch.zeros((self.n_pad,), dtype=torch.float32,
+                                      device=self.device)
+        for name, s, off in self.layout:
+            n = int(torch.Size(s).numel())
+            self._gflat[off:off + n].copy_(grads[name].reshape(-1))
+        seg = comm.reduce_scatter(self._gflat, group=self.group)
+        if self.grad_scale != 1.0:
+            seg.mul_(self.grad_scale)
+        self.io_bytes["reduce_scatter"] += self.n_pad * 4
+        return seg
+
+    def _grads_to_stage(self, grads: Any) -> Tuple[int, Any]:
+        """Copy a layer's gradient leaves (or this rank's reduced segment)
+        into a free pinned staging buffer; ``(buffer, event of the
+        copy)``."""
         k = self._stage_free.get()  # blocks while both are being consumed
         stage = self._stage[k]
-        flat = [(grads[name], off, int(torch.Size(s).numel()))
-                for name, s, off in self.layout]
+        if isinstance(grads, torch.Tensor):
+            flat = [(grads, 0, self.n_plane)]
+        else:
+            flat = [(grads[name], off, int(torch.Size(s).numel()))
+                    for name, s, off in self.layout]
         if self.cuda:
             self._d2h_stream.wait_stream(
                 torch.cuda.current_stream(self.device))
@@ -487,7 +589,7 @@ class PartitionedParamSwapper:
             for g, off, n in flat:
                 stage[off:off + n].copy_(g.reshape(-1))
             ev = None
-        self.io_bytes["d2h"] += self.n_elems * self._wire_size()
+        self.io_bytes["d2h"] += self.n_plane * stage.element_size()
         return k, ev
 
     def _take_stage(self, k: int, ev: Any, out: torch.Tensor,
@@ -539,7 +641,7 @@ class PartitionedParamSwapper:
                 g = self._pipe_g
             else:
                 if self._scratch_g is None:
-                    self._scratch_g = _host(self.n_elems, torch.float32,
+                    self._scratch_g = _host(self.n_plane, torch.float32,
                                             False)
                 g = self._scratch_g
             self._take_stage(*stage, g)
@@ -568,32 +670,33 @@ class PartitionedParamSwapper:
         self._pipe.submit(kind, i, stage, None if lr is None else float(lr),
                           float(scale))
 
-    def step_layer(self, i: int, grads: Dict[str, torch.Tensor],
+    def step_layer(self, i: int, grads: Any,
                    lr: Optional[float] = None) -> None:
         """The fused path's update of layer ``i`` from its device
-        gradients: copy off, C++ Adam, write-behind (nvme)."""
+        gradients (:meth:`reduce_layer_grads`): copy off, C++ Adam,
+        write-behind (nvme)."""
         stage = self._grads_to_stage(grads)
         self._invalidate_device(i)
         self._update("fused", i, stage, lr, 1.0)
 
-    def step_layer_async(self, i: int, grads: Dict[str, torch.Tensor],
+    def step_layer_async(self, i: int, grads: Any,
                          lr: Optional[float] = None) -> None:
         """:meth:`step_layer` on the worker thread (serial without the
         pipeline): the copy off the device starts here."""
         if self._pipe is None:
             return self.step_layer(i, grads, lr)
         if getattr(self, "_pipe_g", None) is None:
-            self._pipe_g = _host(self.n_elems, torch.float32, False)
+            self._pipe_g = _host(self.n_plane, torch.float32, False)
         self._submit("fused", i, self._grads_to_stage(grads), lr, 1.0)
 
-    def stash_grads(self, i: int, grads: Dict[str, torch.Tensor],
+    def stash_grads(self, i: int, grads: Any,
                     accumulate: bool = False) -> None:
-        """Land layer ``i``'s gradients in its fp32 host gradient plane
-        (``accumulate``: add to it) instead of updating (gradient
-        accumulation, clipping, fp16)."""
+        """Land layer ``i``'s gradients (:meth:`reduce_layer_grads`) in its
+        fp32 host gradient plane (``accumulate``: add to it) instead of
+        updating (gradient accumulation, clipping, fp16)."""
         g = self._gplanes.get(i)
         if g is None:
-            g = self._gplanes[i] = _host(self.n_elems, torch.float32, False)
+            g = self._gplanes[i] = _host(self.n_plane, torch.float32, False)
             accumulate = False
         self._take_stage(*self._grads_to_stage(grads), g, accumulate)
 
@@ -602,7 +705,7 @@ class PartitionedParamSwapper:
         self._gplanes.clear()
 
     def stashed_sq_norm(self) -> float:
-        """Σg² over every stashed plane."""
+        """Σg² over every stashed plane (this rank's segments)."""
         return sum(float(torch.dot(g, g)) for g in self._gplanes.values())
 
     def apply_stashed(self, i: int, lr: Optional[float] = None,
@@ -647,32 +750,49 @@ class PartitionedParamSwapper:
             pass
 
     # -- checkpoint surface ---------------------------------------------------
+    #
+    # Whole layers: on more than one rank every rank of the group calls
+    # layer_master_tree and layer_moments alike (they gather).
+
+    def gather_plane(self, plane: torch.Tensor) -> torch.Tensor:
+        """A host plane's whole ``[n_pad]`` layer: every rank's segment in
+        order (a copy; the plane itself in one process)."""
+        if self.shard_world == 1:
+            return plane
+        return comm.all_gather(plane.to(self.device), group=self.group).cpu()
 
     def layer_master_tree(self, i: int) -> Dict[str, torch.Tensor]:
         """Layer ``i``'s fp32 masters by leaf name (copies)."""
         self.drain_updates()
         planes = self._ensure_host(i, full=True)
-        return {k: v.clone() for k, v in self.views(planes.master).items()}
+        full = self.gather_plane(planes.master)
+        return {k: v.clone() for k, v in self.views(full).items()}
 
     def layer_moments(self, i: int) -> Dict[str, torch.Tensor]:
-        """Layer ``i``'s flat m and v (copies)."""
+        """Layer ``i``'s flat m and v over its ``n_elems`` (copies)."""
         self.drain_updates()
         planes = self._ensure_host(i, full=True)
-        return {"m": planes.m.clone(), "v": planes.v.clone()}
+        return {k: self.gather_plane(p)[:self.n_elems].clone()
+                for k, p in (("m", planes.m), ("v", planes.v))}
 
     @torch.no_grad()
     def load_layer(self, i: int, masters: Dict[str, Any],
                    moments: Optional[Dict[str, Any]] = None) -> None:
-        """Install restored masters by leaf name (and flat moments; None
-        keeps the current ones: a parameters-only load)."""
+        """Install restored masters by leaf name (and flat moments over the
+        layer's ``n_elems``; None keeps the current ones: a parameters-only
+        load), whole: this rank keeps its segment."""
         self.drain_updates()
         planes = self._ensure_host(i, full=True)
         self._wait_wire_read(i)
         self._fill(planes, [(n, masters[n]) for n, _, _ in self.layout],
                    zero_moments=False)
         if moments is not None:
-            planes.m.copy_(torch.as_tensor(moments["m"]).reshape(-1))
-            planes.v.copy_(torch.as_tensor(moments["v"]).reshape(-1))
+            lo, hi = self.segments[0]
+            k = max(0, min(hi, self.n_elems) - lo)
+            for key, plane in (("m", planes.m), ("v", planes.v)):
+                src = torch.as_tensor(moments[key]).reshape(-1)
+                plane[:k].copy_(src[lo:lo + k])
+                plane[k:].zero_()
         self._invalidate_device(i)
         if self.nvme_dir is not None:
             self._write_layer_sync(i, planes)

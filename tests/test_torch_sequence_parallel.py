@@ -27,8 +27,8 @@ device subsets of the 8 virtual CPU devices.  fp32 throughout.
 * checkpoints at sp 2 resume bit for bit and load in one process at sp 1;
   one rank file per data coordinate, whatever the seq size;
 * the loader hands both seq ranks of a data coordinate the same rows;
-* the refusals: ``S % sp``, heads % sp on the Ulysses route, Infinity at
-  sp 2 with dp 1, Mixtral and BERT under ``seq``.
+* the refusals: ``S % sp``, heads % sp on the Ulysses route, Mixtral and
+  BERT under ``seq``; ZeRO-Infinity at sp 2 with dp 1 trains.
 """
 
 import functools
@@ -453,7 +453,10 @@ def test_refusals(launched):
         v = r["refusals"]
         assert v["seq_not_divisible"].startswith("ValueError") and \
             "not divisible by sp=2" in v["seq_not_divisible"]
-        assert "not ported yet (ROADMAP Queue 1 item 9b" in v["infinity"]
+        # ZeRO-Infinity at sp 2 trains: finite, falling, one model
+        assert np.all(np.isfinite(v["infinity"]))
+        assert v["infinity"][1] < v["infinity"][0]
+        assert v["infinity"] == launched["get"](2)[0]["refusals"]["infinity"]
         for model in ("mixtral", "bert"):
             assert v[model].startswith("NotImplementedError") and \
                 "under a seq axis is not ported yet (ROADMAP Queue 1 item " \

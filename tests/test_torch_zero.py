@@ -292,9 +292,10 @@ def test_zero_init_and_gathered_parameters(port_runs):
 
 def test_mixtral_and_serving_a_cut_model_are_refused(port_runs):
     """Mixtral on a data axis of 2 trains now (its gate routes the global
-    micro-batch: one loss on both ranks, and it moves); serving a model cut
-    under ZeRO-3 is still refused, and so is ZeRO-Infinity on two ranks
-    (ROADMAP Queue 1 item 9b)."""
+    micro-batch: one loss on both ranks, and it moves), and so does
+    ZeRO-Infinity on two ranks; serving a model cut under ZeRO-3 is still
+    refused, and so is ZeRO-Infinity on a tensor axis (ROADMAP Queue 1
+    item 5b)."""
     got = [r["refusals"] for r in port_runs(2)]
     for v in got:
         assert np.all(np.isfinite(v["mixtral"]))
@@ -302,8 +303,13 @@ def test_mixtral_and_serving_a_cut_model_are_refused(port_runs):
         assert v["mixtral"][1] != v["mixtral"][0]
         for what in ("init_inference", "build_engine_v2"):
             assert "GatheredParameters" in v[what], v[what]
-        assert "not ported yet (ROADMAP Queue 1 item 9b" in \
-            v["infinity_2_ranks"], v["infinity_2_ranks"]
+        # ZeRO-Infinity on two ranks trains one model; a tensor axis
+        # under it is refused (item 5b)
+        assert np.all(np.isfinite(v["infinity_2_ranks"]))
+        assert v["infinity_2_ranks"] == got[0]["infinity_2_ranks"]
+        assert v["infinity_2_ranks"][1] < v["infinity_2_ranks"][0]
+        assert "ROADMAP Queue 1 item 5b" in v["infinity_tp"], \
+            v["infinity_tp"]
 
 
 def test_uneven_labels_per_rank_mean_beside_jax_global_mean(port_runs,

@@ -18,6 +18,8 @@ import torch
 from deepspeed_tpu_torch import (LlamaConfig, LlamaModel, MixtralConfig,
                                  MixtralModel, comm, init_distributed,
                                  initialize, zero)
+from deepspeed_tpu_torch.parallel import MeshLayout
+from deepspeed_tpu_torch.utils import groups
 
 #: the tiny Llama of the parity tests: 2 layers, GQA 8/4, fp32 masters
 MODEL = dict(vocab_size=512, hidden_size=128, intermediate_size=352,
@@ -231,8 +233,9 @@ def _uneven_eval(rank: int, world: int,
 
 def _refusals(rank: int) -> Dict[str, Any]:
     """Mixtral trains on the data axis (its routing is the global
-    micro-batch's: two steps' losses); serving a model cut under ZeRO-3
-    is refused."""
+    micro-batch's: two steps' losses), and so does ZeRO-Infinity; serving
+    a model cut under ZeRO-3 is refused, and ZeRO-Infinity on a tensor
+    axis."""
     out: Dict[str, Any] = {}
     moe = MixtralModel(MixtralConfig.tiny(num_layers=1, dtype=torch.float32,
                                           param_dtype=torch.float32),
@@ -256,13 +259,28 @@ def _refusals(rank: int) -> Dict[str, Any]:
             out[what] = "accepted"
         except ValueError as e:
             out[what] = str(e)
-    try:  # ZeRO-Infinity on more than one rank: item 9b
-        initialize(model=_model(torch.float32, seed=0), config=dict(
-            BASE, zero_optimization={"stage": 3, "offload_param": {
-                "device": "cpu"}}), device="cpu")
-        out["infinity_2_ranks"] = "accepted"
+    # ZeRO-Infinity on two data ranks trains (two steps, one batch)
+    engine, *_ = initialize(model=_model(torch.float32, seed=rank),
+                            config=dict(BASE, zero_optimization={
+                                "stage": 3, "offload_param": {
+                                    "device": "cpu"}}), device="cpu")
+    ids = torch.arange(16)[None] * 3 + 50 * rank
+    out["infinity_2_ranks"] = [float(engine.train_step(
+        {"input_ids": ids})["loss"]) for _ in range(2)]
+    # ... and is refused on a tensor axis (item 5b)
+    mesh = groups.initialize_mesh(MeshLayout.infer(2, tp=2))
+    try:
+        initialize(model=LlamaModel(LlamaConfig(
+            dtype=torch.float32, param_dtype=torch.float32, **MODEL),
+            device="cpu", mesh=mesh),
+                   config=dict(BASE, zero_optimization={
+                       "stage": 3, "offload_param": {"device": "cpu"}}),
+                   mesh=mesh, device="cpu")
+        out["infinity_tp"] = "accepted"
     except NotImplementedError as e:
-        out["infinity_2_ranks"] = str(e)
+        out["infinity_tp"] = str(e)
+    finally:
+        groups.reset_mesh()
     return out
 
 
