@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, block-sparse attention,
-tensor-parallel serving, ladder-model (BERT, ResNet, OPT), offload,
-ZeRO-Infinity and sequence-parallel paths on one NVIDIA GPU and hold its
-CUDA kernels against their plain PyTorch versions.
+tensor-parallel serving and training, ladder-model (BERT, ResNet, OPT),
+offload, ZeRO-Infinity and sequence-parallel paths on one NVIDIA GPU and
+hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -123,7 +123,7 @@ The tensor-parallel slice adds:
   ``paged_decode_attention_tp``, bit-equal to those heads of the unsharded
   kernel; timed beside its plain version and half of #2's bound;
 - ``serve_tp`` and ``generate_tp`` (one launch): Llama-3-8B at full width
-  and ``SERVE_TP_LAYERS`` (4) of its 32 layers, bf16, ``tp=2``: two
+  and ``SERVE_TP_LAYERS`` (2) of its 32 layers, bf16, ``tp=2``: two
   ranks that share card 0 over gloo through the host (NCCL needs one card
   per rank), spawned by ``launcher.local.launch``; every budget returned,
   both ranks' tokens equal, #2b ``L`` times a decode step and the decode
@@ -154,7 +154,7 @@ The expert-parallel slice adds:
   ``index_select`` and its bound;
 - ``train_moe_ep``: Mixtral-8x7B widths, 2 layers, bf16 on fp32 masters,
   ``moe.expert_parallel_size`` 2 in two ranks on card 0 over gloo (4 of
-  the 8 experts a rank, ``[1, 2048]`` a rank, fused Adam, 3 steps):
+  the 8 experts a rank, ``[1, 2048]`` a rank, fused Adam, 2 steps):
   finite falling losses and one ``l_aux`` on both ranks, the launch
   formula on each, each rank's state bytes to the byte of the prediction;
 - ``train_moe_ep_agree``: Mixtral-8x7B widths at 1 layer in fp32 on one
@@ -162,7 +162,7 @@ The expert-parallel slice adds:
   1e-4; the ep-2 ranks' save of a narrow fp32 Mixtral loads in one
   process bit for bit;
 - ``serve_moe_tp`` and ``generate_moe_tp`` (one launch): Mixtral-8x7B at
-  4 layers, bf16, ``tp=2`` over gloo, serve_moe's requests: budgets, both
+  2 layers, bf16, ``tp=2`` over gloo, serve_moe's requests: budgets, both
   ranks' tokens equal, #2b ``L`` a decode step, #11/#12 ``L`` a prefill
   call, decode ``L x 31`` in generate;
 - ``agree_moe_tp``: Mixtral-8x7B widths at 1 layer, ``tp=2`` against
@@ -185,7 +185,7 @@ The ladder-model slice adds:
   of the real tokens labelled): a finite, falling loss, the flash
   launches of the formula, step time, tokens/s, MFU and peak memory;
 - ``train_bert_zero``: BERT-large widths at 2 layers in two gloo ranks on
-  card 0, ZeRO 0, 1 and 2, 3 steps each: losses equal across ranks and
+  card 0, ZeRO 0, 1 and 2, 2 steps each: losses equal across ranks and
   stages, each rank's state bytes those of the placement rule;
 - ``train_resnet``: ResNet-56 on a fixed ``[128, 32, 32, 3]`` batch, bf16
   on fp32 masters, Adam lr 1e-3, 12 steps: a falling loss, step time and
@@ -206,7 +206,7 @@ The offload and Infinity slice adds:
   layers (more than the trunk's two device buffers; the phase fails if the
   host's ``MemAvailable`` cannot hold their planes), in a process of its
   own, bf16, flash, the cpu
-  tier through ``initialize`` with ``offload_param``, ``[2, 2048]``, 3
+  tier through ``initialize`` with ``offload_param``, ``[2, 2048]``, 2
   steps: finite falling losses, the trunk's two device buffers exactly
   ``INF_PEAK_PARAM_BYTES``, no trunk leaf on the card, the peak allocation
   under the resident state plus the activations and 80 GB, the flash
@@ -263,6 +263,34 @@ The multi-rank Infinity slice adds:
   ranks bit-equal, against one process's Infinity with a rank's rows a
   microbatch to ``INF_AGREE_RTOL``.
 
+The tensor-parallel training slice adds:
+
+- in ``train``, the hybrid engine (``hybrid_engine.enabled``): after the
+  headline's steps, ``generate`` of 16 greedy tokens for two rows of the
+  batch's first 128 tokens (decode #1 ``L x 15`` times at h 12, d 64),
+  equal to ``init_inference``'s on the same module;
+- ``train_tp`` (one launch of two ranks on card 0 over gloo):
+  Llama-3-8B widths at train_sp's ``SP_LAYERS`` layers, row and loss
+  tiles, ``tensor_parallel.autotp_size`` 2 (flash on 16 heads a rank at
+  the ``_sp`` shape, the vocabulary-parallel loss), bf16, ZeRO 0, 2
+  steps; then Mixtral-8x7B widths at train_moe's depth and row under
+  fused Adam (#11/#12 on each rank's ``I/tp`` expert columns, #13/#14 on
+  its shards): losses and grad norms bit-equal on the ranks, every leaf
+  the ranks hold whole bit-equal (sha1), each rank's parameters and state
+  bytes those of the split, the launch formula, and the first step's loss
+  and grad norm within the bf16 bounds of one process (train_sp's and
+  train_moe's runs);
+- ``train_tp_hybrid`` (the same launch): 8 greedy tokens of the tp-2
+  Llama's hybrid engine after its steps, equal on the ranks, decode #1
+  ``L x 7`` a rank;
+- ``train_tp_agree`` (the same launch): ``AGREE_TRAIN``'s fp32 widths and
+  its Mixtral case at tp 2 against one process to ``TP_AGREE_RTOL``;
+- in ``serve_tp`` / ``generate_tp``, OPT-1.3B at ``OPT_TP_LAYERS`` layers,
+  tp 2 (16 of 32 heads a rank, d 64): ``serve_opt_tp`` (#2b ``L`` a
+  decode step) and ``generate_opt_tp`` (decode #1 ``L x 31``); in
+  ``agree_tp``, fp32 OPT-1.3B widths at 4 layers against tp 1 (tokens
+  equal, logits to 1e-4).
+
 Ranks report to this process through a queue; only it prints.  Then a
 ``kernels`` line (every kernel's launches on the main paths: the
 decode kernels' from ``serve`` and ``generate``, #2b's per rank from
@@ -270,9 +298,11 @@ decode kernels' from ``serve`` and ``generate``, #2b's per rank from
 ``serve_moe``, ``generate_moe`` and ``train_moe``, the norm and Adam
 kernels' from ``train_moe``, the block-sparse kernels' from ``sparse``,
 the quantizer's from its path; the ``_bert`` rows' from ``train_bert``,
-the ``_opt`` rows' from ``generate_opt`` and ``serve_opt``, the ``_70b``
-rows' from ``train_infinity``, the ``_sp`` rows' from ``train_sp``'s
-rank 0, the ``_inf_sp`` rows' from ``train_infinity_sp``'s rank 0; times
+the ``_opt`` rows' from ``generate_opt`` and ``serve_opt`` (and the OPT
+runs of ``serve_tp``), the ``_70b`` rows' from ``train_infinity``, the
+``_sp`` rows' from ``train_sp``'s and ``train_tp``'s rank 0, the
+``_inf_sp`` rows' from ``train_infinity_sp``'s rank 0; ``train_tp``'s
+Mixtral adds to #11-#14's and the hybrid generates to #1's; times
 at the main paths' shapes), a
 ``timing`` line (seconds by phase),
 the card's name and power limit, and the result line.
@@ -2179,6 +2209,9 @@ HEADLINE = dict(vocab_size=32000, hidden_size=768, intermediate_size=2048,
                 num_layers=12, num_heads=12, num_kv_heads=12,
                 max_seq_len=2048)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 12, 8, 2048
+#: the headline's hybrid generate (train): greedy new tokens of
+#: ``HEADLINE_HYBRID_ROWS`` rows of the batch's first 128 tokens
+HEADLINE_HYBRID_NEW, HEADLINE_HYBRID_ROWS = 16, 2
 WIDE_LAYERS, WIDE_STEPS, WIDE_BATCH = 4, 5, 1
 PEAK_BF16 = PEAK_FLOPS[torch.bfloat16]
 
@@ -2212,19 +2245,23 @@ def train_launches() -> dict:
 
 
 def train(model, steps: int, batch: int, seq: int, seed: int,
-          fused_adam: bool = False, data: Optional[dict] = None) -> dict:
+          fused_adam: bool = False, data: Optional[dict] = None,
+          hybrid_new: int = 0) -> dict:
     """``initialize`` then ``steps`` ``train_step``s on one repeated batch
     (``data``, or random ids); each step timed with CUDA events (on a CPU
     model, with the host clock).  The training kernels' launch counts are
     read from zero around the steps.  MFU counts the parameters a token
     runs through (a Mixtral's top-k experts): (6 N + 12 L S H) flops a
-    token over 989 TFLOP/s."""
+    token over 989 TFLOP/s.  ``hybrid_new`` turns on the hybrid engine and,
+    after the steps, generates that many greedy tokens
+    (:func:`hybrid_generate`)."""
     from deepspeed_tpu_torch import initialize
 
     dev, cfg = model.device, model.config
-    engine, *_ = initialize(model=model,
-                            config=ds_config(model, batch, fused_adam),
-                            device=dev)
+    conf = ds_config(model, batch, fused_adam)
+    if hybrid_new:
+        conf["hybrid_engine"] = {"enabled": True}
+    engine, *_ = initialize(model=model, config=conf, device=dev)
     if data is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         data = {"input_ids": torch.randint(0, cfg.vocab_size, (batch, seq),
@@ -2261,7 +2298,9 @@ def train(model, steps: int, batch: int, seq: int, seed: int,
     require(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
     require(losses[-1] < losses[0],
             f"train: loss did not fall over {steps} steps: {losses}")
-    return {"steps": steps, "batch": batch, "seq": seq, "params": n_params,
+    hybrid = (hybrid_generate(engine, model, data["input_ids"], hybrid_new)
+              if hybrid_new else None)
+    return {"hybrid": hybrid, "steps": steps, "batch": batch, "seq": seq, "params": n_params,
             "active_params": n_active, "fused_adam": fused_adam,
             "layers": cfg.num_layers, "hidden": cfg.hidden_size,
             "heads": [cfg.num_heads, getattr(cfg, "num_kv_heads",
@@ -2281,6 +2320,35 @@ def train(model, steps: int, batch: int, seq: int, seed: int,
             "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                             if cuda else None),
             "launches": launches}
+
+
+def hybrid_generate(engine, model, ids: torch.Tensor, n_new: int) -> dict:
+    """The hybrid engine's greedy ``generate`` on the trained weights (the
+    first ``HEADLINE_HYBRID_ROWS`` rows' first 128 tokens): decode #1
+    ``L x (n_new - 1)`` times, and the tokens ``init_inference`` gives on
+    the same module."""
+    from deepspeed_tpu_torch import init_inference
+
+    prompt = ids[:HEADLINE_HYBRID_ROWS, :128]
+    require(type(engine).__name__ == "DeepSpeedHybridEngine",
+            f"hybrid: initialize returned a {type(engine).__name__}")
+    reset_counts()
+    t0 = time.perf_counter()
+    got = engine.generate(prompt, max_new_tokens=n_new).cpu()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want = init_inference(model, device=model.device).generate(
+        prompt, max_new_tokens=n_new).cpu()
+    L = model.config.num_layers
+    require(launches["decode_attention"] == L * (n_new - 1),
+            f"hybrid: decode launched {launches['decode_attention']} times, "
+            f"want {L} x {n_new - 1}")
+    require(torch.equal(got, want), f"hybrid: tokens {got[:, 128:].tolist()} "
+                                    f"!= init_inference's "
+                                    f"{want[:, 128:].tolist()}")
+    return {"prompt": list(prompt.shape), "new_tokens": n_new,
+            "tokens": got[:, 128:].tolist(), "equal_to_init_inference": True,
+            "launches": launches, "wall_s": wall}
 
 
 def require_train_launches(what: str, t: dict, moe: bool = False) -> None:
@@ -2387,6 +2455,9 @@ def train_agree(dev, seed: int) -> dict:
 # -- the data-parallel slice --------------------------------------------------
 
 ZERO_RANKS, ZERO_STEPS, ZERO_TIMEOUT = 2, 2, 900
+#: train_zero's depth: 6 of the headline's 12 layers (cut to keep
+#: the script inside its limit on slower hosts)
+ZERO_LAYERS = 6
 #: train_zero's runs: (label, ZeRO stage, fused Adam)
 ZERO_RUNS = (("stage0", 0, False), ("stage1", 1, False),
              ("stage2", 2, False), ("stage3", 3, False),
@@ -2453,11 +2524,10 @@ def zero_train_rank(rank: int, seed: int) -> dict:
     ``ZERO_RUNS`` entry (a fresh model from this rank's seed each: the
     engine broadcasts rank 0's), with the kernels' launches, the state
     bytes and the peak memory of each."""
-    from deepspeed_tpu_torch import LlamaConfig, LlamaModel, initialize
+    from deepspeed_tpu_torch import LlamaModel, initialize
 
     dev = zero_rank_setup()
-    cfg = LlamaConfig(**HEADLINE, dtype=torch.bfloat16,
-                      param_dtype=torch.float32, attn_impl="flash")
+    cfg = headline_cfg(ZERO_LAYERS)
     micro = TRAIN_BATCH // ZERO_RANKS
     ids = zero_batch(seed, cfg.vocab_size, TRAIN_BATCH, dev)
     rows = ids[rank * micro:(rank + 1) * micro]
@@ -2508,6 +2578,7 @@ def zero_train_rank(rank: int, seed: int) -> dict:
         "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     del model, engine, metrics
     out[ZERO_INF_RUN] = zero_infinity_run(seed, dev, rank)
+    out["agree"] = zero_agree_rank(rank, seed)  # train_zero_agree
     return out
 
 
@@ -2553,7 +2624,7 @@ def offload_one_process(seed: int, dev) -> list:
     before the fp32 sum, as each rank's is before the reduce-scatter."""
     from deepspeed_tpu_torch import LlamaModel, initialize
 
-    model = LlamaModel(headline_cfg(), device=dev, seed=seed)
+    model = LlamaModel(headline_cfg(ZERO_LAYERS), device=dev, seed=seed)
     engine, *_ = initialize(model=model, config=dict(ds_config(
         model, TRAIN_BATCH // ZERO_RANKS, offload=True),
         gradient_accumulation_steps=ZERO_RANKS), device=dev)
@@ -2566,17 +2637,21 @@ def offload_one_process(seed: int, dev) -> list:
     return losses
 
 
-def phase_train_zero(seed: int) -> dict:
-    """train_zero: ``ZERO_RANKS`` ranks on card 0 over gloo, each running
-    the headline at micro-batch 4 (global ``[8, 2048]``) at ZeRO stages
-    0-3 and stage 3 with ``kernels.fused_adam``: finite, falling losses,
-    equal on both ranks; each run's losses equal stage 0's (within
-    ``ZERO_STAGE_RTOL``); per rank and step 24 flash forwards, 12 dq and 12
-    dk/dv passes, and under fused Adam the norm and Adam kernels once."""
+def phase_train_zero(dev, seed: int) -> dict:
+    """train_zero and train_zero_agree (one launch of ``ZERO_RANKS`` ranks
+    on card 0 over gloo), each rank running the headline at micro-batch 4
+    (global ``[8, 2048]``) at ZeRO stages 0-3 and stage 3 with
+    ``kernels.fused_adam``, at ``ZERO_LAYERS`` of its 12 layers: finite,
+    falling losses, equal on both ranks; each run's losses equal stage 0's
+    (within ``ZERO_STAGE_RTOL``); per rank and step 2 L flash forwards, L
+    dq and L dk/dv passes, and under fused Adam the norm and Adam kernels
+    once; then the agreement (:func:`check_zero_agree`, its one-process
+    run here before the launch)."""
     from deepspeed_tpu_torch.launcher import launch
     from deepspeed_tpu_torch.ops import op_builder
 
     op_builder.build()  # here, so the ranks do not both run nvcc
+    agree_want = zero_agree_one_process(dev, seed)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = launch(zero_train_rank, ZERO_RANKS, (seed,),
@@ -2596,7 +2671,7 @@ def phase_train_zero(seed: int) -> dict:
                     f"train_zero {label}: rank {r}'s losses {losses} != "
                     f"rank 0's {ranks[0][label]['loss']}")
             require_train_launches(f"train_zero {label} rank {r}", dict(
-                layers=HEADLINE["num_layers"], steps=ZERO_STEPS, remat=True,
+                layers=ZERO_LAYERS, steps=ZERO_STEPS, remat=True,
                 fused_adam=fused, launches=row["launches"]))
         rel[label] = _max_rel(ranks[0][label]["loss"], base)
         require(rel[label] <= ZERO_STAGE_RTOL,
@@ -2616,7 +2691,7 @@ def phase_train_zero(seed: int) -> dict:
         require(row["loss"] == ranks[0][ZERO_OFFLOAD_RUN]["loss"],
                 f"train_zero offload: rank {r}'s losses differ from rank 0's")
         require_train_launches(f"train_zero offload rank {r}", dict(
-            layers=HEADLINE["num_layers"], steps=ZERO_STEPS, remat=True,
+            layers=ZERO_LAYERS, steps=ZERO_STEPS, remat=True,
             fused_adam=False, launches=row["launches"]))
     off_rel = _max_rel(ranks[0][ZERO_OFFLOAD_RUN]["loss"], one)
     require(off_rel <= ZERO_STAGE_RTOL,
@@ -2647,9 +2722,10 @@ def phase_train_zero(seed: int) -> dict:
         require(e <= INF_AGREE_RTOL,
                 f"train_zero infinity: 2 ranks' {k} {inf[k]} != one "
                 f"process's {inf_one[k]} (rel {e} > {INF_AGREE_RTOL})")
+    agree = check_zero_agree([r.pop("agree") for r in ranks], agree_want)
     return {"ranks": ranks, "loss_rel_to_stage0": rel,
             "peak_mem_bytes_rank0": peaks, "launch_wall_s": wall,
-            "offload_one_process_loss": one,
+            "agree": agree, "offload_one_process_loss": one,
             "offload_rel_to_one_process": off_rel,
             "infinity_one_process": inf_one,
             "infinity_rel_to_one_process": inf_rel}
@@ -2690,12 +2766,9 @@ def zero_agree_model(cfg, seed: int, dev):
     return LlamaModel(cfg, device=dev, seed=seed)
 
 
-def phase_train_zero_agree(dev, seed: int) -> dict:
-    """train_zero_agree: two ranks on card 0 over gloo at stages 0 and 3
-    give the one-process run's loss and grad-norm sequences on the same
-    global batch, to 1e-4 (fp32, headline width, 2 layers)."""
+def zero_agree_one_process(dev, seed: int) -> dict:
+    """train_zero_agree's one-process run on the whole global batch."""
     from deepspeed_tpu_torch import initialize
-    from deepspeed_tpu_torch.launcher import launch
 
     cfg, ids = zero_agree_inputs(seed, dev)
     model = zero_agree_model(cfg, seed, dev)
@@ -2707,8 +2780,14 @@ def phase_train_zero_agree(dev, seed: int) -> dict:
             "grad_norm": [float(m["grad_norm"]) for m in ms]}
     del model, engine, ms
     torch.cuda.empty_cache()
-    ranks = launch(zero_agree_rank, ZERO_RANKS, (seed,),
-                   timeout=ZERO_TIMEOUT)
+    return want
+
+
+def check_zero_agree(ranks: list, want: dict) -> dict:
+    """train_zero_agree: two ranks on card 0 over gloo at stages 0 and 3
+    (``ranks``, each rank's :func:`zero_agree_rank`) give the one-process
+    run's loss and grad-norm sequences (``want``) on the same global
+    batch, to 1e-4 (fp32, headline width, 2 layers)."""
     rel = {}
     for r, res in enumerate(ranks):
         for stage, got in res.items():
@@ -2766,10 +2845,13 @@ def ckpt_root():
     return tempfile.mkdtemp(prefix="ckpt_smoke_", dir=build)
 
 
-def headline_cfg():
+def headline_cfg(num_layers: int = HEADLINE["num_layers"]):
+    """The headline's training config (bf16 on fp32 masters, flash), at
+    ``num_layers`` of its layers."""
     from deepspeed_tpu_torch import LlamaConfig
-    return LlamaConfig(**HEADLINE, dtype=torch.bfloat16,
-                       param_dtype=torch.float32, attn_impl="flash")
+    return LlamaConfig(**dict(HEADLINE, num_layers=num_layers),
+                       dtype=torch.bfloat16, param_dtype=torch.float32,
+                       attn_impl="flash")
 
 
 def predicted_rank_bytes(shapes: list, dp: int) -> list:
@@ -3103,9 +3185,12 @@ QUANT_TIMED = (14336, 4096)
 #: tensor size of the TP phases; their ranks share card 0 over gloo
 TP = 2
 TP_TIMEOUT = 900
-#: serve_tp's depth: 4 of Llama-3-8B's 32 layers (gloo's host copies set
-#: the phase's time; cut to keep the script inside its limit)
-SERVE_TP_LAYERS = 4
+#: serve_tp's depth: 2 of Llama-3-8B's 32 layers (gloo's host copies set
+#: the phase's time; cut 4 -> 2 to keep the script inside its
+#: limit on slower hosts)
+SERVE_TP_LAYERS = 2
+#: serve_tp's OPT-1.3B depth: 4 of its 24 layers (the script's length)
+OPT_TP_LAYERS = 4
 #: serve_tp's requests (prompt length, max_new_tokens, class); the first
 #: two start with a shared 256-token header
 SERVE_TP_REQUESTS = [(320, 32, "interactive"), (448, 32, "batch"),
@@ -3286,13 +3371,15 @@ def phase_tp_kernels(dev) -> dict:
     return {"paged_decode_attention_tp": out}
 
 
-def tp_rank_model(seed: int, dtype, num_layers: int, moe: bool = False):
+def tp_rank_model(seed: int, dtype, num_layers: int, moe: bool = False,
+                  opt: bool = False):
     """In a rank: card 0, the gloo group through the host, the ``TP``-way
     mesh, and this rank's split of a seeded Llama-3-8B (``moe``: of a
-    Mixtral-8x7B; the whole weights are drawn, so the split is the
-    one-rank model's slice)."""
+    Mixtral-8x7B, ``opt``: of an OPT-1.3B; the whole weights are drawn, so
+    the split is the one-rank model's slice)."""
     from deepspeed_tpu_torch import (LlamaConfig, LlamaModel, MixtralConfig,
-                                     MixtralModel, init_distributed)
+                                     MixtralModel, OPTConfig, OPTModel,
+                                     init_distributed)
     from deepspeed_tpu_torch.parallel import MeshLayout
     from deepspeed_tpu_torch.utils import groups
 
@@ -3302,6 +3389,10 @@ def tp_rank_model(seed: int, dtype, num_layers: int, moe: bool = False):
     torch.cuda.set_device(dev)
     init_distributed(dist_backend="gloo", device=dev)
     mesh = groups.initialize_mesh(MeshLayout.infer(tp=TP))
+    if opt:
+        return OPTModel(OPTConfig.opt_1_3b(num_layers=num_layers,
+                                           dtype=dtype), device=dev,
+                        seed=seed, mesh=mesh)
     if moe:
         return MixtralModel(MixtralConfig.mixtral_8x7b(
             num_layers=num_layers, dtype=dtype), device=dev, seed=seed,
@@ -3310,10 +3401,13 @@ def tp_rank_model(seed: int, dtype, num_layers: int, moe: bool = False):
     return LlamaModel(cfg, device=dev, seed=seed, mesh=mesh)
 
 
-def serving_tp_rank(rank: int, seed: int) -> dict:
-    """One rank of serve_tp and generate_tp: Llama-3-8B at full width and
-    depth, bf16, served through ``build_serving_frontend(mesh=...)``
-    (``pump()`` on this rank) and generated through ``init_inference``."""
+def serving_tp_rank(rank: int, seed: int, prompts, opt_prompts) -> dict:
+    """One rank of serve_tp, generate_tp and agree_tp (one launch):
+    Llama-3-8B widths at ``SERVE_TP_LAYERS``, bf16, served through
+    ``build_serving_frontend(mesh=...)`` (``pump()`` on this rank) and
+    generated through ``init_inference``, then OPT-1.3B the same way, then
+    the agreement runs (:func:`agree_tp_rank`) on ``prompts`` and
+    ``opt_prompts``."""
     from deepspeed_tpu_torch import KVCacheConfig
 
     model = tp_rank_model(seed, torch.bfloat16, SERVE_TP_LAYERS)
@@ -3325,44 +3419,82 @@ def serving_tp_rank(rank: int, seed: int) -> dict:
     s["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     ids = torch.from_numpy(rng.integers(0, model.config.vocab_size,
                                         (V1_BATCH, V1_PROMPT)))
-    return {"serve": s, "generate": generate_v1(model, ids, V1_NEW)}
+    out = {"serve": s, "generate": generate_v1(model, ids, V1_NEW)}
+    del model
+    torch.cuda.empty_cache()
+    # OPT-1.3B at tp 2: each rank's 16 of 32 heads (d 64)
+    model = tp_rank_model(seed, torch.bfloat16, OPT_TP_LAYERS, opt=True)
+    rng = np.random.default_rng(seed + 7)
+    out["serve_opt"] = serve(model, rng, cache_config=KVCacheConfig(
+        num_blocks=1025, block_size=16, max_seq_len=2048),
+        header_len=SERVE_TP_HEADER, requests=SERVE_TP_REQUESTS,
+        mesh=model.mesh, **SERVE_ENGINE)
+    ids = torch.from_numpy(rng.integers(0, model.config.vocab_size,
+                                        (V1_BATCH, V1_PROMPT)))
+    out["generate_opt"] = generate_v1(model, ids, V1_NEW)
+    out["opt_heads_a_rank"] = model.num_local_heads
+    del model
+    torch.cuda.empty_cache()
+    out["agree"] = agree_tp_rank(rank, seed, prompts, AGREE_TP_NEW,
+                                 opt_prompts=opt_prompts)
+    return out
 
 
-def phase_serving_tp(seed: int) -> dict:
-    """serve_tp and generate_tp: ``TP`` ranks on card 0 over gloo, launched
-    by ``launcher.local``; every budget returned (``serve``), both ranks'
+def phase_serving_tp(dev, seed: int) -> dict:
+    """serve_tp, generate_tp and agree_tp: the agreement's ``tp=1`` runs
+    here, then one launch of ``TP`` ranks on card 0 over gloo
+    (``launcher.local``); every budget returned (``serve``), both ranks'
     tokens equal, ``paged_decode_attention_tp`` ``L`` times a decode step
     and the decode kernel ``L x 31`` times on each rank, the unsharded paged
-    kernel never."""
+    kernel never; the agreement as :func:`check_agree_tp`."""
     from deepspeed_tpu_torch.launcher import launch
     from deepspeed_tpu_torch.ops import op_builder
 
     op_builder.build()  # here, so the ranks do not both run nvcc
+    agree_in = agree_tp_inputs(dev, seed)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = launch(serving_tp_rank, TP, (seed,), timeout=TP_TIMEOUT)
+    ranks = launch(serving_tp_rank, TP, (seed, agree_in["prompts"],
+                                         agree_in["opt_prompts"]),
+                   timeout=TP_TIMEOUT)
     wall = time.perf_counter() - t0
-    L = SERVE_TP_LAYERS
     for r, res in enumerate(ranks):
-        la, lg = res["serve"]["launches"], res["generate"]["launches"]
-        steps = res["serve"]["decode_steps"]
-        require(la["paged_decode_attention_tp"] == L * steps,
-                f"serve_tp rank {r}: paged_decode_attention_tp launched "
-                f"{la['paged_decode_attention_tp']} times, want {L} x "
-                f"{steps} decode steps")
-        require(la["paged_decode_attention"] == 0 and
-                la["decode_attention"] == 0,
-                f"serve_tp rank {r}: an unsharded decode kernel ran: {la}")
-        require(lg["decode_attention"] == L * (V1_NEW - 1),
-                f"generate_tp rank {r}: decode kernel launched "
-                f"{lg['decode_attention']} times, want {L} x {V1_NEW - 1}")
-        require(lg["paged_decode_attention"] == 0 and
-                lg["paged_decode_attention_tp"] == 0,
-                f"generate_tp rank {r}: a paged kernel ran: {lg}")
-    for key in ("serve", "generate"):
+        for s_key, g_key, L in (("serve", "generate", SERVE_TP_LAYERS),
+                                ("serve_opt", "generate_opt",
+                                 OPT_TP_LAYERS)):
+            require_serving_tp(r, res[s_key], res[g_key], L, s_key)
+        from deepspeed_tpu_torch import OPTConfig
+        require(res["opt_heads_a_rank"] == OPTConfig.opt_1_3b().num_heads
+                // TP,
+                f"serve_tp opt rank {r}: {res['opt_heads_a_rank']} heads")
+    for key in ("serve", "generate", "serve_opt", "generate_opt"):
         require(all(res[key]["tokens"] == ranks[0][key]["tokens"]
                     for res in ranks), f"{key}_tp: the ranks' tokens differ")
-    return {"ranks": ranks, "launch_wall_s": wall}
+    agree = check_agree_tp([r.pop("agree") for r in ranks], agree_in)
+    return {"ranks": ranks, "launch_wall_s": wall,
+            "agree": dict(agree, launch_wall_s=wall)}
+
+
+def require_serving_tp(r: int, serve_res: dict, gen_res: dict, L: int,
+                       what: str) -> None:
+    """#2b ``L`` times a decode step and no unsharded kernel in the
+    serve; the decode kernel ``L x (V1_NEW - 1)`` times and no paged one
+    in the generate."""
+    la, lg = serve_res["launches"], gen_res["launches"]
+    steps = serve_res["decode_steps"]
+    require(la["paged_decode_attention_tp"] == L * steps,
+            f"{what}_tp rank {r}: paged_decode_attention_tp launched "
+            f"{la['paged_decode_attention_tp']} times, want {L} x "
+            f"{steps} decode steps")
+    require(la["paged_decode_attention"] == 0 and
+            la["decode_attention"] == 0,
+            f"{what}_tp rank {r}: an unsharded decode kernel ran: {la}")
+    require(lg["decode_attention"] == L * (V1_NEW - 1),
+            f"{what}_tp rank {r}: generate's decode kernel launched "
+            f"{lg['decode_attention']} times, want {L} x {V1_NEW - 1}")
+    require(lg["paged_decode_attention"] == 0 and
+            lg["paged_decode_attention_tp"] == 0,
+            f"{what}_tp rank {r}: a paged kernel ran in generate: {lg}")
 
 
 def logit_rel_err(got, want) -> float:
@@ -3394,11 +3526,17 @@ AGREE_TP_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def agree_tp_rank(rank: int, seed: int, prompts, n_new: int,
-                  moe: bool = False) -> dict:
+                  moe: bool = False, opt_prompts=None) -> dict:
     out = {}
     for name, dtype in AGREE_TP_DTYPES.items():
         model = tp_rank_model(seed, dtype, agree_tp_layers(moe), moe)
         out[name] = agree_tp_run(model, prompts, n_new)
+        del model
+        torch.cuda.empty_cache()
+    if opt_prompts is not None:  # fp32 OPT-1.3B widths
+        model = tp_rank_model(seed, torch.float32, AGREE_OPT_LAYERS,
+                              opt=True)
+        out["opt_float32"] = agree_tp_run(model, opt_prompts, n_new)
         del model
         torch.cuda.empty_cache()
     return out
@@ -3408,25 +3546,15 @@ def agree_tp_layers(moe: bool) -> int:
     return AGREE_MOE_TP_LAYERS if moe else AGREE_TP_LAYERS
 
 
-def phase_agree_tp(dev, seed: int, moe: bool = False) -> dict:
-    """Llama-3-8B widths at ``AGREE_TP_LAYERS`` layers (``moe``:
-    Mixtral-8x7B widths at ``AGREE_MOE_TP_LAYERS``), the same seed at
-    ``tp`` 1 (this process) and 2 (two ranks on card 0 over gloo): in fp32
-    the ``tp=2`` v2 and v1 greedy tokens equal the ``tp=1`` ones and the
-    first logits agree to 1e-4 relative to 1 + |ref|.  In bf16 the two
-    partial sums round differently, so tokens may differ (the agreement is
-    reported) and the logits are held to the fp32 ``tp=1`` logits: the
-    ``tp=2`` ones may lie at most ``BF16_TP_SLACK`` times as far from them
-    as the bf16 ``tp=1`` ones do.  Both ranks must agree bit for bit.  A
-    Mixtral's prefill runs the dispatch and combine kernels on every
-    rank's ``I/tp`` expert columns."""
+def agree_tp_inputs(dev, seed: int, moe: bool = False) -> dict:
+    """agree_tp's (``moe``: agree_moe_tp's) prompts and its ``tp=1`` runs
+    in this process, before the ranks run the ``tp=2`` side in their
+    serving launch (:func:`check_agree_tp` holds the two together)."""
     from deepspeed_tpu_torch import (LlamaConfig, LlamaModel, MixtralConfig,
                                      MixtralModel)
-    from deepspeed_tpu_torch.launcher import launch
 
     what = "agree_moe_tp" if moe else "agree_tp"
     layers = agree_tp_layers(moe)
-    t0 = time.perf_counter()
     cfg = (MixtralConfig.mixtral_8x7b if moe else LlamaConfig.llama3_8b)(
         num_layers=layers)
     rng = np.random.default_rng(seed + 11)
@@ -3442,8 +3570,38 @@ def phase_agree_tp(dev, seed: int, moe: bool = False) -> dict:
                 f"{what} tp=1 {name}: a decode kernel did not run")
         del model
         torch.cuda.empty_cache()
-    ranks = launch(agree_tp_rank, TP, (seed, prompts, AGREE_TP_NEW, moe),
-                   timeout=TP_TIMEOUT)
+    opt_prompts = None
+    if not moe:  # OPT-1.3B widths at AGREE_OPT_LAYERS, fp32, tp 1 here
+        from deepspeed_tpu_torch import OPTConfig, OPTModel
+        ocfg = OPTConfig.opt_1_3b(num_layers=AGREE_OPT_LAYERS,
+                                  dtype=torch.float32)
+        opt_prompts = [rng.integers(0, ocfg.vocab_size, n).tolist()
+                       for n in AGREE_TP_PROMPTS]
+        model = OPTModel(ocfg, device=dev, seed=seed)
+        ref["opt_float32"] = agree_tp_run(model, opt_prompts, AGREE_TP_NEW)
+        del model
+        torch.cuda.empty_cache()
+    return {"moe": moe, "prompts": prompts, "opt_prompts": opt_prompts,
+            "ref": ref}
+
+
+def check_agree_tp(ranks: list, inputs: dict) -> dict:
+    """Llama-3-8B widths at ``AGREE_TP_LAYERS`` layers (``moe``:
+    Mixtral-8x7B widths at ``AGREE_MOE_TP_LAYERS``), the same seed at
+    ``tp`` 1 (``inputs["ref"]``, this process) and 2 (``ranks``, each
+    rank's :func:`agree_tp_rank`): in fp32 the ``tp=2`` v2 and v1 greedy
+    tokens equal the ``tp=1`` ones and the first logits agree to 1e-4
+    relative to 1 + |ref|.  In bf16 the two partial sums round
+    differently, so tokens may differ (the agreement is reported) and the
+    logits are held to the fp32 ``tp=1`` logits: the ``tp=2`` ones may lie
+    at most ``BF16_TP_SLACK`` times as far from them as the bf16 ``tp=1``
+    ones do.  Both ranks must agree bit for bit.  A Mixtral's prefill runs
+    the dispatch and combine kernels on every rank's ``I/tp`` expert
+    columns; fp32 OPT's tokens equal and its logits agree as the Llama's."""
+    moe, ref, opt_prompts = inputs["moe"], inputs["ref"], \
+        inputs["opt_prompts"]
+    what = "agree_moe_tp" if moe else "agree_tp"
+    layers = agree_tp_layers(moe)
     out = {}
     for name, dtype in AGREE_TP_DTYPES.items():
         got, want = ranks[0][name], ref[name]
@@ -3484,15 +3642,37 @@ def phase_agree_tp(dev, seed: int, moe: bool = False) -> dict:
         if dtype == torch.float32:
             require(got["v2"] == want["v2"] and got["v1"] == want["v1"],
                     f"{what} fp32: tp={TP} tokens differ from tp=1's")
+    if opt_prompts is not None:
+        got, want = ranks[0]["opt_float32"], ref["opt_float32"]
+        for other in ranks[1:]:
+            require(other["opt_float32"]["v2"] == got["v2"] and
+                    other["opt_float32"]["v1"] == got["v1"],
+                    f"{what} opt: the ranks differ")
+        la = got["launches"]
+        require(la["paged_decode_attention_tp"] > 0 and
+                la["decode_attention"] > 0 and
+                la["paged_decode_attention"] == 0,
+                f"{what} opt tp={TP}: launches {la}")
+        rel = logit_rel_err(got["logits"], want["logits"])
+        require(rel <= TOL[torch.float32],
+                f"{what} opt fp32: first logits differ by {rel} relative")
+        require(got["v2"] == want["v2"] and got["v1"] == want["v1"] and
+                want["v2"] == want["v1"],
+                f"{what} opt fp32: tp={TP} tokens differ from tp=1's")
+        out["opt_float32"] = {
+            "model": OPT_NAME, "reduced": [
+                f"num_layers 24 -> {AGREE_OPT_LAYERS}"],
+            "max_rel_logit_err": rel, "tokens_equal": True,
+            "launches_tp": la, "launches_tp1": want["launches"]}
     return {"model": "mixtral_8x7b" if moe else "llama3_8b",
             "reduced": [f"num_layers 32 -> {layers}"],
             "prompts": list(AGREE_TP_PROMPTS), "new_tokens": AGREE_TP_NEW,
-            "comm": TP_NOTE, "wall_s": time.perf_counter() - t0, **out}
+            "comm": TP_NOTE, **out}
 
 
 # -- the expert-parallel slice -------------------------------------------------
 
-MOE_EP, MOE_EP_STEPS, MOE_EP_TIMEOUT = 2, 3, 900
+MOE_EP, MOE_EP_STEPS, MOE_EP_TIMEOUT = 2, 2, 900
 MOE_EP_NOTE = ("2 ranks on card 0 over gloo, every collective (the experts' "
                "exchange included) through pinned host memory: a "
                "correctness and memory check, the step time on the host "
@@ -3500,19 +3680,19 @@ MOE_EP_NOTE = ("2 ranks on card 0 over gloo, every collective (the experts' "
 #: train_moe_ep_agree: Mixtral-8x7B widths at 1 layer in fp32, one global
 #: batch of 4 rows of 512 tokens, 2 rows a rank at ep 2
 MOE_AGREE_LAYERS, MOE_AGREE_ROWS, MOE_AGREE_SEQ, MOE_AGREE_STEPS = \
-    1, 4, 512, 3
-#: (label, ep, dp, ZeRO stage) of the agreement's launches.  ep 2 x dp 2
-#: is held against JAX by the CPU tests only: on one card its four gloo
-#: ranks took 25 s a step (the expert stacks' fp32 collectives over
-#: ``data`` through the host), 88 of the phase's 128 s on an H100 80GB
-#: HBM3 at 700 W
-MOE_AGREE_RUNS = (("ep2", 2, 1, 0),)
+    1, 4, 512, 2
+#: (label, ep, dp, ZeRO stage) of the agreement, run in train_moe_ep's
+#: launch.  ep 2 x dp 2 is held against JAX by the CPU tests only: on one
+#: card its four gloo ranks took 25 s a step (the expert stacks' fp32
+#: collectives over ``data`` through the host), 88 of the phase's 128 s on
+#: an H100 80GB HBM3 at 700 W
+MOE_AGREE_RUN = ("ep2", MOE_EP, 1, 0)
 #: the checkpoint check's narrow fp32 Mixtral (train_agree's widths, the
 #: 8 experts and top-2 of Mixtral-8x7B): its save stays small
 MOE_CKPT_MODEL = dict(AGREE_TRAIN, num_experts=8, top_k=2)
-#: serve_moe_tp: Mixtral-8x7B at 4 of 32 layers, bf16, two ranks (cut as
+#: serve_moe_tp: Mixtral-8x7B at 2 of 32 layers, bf16, two ranks (cut as
 #: serve_tp)
-MOE_TP_LAYERS = 4
+MOE_TP_LAYERS = 2
 
 
 def ep_mesh(ep: int, dp: int):
@@ -3569,22 +3749,35 @@ def moe_ep_train_rank(rank: int, seed: int) -> dict:
             "host_step_ms": marks}
 
 
-def phase_train_moe_ep(seed: int) -> dict:
-    """train_moe_ep: ``MOE_EP`` ranks on card 0 over gloo, each holding 4
-    of Mixtral-8x7B's 8 experts (2 layers, bf16 on fp32 masters, fused
-    Adam, ``[1, 2048]`` a rank): finite, falling losses equal on both
-    ranks; one ``l_aux`` on both (the gate routes the global batch); per
-    rank and step dispatch and combine 2 L times, flash as its formula,
-    Σg² and Adam once; each rank's state to the byte of the prediction
-    (16 bytes a parameter it holds)."""
+def moe_ep_rank(rank: int, seed: int, save_dir: str) -> dict:
+    """One rank of train_moe_ep and train_moe_ep_agree (one launch)."""
+    out = moe_ep_train_rank(rank, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()  # the agreement's own peak
+    out["agree"] = moe_agree_rank(rank, seed, *MOE_AGREE_RUN, save_dir)
+    return out
+
+
+def phase_train_moe_ep(dev, seed: int) -> dict:
+    """train_moe_ep and train_moe_ep_agree (one launch of ``MOE_EP`` ranks
+    on card 0 over gloo), each rank holding 4 of Mixtral-8x7B's 8 experts
+    (2 layers, bf16 on fp32 masters, fused Adam, ``[1, 2048]`` a rank):
+    finite, falling losses equal on both ranks; one ``l_aux`` on both (the
+    gate routes the global batch); per rank and step dispatch and combine
+    2 L times, flash as its formula, Σg² and Adam once; each rank's state
+    to the byte of the prediction (16 bytes a parameter it holds); then
+    the agreement (:func:`check_moe_ep_agree`, its one-process run here
+    before the launch)."""
     from deepspeed_tpu_torch import MixtralConfig
     from deepspeed_tpu_torch.launcher import launch
     from deepspeed_tpu_torch.ops import op_builder
 
     op_builder.build()  # here, so the ranks do not both run nvcc
+    agree_in = moe_ep_agree_inputs(dev, seed)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = launch(moe_ep_train_rank, MOE_EP, (seed,),
+    ranks = launch(moe_ep_rank, MOE_EP, (seed, agree_in["save_dir"]),
                    timeout=MOE_EP_TIMEOUT)
     wall = time.perf_counter() - t0
     cfg = MixtralConfig.mixtral_8x7b(num_layers=MOE_TRAIN_LAYERS)
@@ -3614,10 +3807,13 @@ def phase_train_moe_ep(seed: int) -> dict:
     peak = sum(res["peak_mem_bytes"] for res in ranks)
     require(peak < torch.cuda.get_device_properties(0).total_memory,
             f"train_moe_ep: the ranks' peaks add to {peak} B")
+    agree = check_moe_ep_agree(dev, seed, [r.pop("agree") for r in ranks],
+                               agree_in)
     return {"ranks": ranks, "predicted_params_a_rank": want_params,
             "params_one_process": cfg.num_params(),
             "predicted_state_bytes_a_rank": 16 * want_params,
-            "peak_mem_bytes_sum": peak, "wall_s": wall}
+            "peak_mem_bytes_sum": peak, "wall_s": wall,
+            "agree": dict(agree, launch_wall_s=wall)}
 
 
 def moe_agree_inputs(seed: int, dev) -> tuple:
@@ -3723,44 +3919,39 @@ def moe_agree_rank(rank: int, seed: int, label: str, ep: int, dp: int,
     return out
 
 
-def phase_train_moe_ep_agree(dev, seed: int) -> dict:
+def moe_ep_agree_inputs(dev, seed: int) -> dict:
+    """train_moe_ep_agree's one-process run and the ranks' save
+    directory."""
+    cfg, ids = moe_agree_inputs(seed, dev)
+    t0 = time.perf_counter()
+    want = moe_agree_steps(cfg, ids, dev, seed)
+    return {"want": want, "save_dir": ckpt_root(),
+            "one_process_wall_s": time.perf_counter() - t0}
+
+
+def check_moe_ep_agree(dev, seed: int, ranks: list, inputs: dict) -> dict:
     """train_moe_ep_agree: fp32 Mixtral-8x7B widths at one layer on one
-    global batch of ``[4, 512]``: one process, then ep 2 (2 ranks, 2 rows
-    each, ZeRO 0) on card 0 over gloo give its losses and grad norms to
-    1e-4.  The ep-2 ranks then save the narrow fp32 Mixtral (8 experts)
-    after two steps; one process loads it: every rank's slice of masters,
-    m and v bit-equal (sha256)."""
+    global batch of ``[4, 512]``: ep 2 (``ranks``, 2 rows each, ZeRO 0) on
+    card 0 over gloo give the one process's losses and grad norms to 1e-4.
+    The ep-2 ranks then saved the narrow fp32 Mixtral (8 experts) after
+    two steps; one process loads it: every rank's slice of masters, m and
+    v bit-equal (sha256)."""
     import shutil
 
-    from deepspeed_tpu_torch.launcher import launch
-    from deepspeed_tpu_torch.ops import op_builder
-
-    op_builder.build()
-    t0 = time.perf_counter()
-    cfg, ids = moe_agree_inputs(seed, dev)
-    want = moe_agree_steps(cfg, ids, dev, seed)
-    torch.cuda.empty_cache()
-    save_dir = ckpt_root()
-    rel, runs = {}, {}
-    walls = {"one_process": time.perf_counter() - t0}
-    for label, ep, dp, stage in MOE_AGREE_RUNS:
-        t1 = time.perf_counter()
-        runs[label] = ranks = launch(
-            moe_agree_rank, ep * dp, (seed, label, ep, dp, stage,
-                                      save_dir if label == "ep2" else None),
-            timeout=MOE_EP_TIMEOUT)
-        walls[label] = time.perf_counter() - t1
-        for r, got in enumerate(ranks):
-            for what in ("loss", "grad_norm"):
-                rel[f"{label}_rank{r}_{what}"] = e = _max_rel(got[what],
-                                                              want[what])
-                require(e <= 1e-4, f"train_moe_ep_agree {label} rank {r}: "
-                                   f"{what} {got[what]} != one process's "
-                                   f"{want[what]} (rel {e})")
+    want, save_dir = inputs["want"], inputs["save_dir"]
+    label = MOE_AGREE_RUN[0]
+    rel = {}
+    for r, got in enumerate(ranks):
+        for what in ("loss", "grad_norm"):
+            rel[f"{label}_rank{r}_{what}"] = e = _max_rel(got[what],
+                                                          want[what])
+            require(e <= 1e-4, f"train_moe_ep_agree {label} rank {r}: "
+                               f"{what} {got[what]} != one process's "
+                               f"{want[what]} (rel {e})")
     engine = moe_ckpt_engine(dev, seed + 99)
     engine.load_checkpoint(save_dir)
     checked = 0
-    for r, got in enumerate(runs["ep2"]):
+    for r, got in enumerate(ranks):
         for name, row in got.pop("digests").items():
             mine = boxed_digests(engine, name, row["box"])
             require(all(mine[k] == row[k] for k in mine),
@@ -3770,19 +3961,21 @@ def phase_train_moe_ep_agree(dev, seed: int) -> dict:
     require(engine.optimizer.count == 2, "train_moe_ep_agree: the loaded "
                                          "step count is not 2")
     shutil.rmtree(save_dir, ignore_errors=True)
-    return {"one_process": want, "runs": runs, "max_rel": rel,
+    return {"one_process": want, "runs": {label: ranks}, "max_rel": rel,
             "checkpoint": {"slices_bit_equal": checked,
                            "model": "narrow fp32 Mixtral (H 256, 8 experts)"},
             "layers": MOE_AGREE_LAYERS,
             "global_batch": [MOE_AGREE_ROWS, MOE_AGREE_SEQ],
-            "wall_s_by_run": walls, "wall_s": time.perf_counter() - t0}
+            "one_process_wall_s": inputs["one_process_wall_s"]}
 
 
-def serving_moe_tp_rank(rank: int, seed: int) -> dict:
-    """One rank of serve_moe_tp and generate_moe_tp: Mixtral-8x7B at
-    ``MOE_TP_LAYERS`` layers, bf16, its ``I/tp`` expert columns and half
-    the heads, behind ``build_serving_frontend(mesh=...)`` with the
-    serve_moe phase's knobs and requests, then ``init_inference``."""
+def serving_moe_tp_rank(rank: int, seed: int, prompts) -> dict:
+    """One rank of serve_moe_tp, generate_moe_tp and agree_moe_tp (one
+    launch): Mixtral-8x7B at ``MOE_TP_LAYERS`` layers, bf16, its ``I/tp``
+    expert columns and half the heads, behind
+    ``build_serving_frontend(mesh=...)`` with the serve_moe phase's knobs
+    and requests, then ``init_inference``; then the agreement runs
+    (:func:`agree_tp_rank`) on ``prompts``."""
     from deepspeed_tpu_torch import KVCacheConfig
 
     model = tp_rank_model(seed, torch.bfloat16, MOE_TP_LAYERS, moe=True)
@@ -3793,22 +3986,30 @@ def serving_moe_tp_rank(rank: int, seed: int) -> dict:
     s["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     ids = torch.from_numpy(rng.integers(0, model.config.vocab_size,
                                         (V1_BATCH, V1_PROMPT)))
-    return {"serve": s, "generate": generate_v1(model, ids, V1_NEW)}
+    out = {"serve": s, "generate": generate_v1(model, ids, V1_NEW)}
+    del model
+    torch.cuda.empty_cache()
+    out["agree"] = agree_tp_rank(rank, seed, prompts, AGREE_TP_NEW, moe=True)
+    return out
 
 
-def phase_serving_moe_tp(seed: int) -> dict:
-    """serve_moe_tp and generate_moe_tp: ``TP`` ranks on card 0 over gloo;
-    every budget returned, both ranks' tokens equal; on each rank #2b
+def phase_serving_moe_tp(dev, seed: int) -> dict:
+    """serve_moe_tp, generate_moe_tp and agree_moe_tp: the agreement's
+    ``tp=1`` runs here, then one launch of ``TP`` ranks on card 0 over
+    gloo; every budget returned, both ranks' tokens equal; on each rank #2b
     ``L`` times a decode step, dispatch and combine ``L`` times a prefill
     call (never in a decode burst: the dense rung), and in generate the
-    decode kernel ``L x 31`` times and dispatch and combine ``L`` times."""
+    decode kernel ``L x 31`` times and dispatch and combine ``L`` times;
+    the agreement as :func:`check_agree_tp`."""
     from deepspeed_tpu_torch.launcher import launch
     from deepspeed_tpu_torch.ops import op_builder
 
     op_builder.build()
+    agree_in = agree_tp_inputs(dev, seed, moe=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = launch(serving_moe_tp_rank, TP, (seed,), timeout=TP_TIMEOUT)
+    ranks = launch(serving_moe_tp_rank, TP, (seed, agree_in["prompts"]),
+                   timeout=TP_TIMEOUT)
     wall = time.perf_counter() - t0
     L = MOE_TP_LAYERS
     for r, res in enumerate(ranks):
@@ -3832,7 +4033,9 @@ def phase_serving_moe_tp(seed: int) -> dict:
         require(all(res[key]["tokens"] == ranks[0][key]["tokens"]
                     for res in ranks),
                 f"{key}_moe_tp: the ranks' tokens differ")
-    return {"ranks": ranks, "launch_wall_s": wall}
+    agree = check_agree_tp([r.pop("agree") for r in ranks], agree_in)
+    return {"ranks": ranks, "launch_wall_s": wall,
+            "agree": dict(agree, launch_wall_s=wall)}
 
 
 # -- main ------------------------------------------------------------------
@@ -3846,7 +4049,7 @@ BERT_MLM_RATE = 0.15
 #: train_bert_zero: BERT-large widths at ``num_layers 24 -> 2`` on two gloo
 #: ranks, the global ``[8, 512]`` batch, ZeRO stages 0-2 (BASELINE config
 #: 2's ZeRO-1/2), ``BERT_ZERO_STEPS`` steps each
-BERT_ZERO_LAYERS, BERT_ZERO_STEPS = 2, 3
+BERT_ZERO_LAYERS, BERT_ZERO_STEPS = 2, 2
 BERT_ZERO_RUNS = (("stage0", 0), ("stage1", 1), ("stage2", 2))
 #: train_resnet: ResNet-56 on one fixed ``[128, 32, 32, 3]`` batch of seeded
 #: images, 10 classes, Adam lr 1e-3
@@ -4065,8 +4268,8 @@ def phase_train_resnet(dev, seed: int) -> dict:
 # -- the offload and Infinity slice -------------------------------------------
 
 #: train_infinity: Llama-3-70B widths, 3 of its 80 layers (more than the
-#: trunk's two device buffers), [2, 2048], 3 steps
-INF_LAYERS, INF_BATCH, INF_STEPS = 3, 2, 3
+#: trunk's two device buffers), [2, 2048], 2 steps
+INF_LAYERS, INF_BATCH, INF_STEPS = 3, 2, 2
 #: the trunk's two device buffers at 70B widths: 2 x 855,654,400 x 2 B
 INF_PEAK_PARAM_BYTES = 3_422_617_600
 #: train_infinity_nvme: Llama-3-8B widths at 3 layers, a ring of 2 slots
@@ -4948,6 +5151,299 @@ def emit_train_sp(out: dict) -> None:
               **out["infinity_agree"]))
 
 
+# -- the tensor-parallel training slice ----------------------------------------
+
+#: train_tp: Llama-3-8B widths at train_sp's depth, row and loss tiles, then
+#: Mixtral-8x7B widths at train_moe's depth and row, each at tp ``TP`` in
+#: one launch of two ranks on card 0 over gloo, ``TP_STEPS`` steps each
+TP_STEPS = 2
+TP_TRAIN_NOTE = ("gloo through the host, two ranks on one card: not a TP "
+                 "speed")
+#: the hybrid engine's generate on the tp-2 Llama after its steps: the
+#: first ``TP_HYBRID_PROMPT`` tokens of the row, ``TP_HYBRID_NEW`` new
+TP_HYBRID_PROMPT, TP_HYBRID_NEW = 64, 8
+#: train_tp_agree: AGREE_TRAIN's fp32 widths (4 heads, 2 kv heads: 2 and 1
+#: a rank) and its Mixtral case, ``TP_AGREE_STEPS`` steps on one batch, tp 2
+#: against one process, losses and grad norms to ``TP_AGREE_RTOL``
+TP_AGREE_STEPS, TP_AGREE_RTOL = 3, 1e-5
+TP_AGREE_CASES = {"llama": False, "mixtral_fused_adam": True}
+
+
+def tp_rank_params(cfg, tp: int) -> int:
+    """A tensor rank's parameters: the embedding and the norms whole, the
+    head's ``V/tp`` rows, ``1/tp`` of every layer's projections (a
+    Mixtral's router whole, its experts' FFN dim cut)."""
+    H, I, V, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.num_layers)
+    hd, nh, nkv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
+    attn = (H * nh * hd + 2 * H * nkv * hd + nh * hd * H) // tp
+    E = getattr(cfg, "num_experts", None)
+    ffn = (H * E + E * 3 * H * I // tp) if E else 3 * H * I // tp
+    return V * H + V * H // tp + L * (attn + ffn + 2 * H) + H
+
+
+def tp_digests(engine) -> dict:
+    """sha1 of every leaf the tensor ranks each hold whole (fp32 masters,
+    on the host): the ranks must hold them bit for bit."""
+    import hashlib
+    from deepspeed_tpu_torch.runtime.zero import tensor_of
+
+    return {name: hashlib.sha1(np.ascontiguousarray(
+        p.detach().cpu().numpy()).data).hexdigest()
+        for name, p in zip(engine.param_names, engine.params)
+        if tensor_of(p) is None}
+
+
+def tp_train_config(model, fused_adam: bool = False, **extra) -> dict:
+    return dict(ds_config(model, 1, fused_adam),
+                tensor_parallel={"autotp_size": TP}, **extra)
+
+
+def tp_agree_ids(seed: int, vocab: int) -> torch.Tensor:
+    """train_agree's batch: ``[2, 200]`` from the seed."""
+    return torch.from_numpy(np.random.default_rng(seed + 3).integers(
+        0, vocab, (2, 200)))
+
+
+def tp_agree_config(moe: bool):
+    from deepspeed_tpu_torch import LlamaConfig, MixtralConfig
+    return (MixtralConfig(**AGREE_TRAIN, num_experts=4, top_k=2) if moe
+            else LlamaConfig(**AGREE_TRAIN))
+
+
+def tp_agree_run(moe: bool, seed: int, dev, mesh=None) -> dict:
+    """The fp32 agreement model (seed + 4) at tp ``TP`` on ``mesh`` (None:
+    one process), ``TP_AGREE_STEPS`` AdamW steps with clipping on
+    train_agree's batch (the Mixtral case under fused Adam)."""
+    from deepspeed_tpu_torch import LlamaModel, MixtralModel, initialize
+
+    cfg = tp_agree_config(moe)
+    model = (MixtralModel if moe else LlamaModel)(cfg, device=dev,
+                                                  seed=seed + 4, mesh=mesh)
+    conf = dict(ds_config(model, 2, fused_adam=moe), gradient_clipping=1.0,
+                optimizer={"type": "AdamW", "params": {"lr": 1e-3}})
+    if mesh is not None:
+        conf["tensor_parallel"] = {"autotp_size": TP}
+    engine, *_ = initialize(model=model, config=conf, device=dev, mesh=mesh)
+    ids = tp_agree_ids(seed, cfg.vocab_size).to(dev)
+    reset_counts()
+    ms = [engine.train_step({"input_ids": ids})
+          for _ in range(TP_AGREE_STEPS)]
+    out = {"loss": [float(m["loss"]) for m in ms],
+           "grad_norm": [float(m["grad_norm"]) for m in ms],
+           "launches": train_launches()}
+    del model, engine
+    return out
+
+
+def tp_train_rank(rank: int, seed: int) -> dict:
+    """One rank of train_tp (one launch): the tp-2 Llama-3-8B widths
+    (train_sp's config, weights from the seed and row) through
+    ``initialize`` with ``tensor_parallel.autotp_size`` and the hybrid
+    engine, its steps, then 8 greedy tokens of ``generate``; after freeing
+    it, Mixtral-8x7B widths (train_moe's config, weights and row) under
+    fused Adam; then the fp32 agreement runs at tp 2."""
+    from deepspeed_tpu_torch import (LlamaModel, MixtralConfig, MixtralModel,
+                                     initialize)
+    from deepspeed_tpu_torch.parallel import MeshLayout
+    from deepspeed_tpu_torch.utils import groups
+
+    dev = zero_rank_setup()
+    mesh = groups.initialize_mesh(MeshLayout.infer(tp=TP))
+    cfg = sp_model_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaModel(cfg, device=dev, seed=seed, mesh=mesh)
+    engine, *_ = initialize(model=model, config=tp_train_config(
+        model, hybrid_engine={"enabled": True}), device=dev, mesh=mesh)
+    setup_s = time.perf_counter() - t0
+    ids = sp_ids(seed, cfg.vocab_size, dev)
+    run = sp_steps(engine, ids, TP_STEPS)
+    prompt = ids[:, :TP_HYBRID_PROMPT]
+    reset_counts()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompt, max_new_tokens=TP_HYBRID_NEW).cpu()
+    hybrid = {"tokens": tokens[:, TP_HYBRID_PROMPT:].tolist(),
+              "launches": read_counts(), "kind": type(engine).__name__,
+              "wall_s": time.perf_counter() - t0}
+    out = {"llama": dict(
+        run, setup_s=setup_s, tp_rank=model.tp_rank,
+        head_rows=model.lm_head.weight.shape[0],
+        params=sum(p.numel() for p in engine.params),
+        state_bytes=zero_state_bytes(engine), digests=tp_digests(engine),
+        peak_mem_bytes=torch.cuda.max_memory_allocated()),
+        "hybrid": hybrid}
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = MixtralConfig.mixtral_8x7b(
+        num_layers=MOE_TRAIN_LAYERS, dtype=torch.bfloat16,
+        param_dtype=torch.float32, attn_impl="flash")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = MixtralModel(mcfg, device=dev, seed=seed, mesh=mesh)
+    engine, *_ = initialize(model=model, config=tp_train_config(
+        model, fused_adam=True), device=dev, mesh=mesh)
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(seed)  # train_moe's row
+    rows = torch.randint(0, mcfg.vocab_size, (1, TRAIN_SEQ), generator=gen,
+                         device=dev)
+    run = sp_steps(engine, rows, TP_STEPS)
+    layer = model._moe_layer
+    out["mixtral"] = dict(
+        run, setup_s=setup_s, rung=layer.last_impl,
+        params=sum(p.numel() for p in engine.params),
+        state_bytes=zero_state_bytes(engine), digests=tp_digests(engine),
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del model, engine, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["agree"] = {label: tp_agree_run(moe, seed, dev, mesh)
+                    for label, moe in TP_AGREE_CASES.items()}
+    return out
+
+
+def phase_train_tp(dev, seed: int, res: dict) -> dict:
+    """train_tp, train_tp_agree and the tp-2 hybrid generate (one launch of
+    ``TP`` ranks on card 0 over gloo), after train_sp and train_moe (their
+    one-process runs in ``res``): per model, finite falling losses and
+    grad norms bit-equal on the ranks, every leaf the ranks hold whole
+    bit-equal (sha1), each rank's parameters and state bytes those of the
+    split (16 bytes a parameter), the launch formula per rank (flash at the
+    ``_sp`` shape for the Llama; #11/#12 on the kernel rung, #13/#14 once a
+    step for the Mixtral), the first step's loss and grad norm within
+    ``SP_BF16_RTOL`` of one process on the same weights and row; the
+    hybrid's tokens equal on the ranks, decode #1 ``L x (new - 1)`` times;
+    the fp32 agreements within ``TP_AGREE_RTOL`` of one process."""
+    from deepspeed_tpu_torch import MixtralConfig
+    from deepspeed_tpu_torch.launcher import launch
+    from deepspeed_tpu_torch.ops import op_builder
+
+    op_builder.build()  # here, so the ranks do not both run nvcc
+    free_host_cache()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(tp_train_rank, TP, (seed,), timeout=TP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    # train_sp's sp-1 run and train_moe's, on the same weights and rows
+    one = {"llama": res["train_sp_one"], "mixtral": res["train_moe"]}
+    cfgs = {"llama": sp_model_config(),
+            "mixtral": MixtralConfig.mixtral_8x7b(
+                num_layers=MOE_TRAIN_LAYERS)}
+    out = {"launch_wall_s": wall}
+    for name, cfg in cfgs.items():
+        base = ranks[0][name]
+        moe = name == "mixtral"
+        want_params = tp_rank_params(cfg, TP)
+        for r, res_r in enumerate(ranks):
+            t = res_r[name]
+            what = f"train_tp {name} rank {r}"
+            require(all(np.isfinite(t["loss"])) and
+                    t["loss"][-1] < t["loss"][0],
+                    f"{what}: losses {t['loss']}")
+            require(t["loss"] == base["loss"] and
+                    t["grad_norm"] == base["grad_norm"],
+                    f"{what}: losses {t['loss']} / grad norms "
+                    f"{t['grad_norm']} != rank 0's")
+            require(t["digests"] == base["digests"],
+                    f"{what}: a leaf the ranks hold whole differs")
+            require(t["params"] == want_params and
+                    t["state_bytes"]["total"] == 16 * want_params,
+                    f"{what}: {t['params']} parameters, "
+                    f"{t['state_bytes']['total']} state bytes; predicted "
+                    f"{want_params}, {16 * want_params}")
+            require_train_launches(what, dict(
+                layers=cfg.num_layers, steps=TP_STEPS, remat=True,
+                fused_adam=moe, launches=t["launches"]), moe=moe)
+            require(t["all_to_all"] == 0, f"{what}: all-to-alls ran")
+            if moe:
+                require(t["rung"] == "pallas",
+                        f"{what}: the MoE layer took the {t['rung']} rung")
+            else:
+                require(t["head_rows"] == cfg.vocab_size // TP,
+                        f"{what}: the head holds {t['head_rows']} rows")
+        rel = {}
+        for what, tol in zip(("loss", "grad_norm"), SP_BF16_RTOL):
+            rel[what] = e = abs(base[what][0] - one[name][what][0]) / abs(
+                one[name][what][0])
+            require(e <= tol, f"train_tp {name}: tp {TP}'s first {what} "
+                              f"{base[what][0]} != one process's "
+                              f"{one[name][what][0]} (rel {e} > {tol})")
+        out[name] = dict(
+            layers=cfg.num_layers, tp=TP, steps=TP_STEPS,
+            batch=[1, SP_SEQ if name == "llama" else TRAIN_SEQ],
+            params_a_rank=want_params, params_one_process=cfg.num_params(),
+            state_bytes_a_rank=16 * want_params,
+            ranks=[{k: v for k, v in r[name].items() if k != "digests"}
+                   for r in ranks],
+            whole_leaves_bit_equal=len(base["digests"]),
+            one_process_first=dict(loss=one[name]["loss"][0],
+                                   grad_norm=one[name]["grad_norm"][0]),
+            rel_to_one_process=rel,
+            tolerance=dict(zip(("loss", "grad_norm"), SP_BF16_RTOL)),
+            host_step_ms=statistics.median(base["host_step_ms"][1:]),
+            peak_mem_bytes_sum=sum(r[name]["peak_mem_bytes"]
+                                   for r in ranks))
+    L = cfgs["llama"].num_layers
+    hyb = ranks[0]["hybrid"]
+    for r, res_r in enumerate(ranks):
+        h = res_r["hybrid"]
+        require(h["kind"] == "DeepSpeedHybridEngine" and
+                h["tokens"] == hyb["tokens"],
+                f"train_tp hybrid rank {r}: {h['kind']}, tokens "
+                f"{h['tokens']} != rank 0's {hyb['tokens']}")
+        require(h["launches"]["decode_attention"] == L * (TP_HYBRID_NEW - 1)
+                and h["launches"]["flash_fwd"] == 0,
+                f"train_tp hybrid rank {r}: launches {h['launches']}")
+    require(all(0 <= t < cfgs["llama"].vocab_size
+                for row in hyb["tokens"] for t in row),
+            "train_tp hybrid: ids outside the vocabulary")
+    out["hybrid"] = dict(prompt=[1, TP_HYBRID_PROMPT],
+                         new_tokens=TP_HYBRID_NEW, **hyb)
+    agree = {}
+    for label, moe in TP_AGREE_CASES.items():
+        ref = tp_agree_run(moe, seed, dev)
+        got = ranks[0]["agree"][label]
+        rel = {}
+        for r, res_r in enumerate(ranks):
+            a = res_r["agree"][label]
+            require(a["loss"] == got["loss"] and
+                    a["grad_norm"] == got["grad_norm"],
+                    f"train_tp_agree {label}: rank {r}'s metrics differ")
+            require_train_launches(f"train_tp_agree {label} rank {r}", dict(
+                layers=AGREE_TRAIN["num_layers"], steps=TP_AGREE_STEPS,
+                remat=True, fused_adam=moe, launches=a["launches"]), moe=moe)
+        for what in ("loss", "grad_norm"):
+            rel[what] = e = _max_rel(got[what], ref[what])
+            require(e <= TP_AGREE_RTOL,
+                    f"train_tp_agree {label}: tp {TP}'s {what} {got[what]} "
+                    f"!= one process's {ref[what]} (rel {e} > "
+                    f"{TP_AGREE_RTOL})")
+        agree[label] = dict(tp2=got, one_process=ref, max_rel=rel)
+    out["agree"] = dict(
+        model=dict((k, v) for k, v in AGREE_TRAIN.items()
+                   if k not in ("dtype", "param_dtype")),
+        batch=[2, 200], steps=TP_AGREE_STEPS, tp=TP,
+        tolerance=TP_AGREE_RTOL, runs=agree)
+    return out
+
+
+def emit_train_tp(out: dict) -> None:
+    """The train_tp, train_tp_agree and train_tp_hybrid lines."""
+    reduced = ["cards 2 -> 1, NCCL -> gloo through the host",
+               f"steps 3 -> {TP_STEPS} (the script's length)"]
+    for name, label in (("llama", "llama3_8b"), ("mixtral", "mixtral_8x7b")):
+        emit(dict(phase="train_tp", model=label, dtype="bfloat16",
+                  reduced=[f"num_layers 32 -> {out[name]['layers']}"]
+                  + reduced, comm=TP_TRAIN_NOTE, card=nvidia_smi_line(),
+                  launch_wall_s=out["launch_wall_s"], **out[name]))
+    emit(dict(phase="train_tp_agree", dtype="float32",
+              reduced=reduced[:1], comm=TP_TRAIN_NOTE, **out["agree"]))
+    emit(dict(phase="train_tp_hybrid", model="llama3_8b",
+              reduced=[f"num_layers 32 -> {SP_LAYERS}"] + reduced[:1],
+              **out["hybrid"]))
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -5028,17 +5524,23 @@ def main() -> int:
                          "sparse_kernels, quant_kernels, tp_kernels, serve, "
                          "agree, serve_moe, agree_moe, train, "
                          "train_8b_width, train_moe, train_agree, sparse, "
-                         "serve_tp, generate_tp (one launch runs both), "
-                         "agree_tp, train_zero, train_zero_agree, "
-                         "train_ckpt, train_moe_ep, train_moe_ep_agree, "
-                         "serve_moe_tp, generate_moe_tp (one launch runs "
-                         "both), agree_moe_tp, train_bert, train_bert_zero, "
+                         "serve_tp, generate_tp, agree_tp (one launch "
+                         "runs all three), train_zero, train_zero_agree "
+                         "(one launch runs both), "
+                         "train_ckpt, train_moe_ep, train_moe_ep_agree "
+                         "(one launch runs both), "
+                         "serve_moe_tp, generate_moe_tp, agree_moe_tp (one "
+                         "launch runs all three), train_bert, "
+                         "train_bert_zero, "
                          "train_resnet, serve_opt, generate_opt (one run "
                          "gives both), agree_opt, train_infinity, "
                          "train_infinity_nvme, train_infinity_agree, "
                          "train_offload, train_sp, train_sp_agree, "
                          "train_infinity_sp, train_infinity_sp_agree (one "
-                         "launch runs all four))")
+                         "launch runs all four), train_tp, train_tp_agree, "
+                         "train_tp_hybrid (one launch runs all three; "
+                         "train_sp and train_moe first when they are not "
+                         "named))")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU path "
@@ -5090,27 +5592,37 @@ def main() -> int:
             emit(dict(phase="kernels", kernel=name, **row))
 
     def serving_tp():
-        out = phase_serving_tp(args.seed)
+        out = phase_serving_tp(dev, args.seed)
         ranks = out["ranks"]
         res["serve_tp"] = ranks[0]["serve"]
-        for key, phase in (("serve", "serve_tp"), ("generate", "generate_tp")):
-            emit(dict(phase=phase, model="llama3_8b", layers=SERVE_TP_LAYERS,
+        res["serving_tp"] = ranks[0]
+        for key, phase, model, layers, full in (
+                ("serve", "serve_tp", "llama3_8b", SERVE_TP_LAYERS, 32),
+                ("generate", "generate_tp", "llama3_8b", SERVE_TP_LAYERS,
+                 32),
+                ("serve_opt", "serve_opt_tp", OPT_NAME, OPT_TP_LAYERS, 24),
+                ("generate_opt", "generate_opt_tp", OPT_NAME, OPT_TP_LAYERS,
+                 24)):
+            emit(dict(phase=phase, model=model, layers=layers,
                       tp=TP, dtype="bfloat16", reduced=[
-                          f"num_layers 32 -> {SERVE_TP_LAYERS}",
+                          f"num_layers {full} -> {layers}",
                           "cards 2 -> 1, NCCL -> gloo through the host"],
                       comm=TP_NOTE,
                       ranks_tokens_equal=True,
                       launch_wall_s=out["launch_wall_s"],
                       **{f"rank{r}": without_tokens(x[key])
                          for r, x in enumerate(ranks)}))
+        emit(dict(phase="agree_tp", **out["agree"]))
 
     def train_zero():
-        out = phase_train_zero(args.seed)
+        out = phase_train_zero(dev, args.seed)
         for label, stage, fused in ZERO_RUNS:  # one line per run
             emit(dict(phase="train_zero", run=label, stage=stage,
                       fused_adam=fused, model="bench.py headline",
                       ranks=ZERO_RANKS, global_batch=[TRAIN_BATCH, TRAIN_SEQ],
-                      reduced=["cards 2 -> 1, NCCL -> gloo through the host",
+                      reduced=[f"num_layers 12 -> {ZERO_LAYERS} (the "
+                               "script's length)",
+                               "cards 2 -> 1, NCCL -> gloo through the host",
                                "steps 4 -> 2 (the script's length)"],
                       comm=ZERO_NOTE,
                       loss_rel_to_stage0=out["loss_rel_to_stage0"][label],
@@ -5120,7 +5632,9 @@ def main() -> int:
                   stage=ZERO_OFFLOAD_STAGE, offload_optimizer="cpu",
                   model="bench.py headline", ranks=ZERO_RANKS,
                   global_batch=[TRAIN_BATCH, TRAIN_SEQ],
-                  reduced=["cards 2 -> 1, NCCL -> gloo through the host",
+                  reduced=[f"num_layers 12 -> {ZERO_LAYERS} (the script's "
+                           "length)",
+                           "cards 2 -> 1, NCCL -> gloo through the host",
                            "steps 4 -> 2 (the script's length)"],
                   comm=ZERO_NOTE,
                   one_process_loss=out["offload_one_process_loss"],
@@ -5140,9 +5654,13 @@ def main() -> int:
                      for r, x in enumerate(out["ranks"])}))
         emit(dict(phase="train_zero", launch_wall_s=out["launch_wall_s"],
                   peak_mem_bytes_rank0=out["peak_mem_bytes_rank0"]))
+        emit(dict(phase="train_zero_agree", model="bench.py headline width",
+                  reduced=[f"num_layers 12 -> {ZERO_AGREE_LAYERS}",
+                           "cards 2 -> 1, NCCL -> gloo through the host"],
+                  comm=ZERO_NOTE, **out["agree"]))
 
     def serving_moe_tp():
-        out = phase_serving_moe_tp(args.seed)
+        out = phase_serving_moe_tp(dev, args.seed)
         ranks = out["ranks"]
         res["serve_moe_tp"] = ranks[0]
         for key, phase in (("serve", "serve_moe_tp"),
@@ -5156,17 +5674,26 @@ def main() -> int:
                       card=nvidia_smi_line(),
                       **{f"rank{r}": without_tokens(x[key])
                          for r, x in enumerate(ranks)}))
+        emit(dict(phase="agree_moe_tp", card=nvidia_smi_line(),
+                  **out["agree"]))
 
     def train_moe_ep():
-        out = phase_train_moe_ep(args.seed)
+        out = phase_train_moe_ep(dev, args.seed)
+        agree = out.pop("agree")
         res["train_moe_ep"] = out["ranks"][0]
         emit(dict(phase="train_moe_ep", model="mixtral_8x7b", ep=MOE_EP,
                   global_batch=[MOE_EP, TRAIN_SEQ], dtype="bfloat16",
                   fused_adam=True, reduced=[
                       f"num_layers 32 -> {MOE_TRAIN_LAYERS}",
                       "cards 2 -> 1, NCCL -> gloo through the host",
-                      "steps 4 -> 3 (the script's length)"],
+                      f"steps 4 -> {MOE_EP_STEPS} (the script's length)"],
                   comm=MOE_EP_NOTE, card=nvidia_smi_line(), **out))
+        emit(dict(phase="train_moe_ep_agree", model="mixtral_8x7b widths",
+                  dtype="float32", reduced=[
+                      f"num_layers 32 -> {MOE_AGREE_LAYERS}",
+                      "cards 2 -> 1, NCCL -> gloo through the host",
+                      "checkpoint: the narrow fp32 Mixtral"],
+                  comm=MOE_EP_NOTE, card=nvidia_smi_line(), **agree))
 
     def sparse():
         rows, res["sparse"] = phase_sparse(dev)
@@ -5218,7 +5745,8 @@ def main() -> int:
         moe = name == "train_moe"
         model = (MixtralModel if moe else LlamaModel)(cfg, device=dev,
                                                       seed=args.seed)
-        t = train(model, steps, batch, TRAIN_SEQ, args.seed, fused_adam=moe)
+        t = train(model, steps, batch, TRAIN_SEQ, args.seed, fused_adam=moe,
+                  hybrid_new=HEADLINE_HYBRID_NEW if name == "train" else 0)
         require_train_launches(name, t, moe=moe)
         emit(dict(phase=name, model=label, reduced=reduced,
                   wall_s=time.perf_counter() - t0, **t))
@@ -5249,7 +5777,8 @@ def main() -> int:
         t["mem_available_in_parent"] = parent
         emit(dict(phase="train_infinity", model="llama3_70b",
                   reduced=[f"num_layers 80 -> {t['layers']} (4 -> 3 and "
-                           "steps 4 -> 3 for the script's length)"],
+                           f"steps 4 -> {INF_STEPS} for the script's "
+                           "length)"],
                   offload_param="cpu", **t))
 
     def train_offload():
@@ -5266,8 +5795,17 @@ def main() -> int:
     def train_sp():
         out = phase_train_sp(dev, args.seed)
         res["train_sp"] = out["train"]["ranks"][0]
+        res["train_sp_one"] = out["train"]["one_process"]
         res["train_infinity_sp"] = out["infinity"]["ranks"][0]
         emit_train_sp(out)
+
+    def train_tp():
+        if "train_sp_one" not in res:  # the one-process runs it holds to
+            train_sp()
+        if "train_moe" not in res:
+            training("train_moe")
+        res["train_tp"] = out = phase_train_tp(dev, args.seed, res)
+        emit_train_tp(out)
 
     def train_bert():
         res["train_bert"] = phase_train_bert(dev, args.seed)
@@ -5282,8 +5820,8 @@ def main() -> int:
                       global_batch=[BERT_BATCH, BERT_SEQ], dtype="bfloat16",
                       reduced=[f"num_layers 24 -> {BERT_ZERO_LAYERS}",
                                "cards 2 -> 1, NCCL -> gloo through the "
-                               "host", "steps 4 -> 3 (the script's "
-                               "length)"], comm=ZERO_NOTE,
+                               "host", f"steps 4 -> {BERT_ZERO_STEPS} (the "
+                               "script's length)"], comm=ZERO_NOTE,
                       loss_rel_to_stage0=out["loss_rel_to_stage0"][label],
                       **{f"rank{r}": x[label]
                          for r, x in enumerate(out["ranks"])}))
@@ -5307,31 +5845,16 @@ def main() -> int:
         "train_agree": lambda: emit(dict(phase="train_agree",
                                          **train_agree(dev, args.seed))),
         "sparse": sparse, "serve_tp": serving_tp, "generate_tp": serving_tp,
-        "agree_tp": lambda: emit(dict(phase="agree_tp",
-                                      **phase_agree_tp(dev, args.seed))),
-        "train_zero": train_zero,
-        "train_zero_agree": lambda: emit(dict(
-            phase="train_zero_agree", model="bench.py headline width",
-            reduced=[f"num_layers 12 -> {ZERO_AGREE_LAYERS}",
-                     "cards 2 -> 1, NCCL -> gloo through the host"],
-            comm=ZERO_NOTE, **phase_train_zero_agree(dev, args.seed))),
+        "agree_tp": serving_tp,
+        "train_zero": train_zero, "train_zero_agree": train_zero,
         "train_ckpt": lambda: emit(dict(
             phase="train_ckpt", model="bench.py headline", reduced=[
                 "zero: cards 2 -> 1, NCCL -> gloo through the host"],
             card=nvidia_smi_line(), **phase_train_ckpt(dev, args.seed))),
         "train_moe_ep": train_moe_ep,
-        "train_moe_ep_agree": lambda: emit(dict(
-            phase="train_moe_ep_agree", model="mixtral_8x7b widths",
-            dtype="float32", reduced=[
-                f"num_layers 32 -> {MOE_AGREE_LAYERS}",
-                "cards 2 -> 1, NCCL -> gloo through the "
-                "host", "checkpoint: the narrow fp32 Mixtral"],
-            comm=MOE_EP_NOTE, card=nvidia_smi_line(),
-            **phase_train_moe_ep_agree(dev, args.seed))),
+        "train_moe_ep_agree": train_moe_ep,
         "serve_moe_tp": serving_moe_tp, "generate_moe_tp": serving_moe_tp,
-        "agree_moe_tp": lambda: emit(dict(
-            phase="agree_moe_tp", card=nvidia_smi_line(),
-            **phase_agree_tp(dev, args.seed, moe=True))),
+        "agree_moe_tp": serving_moe_tp,
         "train_bert": train_bert,
         "train_bert_zero": train_bert_zero,
         "train_resnet": lambda: emit(dict(
@@ -5355,7 +5878,9 @@ def main() -> int:
             **phase_train_infinity_nvme(dev, args.seed))),
         "train_infinity": train_infinity,
         "train_sp": train_sp, "train_sp_agree": train_sp,
-        "train_infinity_sp": train_sp, "train_infinity_sp_agree": train_sp}
+        "train_infinity_sp": train_sp, "train_infinity_sp_agree": train_sp,
+        "train_tp": train_tp, "train_tp_agree": train_tp,
+        "train_tp_hybrid": train_tp}
     only = [p for p in args.only.split(",") if p]
     unknown = set(only) - set(phases)
     if unknown:
@@ -5391,14 +5916,23 @@ def main() -> int:
     tb, so, go = res["train_bert"], res["serve_opt"], res["generate_opt"]
     ti, tsp = res["train_infinity"], res["train_sp"]
     tisp = res["train_infinity_sp"]
+    # the tensor-parallel training slice, rank 0's counts
+    ttp = res["train_tp"]
+    ttl, ttm = ttp["llama"]["ranks"][0], ttp["mixtral"]["ranks"][0]
+    stp = res["serving_tp"]
 
     def moe_launches(kernel):  # every MoE main path (a rank's on EP, TP)
         return sum(x["launches"][kernel] for x in (
-            sm, gm, tm, ep, smt["serve"], smt["generate"]))
+            sm, gm, tm, ep, smt["serve"], smt["generate"], ttm))
+
+    def hybrid_decode():  # the hybrid engine's generates (train, train_tp)
+        return (t["hybrid"]["launches"]["decode_attention"]
+                + ttp["hybrid"]["launches"]["decode_attention"])
 
     rows = {  # name: (source, TPU kernel, main-path launches, measured)
         "decode_attention": (decode_src, pallas + "decode_attention.py:98",
-                             g["launches"]["decode_attention"],
+                             g["launches"]["decode_attention"]
+                             + hybrid_decode(),
                              timing["decode_attention"]),
         "paged_decode_attention": (decode_src,
                                    pallas + "paged_attention.py:116",
@@ -5409,7 +5943,8 @@ def main() -> int:
         "paged_decode_attention_tp": (
             decode_src, pallas + "paged_attention.py:183",
             res["serve_tp"]["launches"]["paged_decode_attention_tp"]
-            + smt["serve"]["launches"]["paged_decode_attention_tp"],
+            + smt["serve"]["launches"]["paged_decode_attention_tp"]
+            + stp["serve_opt"]["launches"]["paged_decode_attention_tp"],
             res["tp_kernels"]["paged_decode_attention_tp"]),
         "flash_fwd": (flash_src, pallas + "flash_attention.py:260",
                       t["launches"]["flash_fwd"], flash["flash_fwd"]),
@@ -5429,11 +5964,13 @@ def main() -> int:
                         moe_launches("moe_combine"), moe["moe_combine"]),
         "multi_tensor_sqsum": (adam_src, pallas + "fused_optimizer.py:91",
                                tm["launches"]["multi_tensor_sqsum"]
-                               + ep["launches"]["multi_tensor_sqsum"],
+                               + ep["launches"]["multi_tensor_sqsum"]
+                               + ttm["launches"]["multi_tensor_sqsum"],
                                adam["multi_tensor_sqsum"]),
         "fused_adam": (adam_src, pallas + "fused_optimizer.py:158",
                        tm["launches"]["fused_adam"]
-                       + ep["launches"]["fused_adam"], adam["fused_adam"]),
+                       + ep["launches"]["fused_adam"]
+                       + ttm["launches"]["fused_adam"], adam["fused_adam"]),
         # the forward replaces the gather (:335) and resident (:523) forwards
         "block_sparse_fwd": (sparse_src,
                              pallas + "block_sparse_attention.py:335",
@@ -5462,7 +5999,9 @@ def main() -> int:
                                tb["launches"]["flash_bwd_dkv"],
                                flash["flash_bwd_dkv"]),
         "decode_attention_opt": (decode_src, pallas + "decode_attention.py:98",
-                                 go["launches"]["decode_attention"],
+                                 go["launches"]["decode_attention"]
+                                 + stp["generate_opt"]["launches"][
+                                     "decode_attention"],
                                  timing["decode_attention_opt"]),
         "paged_decode_attention_opt": (
             decode_src, pallas + "paged_attention.py:116",
@@ -5479,14 +6018,18 @@ def main() -> int:
                               ti["launches"]["flash_bwd_dkv"],
                               flash["flash_bwd_dkv"]),
         # the sequence-parallel slice: the flash kernels at the Ulysses
-        # shape, the full S 8192 on h/sp heads (launches: train_sp, a rank)
+        # shape, the full S 8192 on h/sp heads (launches: train_sp, a
+        # rank); train_tp's Llama runs the same shape on h/tp heads
         "flash_fwd_sp": (flash_src, pallas + "flash_attention.py:260",
-                         tsp["launches"]["flash_fwd"], flash["flash_fwd"]),
+                         tsp["launches"]["flash_fwd"]
+                         + ttl["launches"]["flash_fwd"], flash["flash_fwd"]),
         "flash_bwd_dq_sp": (flash_src, pallas + "flash_attention.py:453",
-                            tsp["launches"]["flash_bwd_dq"],
+                            tsp["launches"]["flash_bwd_dq"]
+                            + ttl["launches"]["flash_bwd_dq"],
                             flash["flash_bwd_dq"]),
         "flash_bwd_dkv_sp": (flash_src, pallas + "flash_attention.py:472",
-                             tsp["launches"]["flash_bwd_dkv"],
+                             tsp["launches"]["flash_bwd_dkv"]
+                             + ttl["launches"]["flash_bwd_dkv"],
                              flash["flash_bwd_dkv"]),
         # the multi-rank Infinity slice: the same kernels at the Ulysses
         # shape inside each streamed layer (launches: train_infinity_sp,

@@ -29,8 +29,12 @@ the host C++ optimizers of :mod:`.ops.adam`, the cpu and nvme tiers,
 layer streaming, :mod:`.runtime.swap_tensor`); and sequence parallelism:
 Ulysses and ring attention over a ``seq`` axis with ALST's tiled loss
 and MLP (``sequence_parallel.sp_size``, :mod:`.runtime.sequence_parallel`,
-:class:`DistributedAttention`), the flash kernels on each rank's heads.
-Every
+:class:`DistributedAttention`), the flash kernels on each rank's heads;
+and tensor-parallel training of Llama and Mixtral
+(``tensor_parallel.autotp_size``, :func:`tp_model_init`: Megatron's *f*
+and *g*, the vocabulary-parallel loss, ZeRO over data x tensor), OPT
+served under tensor parallelism, and the hybrid engine
+(``hybrid_engine.enabled``, :class:`DeepSpeedHybridEngine`).  Every
 entry point runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run.
 """
@@ -45,7 +49,8 @@ from .models import (BertConfig, BertModel, LlamaConfig, LlamaModel,
                      ResNetConfig, ResNetModel, load_hf_bert, load_hf_llama,
                      load_hf_mistral, load_hf_mixtral, load_hf_opt)
 from .moe import MoE
-from .runtime import DeepSpeedConfig, DeepSpeedEngine, initialize
+from .runtime import (DeepSpeedConfig, DeepSpeedEngine,
+                      DeepSpeedHybridEngine, initialize, tp_model_init)
 from .runtime import sequence_parallel
 from .sequence import DistributedAttention
 from .serving import ServingParams, build_serving_frontend
@@ -54,6 +59,7 @@ from .utils.groups import (get_sequence_parallel_group,
                            get_sequence_parallel_world_size)
 
 __all__ = ["BertConfig", "BertModel", "DeepSpeedConfig", "DeepSpeedEngine",
+           "DeepSpeedHybridEngine",
            "DistributedAttention", "KVCacheConfig", "LlamaConfig",
            "LlamaModel", "MixtralConfig", "MixtralModel", "MoE", "OPTConfig",
            "OPTModel", "ResNetConfig", "ResNetModel", "ServingParams",
@@ -62,4 +68,4 @@ __all__ = ["BertConfig", "BertModel", "DeepSpeedConfig", "DeepSpeedEngine",
            "get_sequence_parallel_world_size", "init_distributed",
            "init_inference", "initialize", "load_hf_bert", "load_hf_llama",
            "load_hf_mistral", "load_hf_mixtral", "load_hf_opt",
-           "sequence_parallel", "zero"]
+           "sequence_parallel", "tp_model_init", "zero"]

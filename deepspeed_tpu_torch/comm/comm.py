@@ -9,7 +9,13 @@ environment (``MASTER_ADDR`` / ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
 sequence-parallel layers differentiate through: ``all_to_all_in_graph``
 (the Ulysses all-to-all, tiled, along any split and concat axes) and
 ``ppermute`` (the ring's send/receive pairs), each a
-``torch.autograd.Function`` whose backward is the inverse exchange.  The
+``torch.autograd.Function`` whose backward is the inverse exchange, and
+the three that tensor-parallel training differentiates through, Megatron's
+*f* and *g* and the vocabulary max (JAX ``models/llama.py`` ``_tp_copy``
+:137, ``_tp_reduce`` :160, ``_tp_max`` :184): ``tp_copy`` (identity
+forward, the gradient summed over the group), ``tp_reduce`` (the sum
+forward, the gradient as it is) and ``tp_max`` (the max forward, a zero
+gradient).  The
 JAX package's verbs run XLA collectives over a mesh of one controller;
 here every rank is a process and a verb is a ``torch.distributed``
 collective over a process group.  A ``group`` is a
@@ -375,3 +381,65 @@ def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
     group = _resolve(group)
     perm = tuple((int(s), int(d)) for s, d in perm)
     return _PPermute.apply(x, perm, group)
+
+
+class _TPCopy(torch.autograd.Function):
+    """Megatron's *f*: identity forward; the backward sums the gradient
+    over the group (every rank's column-parallel product read the same
+    input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous().clone(), group=ctx.group), None
+
+
+class _TPReduce(torch.autograd.Function):
+    """Megatron's *g*: the partial sums added over the group; the backward
+    passes the gradient through (every rank holds the whole sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _TPMax(torch.autograd.Function):
+    """The elementwise max over the group with a zero gradient (the
+    log-sum-exp shift, whose derivative is zero)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), ReduceOp.MAX, group=group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return torch.zeros_like(grad), None
+
+
+def tp_copy(x: torch.Tensor, group: GroupLike = None) -> torch.Tensor:
+    """Megatron's *f* over ``group`` (JAX ``_tp_copy``): ``x`` itself, its
+    gradient summed over the group."""
+    return _TPCopy.apply(x, _resolve(group))
+
+
+def tp_reduce(x: torch.Tensor, group: GroupLike = None) -> torch.Tensor:
+    """Megatron's *g* over ``group`` (JAX ``_tp_reduce``): ``x`` summed
+    over the group in its dtype.  Under a gradient a new tensor whose
+    gradient passes through; without one (serving) ``x`` itself, reduced
+    in place."""
+    if not torch.is_grad_enabled():
+        return all_reduce(x, group=group)
+    return _TPReduce.apply(x, _resolve(group))
+
+
+def tp_max(x: torch.Tensor, group: GroupLike = None) -> torch.Tensor:
+    """The max over ``group`` with a zero gradient (JAX ``_tp_max``)."""
+    return _TPMax.apply(x, _resolve(group))

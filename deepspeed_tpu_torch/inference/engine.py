@@ -7,10 +7,10 @@ the model's ``decode_step`` calls.  Tensor-parallel inference
 (``tensor_parallel={"tp_size": N}``) runs one process per rank: the engine
 takes the model's mesh, or builds one over the joined process group
 (joining it from the launcher's environment first) and splits a whole
-model's weights in place (``LlamaModel.shard_``, the reference's AutoTP;
-a Mixtral's expert stacks keep their ``I/tp`` FFN columns).  Each rank's
-decode kernel then runs on its own heads, and every rank returns the same
-tokens.  A model without ``shard_`` (OPT) is served whole.
+model's weights in place (``LlamaModel.shard_`` / ``OPTModel.shard_``,
+the reference's AutoTP; a Mixtral's expert stacks keep their ``I/tp``
+FFN columns).  Each rank's decode kernel then runs on its own heads, and
+every rank returns the same tokens.
 """
 
 from __future__ import annotations
@@ -49,8 +49,9 @@ class InferenceEngine:
         tp = int(config.tensor_parallel.get("tp_size", 1))
         if tp > 1 and not hasattr(model, "shard_"):
             raise NotImplementedError(
-                f"{type(model).__name__} under tensor parallelism is not "
-                "ported yet (ROADMAP Queue 1 item 6b)")
+                f"{type(model).__name__} has no tensor-parallel split; the "
+                "name policy for client modules is not ported yet (ROADMAP "
+                "Queue 1 item 5c)")
         if tp > 1 and model.tp == 1:
             if mesh is None:
                 from ..comm import comm

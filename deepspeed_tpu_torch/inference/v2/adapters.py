@@ -123,7 +123,16 @@ class LlamaV2Adapter(ModelAdapterV2):
 class OPTV2Adapter(ModelAdapterV2):
     """OPT family: learned absolute positions (+2 offset, clamped at the
     table's end), LayerNorm with bias, biased projections, ReLU MLP, tied
-    head (``models/opt.py``)."""
+    head (``models/opt.py``).  The head counts are this rank's under
+    tensor parallelism."""
+
+    @property
+    def num_heads(self) -> int:
+        return self.model.num_local_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.model.num_local_kv_heads
 
     def layers(self):
         return self.model.layers

@@ -12,7 +12,7 @@ from .hf_import import (load_hf_bert, load_hf_llama, load_hf_mistral,
                         load_hf_mixtral, load_hf_opt)
 from .llama import LlamaConfig, LlamaModel
 from .mixtral import MixtralConfig, MixtralModel
-from .opt import OPTConfig, OPTModel
+from .opt import OPTConfig, OPTModel, shard_opt_params
 from .resnet import ResNetConfig, ResNetModel
 
 __all__ = ["BertConfig", "BertModel", "LlamaConfig", "LlamaModel",
@@ -25,4 +25,4 @@ __all__ = ["BertConfig", "BertModel", "LlamaConfig", "LlamaModel",
            "mixtral_params_from_jax", "opt_params_from_jax",
            "resnet_grads_to_jax_layout", "resnet_params_from_jax",
            "resnet_tree_to_jax_layout", "shard_llama_params",
-           "shard_mixtral_params"]
+           "shard_mixtral_params", "shard_opt_params"]

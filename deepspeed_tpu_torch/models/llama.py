@@ -22,20 +22,31 @@ and flash attention (``ops/kernels/flash_attention.py``) in the training
 loss under ``attn_impl="flash"``; everything else is plain PyTorch, as the
 JAX package left it to XLA.
 
-Tensor parallelism (serving only): built on a process mesh
-(``LlamaModel(config, mesh=...)``) whose ``tensor`` axis has size ``tp``,
-each rank holds Megatron's split of every layer, the JAX model's
-``param_specs``: ``q_proj``, ``k_proj``, ``v_proj``, ``gate_proj`` and
-``up_proj`` keep a contiguous block of their output rows, ``o_proj`` and
-``down_proj`` the matching block of their input columns, ``lm_head`` a
-block of the vocabulary (unless the embeddings are tied); the embedding
-and the norms are whole.  Rank ``r`` owns query heads ``[r·h/tp,
-(r+1)·h/tp)`` and kv heads ``[r·kv/tp, ...)``, so every GQA group stays on
-one rank.  The outputs of ``o_proj`` and ``down_proj`` are all-reduced over
-the tensor group in the compute dtype (Megatron's *g*, the JAX model's
-``_tp_reduce``), and the logits' vocabulary blocks are all-gathered.
-Training under tensor parallelism and pipeline parallelism is not
-ported yet.
+Tensor parallelism: built on a process mesh (``LlamaModel(config,
+mesh=...)``) whose ``tensor`` axis has size ``tp``, or split in place by
+:meth:`LlamaModel.shard_`, each rank holds Megatron's split of every layer,
+the JAX model's ``param_specs``: ``q_proj``, ``k_proj``, ``v_proj``,
+``gate_proj`` and ``up_proj`` keep a contiguous block of their output
+rows, ``o_proj`` and ``down_proj`` the matching block of their input
+columns, ``lm_head`` a block of the vocabulary (unless the embeddings are
+tied); the embedding and the norms are whole.  Every split parameter
+carries ``ds_tensor`` (``runtime/zero/sharder.TensorShard``).  Rank ``r``
+owns query heads ``[r·h/tp, (r+1)·h/tp)`` and kv heads ``[r·kv/tp, ...)``,
+so every GQA group stays on one rank.  The layers follow JAX's
+``decoder_layer_manual_tp``: Megatron's *f* (``comm.tp_copy``: identity,
+the gradient summed over ``tensor``) before the column-parallel
+projections, *g* (``comm.tp_reduce``: the partial outputs summed over
+``tensor``, the gradient passed through) after ``o_proj`` and
+``down_proj``; without a gradient (serving) *g* is an in-place all-reduce.
+Serving all-gathers the logits' vocabulary blocks; training never does:
+the loss is JAX's ``head_loss_manual_tp``, the vocabulary-parallel cross
+entropy (local ``[B, s, V/tp]`` fp32 logits, the max shift over
+``tensor`` by ``comm.tp_max``, ``lse = log(g(Σ exp)) + m``, the gold
+logit from the one rank that owns it, summed by *g*), tiled by
+``config.loss_tiles``.  Under remat the recompute re-runs a layer's *g*:
+every tensor rank issues them in the same order.  Pipeline parallelism,
+and tensor parallelism with a ``seq`` axis or layer streaming, are not
+ported yet (ROADMAP Queue 1 items 8 and 5c).
 
 Sequence parallelism (training; ``runtime/sequence_parallel``): on a mesh
 whose ``seq`` axis has size ``sp`` above 1 (``initialize`` hands the model
@@ -85,7 +96,7 @@ from ..runtime.sequence_parallel.ulysses_sp import (seq_group_of,
                                                     ulysses_attention)
 from ..runtime.zero.init_ctx import active as zero_init_active
 from ..runtime.zero.init_ctx import materialize
-from ..runtime.zero.sharder import compute_weight
+from ..runtime.zero.sharder import TensorShard, compute_weight
 from ..utils.device import DeviceLike, resolve_device
 
 #: a layer's router aux loss: a 0-dim fp32 tensor, or 0.0 without a router
@@ -376,7 +387,29 @@ class LlamaDecoderLayer(nn.Module):
                          * self.proj(self.up_proj, h))
 
 
-class LlamaModel(nn.Module):
+class TensorSplit:
+    """Megatron's *f* and *g* over a model's ``tensor`` group (the
+    identity at ``tp`` 1); the model sets ``tp`` and ``mesh``."""
+
+    tp: int
+    mesh: Optional[ProcessMesh]
+
+    def _tp_copy(self, x: torch.Tensor) -> torch.Tensor:
+        """*f* before a column-parallel product: ``x``, its gradient
+        summed over the tensor group."""
+        if self.tp == 1:
+            return x
+        return comm.tp_copy(x, self.mesh.group(AXIS_TENSOR))
+
+    def _tp_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """*g*: the row-parallel partial outputs summed over the tensor
+        group in their dtype (without a gradient in place)."""
+        if self.tp == 1:
+            return x
+        return comm.tp_reduce(x, self.mesh.group(AXIS_TENSOR))
+
+
+class LlamaModel(TensorSplit, nn.Module):
     """Llama decoder with a KV cache.  ``device`` defaults to ``"cuda"``
     and raises without a CUDA device; weights are drawn from a
     ``torch.Generator`` seeded with ``seed`` (see :meth:`init_params`).
@@ -394,6 +427,9 @@ class LlamaModel(nn.Module):
     #: trains on a mesh whose ``seq`` axis is above 1 (``initialize``
     #: refuses such a mesh for a model without this)
     sequence_parallel = True
+    #: trains on a mesh whose ``tensor`` axis is above 1 (``initialize``
+    #: refuses such a mesh for a model without this)
+    tensor_parallel_training = True
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = "cuda",
                  seed: int = 0, mesh: Optional[ProcessMesh] = None,
@@ -420,6 +456,17 @@ class LlamaModel(nn.Module):
             self.to_empty(device=dev)
         self.init_params(seed, dev if init_device is None
                          else resolve_device(init_device))
+        self._mark_tensor()
+
+    def _mark_tensor(self) -> None:
+        """Mark each parameter tensor parallelism splits with its
+        ``ds_tensor`` (nothing without a tensor axis)."""
+        if self.tp == 1:
+            return
+        for name, p in self.named_parameters():
+            dim = tp_split_dim(name)
+            if dim is not None:
+                p.ds_tensor = TensorShard(dim, self.tp, self.tp_rank)
 
     def _set_mesh(self, mesh: Optional[ProcessMesh]) -> None:
         """Take ``mesh``'s tensor axis: this rank's split sizes and place."""
@@ -459,14 +506,8 @@ class LlamaModel(nn.Module):
                 module.out_features, module.in_features = module.weight.shape
         for layer in self.layers:
             layer.tp, layer.ep = self.tp, self.ep
+        self._mark_tensor()
         return self
-
-    def _tp_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum the row-parallel partial outputs over the tensor group, in
-        place, in their dtype (identity without tensor parallelism)."""
-        if self.tp == 1:
-            return x
-        return comm.all_reduce(x, group=self.mesh.group(AXIS_TENSOR))
 
     @property
     def device(self) -> torch.device:
@@ -542,7 +583,7 @@ class LlamaModel(nn.Module):
         """``x [..., S, H]`` → RoPE'd q ``[..., S, h, d]`` and k, v
         ``[..., S, kv_h, d]``; ``positions [..., S]`` (broadcastable)."""
         c = self.config
-        h = _rms_norm(x, layer.attn_norm, c.rms_norm_eps)
+        h = self._tp_copy(_rms_norm(x, layer.attn_norm, c.rms_norm_eps))
         shape = x.shape[:-1]
         nh, nkv = self.num_local_heads, self.num_local_kv_heads
         q = layer.proj(layer.q_proj, h).view(*shape, nh, c.hd)
@@ -554,8 +595,9 @@ class LlamaModel(nn.Module):
     def _ffn(self, layer: LlamaDecoderLayer, h: torch.Tensor
              ) -> Tuple[torch.Tensor, AuxLoss]:
         """The FFN over ``h [..., H]``: ``(out, aux loss)``.  Dense SwiGLU
-        here, with no aux loss; Mixtral routes it through its experts."""
-        return layer.ffn(h), 0.0
+        here (*f* before its column-parallel products), with no aux loss;
+        Mixtral routes it through its experts."""
+        return layer.ffn(self._tp_copy(h)), 0.0
 
     def _post_attn(self, layer: LlamaDecoderLayer, x: torch.Tensor,
                    attn: torch.Tensor) -> Tuple[torch.Tensor, AuxLoss]:
@@ -713,11 +755,7 @@ class LlamaModel(nn.Module):
         gradient.  Under ``config.remat`` each layer is recomputed in the
         backward, keeping only its weight matmuls' outputs (the recompute
         re-runs the layer's all-to-alls: every ``seq`` rank issues them in
-        the same order)."""
-        if self.tp > 1:
-            raise NotImplementedError("training under tensor parallelism is "
-                                      "not ported yet (ROADMAP Queue 1 item "
-                                      "5b)")
+        the same order, and so does every tensor rank with its *g*)."""
         c = self.config
         pos = offset + torch.arange(input_ids.shape[1], device=self.device)
         x = self.embed_tokens(input_ids)
@@ -778,10 +816,8 @@ class LlamaModel(nn.Module):
         model's on the weights handed in)."""
         if self.tp > 1:
             raise NotImplementedError("layer streaming under tensor "
-                                      "parallelism is not ported yet: it "
-                                      "needs training under tensor "
-                                      "parallelism first (ROADMAP Queue 1 "
-                                      "item 5b)")
+                                      "parallelism is not ported yet "
+                                      "(ROADMAP Queue 1 item 5c)")
         caller = _LayerCall(self, self.layers[0])
         return torch.func.functional_call(
             caller, {f"layer.{k}": v for k, v in layer_params.items()},
@@ -807,9 +843,15 @@ class LlamaModel(nn.Module):
              labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(Σ nll, valid count)`` of the LM head ``head [V, H]`` (cast at
         use) over final-norm'd ``hidden``; tiled over the sequence when
-        ``config.loss_tiles`` is above 1 (JAX ``_ce_from_hidden``)."""
+        ``config.loss_tiles`` is above 1 (JAX ``_ce_from_hidden``); the
+        vocabulary-parallel loss when the head is this rank's ``V/tp``
+        rows."""
         c = self.config
         w = compute_weight(head, c.dtype)
+        if self.tp > 1 and head is not self.embed.weight:
+            return sequence_tiled_nll(None, hidden, labels, c.loss_tiles,
+                                      nll_fn=functools.partial(
+                                          self._vocab_parallel_nll, w))
 
         def logits(h: torch.Tensor) -> torch.Tensor:
             return F.linear(h, w)
@@ -817,6 +859,29 @@ class LlamaModel(nn.Module):
         if c.loss_tiles > 1:
             return sequence_tiled_nll(logits, hidden, labels, c.loss_tiles)
         return masked_nll(logits(hidden), labels)
+
+    def _vocab_parallel_nll(self, w: torch.Tensor, hidden: torch.Tensor,
+                            labels: torch.Tensor) -> torch.Tensor:
+        """Σ nll over the valid labels of ``hidden [B, s, H]`` from this
+        rank's head rows ``w [V/tp, H]`` (JAX ``head_loss_manual_tp``'s
+        ``chunk_nll``): local fp32 logits from *f*(hidden), the max shift
+        over ``tensor`` (zero gradient), ``lse = log(g(Σ exp)) + m``, the
+        gold logit taken on the rank that owns it and summed by *g*."""
+        group = self.mesh.group(AXIS_TENSOR)
+        vshard = w.shape[0]
+        logits = F.linear(self._tp_copy(hidden), w).float()
+        valid = labels != -100
+        m = comm.tp_max(logits.max(dim=-1).values, group)
+        se = torch.exp(logits - m[..., None]).sum(dim=-1)
+        lse = torch.log(comm.tp_reduce(se, group)) + m
+        off = torch.where(valid, labels, torch.zeros_like(labels)).long() \
+            - self.tp_rank * vshard
+        mine = (off >= 0) & (off < vshard)
+        gold = logits.gather(-1, off.clamp(0, vshard - 1)[..., None])[..., 0]
+        gold = comm.tp_reduce(torch.where(mine, gold, torch.zeros_like(gold)),
+                              group)
+        nll = lse - gold
+        return torch.where(valid, nll, torch.zeros_like(nll)).sum()
 
     def _seq_chunk(self, input_ids: torch.Tensor, labels: torch.Tensor,
                    sp: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
@@ -842,6 +907,10 @@ class LlamaModel(nn.Module):
         nll over the valid labels of the whole sequence (the count summed
         over ``seq``, without a gradient)."""
         input_ids, labels = self.batch_labels(batch)
+        if self.tp > 1 and int(self.mesh.shape.get(AXIS_SEQ, 1)) > 1:
+            raise NotImplementedError("training under tensor parallelism "
+                                      "with a seq axis is not ported yet "
+                                      "(ROADMAP Queue 1 item 5c)")
         group, sp = self._seq()
         offset = 0
         if sp > 1:

@@ -18,9 +18,15 @@ rank's ``E/ep`` experts (dim 0, the ``expert`` axis) and, under tensor
 parallelism, its ``I/tp`` columns (``w_gate`` / ``w_up`` dim 2,
 ``w_down`` dim 1); the router is whole.  Each whole weight is drawn from
 the seed and narrowed, so every shard is a slice of the one-process model.
-Under tensor parallelism (serving) every rank routes the same tokens the
-same way and its experts' output is a partial sum that ``_tp_reduce``
-adds after the combine.  On data-parallel axes above 1 the MoE layer
+Under tensor parallelism every rank routes the same tokens the same way
+(dispatch #11) and its experts' output, combined (#12), is a partial sum
+that ``_tp_reduce`` (Megatron's *g*) adds.  In training the tokens into
+the dispatch and the combine weights pass Megatron's *f* (the MoE layer
+is built with ``expert_tensor_parallel``): the gate values multiply
+partial outputs, so their gradient is a sum over ``tensor``, and *f* makes
+the router's gradient (and the aux loss's share in it, counted once) whole
+and equal on every rank (JAX ``param_specs`` :100-113 leaves the router
+whole).  On data-parallel axes above 1 the MoE layer
 routes the global micro-batch and exchanges the experts' buffers over
 ``expert`` (``moe/sharded_moe.py``).  The expert stacks carry
 ``ds_expert`` (``runtime/zero/sharder.ExpertShard``): the engine reduces
@@ -137,7 +143,8 @@ class MixtralModel(LlamaModel):
                         eval_capacity_factor=config.capacity_factor,
                         min_capacity=4)
         self._moe_layer = MOELayer(gate, swiglu_expert_fn, mesh=mesh,
-                                   dispatch_impl=config.moe_dispatch_impl)
+                                   dispatch_impl=config.moe_dispatch_impl,
+                                   expert_tensor_parallel=True)
         self._mark_experts()
 
     def _set_mesh(self, mesh: Optional[ProcessMesh]) -> None:

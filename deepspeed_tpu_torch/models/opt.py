@@ -13,9 +13,18 @@ num_heads``); ``inference/v2/adapters.OPTV2Adapter`` serves it over the
 paged pool.  Prefill and training attend with the plain masked softmax, as
 the JAX model's ``_attention``.
 
-Tensor parallelism is not ported for OPT (ROADMAP Queue 1 item 6b): the
-model has no ``shard_``, so ``init_inference`` with a ``tp_size`` above 1
-raises.
+Tensor parallelism (serving; JAX ``param_specs`` :123-143): built on a
+process mesh (``OPTModel(config, mesh=...)``) whose ``tensor`` axis has
+size ``tp``, or split in place by :meth:`OPTModel.shard_`
+(``init_inference(tensor_parallel={"tp_size": tp})`` does it), each rank
+holds ``q_proj`` / ``k_proj`` / ``v_proj`` / ``fc_in`` and their biases by
+a block of output rows (its ``h/tp`` heads, ``F/tp`` of the MLP), and
+``o_proj`` / ``fc_out`` by the matching block of input columns; their
+biases, the tied embedding and head, the positions and the norms are
+whole.  The row-parallel outputs are summed over ``tensor`` (Megatron's
+*g*, after *f* before the column-parallel products) and their biases
+added once, after the sum.  Training under tensor parallelism is not
+ported yet (ROADMAP Queue 1 item 5c).
 """
 
 from __future__ import annotations
@@ -29,13 +38,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.decode_attention import decode_attention
+from ..parallel.mesh import AXIS_TENSOR, ProcessMesh
 from ..runtime.zero.init_ctx import active as zero_init_active
 from ..runtime.zero.init_ctx import materialize
-from ..runtime.zero.sharder import compute_weight
+from ..runtime.zero.sharder import TensorShard, compute_weight
 from ..utils.device import DeviceLike, resolve_device
 from .bert import (_layer_norm, _linear, _vector, linear, refuse_unported,
                    remat)
-from .llama import LlamaModel, _attention, masked_cross_entropy
+from .llama import (LlamaModel, TensorSplit, _attention, masked_cross_entropy,
+                    split_block)
 
 #: HF OPT reserves positions 0/1 (pad/bos legacy): positions start here
 POSITION_OFFSET = 2
@@ -89,25 +100,58 @@ class OPTConfig:
             L * per_layer + 2 * H
 
 
-class OPTLayer(nn.Module):
-    """One pre-LN decoder block; ``nn.Linear`` weights are ``[out, in]``."""
+#: a layer's state-dict entry → the dim tensor parallelism splits (the
+#: JAX ``param_specs``' ``tensor`` entries); the row-parallel biases
+#: (``o_proj.bias``, ``fc_out.bias``) are whole
+OPT_TP_DIMS = {"q_proj.weight": 0, "q_proj.bias": 0, "k_proj.weight": 0,
+               "k_proj.bias": 0, "v_proj.weight": 0, "v_proj.bias": 0,
+               "o_proj.weight": 1, "fc_in.weight": 0, "fc_in.bias": 0,
+               "fc_out.weight": 1}
 
-    def __init__(self, c: OPTConfig, device: DeviceLike):
+
+def opt_tp_split_dim(name: str) -> Optional[int]:
+    """The dim of OPT state-dict entry ``name`` that tensor parallelism
+    splits; None for a weight every rank holds whole."""
+    parts = name.split(".", 2)
+    if len(parts) == 3 and parts[0] == "layers":
+        return OPT_TP_DIMS.get(parts[2])
+    return None
+
+
+def shard_opt_params(state_dict: Dict[str, torch.Tensor], tp: int,
+                     rank: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s ``state_dict`` of an OPT split over ``tp`` ranks
+    (:data:`OPT_TP_DIMS`; the rest whole)."""
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} out of range for tp={tp}")
+    out = {}
+    for name, t in state_dict.items():
+        dim = opt_tp_split_dim(name)
+        out[name] = t if dim is None else split_block(t, dim, tp, rank, name)
+    return out
+
+
+class OPTLayer(nn.Module):
+    """One pre-LN decoder block; ``nn.Linear`` weights are ``[out, in]``;
+    under tensor parallelism (``tp > 1``) this rank's ``1/tp`` of the
+    heads and of the MLP."""
+
+    def __init__(self, c: OPTConfig, device: DeviceLike, tp: int = 1):
         super().__init__()
-        H, dt = c.hidden_size, c.storage_dtype
+        H, Fd, dt = c.hidden_size, c.ffn_dim, c.storage_dtype
         self.attn_ln_w = _vector(H, device, dt)
         self.attn_ln_b = _vector(H, device, dt)
-        self.q_proj = _linear(H, H, device, dt)
-        self.k_proj = _linear(H, H, device, dt)
-        self.v_proj = _linear(H, H, device, dt)
-        self.o_proj = _linear(H, H, device, dt)
+        self.q_proj = _linear(H, H // tp, device, dt)
+        self.k_proj = _linear(H, H // tp, device, dt)
+        self.v_proj = _linear(H, H // tp, device, dt)
+        self.o_proj = _linear(H // tp, H, device, dt)
         self.mlp_ln_w = _vector(H, device, dt)
         self.mlp_ln_b = _vector(H, device, dt)
-        self.fc_in = _linear(H, c.ffn_dim, device, dt)
-        self.fc_out = _linear(c.ffn_dim, H, device, dt)
+        self.fc_in = _linear(H, Fd // tp, device, dt)
+        self.fc_out = _linear(Fd // tp, H, device, dt)
 
 
-class OPTModel(nn.Module):
+class OPTModel(TensorSplit, nn.Module):
     """OPT causal LM with a KV cache.  ``device`` defaults to ``"cuda"``
     and raises without a CUDA device; weights are drawn from a
     ``torch.Generator`` seeded with ``seed``."""
@@ -115,26 +159,75 @@ class OPTModel(nn.Module):
     #: the compression activation quantizer's bits (JAX arms them; here
     #: they raise, :func:`.bert.refuse_unported`)
     act_quant_bits: Optional[int] = None
-    #: the engines' tensor-parallel facts: OPT is served whole
-    tp = 1
-    mesh = None
 
     def __init__(self, config: OPTConfig, device: DeviceLike = "cuda",
-                 seed: int = 0):
+                 seed: int = 0, mesh: Optional[ProcessMesh] = None):
         super().__init__()
         dev = resolve_device(device)
         self.config = c = config
+        self._set_mesh(mesh)
         H, dt = c.hidden_size, c.storage_dtype
         self.embed = nn.Embedding(c.vocab_size, H, device="meta", dtype=dt)
         self.pos_embed = nn.Embedding(c.max_seq_len + POSITION_OFFSET, H,
                                       device="meta", dtype=dt)
-        self.layers = nn.ModuleList(OPTLayer(c, "meta")
+        self.layers = nn.ModuleList(OPTLayer(c, "meta", self.tp)
                                     for _ in range(c.num_layers))
         self.final_ln_w = _vector(H, "meta", dt)
         self.final_ln_b = _vector(H, "meta", dt)
         if zero_init_active() is None:
             self.to_empty(device=dev)
         self.init_params(seed, dev)
+        self._mark_tensor()
+
+    def _set_mesh(self, mesh: Optional[ProcessMesh]) -> None:
+        """Take ``mesh``'s tensor axis: this rank's split sizes and
+        place (the engines read ``tp``, ``mesh`` and the local heads)."""
+        c = self.config
+        tp = int(mesh.shape[AXIS_TENSOR]) if mesh is not None else 1
+        for what, n in (("heads", c.num_heads), ("ffn dim", c.ffn_dim)):
+            if n % tp:
+                raise ValueError(f"tensor size {tp} must divide the {what} "
+                                 f"({n})")
+        self.mesh = mesh
+        self.tp = tp
+        self.tp_rank = mesh.axis_rank(AXIS_TENSOR) if tp > 1 else 0
+        self.num_local_heads = self.num_local_kv_heads = c.num_heads // tp
+
+    def _mark_tensor(self) -> None:
+        if self.tp == 1:
+            return
+        for name, p in self.named_parameters():
+            dim = opt_tp_split_dim(name)
+            if dim is not None:
+                p.ds_tensor = TensorShard(dim, self.tp, self.tp_rank)
+
+    @torch.no_grad()
+    def shard_(self, mesh: ProcessMesh) -> "OPTModel":
+        """Keep this rank's tensor-parallel slice of a whole model's
+        weights, in place (the reference's AutoTP on a loaded module)."""
+        if self.tp != 1:
+            raise ValueError(f"the model is already split over {self.tp} "
+                             "ranks")
+        self._set_mesh(mesh)
+        for name, p in self.named_parameters():
+            dim = opt_tp_split_dim(name)
+            if dim is not None:
+                p.data = split_block(p.data, dim, self.tp, self.tp_rank, name)
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                module.out_features, module.in_features = module.weight.shape
+        self._mark_tensor()
+        return self
+
+    def _row_parallel(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product summed over ``tensor`` (Megatron's *g*),
+        its bias added once after the sum."""
+        c = self.config
+        if self.tp == 1:
+            return linear(lin, x, c.dtype)
+        out = self._tp_reduce(F.linear(x, compute_weight(lin.weight,
+                                                         c.dtype)))
+        return out + compute_weight(lin.bias, c.dtype)
 
     @property
     def device(self) -> torch.device:
@@ -145,22 +238,35 @@ class OPTModel(nn.Module):
                     device: Optional[torch.device] = None) -> None:
         """The JAX model's distribution: every matrix ``N(0, 1/fan_in)``,
         biases 0, norms' scales 1, drawn in fp32 from a generator seeded
-        with ``seed``."""
+        with ``seed``; on a tensor axis each whole weight is drawn and this
+        rank's block kept (a slice of the one-process model)."""
         dev = device if device is not None else self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
 
-        def normal_(w: torch.Tensor, fan_in: int) -> None:
-            full = torch.randn(w.shape, generator=gen, device=dev,
+        def normal_(w: torch.Tensor, fan_in: int,
+                    dim: Optional[int] = None) -> None:
+            shape = list(w.shape)
+            if dim is not None:
+                shape[dim] *= self.tp
+            full = torch.randn(shape, generator=gen, device=dev,
                                dtype=torch.float32).div_(math.sqrt(fan_in))
+            if dim is not None:
+                n = w.shape[dim]
+                full = full.narrow(dim, self.tp_rank * n, n)
             materialize(w, dev, lambda t: t.copy_(full))
 
-        H = self.config.hidden_size
+        H, Fd = self.config.hidden_size, self.config.ffn_dim
         normal_(self.embed.weight, H)
         normal_(self.pos_embed.weight, H)
+        tp = None if self.tp == 1 else 0
         for layer in self.layers:
-            for lin in (layer.q_proj, layer.k_proj, layer.v_proj,
-                        layer.o_proj, layer.fc_in, layer.fc_out):
-                normal_(lin.weight, lin.in_features)
+            for lin, fan_in, dim in (
+                    (layer.q_proj, H, tp), (layer.k_proj, H, tp),
+                    (layer.v_proj, H, tp),
+                    (layer.o_proj, H, None if tp is None else 1),
+                    (layer.fc_in, H, tp),
+                    (layer.fc_out, Fd, None if tp is None else 1)):
+                normal_(lin.weight, fan_in, dim)
         for name, p in self.named_parameters():
             if name.endswith("_ln_w"):
                 materialize(p, dev, lambda t: t.fill_(1.0))
@@ -188,11 +294,12 @@ class OPTModel(nn.Module):
 
     def qkv(self, layer: OPTLayer, x: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """``x [..., H]`` → q, k, v ``[..., h, d]`` after the attention
-        norm."""
+        """``x [..., H]`` → q, k, v ``[..., h, d]`` (this rank's heads)
+        after the attention norm."""
         c = self.config
-        h = _layer_norm(x, layer.attn_ln_w, layer.attn_ln_b, c.layer_norm_eps)
-        shape = x.shape[:-1] + (c.num_heads, c.hd)
+        h = self._tp_copy(_layer_norm(x, layer.attn_ln_w, layer.attn_ln_b,
+                                      c.layer_norm_eps))
+        shape = x.shape[:-1] + (self.num_local_heads, c.hd)
         return tuple(linear(lin, h, c.dtype).view(shape)
                      for lin in (layer.q_proj, layer.k_proj, layer.v_proj))
 
@@ -201,10 +308,11 @@ class OPTModel(nn.Module):
         """Output projection + residual, then the ReLU MLP block +
         residual; ``attn [..., h, d]``."""
         c = self.config
-        x = x + linear(layer.o_proj, attn.flatten(-2), c.dtype)
-        h = _layer_norm(x, layer.mlp_ln_w, layer.mlp_ln_b, c.layer_norm_eps)
+        x = x + self._row_parallel(layer.o_proj, attn.flatten(-2))
+        h = self._tp_copy(_layer_norm(x, layer.mlp_ln_w, layer.mlp_ln_b,
+                                      c.layer_norm_eps))
         h = F.relu(linear(layer.fc_in, h, c.dtype))
-        return x + linear(layer.fc_out, h, c.dtype)
+        return x + self._row_parallel(layer.fc_out, h)
 
     def finalize(self, x: torch.Tensor) -> torch.Tensor:
         return _layer_norm(x, self.final_ln_w, self.final_ln_b,
@@ -250,7 +358,8 @@ class OPTModel(nn.Module):
     def init_cache(self, batch_size: int, max_len: int
                    ) -> Dict[str, torch.Tensor]:
         c = self.config
-        shape = (c.num_layers, batch_size, max_len, c.num_heads, c.hd)
+        shape = (c.num_layers, batch_size, max_len, self.num_local_heads,
+                 c.hd)
         return {"k": torch.zeros(shape, dtype=c.dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=c.dtype, device=self.device),
                 "lengths": torch.zeros(batch_size, dtype=torch.int32,

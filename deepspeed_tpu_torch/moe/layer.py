@@ -17,7 +17,10 @@ are cut over ``expert`` on dim E and, with
 slice, so each rank holds a slice of the one-process block.  Under that
 tensor split the expert and residual outputs are partial sums, summed over
 the ``tensor`` group after the mix (Megatron's *g*: the backward passes
-the cotangent through).  Residual-MoE (``use_residual``): a dense SwiGLU
+the cotangent through); the tokens into the experts and the residual MLP
+and the gates and coefficients that weigh their partial outputs pass *f*,
+so the router's, the coefficient's and the input's gradients are whole on
+every tensor rank.  Residual-MoE (``use_residual``): a dense SwiGLU
 ``residual_mlp`` runs beside the experts and a learned 2-way softmax
 ``coefficient`` mixes the two.  ``use_tutel`` raises, as in JAX.
 """
@@ -45,19 +48,6 @@ def swiglu_expert_fn(params: Dict[str, Tensor], x: Tensor) -> Tensor:
     gate = torch.bmm(x, params["w_gate"].to(dt))
     up = torch.bmm(x, params["w_up"].to(dt))
     return torch.bmm(F.silu(gate) * up, params["w_down"].to(dt))
-
-
-class _TensorReduce(torch.autograd.Function):
-    """Forward: the partial sums added over the ``tensor`` group; backward:
-    the cotangent as it is (every rank holds the whole output)."""
-
-    @staticmethod
-    def forward(ctx, x: Tensor, group: Any) -> Tensor:
-        return comm.all_reduce(x.clone(), group=group)
-
-    @staticmethod
-    def backward(ctx, g: Tensor):
-        return g, None
 
 
 def shard_leaf(t: Tensor, spec: Tuple[Optional[str], ...],
@@ -114,8 +104,10 @@ class MoE:
                              min_capacity=min_capacity,
                              noisy_gate_policy=noisy_gate_policy,
                              drop_tokens=drop_tokens, use_rts=use_rts)
-        self.moe_layer = MOELayer(self.gate, expert or swiglu_expert_fn,
-                                  mesh=mesh, dispatch_impl=dispatch_impl)
+        self.moe_layer = MOELayer(
+            self.gate, expert or swiglu_expert_fn, mesh=mesh,
+            dispatch_impl=dispatch_impl,
+            expert_tensor_parallel=enable_expert_tensor_parallelism)
 
     def param_specs(self) -> Dict[str, Any]:
         """Per leaf, the mesh axis each dim is cut over (None: whole), JAX
@@ -181,14 +173,19 @@ class MoE:
         ``overflow_frac``."""
         y, l_aux, meta = self.moe_layer(params["wg"], params["experts"], x,
                                         train=train, noise_rng=noise_rng)
+        group = self.mesh.group(AXIS_TENSOR) if self._tp() > 1 else None
+
+        def f(t):  # Megatron's f: the partial sums' gradients added
+            return t if group is None else comm.tp_copy(t, group)
+
         if self.use_residual:
             H = x.shape[-1]
             dense = swiglu_expert_fn(params["residual_mlp"],
-                                     x.reshape(1, -1, H)).reshape(x.shape)
-            coef = torch.softmax(
+                                     f(x).reshape(1, -1, H)).reshape(x.shape)
+            coef = f(torch.softmax(
                 torch.einsum("...h,hc->...c", x,
-                             params["coefficient"].to(x.dtype)), dim=-1)
+                             params["coefficient"].to(x.dtype)), dim=-1))
             y = y * coef[..., 0:1] + dense * coef[..., 1:2]
-        if self._tp() > 1:
-            y = _TensorReduce.apply(y, self.mesh.group(AXIS_TENSOR))
+        if group is not None:
+            y = comm.tp_reduce(y, group)
         return y, l_aux, meta

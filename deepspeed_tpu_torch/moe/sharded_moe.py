@@ -64,7 +64,7 @@ from ..ops.kernels.moe_dispatch import (EMPTY_SLOT, choose_dispatch_impl,
                                         combine_reference,
                                         dispatch_reference, moe_combine,
                                         moe_dispatch, routing_to_indices)
-from ..parallel.mesh import AXIS_EXPERT, DP_AXES
+from ..parallel.mesh import AXIS_EXPERT, AXIS_TENSOR, DP_AXES
 
 Tensor = torch.Tensor
 
@@ -342,17 +342,23 @@ class MOELayer:
     rank takes the same rung).  ``mesh``: a process mesh; when its
     data-parallel axes exceed 1 the gate routes the global micro-batch and
     the experts are exchanged over the ``expert`` axis (module docstring).
+    ``expert_tensor_parallel``: the owner splits the experts' FFN dim over
+    the mesh's ``tensor`` axis and sums their outputs over it (Megatron's
+    *g*); the tokens into the dispatch and the gates into the combine then
+    pass *f*.
     """
 
     def __init__(self, gate: TopKGate,
                  expert_fn: Callable[[Any, Tensor], Tensor],
-                 mesh: Optional[Any] = None, dispatch_impl: str = "auto"):
+                 mesh: Optional[Any] = None, dispatch_impl: str = "auto",
+                 expert_tensor_parallel: bool = False):
         self.gate = gate
         self.expert_fn = expert_fn
         self.mesh = mesh
         if gate.mesh is None:
             gate.mesh = mesh  # the capacity's pad sees the expert axis
         self.dispatch_impl = dispatch_impl
+        self.expert_tensor_parallel = expert_tensor_parallel
         #: the rung and the capacity of the last call
         self.last_impl: Optional[str] = None
         self.last_capacity: Optional[int] = None
@@ -372,6 +378,18 @@ class MOELayer:
         group = self.mesh.group(AXIS_EXPERT)
         mine = _ReduceScatter.apply(expert_in, group)
         return _AllGather.apply(self.expert_fn(expert_params, mine), group)
+
+    def _tensor_copy(self) -> Callable[[Tensor], Tensor]:
+        """Megatron's *f* over the ``tensor`` group when the experts are
+        split over it (else the identity).  The replicated router's
+        gradient then sums every rank's partial expert outputs' share
+        once, and the aux loss's is added once: both are whole and equal
+        on every tensor rank."""
+        if not self.expert_tensor_parallel or self.mesh is None or \
+                int(self.mesh.shape.get(AXIS_TENSOR, 1)) == 1:
+            return lambda t: t
+        group = self.mesh.group(AXIS_TENSOR)
+        return lambda t: comm.tp_copy(t, group)
 
     def __call__(self, wg: Tensor, expert_params: Any, x: Tensor,
                  train: bool = True,
@@ -395,6 +413,7 @@ class MOELayer:
             logits = _AllGather.apply(logits, group)
         T = logits.shape[0]
         C = self.gate.capacity(T, train)
+        f = self._tensor_copy()
         impl = choose_dispatch_impl(self.dispatch_impl, T, E, C,
                                     device=x.device)
         dtype = x.dtype
@@ -403,9 +422,9 @@ class MOELayer:
                 logits, train, noise_rng)
             rows = slice(off, off + T_loc)
             expert_in = torch.einsum("tec,th->ech",
-                                     dispatch[rows].to(dtype), tokens)
+                                     dispatch[rows].to(dtype), f(tokens))
             expert_out = self._experts(expert_params, expert_in)
-            y = torch.einsum("tec,ech->th", combine[rows].to(dtype),
+            y = torch.einsum("tec,ech->th", f(combine[rows].to(dtype)),
                              expert_out)
         else:
             gi, l_aux, meta = self.gate.route_logits(logits, train,
@@ -416,12 +435,13 @@ class MOELayer:
             if T != T_loc:  # this rank's view of the global routing
                 src_idx, flat_idx, gates_tk = local_routing(
                     src_idx, flat_idx, gates_tk, off, T_loc)
+            gates_tk, disp = f(gates_tk), f(tokens)
             if impl == "pallas":
-                expert_in = moe_dispatch(tokens.contiguous(), src_idx)
+                expert_in = moe_dispatch(disp.contiguous(), src_idx)
                 expert_out = self._experts(expert_params, expert_in)
                 y = moe_combine(expert_out.contiguous(), flat_idx, gates_tk)
             else:
-                expert_in = dispatch_reference(tokens, src_idx)
+                expert_in = dispatch_reference(disp, src_idx)
                 expert_out = self._experts(expert_params, expert_in)
                 y = combine_reference(expert_out, flat_idx, gates_tk)
             y = y.to(dtype)

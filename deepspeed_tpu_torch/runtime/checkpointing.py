@@ -25,6 +25,15 @@ and ``<save_dir>/zero_to_fp32.py``, then ``<save_dir>/latest`` (the tag),
 written last: after every rank's file and the manifest are on disk (behind
 a barrier over the ranks, after the async engine's ``wait()``).
 
+Under tensor parallelism each tensor rank writes its own files,
+``dp_rank_{r:05d}_tp_rank_{t:02d}.pt`` (``t`` its tensor coordinate,
+recorded in the file with the tensor size): a leaf the model splits over
+``tensor`` carries its ``tensor`` block (``dim``, ``tp``, ``rank``) in its
+placement, composed with the ZeRO chunk as an expert stack's block is, and
+a leaf every tensor rank holds whole is written by tensor rank 0 alone.  A
+load assembles any tensor size's slices into any other's: a tp-2 save
+loads at tp 1 (whole leaves) and a tp-1 save at tp 2 (each rank's block).
+
 Under sequence parallelism the ``seq`` ranks of one data-parallel
 coordinate hold the same state: only ``seq`` rank 0 writes the rank file
 (named by the rank in the data-parallel group), the others wait at the
@@ -78,6 +87,8 @@ from .checkpoint_engine import (SIDECAR_MANIFEST, CheckpointCorruptionError,
 LATEST_FILE = "latest"
 META_FILE = "client_state.json"
 RANK_FILE = "dp_rank_{:05d}.pt"
+#: a rank file under tensor parallelism: (data-parallel rank, tensor rank)
+TP_RANK_FILE = "dp_rank_{:05d}_tp_rank_{:02d}.pt"
 LAYER_FILE = "infinity_layer_{:05d}.pt"
 FORMAT_VERSION = 1
 
@@ -87,11 +98,12 @@ Box = Tuple[Tuple[int, int], ...]
 
 # -- the layout -----------------------------------------------------------
 
-def placement_values(pl: Any, expert: Any = None
+def placement_values(pl: Any, expert: Any = None, tensor: Any = None
                      ) -> Optional[Dict[str, Any]]:
-    """A ``Placement`` (and an expert stack's ``ExpertShard``) as plain
-    values (never a process group); None for a whole leaf."""
-    if pl is None and expert is None:
+    """A ``Placement`` (and an expert stack's ``ExpertShard``, a tensor
+    split leaf's ``TensorShard``) as plain values (never a process group);
+    None for a whole leaf."""
+    if pl is None and expert is None and tensor is None:
         return None
     out: Dict[str, Any] = {"dim": None, "dp": 1, "rank": 0}
     if pl is not None:
@@ -99,6 +111,9 @@ def placement_values(pl: Any, expert: Any = None
                "full_shape": [int(d) for d in pl.full_shape]}
     if expert is not None:
         out["expert"] = {"ep": int(expert.ep), "rank": int(expert.rank)}
+    if tensor is not None:
+        out["tensor"] = {"dim": int(tensor.dim), "tp": int(tensor.tp),
+                         "rank": int(tensor.rank)}
     return out
 
 
@@ -106,7 +121,8 @@ def box_of(full_shape: Sequence[int],
            placement: Optional[Dict[str, Any]]) -> Box:
     """The region a tensor holds: all of the leaf, or chunk ``rank`` of
     ``dp`` along ``dim``, within an expert stack's block ``rank`` of
-    ``ep`` along dim 0."""
+    ``ep`` along dim 0 and a tensor split leaf's block ``rank`` of ``tp``
+    along its ``dim``."""
     box = [(0, int(d)) for d in full_shape]
     if placement is None:
         return tuple(box)
@@ -114,6 +130,12 @@ def box_of(full_shape: Sequence[int],
     if expert is not None:
         n = box[0][1] // expert["ep"]
         box[0] = (expert["rank"] * n, (expert["rank"] + 1) * n)
+    tensor = placement.get("tensor")
+    if tensor is not None:
+        td = tensor["dim"]
+        lo, hi = box[td]
+        n = (hi - lo) // tensor["tp"]
+        box[td] = (lo + tensor["rank"] * n, lo + (tensor["rank"] + 1) * n)
     d = placement["dim"]
     if d is not None:
         lo, hi = box[d]
@@ -123,10 +145,14 @@ def box_of(full_shape: Sequence[int],
 
 
 def leaf_shape(engine, i: int) -> Tuple[int, ...]:
-    """Parameter ``i``'s whole shape (every expert of an expert stack)."""
+    """Parameter ``i``'s whole shape (every expert of an expert stack,
+    every tensor rank's block of a split leaf)."""
     pl, p, shard = engine.placements[i], engine.params[i], \
         engine._experts[i]
     local = tuple(pl.full_shape) if pl is not None else tuple(p.shape)
+    tensor = engine._tensor[i]
+    if tensor is not None:
+        local = tensor.full_shape(local)
     return shard.full_shape(local) if shard is not None else local
 
 
@@ -153,14 +179,24 @@ def fill(dst: torch.Tensor, dst_box: Box,
             f"{dst.numel()} elements this rank holds")
 
 
+def _file_ranks(path: str) -> Tuple[int, int]:
+    """(tensor rank, data-parallel rank) of a rank file's name."""
+    m = re.search(r"dp_rank_(\d+)(?:_tp_rank_(\d+))?\.pt$", path)
+    return int(m.group(2) or 0), int(m.group(1))
+
+
 def rank_paths(tag_dir: str) -> List[str]:
-    """The rank files of a tag directory, in rank order."""
-    paths = sorted(glob.glob(os.path.join(tag_dir, "dp_rank_*.pt")))
-    ranks = [int(re.search(r"dp_rank_(\d+)\.pt$", p).group(1))
-             for p in paths]
-    if ranks != list(range(len(ranks))) or not ranks:
+    """The rank files of a tag directory, by tensor rank, then
+    data-parallel rank."""
+    paths = sorted(glob.glob(os.path.join(tag_dir, "dp_rank_*.pt")),
+                   key=_file_ranks)
+    ranks = [_file_ranks(p) for p in paths]
+    tp = 1 + max((t for t, _ in ranks), default=-1)
+    dp = len(ranks) // tp if tp else 0
+    if not ranks or ranks != [(t, r) for t in range(tp) for r in range(dp)]:
         raise CheckpointCorruptionError(
-            f"checkpoint {tag_dir!r}: rank files {ranks}, want 0..n-1")
+            f"checkpoint {tag_dir!r}: rank files {ranks}, want (tensor, "
+            "data) ranks 0..tp-1 x 0..dp-1")
     return paths
 
 
@@ -175,13 +211,19 @@ def load_rank_states(tag_dir: str, engine: Optional[CheckpointEngine] = None
                                               "infinity_layer_*.pt"))):
         # an Infinity trunk's layers join rank 0's leaves (memory-mapped)
         states[0]["leaves"].update(loader.load(path)["leaves"])
-    for r, st in enumerate(states):
+    tp = int(states[0].get("tp", 1))
+    dp = len(states) // tp
+    for i, st in enumerate(states):
+        t, r = divmod(i, dp)
         if st.get("version") != FORMAT_VERSION or st.get("rank") != r \
-                or st.get("dp") != len(states):
+                or st.get("dp") != dp or st.get("tp", 1) != tp \
+                or st.get("tp_rank", 0) != t:
             raise CheckpointCorruptionError(
-                f"checkpoint {tag_dir!r}: {RANK_FILE.format(r)} says rank "
-                f"{st.get('rank')} of {st.get('dp')} (format "
-                f"{st.get('version')}); the directory holds {len(states)}")
+                f"checkpoint {tag_dir!r}: the file of data rank {r}, tensor "
+                f"rank {t} says rank {st.get('rank')} of {st.get('dp')}, "
+                f"tensor rank {st.get('tp_rank', 0)} of {st.get('tp', 1)} "
+                f"(format {st.get('version')}); the directory holds "
+                f"{len(states)} files")
     return states
 
 
@@ -262,14 +304,18 @@ def _rank_state(engine) -> Dict[str, Any]:
                                        engine.placements)):
         if pl is None and engine.leaf_group_rank(i) != 0:
             continue
+        if engine._tensor[i] is None and engine.tp_rank != 0:
+            continue  # tensor rank 0 writes a leaf every tensor rank holds
         leaves[name] = {
-            "placement": placement_values(pl, engine._experts[i]),
+            "placement": placement_values(pl, engine._experts[i],
+                                          engine._tensor[i]),
             "full_shape": list(leaf_shape(engine, i)),
             "master": masters[i].detach(),
             "optim": {k: opt_state[k][i] for k in names}}
     scaler = engine.loss_scaler
     return {"version": FORMAT_VERSION, "rank": rank,
-            "dp": engine.dp_world_size, "zero_stage": engine.zero_stage,
+            "dp": engine.dp_world_size, "tp": engine.tp_world_size,
+            "tp_rank": engine.tp_rank, "zero_stage": engine.zero_stage,
             "optimizer": {"type": opt_state["type"],
                           "count": int(opt_state["count"]),
                           "state_names": list(names)},
@@ -338,10 +384,12 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             "state; save at an accumulation boundary (after step())")
     tag = tag if tag is not None else f"global_step{engine.global_steps}"
     tag_dir = os.path.abspath(os.path.join(save_dir, tag))
-    group = engine._sum_group  # the data axes and seq
+    # the data axes and seq, or the data axes and tensor
+    group = engine._dp_tp_group if engine.tp_group is not None \
+        else engine._sum_group
     rank = comm.get_rank(engine.dp_group) if engine.dp_world_size > 1 else 0
     writer = engine.sp_rank == 0
-    lead = writer and rank == 0
+    lead = writer and rank == 0 and engine.tp_rank == 0
     os.makedirs(tag_dir, exist_ok=True)
     # the scheduler counts applied steps (fp16 overflow skips excluded)
     engine.lr_scheduler.last_step = engine.optimizer.count
@@ -377,8 +425,10 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             comm.barrier(group)  # every rank sees `latest`
 
     if writer:
-        ceng.save(_rank_state(engine), os.path.join(
-            tag_dir, RANK_FILE.format(rank)), commit_fn=commit)
+        name = (TP_RANK_FILE.format(rank, engine.tp_rank)
+                if engine.tp_group is not None else RANK_FILE.format(rank))
+        ceng.save(_rank_state(engine), os.path.join(tag_dir, name),
+                  commit_fn=commit)
     else:
         ceng.defer_commit(commit)
     log_dist(f"saved checkpoint {tag_dir}")
@@ -393,9 +443,10 @@ def _held_boxes(engine) -> List[Tuple[Box, Box]]:
     out = []
     for i, pl in enumerate(engine.placements):
         full, shard = leaf_shape(engine, i), engine._experts[i]
-        state = box_of(full, placement_values(pl, shard))
+        tensor = engine._tensor[i]
+        state = box_of(full, placement_values(pl, shard, tensor))
         master = state if engine.zero_stage == 3 else box_of(
-            full, placement_values(None, shard))
+            full, placement_values(None, shard, tensor))
         out.append((master, state))
     return out
 

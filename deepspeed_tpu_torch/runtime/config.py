@@ -24,7 +24,13 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` for the keys
   curriculum_learning`` (the seqlen curriculum of the dataloader
   ``initialize`` builds; :meth:`DeepSpeedConfig.curriculum`);
 * ``sequence_parallel`` (:class:`SequenceParallelConfig`: ``sp_size``,
-  the size of the mesh's ``seq`` axis ``initialize`` builds).
+  the size of the mesh's ``seq`` axis ``initialize`` builds);
+* ``tensor_parallel`` (:class:`TensorParallelConfig`: ``autotp_size``,
+  the size of the mesh's ``tensor`` axis ``initialize`` builds);
+* ``hybrid_engine`` (:class:`HybridEngineConfig`: ``enabled`` makes
+  ``initialize`` return the ``DeepSpeedHybridEngine``, ``max_out_tokens``
+  its default generation length; the other keys are recorded for config
+  parity, as in the JAX package).
 
 * ``zero_optimization.offload_optimizer`` (ZeRO-Offload: masters and
   moments in host memory, the C++ optimizer) and ``offload_param``
@@ -34,10 +40,10 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` for the keys
   tier's file I/O engine).
 
 What the port cannot do yet raises ``NotImplementedError`` ("not ported
-yet", naming its ``ROADMAP.md`` Queue 1 item): ZeRO-Infinity under a
-tensor axis (item 5b; ``initialize`` checks), MiCS, ZeRO++ (quantized
-weights or gradients, hpZ) and
-``kernels.overlap_collectives``, a tensor or pipeline
+yet", naming its ``ROADMAP.md`` Queue 1 item): ZeRO-Infinity or a ``seq``
+axis under a tensor axis (item 5c; ``initialize`` checks), MiCS, ZeRO++
+(quantized weights or gradients, hpZ) and
+``kernels.overlap_collectives``, a pipeline
 dimension above 1, random-LTD (``data_efficiency.data_routing.
 random_ltd``).  The groups of :data:`ACCEPTED_WITHOUT_EFFECT`
 (telemetry, tuning, comms_logger, ...) are accepted and have no effect;
@@ -60,17 +66,16 @@ from .config_utils import group_from_dict, is_auto
 ACCEPTED_WITHOUT_EFFECT = (
     "activation_checkpointing", "amp", "autotuning",
     "comms_logger", "compile", "compression_training", "csv_monitor",
-    "disable_allgather", "dump_state", "elasticity", "flops_profiler", "gradient_predivide_factor",
-    "hybrid_engine", "memory_breakdown", "monitor_config",
+    "disable_allgather", "dump_state", "elasticity", "flops_profiler",
+    "gradient_predivide_factor", "memory_breakdown", "monitor_config",
     "prescale_gradients", "resilience", "serving", "sparse_gradients",
     "telemetry", "tensorboard", "tuning", "wall_clock_breakdown", "wandb",
     "zero_allow_untested_optimizer")
 
 #: (group, key, ROADMAP Queue 1 item) of the parallel dimensions other than
-#: data, expert and sequence whose training is not ported: a value above 1
-#: raises
-_PARALLEL_DIMS = (("tensor_parallel", "autotp_size", 5),
-                  ("pipeline", "stages", 8))
+#: data, expert, sequence and tensor whose training is not ported: a value
+#: above 1 raises
+_PARALLEL_DIMS = (("pipeline", "stages", 8),)
 
 #: the token dispatch rungs of the MoE layer
 DISPATCH_IMPLS = ("auto", "dense", "sparse", "pallas")
@@ -322,6 +327,41 @@ class SequenceParallelConfig:
 
 
 @dataclasses.dataclass
+class TensorParallelConfig:
+    """``tensor_parallel`` (JAX ``TensorParallelConfig``): ``autotp_size``
+    is the mesh's ``tensor`` axis (a ``mesh=`` whose tensor axis differs
+    raises); ``tp_overlap_comm`` is recorded and has no effect, as in the
+    JAX package."""
+
+    autotp_size: int = 1
+    tp_overlap_comm: bool = False
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if not is_auto(self.autotp_size) and int(self.autotp_size) < 1:
+            raise ValueError("tensor_parallel.autotp_size must be >= 1")
+
+
+@dataclasses.dataclass
+class HybridEngineConfig:
+    """``hybrid_engine`` (JAX ``HybridEngineConfig``): ``enabled`` wraps
+    the training engine in ``runtime/hybrid_engine.DeepSpeedHybridEngine``
+    (generation on the live weights), ``max_out_tokens`` is its default
+    number of new tokens; ``inference_tp_size``,
+    ``release_inference_cache``, ``pin_parameters`` and
+    ``tp_gather_partition_size`` are kept for config parity and have no
+    effect, as in the JAX package."""
+
+    enabled: bool = False
+    max_out_tokens: int = 512
+    inference_tp_size: int = 1
+    release_inference_cache: bool = False
+    pin_parameters: bool = True
+    tp_gather_partition_size: int = 8
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
 class DataEfficiencyConfig:
     """``data_efficiency`` (JAX ``DataEfficiencyConfig``): its
     ``data_sampling.curriculum_learning`` is the nested form of the
@@ -369,6 +409,10 @@ class DeepSpeedConfig:
     moe: MoEConfig = dataclasses.field(default_factory=MoEConfig)
     sequence_parallel: SequenceParallelConfig = dataclasses.field(
         default_factory=SequenceParallelConfig)
+    tensor_parallel: TensorParallelConfig = dataclasses.field(
+        default_factory=TensorParallelConfig)
+    hybrid_engine: HybridEngineConfig = dataclasses.field(
+        default_factory=HybridEngineConfig)
     aio: AioConfig = dataclasses.field(default_factory=AioConfig)
     zero_force_ds_cpu_optimizer: bool = True
     curriculum_learning: Dict[str, Any] = dataclasses.field(
@@ -384,7 +428,8 @@ class DeepSpeedConfig:
                "checkpoint": CheckpointConfig,
                "data_efficiency": DataEfficiencyConfig, "moe": MoEConfig,
                "sequence_parallel": SequenceParallelConfig,
-               "aio": AioConfig}
+               "tensor_parallel": TensorParallelConfig,
+               "hybrid_engine": HybridEngineConfig, "aio": AioConfig}
 
     @classmethod
     def from_dict(cls, data: Dict[str, Any]) -> "DeepSpeedConfig":

@@ -62,6 +62,18 @@ a whole expert leaf is added by its ``data`` rank 0, a whole other leaf by
 the group's rank 0, and the partial sums are all-reduced over the group;
 the overflow flag is max-reduced over it.
 
+Tensor parallelism (``tp_group``, the mesh's ``tensor`` axis, and
+``dp_tp_group``, its data axes and ``tensor`` together): a leaf the model
+splits over ``tensor`` (``sharder.tensor_of``) holds this rank's block,
+every other leaf is whole on each tensor rank; the tensor ranks compute
+one loss, and Megatron's *f* has already summed over ``tensor`` the
+gradients of the whole leaves, which are therefore equal on the tensor
+ranks and are not reduced over ``tensor``.  The data-parallel group, the
+ZeRO placements and the gradient reductions are those of the rank's
+tensor coordinate.  In the norm a split leaf's Σg² is added on every
+tensor rank, a whole leaf's once (tensor rank 0), and the partial sums,
+like the overflow flag, are reduced over ``dp_tp_group``.
+
 Under ``kernels.fused_adam`` (an Adam-family optimizer from the config;
 anything else logs and keeps the plain step, as the JAX engine's
 ``fused_ok`` gate does) steps 2-4 are the two CUDA kernels of
@@ -140,7 +152,8 @@ from .optimizers import Adam, base_lr, build_optimizer
 from .precision import (DynamicLossScaler, clip_grads_by_global_norm,
                         global_grad_norm, has_overflow)
 from .zero.sharder import (Placement, ZeroShardingPolicy, all_gather_flat,
-                           all_reduce_flat, expert_of, placement_of)
+                           all_reduce_flat, expert_of, placement_of,
+                           tensor_of)
 
 LossFn = Callable[[Any], torch.Tensor]
 
@@ -155,7 +168,8 @@ class DeepSpeedEngine:
                  device: DeviceLike = "cuda",
                  lr_schedule: Optional[Schedule] = None,
                  dp_group: Any = None, expert_data_group: Any = None,
-                 seq_group: Any = None, dp_seq_group: Any = None):
+                 seq_group: Any = None, dp_seq_group: Any = None,
+                 tp_group: Any = None, dp_tp_group: Any = None):
         self.device = resolve_device(device)
         self.config = config
         self.loss_fn = loss_fn
@@ -188,6 +202,13 @@ class DeepSpeedEngine:
         else:
             self._schedule = constant_lr(base_lr(config))
         self.lr_scheduler = LRScheduler(self._schedule)
+        self.tp_world_size = (comm.get_world_size(tp_group)
+                              if tp_group is not None else 1)
+        self.tp_group = tp_group if self.tp_world_size > 1 else None
+        self.tp_rank = (comm.get_rank(self.tp_group)
+                        if self.tp_group is not None else 0)
+        self._dp_tp_group = dp_tp_group if self.tp_group is not None \
+            else None
         if zero.offload_param_device() != "none":
             self._init_infinity(dp_group, seq_group, dp_seq_group)
             return
@@ -224,6 +245,8 @@ class DeepSpeedEngine:
             if self.expert_data_group is not None else self.dp_world_size)
         self._bucket = zero.reduce_bucket_elements
         self._experts = [expert_of(p) for p in self.params]
+        self._tensor = [tensor_of(p) if self.tp_group is not None else None
+                        for p in self.params]
         for shard in self._experts:
             if shard is not None and shard.ep > 1 and \
                     self.expert_data_group is None:
@@ -377,6 +400,7 @@ class DeepSpeedEngine:
         self.param_names = list(inf.resident)
         self.placements = [None] * len(self.params)
         self._experts = [None] * len(self.params)
+        self._tensor = [None] * len(self.params)
         self._cut, self._whole, self._whole_expert = [], [], []
         self._grad_chunks = [None] * len(self.params)
         self._grad_acc = [None] * len(self.params)
@@ -417,13 +441,17 @@ class DeepSpeedEngine:
                         f"{self.dp_world_size} ranks)")
                 places.append(have)
                 continue
+            tshard = self._tensor[i]
+            taken, tp = (tshard.dim, tshard.tp) if tshard is not None \
+                else (None, 1)
             if self._is_expert(i):
                 shard = self._experts[i]
                 dim = self._expert_policy.opt_state_dim(
-                    tuple(p.shape), p.numel() * shard.ep)
+                    tuple(p.shape), p.numel() * shard.ep * tp, taken)
                 group = self.expert_data_group
             else:
-                dim = self.zero_policy.opt_state_dim(tuple(p.shape))
+                dim = self.zero_policy.opt_state_dim(
+                    tuple(p.shape), p.numel() * tp, taken)
                 group = self.dp_group
             if dim is None:
                 places.append(None)
@@ -500,25 +528,36 @@ class DeepSpeedEngine:
                             self._bucket)
         return grads
 
-    def _norm_group(self) -> Any:
-        """The group the norm's partial sums and the overflow flag are
-        reduced over: the data-parallel group when some leaf is cut or
-        some expert leaf differs across the expert axis (the whole
-        gradients of the other leaves are equal on every rank after their
-        all-reduce)."""
+    def _dp_split(self) -> bool:
+        """Whether the gradients differ across the data-parallel group
+        after their reduction: some leaf is cut, or some expert leaf
+        differs across the expert axis (the whole gradients of the other
+        leaves are equal on every rank after their all-reduce)."""
         split = self._cut or (self._whole_expert and comm.get_world_size(
             self.expert_data_group) < self.dp_world_size)
-        return self.dp_group if split and self.dp_world_size > 1 else None
+        return bool(split) and self.dp_world_size > 1
+
+    def _norm_group(self) -> Any:
+        """The group the norm's partial sums and the overflow flag are
+        reduced over: the data-parallel group when :meth:`_dp_split`, and
+        ``tensor`` with it under tensor parallelism."""
+        if self.tp_group is not None:
+            return self._dp_tp_group if self._dp_split() else self.tp_group
+        return self.dp_group if self._dp_split() else None
 
     def _norm_terms(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """What this rank adds to the global Σg² (:meth:`_norm_group`
-        sums it): its chunks of the cut leaves, and each whole leaf on the
-        rank 0 of the group that reduced it."""
+        sums it): its chunks of the cut leaves, each whole leaf on the
+        rank 0 of the group that reduced it, and a leaf the tensor axis
+        does not split on tensor rank 0 alone."""
         if self._norm_group() is None:
             return grads
-        return [grads[i] for i in self._cut] + [
-            grads[i] for i in self._whole + self._whole_expert
-            if self.leaf_group_rank(i) == 0]
+        order = (self._cut + self._whole + self._whole_expert
+                 if self._dp_split() else range(len(grads)))
+        return [grads[i] for i in order
+                if (self.tp_rank == 0 or self._tensor[i] is not None)
+                and (i in self._cut or not self._dp_split()
+                     or self.leaf_group_rank(i) == 0)]
 
     def _gather_masters(self, work: List[torch.Tensor]) -> None:
         """Stages 1-2: every rank's updated chunks into the whole masters."""

@@ -50,33 +50,36 @@ from .zero.sharder import expert_of, placement_of
 ConfigLike = Union[str, os.PathLike, Dict[str, Any], DeepSpeedConfig]
 
 
-def _data_parallel(mesh: Any, mpu: Any, ep: int = 1, sp: int = 1
-                   ) -> Tuple[Any, int, Dict[str, int], Any]:
+def _data_parallel(mesh: Any, mpu: Any, ep: int = 1, sp: int = 1,
+                   tp: int = 1) -> Tuple[Any, int, Dict[str, int], Any]:
     """(the data-parallel group or None, its size, the other parallel
     sizes, the mesh or None) from ``mesh`` (its ``DP_AXES``), else
     ``mpu`` (one with data-parallel getters), else the world (a mesh built
-    over it whose ``seq`` axis is ``sp`` and ``expert`` axis ``ep``: each
-    must divide what is left of the world, as JAX's ``initialize``
-    checks)."""
+    over it whose ``tensor`` axis is ``tp``, ``seq`` axis ``sp`` and
+    ``expert`` axis ``ep``: each must divide what is left of the world,
+    as JAX's ``initialize`` checks)."""
     from ..parallel.mesh import MeshLayout
 
     world = comm.get_world_size() if comm.is_initialized() else 1
     if mpu is not None and not hasattr(mpu, "get_data_parallel_world_size"):
         mpu = None  # the sequence getters alone: they gave sp
-    if mpu is not None and sp > 1:
+    if mpu is not None and (sp > 1 or tp > 1):
         raise NotImplementedError(
-            "an mpu's data-parallel group with a seq axis is not ported: "
-            "pass mesh= (utils.groups.initialize_mesh(MeshLayout.infer("
-            "world, sp=...)))")
-    if mesh is None and mpu is None and (world > 1 or ep > 1 or sp > 1):
-        if world % sp:
-            raise ValueError(f"sequence_parallel.sp_size={sp} must divide "
+            "an mpu's data-parallel group with a seq or tensor axis is not "
+            "ported: pass mesh= (utils.groups.initialize_mesh(MeshLayout."
+            "infer(world, tp=..., sp=...)))")
+    if mesh is None and mpu is None and (world > 1 or ep > 1 or sp > 1
+                                         or tp > 1):
+        if world % (sp * tp):
+            raise ValueError(f"sequence_parallel.sp_size={sp} x "
+                             f"tensor_parallel.autotp_size={tp} must divide "
                              f"the world {world}")
-        if world // sp % ep:
+        if world // (sp * tp) % ep:
             raise ValueError(
                 f"moe.expert_parallel_size={ep} must divide the DP world "
-                f"{world // sp} (= world/(tp·pp·sp))")
-        mesh = groups.initialize_mesh(MeshLayout.infer(world, ep=ep, sp=sp))
+                f"{world // (sp * tp)} (= world/(tp·pp·sp))")
+        mesh = groups.initialize_mesh(MeshLayout.infer(world, ep=ep, sp=sp,
+                                                       tp=tp))
     shape = getattr(mesh, "shape", None)
     if isinstance(shape, Mapping):
         dp = 1
@@ -150,6 +153,26 @@ def _apply_sequence_parallel(model: Any, mesh: Any) -> None:
         f"(ROADMAP Queue 1 item 7b: {why})")
 
 
+def _refuse_without_split(model: Any) -> None:
+    if not getattr(model, "tensor_parallel_training", False):
+        raise NotImplementedError(
+            f"{type(model).__name__} training under tensor parallelism is "
+            "not ported yet (ROADMAP Queue 1 item 5c: a model without a "
+            "split of its own)")
+
+
+def _apply_tensor_parallel(model: Any, mesh: Any, tp: int) -> None:
+    """Split a whole model over the mesh's ``tensor`` axis (``shard_``, as
+    ``tp_model_init`` does), or check that it was built on it; refuse a
+    model without a split of its own."""
+    _refuse_without_split(model)
+    if getattr(model, "tp", 1) == 1:
+        model.shard_(mesh)
+    if model.tp != tp:
+        raise ValueError(f"the model is split over {model.tp} tensor ranks, "
+                         f"the mesh's tensor axis is {tp}")
+
+
 def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
                model_parameters: Any = None, training_data: Any = None,
                lr_scheduler: Any = None, distributed_port: Any = None,
@@ -190,9 +213,28 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     alone.  ZeRO-Infinity (``offload_param``) runs on the data axes and
     ``seq``: each rank's host planes hold its ``1/world`` of every layer.
     Not ported under ``seq`` (ROADMAP Queue 1): MoE and the other ladder
-    models (item 7b); not ported under ``offload_param``: a tensor axis
-    (item 5b) and a pipe axis (layer streaming is itself
-    layer-sequential, as JAX refuses it).
+    models (item 7b); not ported under ``offload_param``: a pipe axis
+    (layer streaming is itself layer-sequential, as JAX refuses it).
+
+    Tensor parallelism: ``tensor_parallel.autotp_size`` (or a ``mesh``
+    whose ``tensor`` axis is) above 1 builds the mesh with that ``tensor``
+    axis beside the data axes (JAX ``initialize`` :122-150).  The model
+    (Llama or Mixtral) is built on that mesh, or whole, which
+    ``initialize`` then splits (``shard_``); a model already split (built
+    on a mesh, or by ``tp_model_init``) brings its own mesh when neither
+    ``mesh`` nor ``mpu`` is given, and a mesh whose ``tensor`` axis is not
+    the model's split raises.  Every rank of a tensor group
+    builds it from the same seed and feeds ``train_step`` the same rows
+    (its data coordinate's).  The layers run Megatron's *f* and *g*, the
+    loss is vocabulary-parallel, and the engine adds the split leaves'
+    Σg² over ``tensor``; ZeRO cuts over the data axes of the rank's tensor
+    coordinate.  Not ported under a tensor axis (item 5c): a model without
+    a split of its own, a ``seq`` or an ``expert`` axis, and
+    ``offload_param``.
+
+    ``hybrid_engine.enabled`` returns a
+    :class:`~.hybrid_engine.DeepSpeedHybridEngine` around the engine (its
+    ``generate`` runs the model's KV-cache path on the live weights).
 
     Expert parallelism: a mixture-of-experts model (``MixtralModel``)
     routes the global micro-batch on any data axis; with
@@ -238,16 +280,35 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     sp = int(cfg.sequence_parallel.sp_size or 1)
     if hasattr(mpu, "get_sequence_parallel_world_size"):
         sp = int(mpu.get_sequence_parallel_world_size())
-    dp_group, dp, others, mesh = _data_parallel(
-        mesh, mpu, int(cfg.moe.expert_parallel_size), sp)
+    tp_cfg = int(cfg.tensor_parallel.autotp_size or 1)
+    # a model already split (built on a mesh, or by tp_model_init) brings
+    # its mesh: its layers run f and g over that mesh's tensor group
+    model_tp = int(getattr(model, "tp", 1) or 1)
+    if model_tp > 1 and mesh is None and mpu is None:
+        mesh = model.mesh
+    if tp_cfg > 1 or model_tp > 1:  # before a mesh is built for it
+        _refuse_without_split(model)
+    ep_cfg = int(cfg.moe.expert_parallel_size)
+    dp_group, dp, others, mesh = _data_parallel(mesh, mpu, ep_cfg, sp,
+                                                max(tp_cfg, model_tp))
     tp, pp, sp = (others.get(a, 1) for a in (AXIS_TENSOR, AXIS_PIPE,
                                              AXIS_SEQ))
+    if tp_cfg > 1 and tp != tp_cfg:
+        raise ValueError(f"tensor_parallel.autotp_size={tp_cfg}, the mesh's "
+                         f"tensor axis is {tp}")
+    if model_tp > 1 and tp != model_tp:
+        raise ValueError(f"the model is split over {model_tp} tensor ranks, "
+                         f"the mesh's tensor axis is {tp}")
     infinity = zero.offload_param_device() != "none"
-    if infinity and tp > 1:
-        raise NotImplementedError(
-            "ZeRO-Infinity (offload_param) under tensor parallelism is not "
-            "ported yet: layer streaming under TP needs training under TP "
-            "first (ROADMAP Queue 1 item 5b); use the data axes and seq")
+    if tp > 1:
+        ep = int(mesh.shape.get(AXIS_EXPERT, 1))
+        for what, on in (("ZeRO-Infinity (offload_param)", infinity),
+                         ("a seq axis", sp > 1),
+                         ("an expert axis", ep > 1)):
+            if on:
+                raise NotImplementedError(
+                    f"{what} under tensor parallelism is not ported yet "
+                    "(ROADMAP Queue 1 item 5c)")
     if infinity and pp > 1:
         raise NotImplementedError(
             "layer streaming is itself layer-sequential; combine "
@@ -255,9 +316,16 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     cfg.resolve_batch_sizes(world_size=dp * tp * pp * sp, tp=tp, pp=pp,
                             sp=sp)
     cfg.resolve_auto_precision()
+    if tp > 1:
+        _apply_tensor_parallel(model, mesh, tp)
     _apply_moe_config(cfg, model, mesh)
     data_group = mesh.group(AXIS_DATA) if mesh is not None and dp > 1 \
         else None
+    tp_group = dp_tp_group = None
+    if tp > 1:
+        tp_group = mesh.group(AXIS_TENSOR)
+        dp_tp_group = (groups.axes_group(DP_AXES + (AXIS_TENSOR,), mesh)
+                       if dp > 1 else tp_group)
     seq_group = dp_seq_group = None
     if sp > 1:
         _apply_sequence_parallel(model, mesh)
@@ -296,7 +364,8 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
         loss_fn, params, cfg, module=model, device=dev,
         lr_schedule=lr_scheduler if callable(lr_scheduler) else None,
         dp_group=dp_group, expert_data_group=data_group,
-        seq_group=seq_group, dp_seq_group=dp_seq_group)
+        seq_group=seq_group, dp_seq_group=dp_seq_group,
+        tp_group=tp_group, dp_tp_group=dp_tp_group)
     dataloader = None
     if training_data is not None:
         dataloader = DeepSpeedDataLoader(
@@ -313,4 +382,9 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
             engine.curriculum_scheduler = sched
             dataloader = CurriculumDataLoader(dataloader, sched,
                                               lambda: engine.global_steps)
+    if cfg.hybrid_engine.enabled:
+        from .hybrid_engine import DeepSpeedHybridEngine
+
+        engine = DeepSpeedHybridEngine(
+            engine, max_out_tokens=cfg.hybrid_engine.max_out_tokens)
     return engine, engine.optimizer, dataloader, engine.lr_scheduler

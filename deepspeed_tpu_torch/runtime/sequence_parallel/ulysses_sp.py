@@ -111,21 +111,25 @@ def _tile_nll(logits_fn: Callable[[Tensor], Tensor], h: Tensor,
     return torch.where(valid, nll, torch.zeros_like(nll)).sum()
 
 
-def sequence_tiled_nll(logits_fn: Callable[[Tensor], Tensor], hidden: Tensor,
-                       labels: Tensor, tiles: int) -> Tuple[Tensor, Tensor]:
+def sequence_tiled_nll(logits_fn: Optional[Callable[[Tensor], Tensor]],
+                       hidden: Tensor, labels: Tensor, tiles: int,
+                       nll_fn: Optional[Callable[[Tensor, Tensor], Tensor]]
+                       = None) -> Tuple[Tensor, Tensor]:
     """``(Σ nll, valid count)`` of the labels (-100 ignored) over
     ``hidden [B, S, H]``, the logits formed one tile of ``S/tiles`` positions
     at a time and recomputed in the backward: the full ``[B, S, V]`` logits
     never exist.  ``S % tiles`` falls back to one tile.  The count carries
     no gradient; under sequence parallelism the model sums it over ``seq``
-    before dividing."""
+    before dividing.  ``nll_fn(h, labels)``, when given, is a tile's Σ nll
+    in place of ``logits_fn``'s softmax (the vocabulary-parallel loss)."""
     S = hidden.shape[1]
     if tiles <= 1 or S % tiles:
         tiles = 1
+    fn = nll_fn if nll_fn is not None else functools.partial(_tile_nll,
+                                                             logits_fn)
     total = hidden.new_zeros((), dtype=torch.float32)
     for h, lab in zip(hidden.chunk(tiles, dim=1), labels.chunk(tiles, dim=1)):
-        total = total + checkpoint(functools.partial(_tile_nll, logits_fn),
-                                   h, lab, use_reentrant=False)
+        total = total + checkpoint(fn, h, lab, use_reentrant=False)
     return total, (labels != -100).sum()
 
 

@@ -6,11 +6,12 @@ config groups; the stages themselves run in ``runtime/engine.py``."""
 from ..config import OffloadOptimizerConfig, OffloadParamConfig
 from .init_ctx import GatheredParameters, Init
 from .offload import CPUOffloadOptimizer
-from .sharder import (Placement, ZeroShardingPolicy, compute_weight,
-                      dp_shardable_dim, placement_of, reshard_layout_report)
+from .sharder import (Placement, TensorShard, ZeroShardingPolicy,
+                      compute_weight, dp_shardable_dim, placement_of,
+                      reshard_layout_report, tensor_of)
 
 __all__ = ["CPUOffloadOptimizer", "GatheredParameters", "Init",
            "OffloadOptimizerConfig", "OffloadParamConfig", "Placement",
-           "ZeroShardingPolicy",
+           "TensorShard", "ZeroShardingPolicy",
            "compute_weight", "dp_shardable_dim", "placement_of",
-           "reshard_layout_report"]
+           "reshard_layout_report", "tensor_of"]

@@ -30,6 +30,12 @@ a mesh axis the base already occupies"): such a leaf is cut over the
 ``data`` group on its largest divisible dim and its gradient is reduced
 over that group; every other leaf over the whole data-parallel group.  The
 persistence threshold counts the whole leaf, all experts.
+
+Tensor-parallel leaves (marked ``ds_tensor`` with their
+:class:`TensorShard`): the tensor axis already cuts one dim, which ZeRO
+leaves alone (JAX: the base spec's dim is taken); ZeRO cuts the rank's
+block over the data-parallel group of its tensor coordinate, the
+threshold counting the whole leaf.
 """
 
 from __future__ import annotations
@@ -96,26 +102,36 @@ class ZeroShardingPolicy:
                    persistence_threshold=config.persistence_threshold)
 
     def shard_dim(self, shape: Tuple[int, ...],
-                  numel: Optional[int] = None) -> Optional[int]:
+                  numel: Optional[int] = None,
+                  taken: Optional[int] = None) -> Optional[int]:
         """The dim a cut leaf of ``shape`` is cut along (any stage);
         ``numel``: the whole leaf's elements, when ``shape`` is one
-        expert shard of it."""
+        expert or tensor shard of it; ``taken``: a dim the tensor axis
+        already cuts."""
         n = numel if numel is not None else math.prod(int(d) for d in shape)
         if self.dp_size <= 1 or not shape or n <= self.persistence_threshold:
             return None
-        return dp_shardable_dim(tuple(shape), self.dp_size)
+        mask = None if taken is None else [
+            "tensor" if i == taken else None for i in range(len(shape))]
+        return dp_shardable_dim(tuple(shape), self.dp_size, mask)
 
     def param_dim(self, shape: Tuple[int, ...],
-                  numel: Optional[int] = None) -> Optional[int]:
-        return self.shard_dim(shape, numel) if self.stage >= 3 else None
+                  numel: Optional[int] = None,
+                  taken: Optional[int] = None) -> Optional[int]:
+        return self.shard_dim(shape, numel, taken) if self.stage >= 3 \
+            else None
 
     def grad_dim(self, shape: Tuple[int, ...],
-                 numel: Optional[int] = None) -> Optional[int]:
-        return self.shard_dim(shape, numel) if self.stage >= 2 else None
+                 numel: Optional[int] = None,
+                 taken: Optional[int] = None) -> Optional[int]:
+        return self.shard_dim(shape, numel, taken) if self.stage >= 2 \
+            else None
 
     def opt_state_dim(self, shape: Tuple[int, ...],
-                      numel: Optional[int] = None) -> Optional[int]:
-        return self.shard_dim(shape, numel) if self.stage >= 1 else None
+                      numel: Optional[int] = None,
+                      taken: Optional[int] = None) -> Optional[int]:
+        return self.shard_dim(shape, numel, taken) if self.stage >= 1 \
+            else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +150,28 @@ class ExpertShard:
 def expert_of(t: Tensor) -> Optional[ExpertShard]:
     """The expert shard of an expert stack (None for any other leaf)."""
     return getattr(t, "ds_expert", None)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorShard:
+    """A leaf's place on the ``tensor`` axis: block ``rank`` of ``tp``
+    along ``dim`` of the whole leaf."""
+
+    dim: int
+    tp: int
+    rank: int
+
+    def full_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The whole leaf's shape, every tensor rank's block."""
+        out = [int(d) for d in shape]
+        out[self.dim] *= self.tp
+        return tuple(out)
+
+
+def tensor_of(t: Tensor) -> Optional[TensorShard]:
+    """The tensor shard of a leaf split over the ``tensor`` axis (None for
+    a leaf every tensor rank holds whole)."""
+    return getattr(t, "ds_tensor", None)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -404,11 +404,24 @@ def test_moe_block_placement_is_a_slice_of_one_process(launched, world):
     """``MoE(ep_size, mesh, enable_expert_tensor_parallelism=True)`` with
     Residual-MoE: at ``ep=2`` (2 ranks), ``ep=2 x dp=2`` (4) and ``tp=2``
     (2) each rank's output rows and ``l_aux`` equal the one-process
-    block's on the global batch, from the same seed."""
+    block's on the global batch, from the same seed; at ``tp=2`` the
+    gradients of the input, the router and the coefficient equal the
+    one-process block's on every rank, and the split leaves' are slices of
+    its."""
     moe = MoE(**ranks.BLOCK, mesh=None)
     params = moe.init_params(torch.Generator().manual_seed(
         ranks.BLOCK_SEED), ranks.BLOCK_I)
-    y, l_aux, _ = moe(params, torch.from_numpy(ranks.block_input(world)))
+    leaves = [params["wg"], params["coefficient"],
+              params["residual_mlp"]["w_gate"],
+              params["experts"]["w_gate"]]
+    for t in leaves:
+        t.requires_grad_(True)
+    x = torch.from_numpy(ranks.block_input(world)).requires_grad_(True)
+    y, l_aux, _ = moe(params, x)
+    ((y * torch.from_numpy(ranks.block_cotangent(world))).sum()
+     + l_aux).backward()
+    whole = dict(zip(("x", "wg", "coefficient", "residual_w_gate",
+                      "expert_w_gate"), [x.grad] + [t.grad for t in leaves]))
     got = launched["get"](world)
     cases = [(r["block"], True) for r in got]
     if world == 2:
@@ -417,10 +430,19 @@ def test_moe_block_placement_is_a_slice_of_one_process(launched, world):
         rows = y[2 * (i % world):2 * (i % world) + 2] if on_data else y
         np.testing.assert_allclose(g["y"], rows.detach().numpy(), rtol=1e-5,
                                    atol=1e-6)
-        np.testing.assert_allclose(g["l_aux"], float(l_aux), rtol=1e-6)
+        np.testing.assert_allclose(g["l_aux"], float(l_aux.detach()), rtol=1e-6)
         E, I = ranks.BLOCK["num_experts"], ranks.BLOCK_I
         assert g["w_gate"] == ([E // 2, 16, I] if on_data
                                else [E, 16, I // 2])
+        if not on_data:  # tp=2: rank i % 2's half of the FFN dim
+            half = slice((i % world) * (I // 2), (i % world + 1) * (I // 2))
+            for name, want in whole.items():
+                want = want.numpy()
+                if name.endswith("w_gate"):
+                    want = want[..., half]
+                np.testing.assert_allclose(g["grads"][name], want,
+                                           rtol=1e-5, atol=1e-6,
+                                           err_msg=name)
 
 
 # -- Residual-MoE and the moe group (one process) ---------------------------

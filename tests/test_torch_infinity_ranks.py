@@ -29,7 +29,7 @@ devices.  fp32 throughout, 4-layer tiny Llama (2-layer tiny Mixtral).
   masters and moments; a save in one process loads at dp 2 to its masters
   and moments;
 * the streamed sp-2 run equals the on-device sp-2 run (the remat path)
-  within 2e-4; ``offload_param`` on a tensor axis is refused (item 5b).
+  within 2e-4; ``offload_param`` on a tensor axis is refused (item 5c).
 """
 
 import functools
@@ -370,4 +370,4 @@ def test_streamed_sp2_equals_on_device_sp2(launched):
 
 def test_offload_param_on_a_tensor_axis_is_refused(launched):
     for r in launched["get"](2):
-        assert "ROADMAP Queue 1 item 5b" in r["tp_refusal"], r["tp_refusal"]
+        assert "ROADMAP Queue 1 item 5c" in r["tp_refusal"], r["tp_refusal"]

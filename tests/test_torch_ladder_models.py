@@ -400,6 +400,14 @@ def test_opt_v2_tokens_equal_v1():
 
 
 def test_opt_tensor_parallel_is_refused():
+    """OPT is served under tensor parallelism now
+    (``test_torch_tensor_parallel``); its training there is refused, as
+    are BERT's and ResNet's (ROADMAP Queue 1 item 5c)."""
     _, _, tm = opt_pair()
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        dst.init_inference(tm, tensor_parallel={"tp_size": 2}, device="cpu")
+    assert callable(tm.shard_)
+    for model in (tm, dst.BertModel(dst.BertConfig.tiny(
+            dtype=torch.float32), device="cpu")):
+        with pytest.raises(NotImplementedError, match="item 5c"):
+            dst.initialize(model=model, config={
+                "train_micro_batch_size_per_gpu": 1,
+                "tensor_parallel": {"autotp_size": 2}}, device="cpu")

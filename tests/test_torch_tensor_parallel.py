@@ -1,4 +1,5 @@
-"""Tensor-parallel serving of the port against the JAX package.
+"""Tensor-parallel serving of the port (Llama and OPT) against the JAX
+package.
 
 The mesh arithmetic and the weight split are held against the JAX
 package's ``MeshLayout``, ``ProcessTopology`` and ``param_specs``; the
@@ -28,13 +29,17 @@ from deepspeed_tpu.ops.pallas.paged_attention import \
 from deepspeed_tpu.parallel.mesh import MeshLayout as JaxMeshLayout
 from deepspeed_tpu.parallel.mesh import ProcessTopology as JaxTopology
 from deepspeed_tpu.parallel.mesh import build_mesh
-from deepspeed_tpu_torch import (KVCacheConfig, LlamaConfig, LlamaModel,
-                                 MixtralConfig, MixtralModel,
-                                 build_engine_v2, build_serving_frontend,
-                                 init_distributed)
+from deepspeed_tpu_torch import (DeepSpeedConfig, KVCacheConfig,
+                                 LlamaConfig, LlamaModel, MixtralConfig,
+                                 MixtralModel, OPTModel, build_engine_v2,
+                                 build_serving_frontend, init_distributed,
+                                 init_inference)
 from deepspeed_tpu_torch.launcher import launch, rank_env
-from deepspeed_tpu_torch.models import (llama_params_from_jax,
-                                        shard_llama_params)
+from deepspeed_tpu.models import OPTConfig as JaxOPTConfig
+from deepspeed_tpu.models import OPTModel as JaxOPTModel
+from deepspeed_tpu_torch.models import (OPTConfig, llama_params_from_jax,
+                                        opt_params_from_jax,
+                                        shard_llama_params, shard_opt_params)
 from deepspeed_tpu_torch.ops.kernels import (paged_decode_attention,
                                              paged_decode_attention_tp)
 from deepspeed_tpu_torch.parallel import (MESH_AXIS_ORDER, MeshLayout,
@@ -60,6 +65,28 @@ def tiny():
     cfg = port_config(jm.config)
     cfg_kw = {f: getattr(cfg, f) for f in cfg.__dataclass_fields__}
     return jm, params, cfg_kw, weights
+
+
+@pytest.fixture(scope="module")
+def opt_tiny():
+    """(JAX OPT, its params with random biases, the port's config kwargs,
+    the weights as numpy): 2 layers, 8 heads, fp32."""
+    jm = JaxOPTModel(JaxOPTConfig.tiny(dtype=jnp.float32, num_layers=2))
+    host = jax.tree.map(np.asarray, jax.device_get(
+        jm.init_params(jax.random.PRNGKey(2))))
+    rng = np.random.RandomState(9)
+    for k in ("bq", "bk", "bv", "bo"):
+        host["layers"]["attn"][k] = (rng.randn(*host["layers"]["attn"][k]
+                                               .shape) * 0.1).astype(
+                                                   np.float32)
+    for k in ("b_in", "b_out"):
+        host["layers"]["mlp"][k] = (rng.randn(*host["layers"]["mlp"][k]
+                                              .shape) * 0.1).astype(
+                                                  np.float32)
+    weights = {k: v.numpy() for k, v in opt_params_from_jax(host).items()}
+    kw = dict(vocab_size=512, hidden_size=128, ffn_dim=256, num_layers=2,
+              num_heads=8, max_seq_len=128, dtype=torch.float32)
+    return jm, host, kw, weights
 
 
 def _mesh(tp, rank):
@@ -135,6 +162,32 @@ def test_shards_follow_the_jax_param_specs(tiny):
             assert torch.equal(torch.cat([s[k] for s in shards], dim), w)
 
 
+def test_opt_shards_follow_the_jax_param_specs(opt_tiny):
+    """``shard_opt_params`` equals the carry-across of JAX's own OPT shard
+    (``param_specs`` :123-143: q/k/v/fc1 and their biases by output rows,
+    out_proj/fc2 by input columns, their biases and the tied embedding
+    whole), and a model built on a tensor mesh holds that slice of the
+    seed's whole model."""
+    jm, host, kw, _ = opt_tiny
+    whole = opt_params_from_jax(host)
+    specs = jm.param_specs()
+    for r in range(2):
+        want = opt_params_from_jax(_jax_shard(host, specs, 2, r))
+        got = shard_opt_params(whole, 2, r)
+        assert set(want) == set(got)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (r, k)
+        assert got["layers.0.o_proj.bias"].shape == (128,)
+        assert got["layers.0.q_proj.bias"].shape == (64,)
+        part = OPTModel(OPTConfig(**kw), device="cpu", seed=4,
+                        mesh=_mesh(2, r))
+        seeded = shard_opt_params(OPTModel(OPTConfig(**kw), device="cpu",
+                                           seed=4).state_dict(), 2, r)
+        for k, v in part.state_dict().items():
+            assert torch.equal(v, seeded[k]), k
+        assert part.num_local_heads == 4
+
+
 def test_seeded_shards_are_slices_of_the_whole_model():
     cfg = LlamaConfig.tiny(num_layers=2, dtype=torch.float32)
     whole = LlamaModel(cfg, device="cpu", seed=5).state_dict()
@@ -152,15 +205,24 @@ def test_what_tensor_parallelism_refuses():
     cfg = LlamaConfig.tiny(num_layers=1, dtype=torch.float32)
     with pytest.raises(ValueError, match="must divide the kv heads"):
         LlamaModel(cfg, device="cpu", mesh=_mesh(8, 0))
-    # Mixtral serves under tensor parallelism now; its training does not
     moe = MixtralModel(MixtralConfig.tiny(num_layers=1), device="cpu",
                        mesh=_mesh(2, 0))
     assert moe.layers[0].w_gate.shape[2] == moe.config.intermediate_size // 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
-        moe.loss(torch.zeros(1, 4, dtype=torch.long))
+    # training under tensor parallelism is ported (test_torch_tp_train
+    # runs it on gloo ranks): the config group is typed, the models train
+    assert DeepSpeedConfig.from_dict({"tensor_parallel": {
+        "autotp_size": 2}}).tensor_parallel.autotp_size == 2
+    assert LlamaModel.tensor_parallel_training
+    assert MixtralModel.tensor_parallel_training
+    assert not getattr(OPTModel, "tensor_parallel_training", False)
+    # ... but not with a seq axis, nor streamed (item 5c)
+    seq = LlamaModel(cfg, device="cpu",
+                     mesh=ProcessMesh(MeshLayout(tp=2, sp=2), rank=0))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5c"):
+        seq.loss(torch.zeros(1, 4, dtype=torch.long))
     model = LlamaModel(cfg, device="cpu", mesh=_mesh(2, 1))
-    with pytest.raises(NotImplementedError, match="training"):
-        model.loss(torch.zeros(1, 4, dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5c"):
+        model.decoder_layer({}, torch.zeros(1, 4, cfg.hidden_size))
     with pytest.raises(ValueError, match="built for 2"):
         build_engine_v2(model, cache_config=KVCacheConfig(**CACHE),
                         device="cpu", mesh=_mesh(1, 0), **ENGINE)
@@ -203,12 +265,15 @@ def test_paged_tp_matches_jax_on_a_two_way_mesh(window):
 
 # -- the slice in two ranks over gloo ---------------------------------------
 
-def test_engines_tp_match_jax(tiny):
+def test_engines_tp_match_jax(tiny, opt_tiny):
     """v2 at ``tp=2``: JAX's meshless engine's greedy tokens on both ranks,
     through the paged kernel on each rank's heads, over a pool of 2 of the
     4 kv heads, first logits within 1e-4.  v1 with ``tensor_parallel=
-    {"tp_size": 2}`` on a whole model: JAX v1's greedy tokens."""
+    {"tp_size": 2}`` on a whole model: JAX v1's greedy tokens.  OPT: v2
+    and v1 at ``tp=2`` give the ``tp=1`` port's tokens, the first logits
+    within 1e-4 of JAX's OPT."""
     jm, params, cfg_kw, weights = tiny
+    ojm, ohost, opt_kw, opt_weights = opt_tiny
     rng = np.random.RandomState(7)
     prompts = [rng.randint(1, 512, size=n).tolist() for n in (4, 13)]
     want = jax_build_engine_v2(
@@ -220,8 +285,19 @@ def test_engines_tp_match_jax(tiny):
     want_v1 = np.asarray(jax_init_inference(
         model=jm, model_params=params, dtype=jnp.float32).generate(
         jnp.asarray(ids), max_new_tokens=6))
-    got = launch(ranks.engines_rank, 2, (cfg_kw, weights, prompts, 5, CACHE,
-                                         ENGINE, ids, 6), timeout=TIMEOUT)
+    got = launch(ranks.engines_rank, 2, (
+        cfg_kw, weights, prompts, 5, CACHE, ENGINE, ids, 6,
+        {"kw": opt_kw, "weights": opt_weights}), timeout=TIMEOUT)
+    one = OPTModel(OPTConfig(**opt_kw), device="cpu")
+    one.load_state_dict(ranks._state_dict(opt_weights))
+    opt_v2 = build_engine_v2(one, cache_config=KVCacheConfig(**CACHE),
+                             device="cpu", **ENGINE).generate(
+                                 prompts, max_new_tokens=5)
+    opt_v1 = init_inference(one, device="cpu").generate(
+        torch.from_numpy(ids), max_new_tokens=6).numpy()
+    ofirst = jnp.asarray([prompts[0]])
+    opt_logits, _ = ojm.prefill(ohost, ofirst,
+                                ojm.init_cache(1, ofirst.shape[1]))
     for r in got:
         assert r["tokens"] == want
         assert r["attn_path"] == "pallas_tp_shard_map"
@@ -230,6 +306,14 @@ def test_engines_tp_match_jax(tiny):
                                    rtol=1e-4, atol=1e-4)
         np.testing.assert_array_equal(r["v1_tokens"], want_v1)
         assert r["v1_tp"] == 2 and r["v1_q_rows"] == 4 * 16
+        o = r["opt"]
+        assert o["tokens"] == opt_v2
+        assert o["attn_path"] == "pallas_tp_shard_map"
+        assert o["pool_heads"] == 4
+        np.testing.assert_array_equal(o["v1_tokens"], opt_v1)
+        assert o["v1_tp"] == 2 and o["v1_fc_in_rows"] == 256 // 2
+        np.testing.assert_allclose(o["logits"], np.asarray(opt_logits),
+                                   rtol=1e-4, atol=1e-4)
 
 
 def test_frontend_tp_matches_the_tp1_frontend(tiny):

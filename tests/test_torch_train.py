@@ -344,7 +344,6 @@ def test_initialize_refuses_what_is_not_ported():
                                        "zero_quantized_gradients": True}},
                 {"zero_optimization": {"stage": 1, "mics_shard_size": 2}},
                 {"pipeline": {"stages": 2}},
-                {"tensor_parallel": {"autotp_size": 2}},
                 {"optimizer": {"type": "Lamb", "params": {}}}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             dst.initialize(model=tm, config=dict(BASE, **bad), device="cpu")

@@ -295,7 +295,7 @@ def test_mixtral_and_serving_a_cut_model_are_refused(port_runs):
     micro-batch: one loss on both ranks, and it moves), and so does
     ZeRO-Infinity on two ranks; serving a model cut under ZeRO-3 is still
     refused, and so is ZeRO-Infinity on a tensor axis (ROADMAP Queue 1
-    item 5b)."""
+    item 5c)."""
     got = [r["refusals"] for r in port_runs(2)]
     for v in got:
         assert np.all(np.isfinite(v["mixtral"]))
@@ -304,11 +304,11 @@ def test_mixtral_and_serving_a_cut_model_are_refused(port_runs):
         for what in ("init_inference", "build_engine_v2"):
             assert "GatheredParameters" in v[what], v[what]
         # ZeRO-Infinity on two ranks trains one model; a tensor axis
-        # under it is refused (item 5b)
+        # under it is refused (item 5c)
         assert np.all(np.isfinite(v["infinity_2_ranks"]))
         assert v["infinity_2_ranks"] == got[0]["infinity_2_ranks"]
         assert v["infinity_2_ranks"][1] < v["infinity_2_ranks"][0]
-        assert "ROADMAP Queue 1 item 5b" in v["infinity_tp"], \
+        assert "ROADMAP Queue 1 item 5c" in v["infinity_tp"], \
             v["infinity_tp"]
 
 
@@ -338,6 +338,30 @@ def test_uneven_labels_per_rank_mean_beside_jax_global_mean(port_runs,
     assert abs(got[0] - jax_loss) > 1e-3
 
 
+def test_hybrid_engine_at_zero3_equals_one_process(port_runs, weights):
+    """The hybrid engine at ZeRO-3 on two ranks: after one step, greedy
+    tokens (the cut weights gathered where the model reads them) equal
+    one process's on the same global batch, on both ranks."""
+    got = [r["hybrid_z3"] for r in port_runs(2)]
+    model = LlamaModel(LlamaConfig(dtype=torch.float32,
+                                   param_dtype=torch.float32,
+                                   **ranks.MODEL), device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           weights.items()})
+    import deepspeed_tpu_torch as dst
+    cfg = dict(ranks.hybrid_z3_config(), zero_optimization={"stage": 0},
+               train_micro_batch_size_per_gpu=2)
+    engine, *_ = dst.initialize(model=model, config=cfg, device="cpu")
+    engine.train_step({"input_ids": torch.from_numpy(
+        ranks.global_batches("stage3", 2)[0])})
+    want = engine.generate(torch.tensor(ranks.HYBRID_PROMPT),
+                           max_new_tokens=ranks.HYBRID_NEW).tolist()
+    for r in got:
+        assert r["kind"] == "DeepSpeedHybridEngine"
+        assert r["cut"] == 2 * 7 + 2
+        assert r["tokens"] == want
+
+
 def test_zero_config_fields_and_refusals():
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     cfg = DeepSpeedConfig.from_dict({"zero_optimization": {
@@ -357,8 +381,7 @@ def test_zero_config_fields_and_refusals():
             ({"zero_optimization": {"zero_quantized_weights": True}}, 4),
             ({"zero_optimization": {"zero_quantized_gradients": True}}, 4),
             ({"zero_optimization": {"zero_hpz_partition_size": 2}}, 4),
-            ({"kernels": {"overlap_collectives": True}}, 4),
-            ({"tensor_parallel": {"autotp_size": 2}}, 5)):
+            ({"kernels": {"overlap_collectives": True}}, 4)):
         with pytest.raises(NotImplementedError,
                            match=f"not ported yet.*item {item}\\)"):
             DeepSpeedConfig.from_dict(bad)

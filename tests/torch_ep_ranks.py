@@ -202,24 +202,44 @@ def block_input(world: int) -> np.ndarray:
         np.float32)
 
 
+def block_cotangent(world: int) -> np.ndarray:
+    """The cotangent of the block's output (the global input's shape)."""
+    return np.random.RandomState(10).randn(2 * world, 8, 16).astype(
+        np.float32)
+
+
 def _moe_block(mesh) -> Dict[str, Any]:
     """``MoE`` on ``mesh`` with its JAX placement (experts over
     ``expert``, the FFN dim over ``tensor``): ``init_params`` keeps this
     rank's slice of the seed's whole weights; on a data axis the rank feeds
-    its rows, under tensor parallelism every rank the whole batch."""
+    its rows, under tensor parallelism every rank the whole batch.  The
+    gradients of ``Σ y·ct + l_aux`` come back too: under tensor
+    parallelism the input's, the router's and the coefficient's must be
+    whole on every rank."""
     from deepspeed_tpu_torch.moe import MoE
     world = comm.get_world_size()
     moe = MoE(**BLOCK, ep_size=mesh.shape["expert"], mesh=mesh,
               enable_expert_tensor_parallelism=True)
     params = moe.init_params(torch.Generator().manual_seed(BLOCK_SEED),
                              BLOCK_I)
+    leaves = [params["wg"], params["coefficient"],
+              params["residual_mlp"]["w_gate"],
+              params["experts"]["w_gate"]]
+    for t in leaves:
+        t.requires_grad_(True)
     x = torch.from_numpy(block_input(world))
+    ct = torch.from_numpy(block_cotangent(world))
     if mesh.shape["tensor"] == 1:
         r = comm.get_rank(mesh.group("expert", "data"))
-        x = x[2 * r:2 * r + 2]
+        x, ct = x[2 * r:2 * r + 2], ct[2 * r:2 * r + 2]
+    x.requires_grad_(True)
     y, l_aux, _ = moe(params, x)
-    return {"y": y.detach().numpy(), "l_aux": float(l_aux),
-            "w_gate": list(params["experts"]["w_gate"].shape)}
+    ((y * ct).sum() + l_aux).backward()
+    return {"y": y.detach().numpy(), "l_aux": float(l_aux.detach()),
+            "w_gate": list(params["experts"]["w_gate"].shape),
+            "grads": {name: t.grad.numpy() for name, t in zip(
+                ("x", "wg", "coefficient", "residual_w_gate",
+                 "expert_w_gate"), [x] + leaves)}}
 
 
 def _ckpt_model(mesh):

@@ -261,7 +261,7 @@ def _on_device_sp2(rank: int, weights) -> Dict[str, Any]:
 
 
 def _tp_refusal(weights) -> str:
-    """``offload_param`` on a tensor axis of 2: refused (item 5b)."""
+    """``offload_param`` on a tensor axis of 2: refused (item 5c)."""
     mesh = groups.initialize_mesh(MeshLayout.infer(2, tp=2))
     model = LlamaModel(LlamaConfig(**MODEL, dtype=torch.float32,
                                    param_dtype=torch.float32), device="cpu",

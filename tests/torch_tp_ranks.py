@@ -1,4 +1,5 @@
-"""Rank bodies of the tensor-parallel tests (``test_torch_tensor_parallel``).
+"""Rank bodies of the tensor-parallel tests (``test_torch_tensor_parallel``
+for serving, ``test_torch_tp_train`` for training).
 
 ``launcher.local.launch`` runs each in fresh processes, which import this
 module by name; it imports no JAX, so a rank starts with PyTorch alone.
@@ -7,12 +8,18 @@ returns plain values (lists and numpy arrays) to the test.
 """
 
 import time
+from typing import Any, Dict, List
 
+import numpy as np
 import torch
+import torch.utils._python_dispatch
 
 from deepspeed_tpu_torch import (KVCacheConfig, LlamaConfig, LlamaModel,
-                                 build_engine_v2, build_serving_frontend,
-                                 comm, init_distributed, init_inference)
+                                 MixtralConfig, MixtralModel, OPTConfig,
+                                 OPTModel, build_engine_v2,
+                                 build_serving_frontend, comm,
+                                 init_distributed, init_inference,
+                                 initialize, tp_model_init)
 from deepspeed_tpu_torch.models import shard_llama_params
 from deepspeed_tpu_torch.parallel import MeshLayout
 from deepspeed_tpu_torch.utils import groups
@@ -56,13 +63,41 @@ def comm_rank(rank: int, inputs):
     return out
 
 
+def _opt_serve(mesh, opt_kw, opt_weights, prompts, n_new, cache_kw,
+               engine_kw, ids, v1_new) -> Dict[str, Any]:
+    """OPT at ``tp=2``: v2 on a model built on the mesh holding its shard
+    (paged #2b on each rank's heads), the first prompt's prefill logits,
+    then v1 ``init_inference(tensor_parallel=...)`` on a whole model."""
+    from deepspeed_tpu_torch.models import shard_opt_params
+    cfg = OPTConfig(**opt_kw)
+    sd = _state_dict(opt_weights)
+    model = OPTModel(cfg, device="cpu", mesh=mesh)
+    model.load_state_dict(shard_opt_params(sd, 2, model.tp_rank))
+    eng = build_engine_v2(model, cache_config=KVCacheConfig(**cache_kw),
+                          device="cpu", mesh=mesh, **engine_kw)
+    tokens = eng.generate(prompts, max_new_tokens=n_new)
+    first = torch.tensor([prompts[0]])
+    logits, _ = model.prefill(first, model.init_cache(1, first.shape[1]))
+    whole = OPTModel(cfg, device="cpu")
+    whole.load_state_dict(sd)
+    v1 = init_inference(whole, tensor_parallel={"tp_size": 2}, device="cpu",
+                        mesh=mesh)
+    out = v1.generate(torch.from_numpy(ids), max_new_tokens=v1_new)
+    return {"tokens": tokens, "logits": logits.numpy(),
+            "attn_path": eng.last_attn_path,
+            "pool_heads": eng.pool["k"].shape[3],
+            "v1_tokens": out.numpy(), "v1_tp": whole.tp,
+            "v1_fc_in_rows": whole.layers[0].fc_in.weight.shape[0]}
+
+
 def engines_rank(rank: int, cfg_kw, weights, prompts, n_new, cache_kw,
-                 engine_kw, ids, v1_new):
+                 engine_kw, ids, v1_new, opt=None):
     """The v2 engine on this rank's shard (greedy tokens, the first
     prompt's last-token logits from ``prefill``, the decode path, the
     pool's heads); then v1 ``init_inference(tensor_parallel={"tp_size":
     2})`` on a whole model, which builds its own mesh and splits the
-    weights."""
+    weights; with ``opt`` (the OPT model's kwargs and weights) the same
+    for OPT."""
     mesh = _join(2)
     model = _tp_model(cfg_kw, weights, mesh)
     eng = build_engine_v2(model, cache_config=KVCacheConfig(**cache_kw),
@@ -74,11 +109,16 @@ def engines_rank(rank: int, cfg_kw, weights, prompts, n_new, cache_kw,
     whole.load_state_dict(_state_dict(weights))
     v1 = init_inference(whole, tensor_parallel={"tp_size": 2}, device="cpu")
     v1_out = v1.generate(torch.from_numpy(ids), max_new_tokens=v1_new)
-    return {"tokens": tokens, "logits": logits.numpy(),
-            "attn_path": eng.last_attn_path,
-            "pool_heads": eng.pool["k"].shape[3], "v1_tokens": v1_out.numpy(),
-            "v1_tp": whole.tp,
-            "v1_q_rows": whole.layers[0].q_proj.weight.shape[0]}
+    out = {"tokens": tokens, "logits": logits.numpy(),
+           "attn_path": eng.last_attn_path,
+           "pool_heads": eng.pool["k"].shape[3], "v1_tokens": v1_out.numpy(),
+           "v1_tp": whole.tp,
+           "v1_q_rows": whole.layers[0].q_proj.weight.shape[0]}
+    if opt is not None:
+        out["opt"] = _opt_serve(groups.get_mesh(), opt["kw"],
+                                opt["weights"], prompts, n_new, cache_kw,
+                                engine_kw, ids, v1_new)
+    return out
 
 
 def frontend_rank(rank: int, cfg_kw, weights, prompts, n_new, cache_kw,
@@ -118,11 +158,264 @@ def stray_rank(rank: int):
     return rank
 
 
+# -- tensor-parallel training (test_torch_tp_train) ---------------------------
+
+#: the tiny Llama of the training tests: 2 layers, GQA 8/4 (4/2 a rank at
+#: tp 2), fp32 masters (the ZeRO tests' model)
+TRAIN_MODEL = dict(vocab_size=512, hidden_size=128, intermediate_size=352,
+                   num_layers=2, num_heads=8, num_kv_heads=4,
+                   max_seq_len=256)
+#: one row a data rank (the ZeRO tests' reason: at more rows one embedding
+#: entry's gradient cancels to a few ulps); the clip reads the global norm
+TRAIN_BASE = {"train_micro_batch_size_per_gpu": 1, "steps_per_print": 0,
+              "gradient_clipping": 0.5,
+              "optimizer": {"type": "AdamW",
+                            "params": {"lr": 3e-3, "weight_decay": 0.01}}}
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_THRESHOLD = 3, 16, 1000
+#: name -> (world, ZeRO stage, loss tiles, model); every case at tp 2
+TRAIN_CASES = {
+    "tp2_tiles1": (2, 0, 1, "llama"), "tp2_tiles2": (2, 0, 2, "llama"),
+    "tp2_split_first": (2, 0, 1, "llama"),
+    "tp2_mixtral": (2, 0, 1, "mixtral"),
+    "dp2tp2_z1": (4, 1, 1, "llama"), "dp2tp2_z3": (4, 3, 1, "llama"),
+}
+#: split by ``tp_model_init`` before ``initialize``: ``tp2_tiles2`` with
+#: ``tensor_parallel.autotp_size`` in the config, ``tp2_split_first``
+#: without it (the model's own mesh gives the tensor axis)
+SPLIT_FIRST = ("tp2_tiles2", "tp2_split_first")
+#: the hybrid engine's prompt and greedy length at tp 2
+HYBRID_PROMPT, HYBRID_NEW = [[3, 17, 99, 250, 7]], 6
+
+
+def train_config(name: str, **extra) -> Dict[str, Any]:
+    _, stage, _, kind = TRAIN_CASES[name]
+    cfg = dict(TRAIN_BASE, zero_optimization={
+        "stage": stage, "stage3_param_persistence_threshold":
+        TRAIN_THRESHOLD})
+    if name != "tp2_split_first":
+        cfg["tensor_parallel"] = {"autotp_size": 2}
+    if kind == "mixtral":
+        cfg["moe"] = {"dispatch_impl": "sparse"}
+    cfg.update(extra)
+    return cfg
+
+
+def train_model_config(name: str, dtype=torch.float32):
+    _, _, tiles, kind = TRAIN_CASES[name]
+    if kind == "mixtral":
+        return MixtralConfig.tiny(num_layers=2, dtype=dtype,
+                                  param_dtype=torch.float32)
+    return LlamaConfig(dtype=dtype, param_dtype=torch.float32,
+                       loss_tiles=tiles, **TRAIN_MODEL)
+
+
+def train_batches(name: str) -> List[np.ndarray]:
+    """Each step's global batch: one row a data rank."""
+    dp = TRAIN_CASES[name][0] // 2
+    return [np.random.RandomState(20 + i).randint(0, 512, (dp, TRAIN_SEQ))
+            .astype(np.int64) for i in range(TRAIN_STEPS)]
+
+
+def _whole_model(name: str, weights, dtype=torch.float32):
+    kind = TRAIN_CASES[name][3]
+    model = (MixtralModel if kind == "mixtral" else LlamaModel)(
+        train_model_config(name, dtype), device="cpu")
+    model.load_state_dict(_state_dict(weights))
+    return model
+
+
+class _VocabWidths(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the floating-point results of every op whose last dim is the
+    whole vocabulary (the full logits, had a rank formed them)."""
+
+    def __init__(self, vocab: int):
+        super().__init__()
+        self.vocab, self.hits = vocab, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor) and t.is_floating_point() and \
+                    t.dim() >= 2 and t.shape[-1] == self.vocab:
+                self.hits += 1
+        return out
+
+
+def _local_whole(engine) -> Dict[str, np.ndarray]:
+    """This rank's masters by name, a ZeRO-3 chunk gathered to the rank's
+    tensor block."""
+    out = {}
+    for name, p, pl in zip(engine.param_names, engine.params,
+                           engine.placements):
+        t = pl.gather(p.data) if pl is not None and engine.zero_stage == 3 \
+            else p.data
+        out[name] = t.detach().numpy().copy()
+    return out
+
+
+def _moments(engine) -> Dict[str, np.ndarray]:
+    st = engine.optimizer.state_dict()
+    return {f"{k}:{n}": st[k][i].detach().numpy().copy()
+            for i, n in enumerate(engine.param_names) for k in ("m", "v")}
+
+
+def _steps(engine, name: str, rows: int) -> Dict[str, list]:
+    out = {"loss": [], "grad_norm": [], "lr": [], "skipped": []}
+    for b in train_batches(name):
+        m = engine.train_step({"input_ids": torch.from_numpy(
+            b[rows:rows + 1])})
+        for k in ("loss", "grad_norm", "lr"):
+            out[k].append(float(m[k]))
+        out["skipped"].append(int(engine.skipped_steps))
+    return out
+
+
+def _train_case(name: str, weights) -> Dict[str, Any]:
+    """The case on this rank: the whole model split by ``initialize``
+    (``SPLIT_FIRST``: by ``tp_model_init`` before it), its steps, its
+    masters after them; Mixtral also the router's gradient of step 1."""
+    groups.reset_mesh()
+    model = _whole_model(name, weights)
+    if name in SPLIT_FIRST:
+        tp_model_init(model, tp_size=2)
+    engine, *_ = initialize(model=model, config=train_config(name),
+                            device="cpu")
+    mesh = groups.get_mesh()
+    data = mesh.axis_rank("data")
+    out: Dict[str, Any] = {"tp_rank": model.tp_rank, "data_rank": data,
+                           "cut": len(engine._cut)}
+    if TRAIN_CASES[name][3] == "mixtral":  # the first step's gradient
+        model.loss({"input_ids": torch.from_numpy(
+            train_batches(name)[0][data:data + 1])}).backward()
+        out["wg_grad"] = {n: p.grad.numpy().copy() for n, p in
+                          model.named_parameters() if n.endswith(".wg")}
+        engine.zero_grad()
+    with _VocabWidths(model.config.vocab_size) as widths:
+        out.update(_steps(engine, name, data))
+    out["full_vocab_outputs"] = widths.hits
+    out["params"] = _local_whole(engine)
+    out["logits_shape"] = list(model.lm_head.weight.shape)
+    return out, engine
+
+
+def _fp16_skip(weights) -> Dict[str, Any]:
+    """fp16 at tp 2: an Inf placed in rank 1's block of a split leaf's
+    gradient makes both ranks skip the step (the flag OR-ed over
+    ``tensor``), leaving every parameter as it was."""
+    groups.reset_mesh()
+    model = _whole_model("tp2_tiles1", weights, torch.float16)
+    engine, *_ = initialize(model=model, config=train_config(
+        "tp2_tiles1", fp16={"enabled": True, "initial_scale_power": 8,
+                             "hysteresis": 1}),
+        device="cpu")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batch = {"input_ids": torch.from_numpy(train_batches("tp2_tiles1")[0])}
+    engine.backward(engine.forward(batch))
+    if model.tp_rank == 1:
+        model.layers[1].q_proj.weight.grad[0, 0] = float("inf")
+    m = engine.step()
+    same = all(torch.equal(p, before[n]) for n, p in model.named_parameters())
+    m2 = engine.train_step(batch)
+    return {"overflow": [bool(m["overflow"]), bool(m2["overflow"])],
+            "loss_scale": [m["loss_scale"], m2["loss_scale"]],
+            "skipped": engine.skipped_steps, "unchanged": same}
+
+
+def _checkpoints(engine, name: str, weights, root: Dict[str, str]
+                 ) -> Dict[str, Any]:
+    """Save the tp-2 engine, load it into a fresh tp-2 engine (bit for
+    bit, and one more step of each equal), then load the one-process
+    checkpoint ``root["tp1"]`` at tp 2."""
+    engine.save_checkpoint(root["tp2"])
+    groups.reset_mesh()
+    fresh = _whole_model(name, weights)
+    again, *_ = initialize(model=fresh, config=train_config(name),
+                           device="cpu")
+    again.load_checkpoint(root["tp2"])
+    a, b = _local_whole(engine), _local_whole(again)
+    ma, mb = _moments(engine), _moments(again)
+    equal = all(np.array_equal(a[k], b[k]) for k in a) and all(
+        np.array_equal(ma[k], mb[k]) for k in ma) and \
+        again.optimizer.count == engine.optimizer.count
+    nxt = {"input_ids": torch.from_numpy(train_batches(name)[0])}
+    resumed = float(again.train_step(nxt)["loss"])
+    original = float(engine.train_step(nxt)["loss"])
+    groups.reset_mesh()
+    third = _whole_model(name, weights)
+    from_tp1, *_ = initialize(model=third, config=train_config(name),
+                              device="cpu")
+    from_tp1.load_checkpoint(root["tp1"])
+    return {"tp2_equal": equal, "resumed_loss": resumed,
+            "original_loss": original, "from_tp1": _local_whole(from_tp1),
+            "from_tp1_moments": _moments(from_tp1),
+            "from_tp1_count": from_tp1.optimizer.count}
+
+
+def _hybrid(weights) -> List[List[int]]:
+    """The hybrid engine at tp 2: one step, then greedy tokens (each rank
+    decodes its heads)."""
+    groups.reset_mesh()
+    model = _whole_model("tp2_tiles1", weights)
+    engine, *_ = initialize(model=model, config=train_config(
+        "tp2_tiles1", hybrid_engine={"enabled": True, "max_out_tokens": 4}),
+        device="cpu")
+    engine.train_step({"input_ids": torch.from_numpy(
+        train_batches("tp2_tiles1")[0])})
+    return engine.generate(torch.tensor(HYBRID_PROMPT),
+                           max_new_tokens=HYBRID_NEW).tolist()
+
+
+def _refusals_4(llama_w, mixtral_w) -> Dict[str, str]:
+    """On four ranks: a tensor axis with a seq axis, or with an expert
+    axis, is refused (item 5c)."""
+    out = {}
+    for what, name, extra in (
+            ("seq", "dp2tp2_z1", {"sequence_parallel": {"sp_size": 2}}),
+            ("expert", "tp2_mixtral", {"moe": {
+                "dispatch_impl": "sparse", "expert_parallel_size": 2}})):
+        groups.reset_mesh()
+        weights = mixtral_w if what == "expert" else llama_w
+        try:
+            initialize(model=_whole_model(name, weights),
+                       config=train_config(name, **extra), device="cpu")
+            out[what] = "accepted"
+        except NotImplementedError as e:
+            out[what] = str(e)
+    return out
+
+
+def tp_train_rank(rank: int, llama_w, mixtral_w, root: Dict[str, str]
+                  ) -> Dict[str, Any]:
+    """Every training case of this world size on this rank (two ranks:
+    also fp16, the checkpoints and the hybrid engine)."""
+    torch.set_num_threads(1)
+    init_distributed(device="cpu")
+    world = comm.get_world_size()
+    out: Dict[str, Any] = {}
+    for name, (w, *_rest) in TRAIN_CASES.items():
+        if w != world:
+            continue
+        kind = TRAIN_CASES[name][3]
+        out[name], engine = _train_case(
+            name, mixtral_w if kind == "mixtral" else llama_w)
+        if name == "tp2_tiles1":
+            out["ckpt"] = _checkpoints(engine, name, llama_w, root)
+        del engine
+    if world == 2:
+        out["fp16"] = _fp16_skip(llama_w)
+        out["hybrid"] = _hybrid(llama_w)
+    else:
+        out["refusals"] = _refusals_4(llama_w, mixtral_w)
+    return out
+
+
 def np_weights(model) -> dict:
     """A model's state dict as fp32 numpy arrays (sent to the ranks by
     value)."""
     return {k: v.float().numpy() for k, v in model.state_dict().items()}
 
 
-__all__ = ["comm_rank", "engines_rank", "frontend_rank", "np_weights",
-           "serve_script", "stray_rank"]
+__all__ = ["HYBRID_NEW", "HYBRID_PROMPT", "TRAIN_CASES", "TRAIN_MODEL",
+           "comm_rank", "engines_rank", "frontend_rank", "np_weights",
+           "serve_script", "stray_rank", "tp_train_rank",
+           "train_batches", "train_config", "train_model_config"]

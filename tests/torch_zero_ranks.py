@@ -231,6 +231,33 @@ def _uneven_eval(rank: int, world: int,
     return float(engine.eval_loss(rows))
 
 
+#: the hybrid engine's prompt and greedy length at ZeRO-3
+HYBRID_PROMPT, HYBRID_NEW = [[5, 40, 311, 2, 77, 9]], 6
+
+
+def hybrid_z3_config() -> Dict[str, Any]:
+    return dict(case_config("stage3"), hybrid_engine={"enabled": True})
+
+
+def _hybrid_z3(rank: int, world: int,
+               weights: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """The hybrid engine at ZeRO-3: one step of the stage-3 case's first
+    global batch, then greedy tokens, the model reading its cut weights
+    through ``compute_weight`` (gathered over the ranks)."""
+    model = _model(torch.float32, seed=0)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in weights.items()})
+    engine, *_ = initialize(model=model, config=hybrid_z3_config(),
+                            device="cpu")
+    engine.train_step({"input_ids": torch.from_numpy(local_rows(
+        global_batches("stage3", world)[0], rank, world))})
+    tokens = engine.generate(torch.tensor(HYBRID_PROMPT),
+                             max_new_tokens=HYBRID_NEW).tolist()
+    return {"tokens": tokens, "cut": sum(p is not None
+                                         for p in engine.placements),
+            "kind": type(engine).__name__}
+
+
 def _refusals(rank: int) -> Dict[str, Any]:
     """Mixtral trains on the data axis (its routing is the global
     micro-batch's: two steps' losses), and so does ZeRO-Infinity; serving
@@ -267,7 +294,7 @@ def _refusals(rank: int) -> Dict[str, Any]:
     ids = torch.arange(16)[None] * 3 + 50 * rank
     out["infinity_2_ranks"] = [float(engine.train_step(
         {"input_ids": ids})["loss"]) for _ in range(2)]
-    # ... and is refused on a tensor axis (item 5b)
+    # ... and is refused on a tensor axis (item 5c)
     mesh = groups.initialize_mesh(MeshLayout.infer(2, tp=2))
     try:
         initialize(model=LlamaModel(LlamaConfig(
@@ -300,10 +327,12 @@ def zero_rank(rank: int, weights: Dict[str, np.ndarray],
         out["init"] = _init_and_gathered(rank, world)
         out["refusals"] = _refusals(rank)
         out["uneven_eval"] = _uneven_eval(rank, world, weights)
+        out["hybrid_z3"] = _hybrid_z3(rank, world, weights)
     return out
 
 
-__all__ = ["BASE", "EXTRA_CASES", "MODEL", "OFFLOAD_CASES", "OVERFLOW_NORM",
+__all__ = ["BASE", "EXTRA_CASES", "HYBRID_NEW", "HYBRID_PROMPT", "MODEL",
+           "OFFLOAD_CASES", "OVERFLOW_NORM", "hybrid_z3_config",
            "STAGE_CASES", "STEPS", "all_cases",
            "THRESHOLD", "case_config", "global_batches", "local_rows",
            "uneven_batch", "zero_rank"]
