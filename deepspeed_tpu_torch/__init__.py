@@ -32,8 +32,11 @@ and MLP (``sequence_parallel.sp_size``, :mod:`.runtime.sequence_parallel`,
 :class:`DistributedAttention`), the flash kernels on each rank's heads;
 and tensor-parallel training of Llama and Mixtral
 (``tensor_parallel.autotp_size``, :func:`tp_model_init`: Megatron's *f*
-and *g*, the vocabulary-parallel loss, ZeRO over data x tensor), OPT
-served under tensor parallelism, and the hybrid engine
+and *g*, the vocabulary-parallel loss, ZeRO over data x tensor), with
+Ulysses or the ring over a ``seq`` axis beside it, streamed by
+ZeRO-Infinity, of BERT, OPT and ResNet, and of client modules split by
+AutoTP's name policy (``runtime.tensor_parallel.auto_tp``), OPT served
+under tensor parallelism, and the hybrid engine
 (``hybrid_engine.enabled``, :class:`DeepSpeedHybridEngine`).  Every
 entry point runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run.

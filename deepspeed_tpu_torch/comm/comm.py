@@ -15,7 +15,11 @@ the three that tensor-parallel training differentiates through, Megatron's
 :137, ``_tp_reduce`` :160, ``_tp_max`` :184): ``tp_copy`` (identity
 forward, the gradient summed over the group), ``tp_reduce`` (the sum
 forward, the gradient as it is) and ``tp_max`` (the max forward, a zero
-gradient).  The
+gradient), and AutoTP's two for a split layer without its partner
+(``runtime/tensor_parallel.auto_tp``): ``tp_gather`` (a column-parallel
+output all-gathered, the backward taking the rank's block) and
+``tp_split`` (the rank's block of a whole input, the backward
+all-gathering the gradient).  The
 JAX package's verbs run XLA collectives over a mesh of one controller;
 here every rank is a process and a verb is a ``torch.distributed``
 collective over a process group.  A ``group`` is a
@@ -422,6 +426,54 @@ class _TPMax(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return torch.zeros_like(grad), None
+
+
+class _TPGather(torch.autograd.Function):
+    """The ranks' blocks of the last dim concatenated in group-rank order;
+    the backward keeps this rank's block of the gradient (every rank reads
+    the whole result alike, so its gradient is equal on the ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[-1]
+        return all_gather(x.contiguous(), group=group, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        r = dist.get_rank(ctx.group)
+        return grad.narrow(-1, r * ctx.n, ctx.n).contiguous(), None
+
+
+class _TPSplit(torch.autograd.Function):
+    """This rank's block of the last dim of a tensor every rank holds
+    whole; the backward all-gathers the blocks' gradients (the whole
+    input's gradient, equal on the ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        n = dist.get_world_size(group)
+        if x.shape[-1] % n:
+            raise ValueError(f"tp_split: last dim of {tuple(x.shape)} does "
+                             f"not split over {n} ranks")
+        ctx.group = group
+        k = x.shape[-1] // n
+        return x.narrow(-1, dist.get_rank(group) * k, k).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad.contiguous(), group=ctx.group, dim=-1), None
+
+
+def tp_gather(x: torch.Tensor, group: GroupLike = None) -> torch.Tensor:
+    """A column-parallel output made whole: the ranks' blocks of the last
+    dim all-gathered, the backward taking this rank's block."""
+    return _TPGather.apply(x, _resolve(group))
+
+
+def tp_split(x: torch.Tensor, group: GroupLike = None) -> torch.Tensor:
+    """This rank's block of the last dim of a whole ``x`` (the input of a
+    row-parallel product that no column-parallel one feeds)."""
+    return _TPSplit.apply(x, _resolve(group))
 
 
 def tp_copy(x: torch.Tensor, group: GroupLike = None) -> torch.Tensor:

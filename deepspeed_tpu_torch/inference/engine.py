@@ -7,10 +7,11 @@ the model's ``decode_step`` calls.  Tensor-parallel inference
 (``tensor_parallel={"tp_size": N}``) runs one process per rank: the engine
 takes the model's mesh, or builds one over the joined process group
 (joining it from the launcher's environment first) and splits a whole
-model's weights in place (``LlamaModel.shard_`` / ``OPTModel.shard_``,
-the reference's AutoTP; a Mixtral's expert stacks keep their ``I/tp``
-FFN columns).  Each rank's decode kernel then runs on its own heads, and
-every rank returns the same tokens.
+model's weights in place (``LlamaModel.shard_`` / ``OPTModel.shard_``;
+a Mixtral's expert stacks keep their ``I/tp`` FFN columns; any other
+module by AutoTP's name policy, ``runtime/tensor_parallel.auto_tp``).
+Each rank's decode kernel then runs on its own heads, and every rank
+returns the same tokens.
 """
 
 from __future__ import annotations
@@ -47,24 +48,22 @@ class InferenceEngine:
         check_module_device(model, self.device)
         refuse_cut(model, "init_inference")
         tp = int(config.tensor_parallel.get("tp_size", 1))
-        if tp > 1 and not hasattr(model, "shard_"):
-            raise NotImplementedError(
-                f"{type(model).__name__} has no tensor-parallel split; the "
-                "name policy for client modules is not ported yet (ROADMAP "
-                "Queue 1 item 5c)")
-        if tp > 1 and model.tp == 1:
+        if tp > 1 and getattr(model, "tp", 1) == 1:
+            from ..runtime.tensor_parallel import split_model_
+
             if mesh is None:
                 from ..comm import comm
                 comm.init_distributed(device=self.device)
                 mesh = groups.initialize_mesh(MeshLayout.infer(tp=tp))
-            model.shard_(mesh)
-        if model.tp != tp or (mesh is not None
+            split_model_(model, mesh)
+        model_tp = getattr(model, "tp", 1)
+        if model_tp != tp or (mesh is not None
                               and mesh.shape[AXIS_TENSOR] != tp):
             raise ValueError(f"tp_size={tp}, but the model is split over "
-                             f"{model.tp} ranks")
+                             f"{model_tp} ranks")
         self.module = model
         self.config = config
-        self.mesh = model.mesh
+        self.mesh = getattr(model, "mesh", None)
         log_dist(f"init_inference: tp={tp} device={self.device} "
                  f"dtype={config.dtype} "
                  f"kernel_inject={config.replace_with_kernel_inject}")

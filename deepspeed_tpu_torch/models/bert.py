@@ -22,6 +22,17 @@ in that dtype (``F.layer_norm`` in bf16 rounds elsewhere).  Weights live in
 as in ``models/llama.py``; remat keeps the weight matmuls' outputs and
 recomputes the rest, the JAX ``dots_with_no_batch_dims_saveable``.
 
+Tensor parallelism (training; JAX ``param_specs`` :156-178): built on a
+process mesh (``BertModel(config, mesh=...)``) whose ``tensor`` axis has
+size ``tp``, or split in place by :meth:`BertModel.shard_` (``initialize``
+does it), each rank holds ``q_proj`` / ``k_proj`` / ``v_proj`` /
+``fc_in`` and their biases by a block of output rows (its ``h/tp`` heads,
+``I/tp`` of the MLP), ``o_proj`` / ``fc_out`` by the matching block of
+input columns; their biases, the embeddings, the LayerNorms and the MLM
+head are whole.  The layers run Megatron's *f* and *g*, the row-parallel
+biases added once after the sum; the flash kernels run on the rank's
+``h/tp`` heads with the padding as segments.
+
 Not ported: random-LTD (JAX ``ltd_keep``, ROADMAP Queue 1 item 10) and the
 compression activation quantizer (``act_quant_bits``, item 10); each raises
 when set.  The numerics probes are telemetry (item 12) and are left out.
@@ -41,11 +52,33 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.kernels.flash_attention import flash_attention
+from ..parallel.mesh import AXIS_TENSOR, ProcessMesh
 from ..runtime.zero.init_ctx import active as zero_init_active
 from ..runtime.zero.init_ctx import materialize
-from ..runtime.zero.sharder import compute_weight
+from ..runtime.zero.sharder import TensorShard, compute_weight
 from ..utils.device import DeviceLike, resolve_device
-from .llama import _attention, _save_weight_matmuls, masked_cross_entropy
+from .llama import (TensorSplit, _attention, _save_weight_matmuls,
+                    masked_cross_entropy, split_block)
+
+#: a BERT or OPT layer's state-dict entry → the dim tensor parallelism
+#: splits (the JAX ``param_specs``' ``tensor`` entries: ``bert.py``
+#: :156-178, ``opt.py`` :123-143): q, k, v and the MLP's input projection
+#: with their biases by output rows, the output projections by input
+#: columns; their biases (``o_proj.bias``, ``fc_out.bias``), the
+#: embeddings, the norms and the heads are whole
+BIASED_TP_DIMS = {"q_proj.weight": 0, "q_proj.bias": 0,
+                  "k_proj.weight": 0, "k_proj.bias": 0, "v_proj.weight": 0,
+                  "v_proj.bias": 0, "o_proj.weight": 1, "fc_in.weight": 0,
+                  "fc_in.bias": 0, "fc_out.weight": 1}
+
+
+def biased_tp_split_dim(name: str) -> Optional[int]:
+    """The dim of BERT or OPT state-dict entry ``name`` that tensor
+    parallelism splits; None for a weight every rank holds whole."""
+    parts = name.split(".", 2)
+    if len(parts) == 3 and parts[0] == "layers":
+        return BIASED_TP_DIMS.get(parts[2])
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,41 +179,48 @@ def _vector(n: int, device: DeviceLike, dtype: torch.dtype) -> nn.Parameter:
 
 
 class BertLayer(nn.Module):
-    """One post-LN encoder block; ``nn.Linear`` weights are ``[out, in]``."""
+    """One post-LN encoder block; ``nn.Linear`` weights are ``[out, in]``;
+    under tensor parallelism (``tp > 1``) this rank's ``1/tp`` of the
+    heads and of the MLP."""
 
-    def __init__(self, c: BertConfig, device: DeviceLike):
+    def __init__(self, c: BertConfig, device: DeviceLike, tp: int = 1):
         super().__init__()
         H, I, dt = c.hidden_size, c.intermediate_size, c.storage_dtype
-        self.q_proj = _linear(H, H, device, dt)
-        self.k_proj = _linear(H, H, device, dt)
-        self.v_proj = _linear(H, H, device, dt)
-        self.o_proj = _linear(H, H, device, dt)
+        self.q_proj = _linear(H, H // tp, device, dt)
+        self.k_proj = _linear(H, H // tp, device, dt)
+        self.v_proj = _linear(H, H // tp, device, dt)
+        self.o_proj = _linear(H // tp, H, device, dt)
         self.attn_ln_w = _vector(H, device, dt)
         self.attn_ln_b = _vector(H, device, dt)
-        self.fc_in = _linear(H, I, device, dt)
-        self.fc_out = _linear(I, H, device, dt)
+        self.fc_in = _linear(H, I // tp, device, dt)
+        self.fc_out = _linear(I // tp, H, device, dt)
         self.mlp_ln_w = _vector(H, device, dt)
         self.mlp_ln_b = _vector(H, device, dt)
 
 
-class BertModel(nn.Module):
+class BertModel(TensorSplit, nn.Module):
     """BERT masked-LM encoder.  ``device`` defaults to ``"cuda"`` and raises
     without a CUDA device; weights are drawn from a ``torch.Generator``
-    seeded with ``seed``."""
+    seeded with ``seed``.  ``mesh`` (a process mesh whose ``tensor`` axis
+    is ``tp``) makes the model this rank's tensor-parallel split
+    (:data:`BIASED_TP_DIMS`), as :meth:`shard_` does to a whole one."""
 
     #: random-LTD's kept tokens and the activation quantizer's bits: the
     #: JAX engine arms them; here either raises (:func:`refuse_unported`)
     ltd_keep: Optional[int] = None
     act_quant_bits: Optional[int] = None
+    #: trains on a mesh whose ``tensor`` axis is above 1
+    tensor_parallel_training = True
 
     def __init__(self, config: BertConfig, device: DeviceLike = "cuda",
-                 seed: int = 0):
+                 seed: int = 0, mesh: Optional[ProcessMesh] = None):
         super().__init__()
         dev = resolve_device(device)
         self.config = c = config
         if c.attn_impl not in ("flash", "xla"):
             raise ValueError(f"attn_impl {c.attn_impl!r} is not ported (use "
                              "'flash' or 'xla')")
+        self._set_mesh(mesh)
         H, dt = c.hidden_size, c.storage_dtype
         self.word_embed = nn.Embedding(c.vocab_size, H, device="meta",
                                        dtype=dt)
@@ -190,7 +230,7 @@ class BertModel(nn.Module):
                                        dtype=dt)
         self.embed_ln_w = _vector(H, "meta", dt)
         self.embed_ln_b = _vector(H, "meta", dt)
-        self.layers = nn.ModuleList(BertLayer(c, "meta")
+        self.layers = nn.ModuleList(BertLayer(c, "meta", self.tp)
                                     for _ in range(c.num_layers))
         self.mlm_dense = _linear(H, H, "meta", dt)
         self.mlm_ln_w = _vector(H, "meta", dt)
@@ -199,6 +239,49 @@ class BertModel(nn.Module):
         if zero_init_active() is None:
             self.to_empty(device=dev)
         self.init_params(seed, dev)
+        self._mark_tensor()
+
+    def _set_mesh(self, mesh: Optional[ProcessMesh]) -> None:
+        """Take ``mesh``'s tensor axis: this rank's split sizes and
+        place."""
+        c = self.config
+        tp = int(mesh.shape[AXIS_TENSOR]) if mesh is not None else 1
+        for what, n in (("heads", c.num_heads),
+                        ("intermediate size", c.intermediate_size)):
+            if n % tp:
+                raise ValueError(f"tensor size {tp} must divide the {what} "
+                                 f"({n})")
+        self.mesh = mesh
+        self.tp = tp
+        self.tp_rank = mesh.axis_rank(AXIS_TENSOR) if tp > 1 else 0
+        #: this rank's heads
+        self.num_local_heads = c.num_heads // tp
+
+    def _mark_tensor(self) -> None:
+        if self.tp == 1:
+            return
+        for name, p in self.named_parameters():
+            dim = biased_tp_split_dim(name)
+            if dim is not None:
+                p.ds_tensor = TensorShard(dim, self.tp, self.tp_rank)
+
+    @torch.no_grad()
+    def shard_(self, mesh: ProcessMesh) -> "BertModel":
+        """Keep this rank's tensor-parallel slice of a whole model's
+        weights, in place."""
+        if self.tp != 1:
+            raise ValueError(f"the model is already split over {self.tp} "
+                             "ranks")
+        self._set_mesh(mesh)
+        for name, p in self.named_parameters():
+            dim = biased_tp_split_dim(name)
+            if dim is not None:
+                p.data = split_block(p.data, dim, self.tp, self.tp_rank, name)
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                module.out_features, module.in_features = module.weight.shape
+        self._mark_tensor()
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -210,13 +293,23 @@ class BertModel(nn.Module):
         """The JAX model's distribution: every matrix ``N(0, 1/fan_in)``
         (fan-in H, ``I`` for the FFN's output), biases 0, norms' scales 1,
         drawn in fp32 from a generator seeded with ``seed`` (its numbers
-        differ from JAX's)."""
+        differ from JAX's); on a tensor axis each whole weight is drawn and
+        this rank's block kept (a slice of the one-process model)."""
         dev = device if device is not None else self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
+        split = {id(p): biased_tp_split_dim(n)
+                 for n, p in self.named_parameters()} if self.tp > 1 else {}
 
         def normal_(w: torch.Tensor, fan_in: int) -> None:
-            full = torch.randn(w.shape, generator=gen, device=dev,
+            dim = split.get(id(w))
+            shape = list(w.shape)
+            if dim is not None:
+                shape[dim] *= self.tp
+            full = torch.randn(shape, generator=gen, device=dev,
                                dtype=torch.float32).div_(math.sqrt(fan_in))
+            if dim is not None:
+                n = w.shape[dim]
+                full = full.narrow(dim, self.tp_rank * n, n)
             materialize(w, dev, lambda t: t.copy_(full))
 
         def fill_(w: torch.Tensor, value: float) -> None:
@@ -230,7 +323,10 @@ class BertModel(nn.Module):
             linears += [layer.q_proj, layer.k_proj, layer.v_proj,
                         layer.o_proj, layer.fc_in, layer.fc_out]
         for lin in linears:
-            normal_(lin.weight, lin.in_features)
+            # a row-parallel weight holds 1/tp of its inputs; the fan-in is
+            # the whole weight's
+            normal_(lin.weight, lin.in_features * (
+                self.tp if split.get(id(lin.weight)) == 1 else 1))
             fill_(lin.bias, 0.0)
         for name, p in self.named_parameters():
             if name.endswith("_ln_w"):
@@ -243,22 +339,26 @@ class BertModel(nn.Module):
     def encoder_layer(self, layer: BertLayer, x: torch.Tensor,
                       pad_mask: torch.Tensor) -> torch.Tensor:
         """One post-LN block ``[B, S, H] → [B, S, H]``; ``pad_mask [B, S]``
-        True at real tokens."""
+        True at real tokens.  Under tensor parallelism *f* precedes q, k, v
+        and the MLP's input projection (this rank's heads and columns), *g*
+        sums the output projections, whose biases are added once after
+        it."""
         c = self.config
         dt = c.dtype
         B, S, _ = x.shape
-        q, k, v = (linear(lin, x, dt).view(B, S, c.num_heads, c.hd)
+        h = self._tp_copy(x)
+        q, k, v = (linear(lin, h, dt).view(B, S, self.num_local_heads, c.hd)
                    for lin in (layer.q_proj, layer.k_proj, layer.v_proj))
         if c.attn_impl == "flash":
             attn = flash_attention(q, k, v, causal=False,
                                    segment_ids=pad_mask.to(torch.int32))
         else:
             attn = _attention(q, k, v, pad_mask[:, None, None, :])
-        out = linear(layer.o_proj, attn.reshape(B, S, -1), dt)
+        out = self._row_parallel(layer.o_proj, attn.reshape(B, S, -1))
         x = _layer_norm(x + out, layer.attn_ln_w, layer.attn_ln_b,
                         c.layer_norm_eps)
-        h = F.gelu(linear(layer.fc_in, x, dt))
-        h = linear(layer.fc_out, h, dt)
+        h = F.gelu(linear(layer.fc_in, self._tp_copy(x), dt))
+        h = self._row_parallel(layer.fc_out, h)
         return _layer_norm(x + h, layer.mlp_ln_w, layer.mlp_ln_b,
                            c.layer_norm_eps)
 

@@ -44,9 +44,15 @@ entropy (local ``[B, s, V/tp]`` fp32 logits, the max shift over
 ``tensor`` by ``comm.tp_max``, ``lse = log(g(Σ exp)) + m``, the gold
 logit from the one rank that owns it, summed by *g*), tiled by
 ``config.loss_tiles``.  Under remat the recompute re-runs a layer's *g*:
-every tensor rank issues them in the same order.  Pipeline parallelism,
-and tensor parallelism with a ``seq`` axis or layer streaming, are not
-ported yet (ROADMAP Queue 1 items 8 and 5c).
+every tensor rank issues them in the same order.  With a ``seq`` axis
+too (JAX's ``(DP, seq, tensor)`` constraints around ``ulysses_attention``)
+a rank holds its ``h/tp`` heads of its ``S/sp`` chunk: Ulysses exchanges
+them over the rank's ``seq`` group (``h/(tp·sp)`` heads at the full
+sequence; the ring runs on the ``h/tp`` heads), and the
+vocabulary-parallel loss of the chunk is summed over ``tensor``, its
+share of the token mean over ``seq``.  The layer-streaming protocol runs
+the same split layers (ZeRO-Infinity under tensor parallelism).
+Pipeline parallelism is not ported yet (ROADMAP Queue 1 item 8).
 
 Sequence parallelism (training; ``runtime/sequence_parallel``): on a mesh
 whose ``seq`` axis has size ``sp`` above 1 (``initialize`` hands the model
@@ -408,6 +414,15 @@ class TensorSplit:
             return x
         return comm.tp_reduce(x, self.mesh.group(AXIS_TENSOR))
 
+    def _row_parallel(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product in the model's compute dtype summed over
+        ``tensor`` (*g*), its bias (whole) added once after the sum (at
+        ``tp`` 1: ``x @ W.T + b``, the product rounded before the bias)."""
+        dt = self.config.dtype
+        out = self._tp_reduce(F.linear(x, compute_weight(lin.weight, dt)))
+        return out if lin.bias is None else \
+            out + compute_weight(lin.bias, dt)
+
 
 class LlamaModel(TensorSplit, nn.Module):
     """Llama decoder with a KV cache.  ``device`` defaults to ``"cuda"``
@@ -744,7 +759,8 @@ class LlamaModel(TensorSplit, nn.Module):
         else:
             n_rep = c.num_heads // c.num_kv_heads
             k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-            attn = (ulysses_attention(self._attention, q, k, v, group=group)
+            attn = (ulysses_attention(self._attention, q, k, v, group=group,
+                                      tp=self.tp)
                     if sp > 1 else self._attention(q, k, v))
         return self._post_attn(layer, x, attn)
 
@@ -814,10 +830,6 @@ class LlamaModel(TensorSplit, nn.Module):
         """One decoder layer on ``layer_params`` over ``x [B, S, H]`` →
         ``(x, aux loss)`` (``torch.func.functional_call`` of a layer of the
         model's on the weights handed in)."""
-        if self.tp > 1:
-            raise NotImplementedError("layer streaming under tensor "
-                                      "parallelism is not ported yet "
-                                      "(ROADMAP Queue 1 item 5c)")
         caller = _LayerCall(self, self.layers[0])
         return torch.func.functional_call(
             caller, {f"layer.{k}": v for k, v in layer_params.items()},
@@ -848,7 +860,7 @@ class LlamaModel(TensorSplit, nn.Module):
         rows."""
         c = self.config
         w = compute_weight(head, c.dtype)
-        if self.tp > 1 and head is not self.embed.weight:
+        if self.tp > 1 and not c.tie_embeddings:
             return sequence_tiled_nll(None, hidden, labels, c.loss_tiles,
                                       nll_fn=functools.partial(
                                           self._vocab_parallel_nll, w))
@@ -892,10 +904,13 @@ class LlamaModel(TensorSplit, nn.Module):
         S = input_ids.shape[1]
         if S % sp:
             raise ValueError(f"sequence length {S} not divisible by sp={sp}")
-        if c.attn_impl != "ring" and c.num_heads % sp:
-            raise ValueError(f"num_heads {c.num_heads} not divisible by "
-                             f"sp={sp}: Ulysses gives each seq rank h/sp "
-                             "heads; use attn_impl='ring'")
+        if c.attn_impl != "ring" and self.num_local_heads % sp:
+            heads = (f"num_heads {c.num_heads}" if self.tp == 1 else
+                     f"h/tp = {c.num_heads}/{self.tp} = "
+                     f"{self.num_local_heads} heads")
+            raise ValueError(f"{heads} not divisible by sp={sp}: Ulysses "
+                             "gives each seq rank a share of them; use "
+                             "attn_impl='ring'")
         n = S // sp
         lo = self.mesh.axis_rank(AXIS_SEQ) * n
         return input_ids[:, lo:lo + n], labels[:, lo:lo + n], lo
@@ -907,10 +922,6 @@ class LlamaModel(TensorSplit, nn.Module):
         nll over the valid labels of the whole sequence (the count summed
         over ``seq``, without a gradient)."""
         input_ids, labels = self.batch_labels(batch)
-        if self.tp > 1 and int(self.mesh.shape.get(AXIS_SEQ, 1)) > 1:
-            raise NotImplementedError("training under tensor parallelism "
-                                      "with a seq axis is not ported yet "
-                                      "(ROADMAP Queue 1 item 5c)")
         group, sp = self._seq()
         offset = 0
         if sp > 1:

@@ -13,7 +13,8 @@ num_heads``); ``inference/v2/adapters.OPTV2Adapter`` serves it over the
 paged pool.  Prefill and training attend with the plain masked softmax, as
 the JAX model's ``_attention``.
 
-Tensor parallelism (serving; JAX ``param_specs`` :123-143): built on a
+Tensor parallelism (serving and training; JAX ``param_specs``
+:123-143): built on a
 process mesh (``OPTModel(config, mesh=...)``) whose ``tensor`` axis has
 size ``tp``, or split in place by :meth:`OPTModel.shard_`
 (``init_inference(tensor_parallel={"tp_size": tp})`` does it), each rank
@@ -23,8 +24,12 @@ a block of output rows (its ``h/tp`` heads, ``F/tp`` of the MLP), and
 biases, the tied embedding and head, the positions and the norms are
 whole.  The row-parallel outputs are summed over ``tensor`` (Megatron's
 *g*, after *f* before the column-parallel products) and their biases
-added once, after the sum.  Training under tensor parallelism is not
-ported yet (ROADMAP Queue 1 item 5c).
+added once, after the sum.  Training under tensor parallelism
+(``initialize`` with ``tensor_parallel.autotp_size``) computes the whole
+logits and the loss on every rank from the whole tied head; the
+embedding's gradient is then equal on the tensor ranks (*f* summed it
+into the residual stream) and is not reduced again, and so are the
+row-parallel biases', which count as whole leaves.
 """
 
 from __future__ import annotations
@@ -43,8 +48,8 @@ from ..runtime.zero.init_ctx import active as zero_init_active
 from ..runtime.zero.init_ctx import materialize
 from ..runtime.zero.sharder import TensorShard, compute_weight
 from ..utils.device import DeviceLike, resolve_device
-from .bert import (_layer_norm, _linear, _vector, linear, refuse_unported,
-                   remat)
+from .bert import (_layer_norm, _linear, _vector, biased_tp_split_dim,
+                   linear, refuse_unported, remat)
 from .llama import (LlamaModel, TensorSplit, _attention, masked_cross_entropy,
                     split_block)
 
@@ -100,33 +105,16 @@ class OPTConfig:
             L * per_layer + 2 * H
 
 
-#: a layer's state-dict entry → the dim tensor parallelism splits (the
-#: JAX ``param_specs``' ``tensor`` entries); the row-parallel biases
-#: (``o_proj.bias``, ``fc_out.bias``) are whole
-OPT_TP_DIMS = {"q_proj.weight": 0, "q_proj.bias": 0, "k_proj.weight": 0,
-               "k_proj.bias": 0, "v_proj.weight": 0, "v_proj.bias": 0,
-               "o_proj.weight": 1, "fc_in.weight": 0, "fc_in.bias": 0,
-               "fc_out.weight": 1}
-
-
-def opt_tp_split_dim(name: str) -> Optional[int]:
-    """The dim of OPT state-dict entry ``name`` that tensor parallelism
-    splits; None for a weight every rank holds whole."""
-    parts = name.split(".", 2)
-    if len(parts) == 3 and parts[0] == "layers":
-        return OPT_TP_DIMS.get(parts[2])
-    return None
-
-
 def shard_opt_params(state_dict: Dict[str, torch.Tensor], tp: int,
                      rank: int) -> Dict[str, torch.Tensor]:
     """Rank ``rank``'s ``state_dict`` of an OPT split over ``tp`` ranks
-    (:data:`OPT_TP_DIMS`; the rest whole)."""
+    (:data:`.bert.BIASED_TP_DIMS`, the JAX ``param_specs``; the rest
+    whole)."""
     if not 0 <= rank < tp:
         raise ValueError(f"rank {rank} out of range for tp={tp}")
     out = {}
     for name, t in state_dict.items():
-        dim = opt_tp_split_dim(name)
+        dim = biased_tp_split_dim(name)
         out[name] = t if dim is None else split_block(t, dim, tp, rank, name)
     return out
 
@@ -159,6 +147,8 @@ class OPTModel(TensorSplit, nn.Module):
     #: the compression activation quantizer's bits (JAX arms them; here
     #: they raise, :func:`.bert.refuse_unported`)
     act_quant_bits: Optional[int] = None
+    #: trains on a mesh whose ``tensor`` axis is above 1
+    tensor_parallel_training = True
 
     def __init__(self, config: OPTConfig, device: DeviceLike = "cuda",
                  seed: int = 0, mesh: Optional[ProcessMesh] = None):
@@ -197,7 +187,7 @@ class OPTModel(TensorSplit, nn.Module):
         if self.tp == 1:
             return
         for name, p in self.named_parameters():
-            dim = opt_tp_split_dim(name)
+            dim = biased_tp_split_dim(name)
             if dim is not None:
                 p.ds_tensor = TensorShard(dim, self.tp, self.tp_rank)
 
@@ -210,7 +200,7 @@ class OPTModel(TensorSplit, nn.Module):
                              "ranks")
         self._set_mesh(mesh)
         for name, p in self.named_parameters():
-            dim = opt_tp_split_dim(name)
+            dim = biased_tp_split_dim(name)
             if dim is not None:
                 p.data = split_block(p.data, dim, self.tp, self.tp_rank, name)
         for module in self.modules():
@@ -218,16 +208,6 @@ class OPTModel(TensorSplit, nn.Module):
                 module.out_features, module.in_features = module.weight.shape
         self._mark_tensor()
         return self
-
-    def _row_parallel(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        """A row-parallel product summed over ``tensor`` (Megatron's *g*),
-        its bias added once after the sum."""
-        c = self.config
-        if self.tp == 1:
-            return linear(lin, x, c.dtype)
-        out = self._tp_reduce(F.linear(x, compute_weight(lin.weight,
-                                                         c.dtype)))
-        return out + compute_weight(lin.bias, c.dtype)
 
     @property
     def device(self) -> torch.device:

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import AXIS_TENSOR, ProcessMesh
 from ..runtime.zero.init_ctx import active as zero_init_active
 from ..runtime.zero.init_ctx import materialize
 from ..runtime.zero.sharder import compute_weight
@@ -150,13 +151,23 @@ class BasicBlock(nn.Module):
 class ResNetModel(nn.Module):
     """CIFAR ResNet.  ``device`` defaults to ``"cuda"`` and raises without
     a CUDA device; weights are drawn from a ``torch.Generator`` seeded with
-    ``seed``."""
+    ``seed``.  On a mesh whose ``tensor`` axis is above 1 (``mesh=``, or
+    :meth:`shard_`) every leaf stays whole (JAX ``param_specs``
+    :151-154: the convolutions are small): the tensor ranks compute the
+    same step on the same rows, and their gradients come out equal with
+    no sum over ``tensor``."""
+
+    #: trains on a mesh whose ``tensor`` axis is above 1
+    tensor_parallel_training = True
 
     def __init__(self, config: ResNetConfig, device: DeviceLike = "cuda",
-                 seed: int = 0):
+                 seed: int = 0, mesh: Optional[ProcessMesh] = None):
         super().__init__()
         dev = resolve_device(device)
         self.config = c = config
+        self.tp, self.tp_rank, self.mesh = 1, 0, None
+        if mesh is not None:
+            self.shard_(mesh)
         n, w, dt = c.blocks_per_stage, c.width, c.storage_dtype
         self.stem_conv = _param((w, 3, 3, 3), dt)
         self.stem_bn_s, self.stem_bn_b = _param((w,), dt), _param((w,), dt)
@@ -171,6 +182,16 @@ class ResNetModel(nn.Module):
         if zero_init_active() is None:
             self.to_empty(device=dev)
         self.init_params(seed, dev)
+
+    def shard_(self, mesh: ProcessMesh) -> "ResNetModel":
+        """Take ``mesh``'s tensor axis; no leaf is split."""
+        if self.tp != 1:
+            raise ValueError(f"the model is already on {self.tp} tensor "
+                             "ranks")
+        self.mesh = mesh
+        self.tp = int(mesh.shape[AXIS_TENSOR])
+        self.tp_rank = mesh.axis_rank(AXIS_TENSOR) if self.tp > 1 else 0
+        return self
 
     @property
     def device(self) -> torch.device:

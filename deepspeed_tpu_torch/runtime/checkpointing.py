@@ -56,7 +56,9 @@ Adam family's state is ``m`` and ``v`` either way); a load fills the host
 state and the card's parameters from the same slices.  ZeRO-Infinity
 writes the resident leaves in the rank file and the trunk one layer at a
 time, ``infinity_layer_{i:05d}.pt`` beside it (a layer's fp32 masters, m
-and v under the model's names), so a save never holds more than one
+and v under the model's names; ``infinity_layer_{i:05d}_tp_rank_{t:02d}
+.pt`` under tensor parallelism, a tensor rank's blocks with their
+placement), so a save never holds more than one
 layer's state beyond the tier's own; a load reads the layer files
 memory-mapped with the rank files (any engine, and ``zero_to_fp32``, sees
 every leaf) and installs each layer into the swapper.  A universal
@@ -90,6 +92,8 @@ RANK_FILE = "dp_rank_{:05d}.pt"
 #: a rank file under tensor parallelism: (data-parallel rank, tensor rank)
 TP_RANK_FILE = "dp_rank_{:05d}_tp_rank_{:02d}.pt"
 LAYER_FILE = "infinity_layer_{:05d}.pt"
+#: a streamed layer's file under tensor parallelism: (layer, tensor rank)
+TP_LAYER_FILE = "infinity_layer_{:05d}_tp_rank_{:02d}.pt"
 FORMAT_VERSION = 1
 
 #: a tensor's region in its leaf's full index space: (start, stop) per dim
@@ -209,8 +213,10 @@ def load_rank_states(tag_dir: str, engine: Optional[CheckpointEngine] = None
     states = [loader.load(p) for p in rank_paths(tag_dir)]
     for path in sorted(glob.glob(os.path.join(tag_dir,
                                               "infinity_layer_*.pt"))):
-        # an Infinity trunk's layers join rank 0's leaves (memory-mapped)
-        states[0]["leaves"].update(loader.load(path)["leaves"])
+        # an Infinity trunk's layers (a tensor rank's blocks each under
+        # tensor parallelism) ride rank 0's state (memory-mapped)
+        states[0].setdefault("trunk", []).append(
+            loader.load(path)["leaves"])
     tp = int(states[0].get("tp", 1))
     dp = len(states) // tp
     for i, st in enumerate(states):
@@ -233,8 +239,9 @@ def leaf_sources(states: Sequence[Dict[str, Any]]
     """Per leaf name, its full shape and the (leaf entry, box) of every
     rank file that holds a slice of it."""
     out: Dict[str, Any] = {}
-    for st in states:
-        for name, entry in st["leaves"].items():
+    for leaves in (lv for st in states
+                   for lv in [st["leaves"], *st.get("trunk", ())]):
+        for name, entry in leaves.items():
             shape = tuple(int(d) for d in entry["full_shape"])
             have = out.setdefault(name, (shape, []))
             if have[0] != shape:
@@ -333,27 +340,37 @@ def _save_infinity_layers(engine, tag_dir: str, write: bool) -> None:
     """The streamed trunk, one layer file at a time (each written and
     dropped before the next is read from its tier).  On more than one rank
     every rank gathers each layer's segments and only ``write`` (rank 0 of
-    the data axes and ``seq``) writes it: the same one file a layer."""
+    the data axes and ``seq``) writes it: the same one file a layer.
+    Under tensor parallelism each tensor coordinate writes its own file a
+    layer: its blocks of the split leaves (their ``tensor`` placement) and,
+    on tensor rank 0, the whole leaves."""
     from .checkpoint_engine import _write
 
     inf = engine.infinity
     sw = inf.swapper
     sw.flush()
+    t = engine.tp_rank
     for i in range(inf.L):
         masters = sw.layer_master_tree(i)
         moments = sw.layer_moments(i)
         leaves = {}
         for name, shape, off in sw.layout:
+            tensor = inf.layer_tensor.get(name)
+            if tensor is None and t != 0:
+                continue  # tensor rank 0 writes a leaf every rank holds
             n = math.prod(shape)
             leaves[f"layers.{i}.{name}"] = {
-                "placement": None, "full_shape": list(shape),
+                "placement": placement_values(None, tensor=tensor),
+                "full_shape": list(tensor.full_shape(shape)
+                                   if tensor is not None else shape),
                 "master": masters[name],
                 "optim": {k: moments[k][off:off + n].view(shape).clone()
                           for k in ("m", "v")}}
         if write:
+            name = (TP_LAYER_FILE.format(i, t) if engine.tp_group is not None
+                    else LAYER_FILE.format(i))
             _write({"version": FORMAT_VERSION, "layer": i,
-                    "leaves": leaves},
-                   os.path.join(tag_dir, LAYER_FILE.format(i)))
+                    "leaves": leaves}, os.path.join(tag_dir, name))
         del masters, moments, leaves
 
 
@@ -384,9 +401,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             "state; save at an accumulation boundary (after step())")
     tag = tag if tag is not None else f"global_step{engine.global_steps}"
     tag_dir = os.path.abspath(os.path.join(save_dir, tag))
-    # the data axes and seq, or the data axes and tensor
-    group = engine._dp_tp_group if engine.tp_group is not None \
-        else engine._sum_group
+    group = engine._commit_group
     rank = comm.get_rank(engine.dp_group) if engine.dp_world_size > 1 else 0
     writer = engine.sp_rank == 0
     lead = writer and rank == 0 and engine.tp_rank == 0
@@ -410,7 +425,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             json.dump(meta, fh, default=str)
         _copy_zero_to_fp32(save_dir)
     if engine.infinity is not None:
-        _save_infinity_layers(engine, tag_dir, lead)
+        _save_infinity_layers(engine, tag_dir, writer and rank == 0)
 
     def commit() -> None:
         if group is not None:
@@ -559,7 +574,8 @@ def _load_infinity_layers(engine, sources: Dict[str, Any], params_only: bool,
                           where: str) -> None:
     """Install every trunk layer's masters (and moments) from the
     checkpoint's leaves into the swapper, one layer at a time (whole: each
-    rank keeps its segment, so any rank count loads any save)."""
+    rank keeps its segment, so any rank count loads any save; under tensor
+    parallelism the rank's block of each split leaf)."""
     inf = engine.infinity
     sw = inf.swapper
     for i in range(inf.L):
@@ -572,11 +588,13 @@ def _load_infinity_layers(engine, sources: Dict[str, Any], params_only: bool,
                 raise ValueError(f"checkpoint {where}: the streamed trunk's "
                                  f"leaf {full!r} is missing")
             saved_shape, pieces = sources[full]
-            if tuple(saved_shape) != tuple(shape):
+            tensor = inf.layer_tensor.get(name)
+            whole = tensor.full_shape(shape) if tensor is not None else shape
+            if tuple(saved_shape) != tuple(whole):
                 raise ValueError(
                     f"checkpoint {where}: leaf {full!r} is "
-                    f"{list(saved_shape)}, the model's is {list(shape)}")
-            box = box_of(shape, None)
+                    f"{list(saved_shape)}, the model's is {list(whole)}")
+            box = box_of(whole, placement_values(None, tensor=tensor))
             t = torch.empty(shape, dtype=torch.float32)
             fill(t, box, [(e["master"], b) for e, b in pieces], full)
             masters[name] = t
@@ -643,13 +661,22 @@ def load_universal_checkpoint(engine, universal_dir: str) -> None:
                 if not os.path.isdir(path):
                     raise KeyError(f"universal checkpoint has no parameter "
                                    f"'layers.{i}.{lname}'")
-                masters[lname] = torch.from_numpy(np.load(os.path.join(
-                    path, "fp32.npy")).astype(np.float32))
+                tensor = engine.infinity.layer_tensor.get(lname)
+
+                def block(a: np.ndarray) -> torch.Tensor:
+                    t = torch.from_numpy(a.astype(np.float32))
+                    if tensor is None:
+                        return t
+                    n = t.shape[tensor.dim] // tensor.tp
+                    return t.narrow(tensor.dim, tensor.rank * n,
+                                    n).contiguous()
+                masters[lname] = block(np.load(os.path.join(path,
+                                                            "fp32.npy")))
                 for k, fname in UNIVERSAL_MOMENTS.items():
                     f = os.path.join(path, fname + ".npy")
                     if os.path.exists(f):
-                        flat.setdefault(k, []).append(torch.from_numpy(
-                            np.load(f).astype(np.float32)).reshape(-1))
+                        flat.setdefault(k, []).append(
+                            block(np.load(f)).reshape(-1))
             moments_i = ({k: torch.cat(v) for k, v in flat.items()}
                          if len(flat) == 2 else None)
             sw.load_layer(i, masters, moments_i)

@@ -26,7 +26,9 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` for the keys
 * ``sequence_parallel`` (:class:`SequenceParallelConfig`: ``sp_size``,
   the size of the mesh's ``seq`` axis ``initialize`` builds);
 * ``tensor_parallel`` (:class:`TensorParallelConfig`: ``autotp_size``,
-  the size of the mesh's ``tensor`` axis ``initialize`` builds);
+  the size of the mesh's ``tensor`` axis ``initialize`` builds, beside
+  ``seq`` and the data axes; a model without a split of its own goes
+  through AutoTP's name policy);
 * ``hybrid_engine`` (:class:`HybridEngineConfig`: ``enabled`` makes
   ``initialize`` return the ``DeepSpeedHybridEngine``, ``max_out_tokens``
   its default generation length; the other keys are recorded for config
@@ -40,8 +42,8 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` for the keys
   tier's file I/O engine).
 
 What the port cannot do yet raises ``NotImplementedError`` ("not ported
-yet", naming its ``ROADMAP.md`` Queue 1 item): ZeRO-Infinity or a ``seq``
-axis under a tensor axis (item 5c; ``initialize`` checks), MiCS, ZeRO++
+yet", naming its ``ROADMAP.md`` Queue 1 item): an ``expert`` axis under
+a tensor axis (item 5d; ``initialize`` checks), MiCS, ZeRO++
 (quantized weights or gradients, hpZ) and
 ``kernels.overlap_collectives``, a pipeline
 dimension above 1, random-LTD (``data_efficiency.data_routing.

@@ -72,7 +72,12 @@ ranks and are not reduced over ``tensor``.  The data-parallel group, the
 ZeRO placements and the gradient reductions are those of the rank's
 tensor coordinate.  In the norm a split leaf's Σg² is added on every
 tensor rank, a whole leaf's once (tensor rank 0), and the partial sums,
-like the overflow flag, are reduced over ``dp_tp_group``.
+like the overflow flag, are reduced over ``dp_tp_group``.  With a
+``seq`` axis too, every group above is that of the rank's ``seq`` (and
+tensor) coordinate: the gradients, summed over ``seq`` before the norm,
+are equal on the ``seq`` ranks, so each ``seq`` coordinate reduces the
+same norm over its own data x tensor ranks and no leaf counts ``sp`` or
+``tp`` times.
 
 Under ``kernels.fused_adam`` (an Adam-family optimizer from the config;
 anything else logs and keeps the plain step, as the JAX engine's
@@ -130,6 +135,9 @@ partial boundary with its own accumulation count, JAX :2304).  On the
 data axes and ``seq`` each rank's host planes hold its ``1/world`` of every
 layer (the swapper gathers the wire and reduce-scatters the gradients);
 the resident leaves are rank 0's on every rank, as the trunk's layers are.
+Under tensor parallelism each tensor coordinate streams its own planes
+(its blocks of the split leaves, the whole norms), cut over its data x
+``seq`` group, and the norm adds the split leaves' Σg² over ``tensor``.
 """
 
 from __future__ import annotations
@@ -169,7 +177,8 @@ class DeepSpeedEngine:
                  lr_schedule: Optional[Schedule] = None,
                  dp_group: Any = None, expert_data_group: Any = None,
                  seq_group: Any = None, dp_seq_group: Any = None,
-                 tp_group: Any = None, dp_tp_group: Any = None):
+                 tp_group: Any = None, dp_tp_group: Any = None,
+                 commit_group: Any = None):
         self.device = resolve_device(device)
         self.config = config
         self.loss_fn = loss_fn
@@ -209,6 +218,9 @@ class DeepSpeedEngine:
                         if self.tp_group is not None else 0)
         self._dp_tp_group = dp_tp_group if self.tp_group is not None \
             else None
+        #: the data axes, ``seq`` and ``tensor`` together: the group a
+        #: checkpoint's commit waits for
+        self._commit_group = commit_group
         if zero.offload_param_device() != "none":
             self._init_infinity(dp_group, seq_group, dp_seq_group)
             return
@@ -390,7 +402,8 @@ class DeepSpeedEngine:
         self.expert_data_group, self._data_rank = None, 0
         self.infinity = LayerStreamingEngine(
             module, config, self._schedule, self.device,
-            group=self._sum_group, seq_group=self.seq_group)
+            group=self._sum_group, seq_group=self.seq_group,
+            tp_group=self.tp_group)
         inf = self.infinity
         if self._sum_group is not None:
             with torch.no_grad():
@@ -400,7 +413,8 @@ class DeepSpeedEngine:
         self.param_names = list(inf.resident)
         self.placements = [None] * len(self.params)
         self._experts = [None] * len(self.params)
-        self._tensor = [None] * len(self.params)
+        self._tensor = [tensor_of(p) if self.tp_group is not None else None
+                        for p in self.params]
         self._cut, self._whole, self._whole_expert = [], [], []
         self._grad_chunks = [None] * len(self.params)
         self._grad_acc = [None] * len(self.params)

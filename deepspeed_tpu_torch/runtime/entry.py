@@ -153,21 +153,15 @@ def _apply_sequence_parallel(model: Any, mesh: Any) -> None:
         f"(ROADMAP Queue 1 item 7b: {why})")
 
 
-def _refuse_without_split(model: Any) -> None:
-    if not getattr(model, "tensor_parallel_training", False):
-        raise NotImplementedError(
-            f"{type(model).__name__} training under tensor parallelism is "
-            "not ported yet (ROADMAP Queue 1 item 5c: a model without a "
-            "split of its own)")
-
-
 def _apply_tensor_parallel(model: Any, mesh: Any, tp: int) -> None:
-    """Split a whole model over the mesh's ``tensor`` axis (``shard_``, as
-    ``tp_model_init`` does), or check that it was built on it; refuse a
-    model without a split of its own."""
-    _refuse_without_split(model)
+    """Split a whole model over the mesh's ``tensor`` axis (its own
+    ``shard_``, else AutoTP's name policy: ``tensor_parallel.
+    split_model_``, as ``tp_model_init`` does), or check that it was built
+    on it."""
+    from .tensor_parallel import split_model_
+
     if getattr(model, "tp", 1) == 1:
-        model.shard_(mesh)
+        split_model_(model, mesh)
     if model.tp != tp:
         raise ValueError(f"the model is split over {model.tp} tensor ranks, "
                          f"the mesh's tensor axis is {tp}")
@@ -211,26 +205,32 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     each attention and returns its share of the token mean; the engine
     sums every gradient over ``seq``.  ZeRO still cuts over the data axes
     alone.  ZeRO-Infinity (``offload_param``) runs on the data axes and
-    ``seq``: each rank's host planes hold its ``1/world`` of every layer.
+    ``seq`` (and ``tensor``): each rank's host planes hold its share of
+    every layer.
     Not ported under ``seq`` (ROADMAP Queue 1): MoE and the other ladder
     models (item 7b); not ported under ``offload_param``: a pipe axis
     (layer streaming is itself layer-sequential, as JAX refuses it).
 
     Tensor parallelism: ``tensor_parallel.autotp_size`` (or a ``mesh``
     whose ``tensor`` axis is) above 1 builds the mesh with that ``tensor``
-    axis beside the data axes (JAX ``initialize`` :122-150).  The model
-    (Llama or Mixtral) is built on that mesh, or whole, which
-    ``initialize`` then splits (``shard_``); a model already split (built
-    on a mesh, or by ``tp_model_init``) brings its own mesh when neither
+    axis beside the data axes and ``seq`` (JAX ``initialize`` :122-150).
+    The model is built on that mesh, or whole, which ``initialize`` then
+    splits: a model of the port by its own ``shard_`` (Llama, Mixtral,
+    OPT, BERT; ResNet keeps every leaf whole), any other ``nn.Module`` by
+    AutoTP's name policy (``runtime/tensor_parallel.auto_tp``, where JAX's
+    engine applies ``infer_tp_specs``).  A model already split (built on
+    a mesh, or by ``tp_model_init``) brings its own mesh when neither
     ``mesh`` nor ``mpu`` is given, and a mesh whose ``tensor`` axis is not
-    the model's split raises.  Every rank of a tensor group
-    builds it from the same seed and feeds ``train_step`` the same rows
-    (its data coordinate's).  The layers run Megatron's *f* and *g*, the
+    the model's split raises.  Every rank of a tensor group builds it from
+    the same seed and feeds ``train_step`` the same rows (its data
+    coordinate's).  The layers run Megatron's *f* and *g*, a split head's
     loss is vocabulary-parallel, and the engine adds the split leaves'
-    Σg² over ``tensor``; ZeRO cuts over the data axes of the rank's tensor
-    coordinate.  Not ported under a tensor axis (item 5c): a model without
-    a split of its own, a ``seq`` or an ``expert`` axis, and
-    ``offload_param``.
+    Σg² over ``tensor``; ZeRO cuts over the data axes of the rank's
+    tensor and ``seq`` coordinates.  With ``sequence_parallel.sp_size``
+    too, a rank holds its ``h/tp`` heads of its ``S/sp`` chunk and Ulysses
+    (or the ring) runs over its ``seq`` group; under ``offload_param``
+    each tensor coordinate streams its own planes.  Not ported under a
+    tensor axis: an ``expert`` axis (ROADMAP Queue 1 item 5d).
 
     ``hybrid_engine.enabled`` returns a
     :class:`~.hybrid_engine.DeepSpeedHybridEngine` around the engine (its
@@ -286,9 +286,14 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     model_tp = int(getattr(model, "tp", 1) or 1)
     if model_tp > 1 and mesh is None and mpu is None:
         mesh = model.mesh
-    if tp_cfg > 1 or model_tp > 1:  # before a mesh is built for it
-        _refuse_without_split(model)
     ep_cfg = int(cfg.moe.expert_parallel_size)
+    axes = getattr(mesh, "shape", None) or {}
+    if max(tp_cfg, model_tp, int(axes.get(AXIS_TENSOR, 1))) > 1 and \
+            max(ep_cfg, int(axes.get(AXIS_EXPERT, 1))) > 1:
+        # before a mesh is built for it
+        raise NotImplementedError(
+            "an expert axis under tensor parallelism is not ported yet "
+            "(ROADMAP Queue 1 item 5d)")
     dp_group, dp, others, mesh = _data_parallel(mesh, mpu, ep_cfg, sp,
                                                 max(tp_cfg, model_tp))
     tp, pp, sp = (others.get(a, 1) for a in (AXIS_TENSOR, AXIS_PIPE,
@@ -300,15 +305,6 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
         raise ValueError(f"the model is split over {model_tp} tensor ranks, "
                          f"the mesh's tensor axis is {tp}")
     infinity = zero.offload_param_device() != "none"
-    if tp > 1:
-        ep = int(mesh.shape.get(AXIS_EXPERT, 1))
-        for what, on in (("ZeRO-Infinity (offload_param)", infinity),
-                         ("a seq axis", sp > 1),
-                         ("an expert axis", ep > 1)):
-            if on:
-                raise NotImplementedError(
-                    f"{what} under tensor parallelism is not ported yet "
-                    "(ROADMAP Queue 1 item 5c)")
     if infinity and pp > 1:
         raise NotImplementedError(
             "layer streaming is itself layer-sequential; combine "
@@ -331,6 +327,10 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
         _apply_sequence_parallel(model, mesh)
         seq_group = mesh.group(AXIS_SEQ)
         dp_seq_group = groups.axes_group(DP_AXES + (AXIS_SEQ,), mesh)
+    # a checkpoint's commit waits for every rank of the data axes, seq and
+    # tensor (the group narrows itself where an axis is 1)
+    commit_group = (groups.axes_group(DP_AXES + (AXIS_SEQ, AXIS_TENSOR), mesh)
+                    if mesh is not None and dp * sp * tp > 1 else dp_group)
 
     if callable(getattr(model, "loss", None)):
         loss_fn = model.loss
@@ -365,7 +365,8 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
         lr_schedule=lr_scheduler if callable(lr_scheduler) else None,
         dp_group=dp_group, expert_data_group=data_group,
         seq_group=seq_group, dp_seq_group=dp_seq_group,
-        tp_group=tp_group, dp_tp_group=dp_tp_group)
+        tp_group=tp_group, dp_tp_group=dp_tp_group,
+        commit_group=commit_group)
     dataloader = None
     if training_data is not None:
         dataloader = DeepSpeedDataLoader(

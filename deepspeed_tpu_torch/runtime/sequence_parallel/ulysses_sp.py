@@ -45,20 +45,24 @@ def seq_group_of(mesh: Any = None, group: Any = None) -> Tuple[Any, int]:
 
 def ulysses_attention(attn_fn: Callable[[Tensor, Tensor, Tensor], Tensor],
                       q: Tensor, k: Tensor, v: Tensor, mesh: Any = None,
-                      group: Any = None) -> Tensor:
+                      group: Any = None, tp: int = 1) -> Tensor:
     """All-to-all seq↔heads around ``attn_fn`` (the Ulysses core).
 
     ``q, k, v``: this rank's ``[B, S/sp, h, d]`` chunks (K/V at the query
     heads: GQA is repeated first).  ``attn_fn`` receives the full sequence
     on ``h/sp`` heads, contiguous, and must be position-exact over it.  The
     ``seq`` group is ``group``, else ``mesh``'s (default: the active
-    mesh); at sp 1 this is ``attn_fn(q, k, v)``."""
+    mesh); at sp 1 this is ``attn_fn(q, k, v)``.  Under tensor
+    parallelism (``tp`` above 1) ``q`` holds the rank's ``h/tp`` heads and
+    each ``seq`` rank attends ``h/(tp·sp)`` of them."""
     group, sp = seq_group_of(mesh, group)
     if sp == 1:
         return attn_fn(q, k, v)
     if q.shape[2] % sp:
-        raise ValueError(f"{q.shape[2]} heads do not split over sp={sp}: "
-                         "Ulysses gives each seq rank h/sp heads; use "
+        heads = (f"{q.shape[2]} heads" if tp == 1 else
+                 f"h/tp = {q.shape[2] * tp}/{tp} = {q.shape[2]} heads")
+        raise ValueError(f"{heads} do not split over sp={sp}: Ulysses "
+                         "gives each seq rank a share of them; use "
                          "attn_impl='ring'")
 
     def exchange(t: Tensor, split_axis: int, concat_axis: int) -> Tensor:

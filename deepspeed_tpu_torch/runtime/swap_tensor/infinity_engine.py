@@ -52,10 +52,21 @@ in its backward) and ``head_loss`` returns the chunk's share of the token
 mean.  The resident gradients are summed over the group and divided by
 ``dp`` (the data ranks averaged, ``seq`` summed) before the port's Adam,
 so the resident leaves stay equal on every rank; the trunk's squared norm
-is the sum of the ranks' segment norms in one scalar all-reduce (JAX
+is the sum of the ranks' segment norms in one all-reduce (JAX
 ``_host_sum``), and a gradient that is not finite on any rank makes every
 rank skip.  The reported loss and ``eval_loss`` are summed over ``seq``
 and averaged over the data ranks.
+
+Under tensor parallelism (``tp_group``; JAX keeps each layer's tensor
+split in the streamed layer's specs, ``infinity_engine.py:144-153``) each
+tensor coordinate streams its own planes: ``group`` is its data x ``seq``
+ranks, ``decoder_layer`` runs the split layer's *f* and *g*, and
+``head_loss`` is the vocabulary-parallel loss on the head's ``V/tp``
+rows (JAX ``head_loss_manual_tp``).  A plane mixes split leaves and whole
+norms, so its Σg² is two sums (``swapper.sq_parts`` /
+``stashed_sq_norm``): the split part is summed over the group and
+``tensor``, the whole part over the group alone; the resident head's
+rows count as split, the embedding and the final norm as whole.
 """
 
 from __future__ import annotations
@@ -70,7 +81,7 @@ from ...comm import comm
 from ...utils.logging import log_dist
 from ..engine import _rows, _slice_rows
 from ..optimizers import Adam
-from ..zero.sharder import all_reduce_flat
+from ..zero.sharder import all_reduce_flat, tensor_of
 from .partitioned_param_swapper import PartitionedParamSwapper
 
 PROTOCOL = ("embed_fwd", "decoder_layer", "head_loss", "batch_labels")
@@ -89,7 +100,8 @@ class LayerStreamingEngine:
 
     def __init__(self, model: Any, config: Any,
                  schedule: Callable[[int], float], device: torch.device,
-                 group: Any = None, seq_group: Any = None):
+                 group: Any = None, seq_group: Any = None,
+                 tp_group: Any = None):
         c = model.config
         self.model = model
         self.schedule = schedule
@@ -126,6 +138,10 @@ class LayerStreamingEngine:
                    if seq_group is not None else 1)
         #: the data-parallel ranks: the divisor of the summed gradients
         self.dp = self.world // self.sp
+        #: the tensor group (None at tp 1): the split leaves' Σg² is
+        #: summed over it
+        self.tp_group = tp_group if tp_group is not None and \
+            comm.get_world_size(tp_group) > 1 else None
 
         zcfg = config.zero_optimization
         self._bucket = zcfg.reduce_bucket_elements
@@ -141,6 +157,12 @@ class LayerStreamingEngine:
         # masters (no second host copy of the trunk), on nvme or on more
         # ranks (a segment) one broadcast zero each
         layers = [list(layer.named_parameters()) for layer in model.layers]
+        #: a layer's leaves split over ``tensor``, by local name, and the
+        #: resident ones (the head's vocabulary rows)
+        self.layer_tensor = {n: tensor_of(p) for n, p in layers[0]
+                             if tensor_of(p) is not None}
+        self.resident_split = frozenset(n for n, p in resident.items()
+                                        if tensor_of(p) is not None)
 
         def on_filled(i: int, views: Optional[Dict[str, torch.Tensor]]
                       ) -> None:
@@ -153,7 +175,8 @@ class LayerStreamingEngine:
             layers, device=device, wire_dtype=wire, nvme_path=nvme_path,
             buffer_count=int(pcfg.buffer_count or 4),
             aio_config=config.aio, adam_hparams=hp, pipeline=pipeline,
-            on_filled=on_filled, group=self.group, grad_scale=1.0 / self.dp)
+            on_filled=on_filled, group=self.group, grad_scale=1.0 / self.dp,
+            split_leaves=tuple(self.layer_tensor))
         del layers
         with torch.no_grad():
             for p in resident.values():
@@ -251,6 +274,24 @@ class LayerStreamingEngine:
             return x
         return comm.all_reduce(x.clone(), group=self.group)
 
+    def _norm_sq(self, trunk_split: torch.Tensor, trunk_whole: torch.Tensor,
+                 g_res: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global Σg²: the trunk's segment sums over the group, the
+        resident gradients' (already summed over it) once, and the split
+        leaves' part of both over ``tensor`` (the whole leaves' is the same
+        on every tensor rank)."""
+        trunk = self._group_sum(torch.stack([trunk_split, trunk_whole]))
+        split = trunk[0] + sum((g.square().sum() for n, g in g_res.items()
+                                if n in self.resident_split),
+                               torch.zeros_like(trunk[0]))
+        whole = trunk[1] + sum((g.square().sum().to(trunk.dtype)
+                                for n, g in g_res.items()
+                                if n not in self.resident_split),
+                               torch.zeros_like(trunk[1]))
+        if self.tp_group is not None:
+            split = comm.all_reduce(split.clone(), group=self.tp_group)
+        return split + whole
+
     def _group_mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
         """A rank's loss summed over ``seq``, averaged over the data
         ranks."""
@@ -276,7 +317,9 @@ class LayerStreamingEngine:
                                           (k + 1) * rows // gas))
                   for k in range(gas)]
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        norm_sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        # the fused path's Σg² of the split leaves, of the whole ones
+        norm_sq = [torch.zeros((), dtype=torch.float32, device=self.device)
+                   for _ in range(2)]
         g_res: Optional[Dict[str, torch.Tensor]] = None
         for k, mb in enumerate(micros):
             ids, _ = model.batch_labels(mb)
@@ -304,9 +347,8 @@ class LayerStreamingEngine:
                 g_layer = sw.reduce_layer_grads(dlp)
                 del dlp
                 if fused:
-                    for g in (g_layer.values() if isinstance(g_layer, dict)
-                              else (g_layer,)):
-                        norm_sq = norm_sq + g.float().square().sum()
+                    norm_sq = [a + b for a, b in zip(norm_sq,
+                                                     sw.sq_parts(g_layer))]
                     sw.step_layer_async(i, g_layer, lr=lr)
                 else:
                     sw.stash_grads(i, g_layer, accumulate=k > 0)
@@ -325,17 +367,16 @@ class LayerStreamingEngine:
             if self.dp > 1:
                 torch._foreach_div_(flat, float(self.dp))
             loss_sum = self._group_mean_loss(loss_sum)
-        res_sq = sum(g.square().sum() for g in g_res.values())
         overflow = False
         if fused:
-            grad_norm = float(torch.sqrt(self._group_sum(norm_sq) + res_sq))
+            grad_norm = float(torch.sqrt(self._norm_sq(*norm_sq, g_res)))
             scale = 1.0
         else:
-            trunk_sq = sw.stashed_sq_norm()
-            if self.group is not None:
-                trunk_sq = float(self._group_sum(torch.tensor(
-                    trunk_sq, dtype=torch.float64, device=self.device)))
-            grad_norm = math.sqrt(trunk_sq + float(res_sq)) / (gas * ls)
+            split, whole = (torch.tensor(x, dtype=torch.float64,
+                                         device=self.device)
+                            for x in sw.stashed_sq_norm())
+            grad_norm = math.sqrt(float(self._norm_sq(split, whole, g_res))
+                                  ) / (gas * ls)
             overflow = self.fp16 and not math.isfinite(grad_norm)
             scale = 1.0 / (gas * ls)
             if not overflow:

@@ -46,6 +46,13 @@ is cast from the master).  ``pipeline=True`` runs it on a worker thread
 (:class:`_OptPipeline`) while the main thread keeps the card busy; the
 result is the same, bit for bit, as the serial run.
 
+Under tensor parallelism each tensor coordinate has a swapper of its
+own: its layers' leaves are its blocks of the split ones (and the whole
+norms), ``group`` is its data-parallel and ``seq`` ranks (so a broadcast
+from the group's rank 0 never copies one tensor block over another), and
+``split_leaves`` names the split leaves, whose Σg² :meth:`sq_parts` and
+:meth:`stashed_sq_norm` keep apart from the whole ones.
+
 On more than one rank (``group``: the data-parallel and ``seq`` ranks;
 JAX's per-process planes, ``shard``) each layer's flat plane is padded to
 ``n_pad``, a multiple of the group's size, and each rank's planes hold one
@@ -183,7 +190,7 @@ class PartitionedParamSwapper:
                  aio_config: Any = None,
                  adam_hparams: Optional[Dict[str, Any]] = None,
                  pipeline: bool = False, on_filled=None, group: Any = None,
-                 grad_scale: float = 1.0):
+                 grad_scale: float = 1.0, split_leaves: Sequence[str] = ()):
         if not layers:
             raise ValueError("need at least one layer")
         self.device = device
@@ -206,6 +213,20 @@ class PartitionedParamSwapper:
         self.n_plane = self.n_pad // self.shard_world
         lo = self.shard_rank * self.n_plane
         self.segments = [(lo, lo + self.n_plane)]
+        #: the ranges of this rank's segment that hold leaves split over
+        #: ``tensor`` (``split_leaves``), and those of the whole leaves:
+        #: the first's Σg² is summed over ``tensor``, the second's is the
+        #: same on every tensor rank (each summed apart, so that it is);
+        #: without split leaves the whole segment is one range
+        self.split_leaves = frozenset(split_leaves)
+        self._ranges: Dict[bool, List[Tuple[int, int]]] = {
+            True: [], False: [] if self.split_leaves else [(0, self.n_plane)]}
+        for name, s, off in self.layout if self.split_leaves else ():
+            a = max(off, lo)
+            b = min(off + int(torch.Size(s).numel()), lo + self.n_plane)
+            if a < b:
+                self._ranges[name in self.split_leaves].append(
+                    (a - lo, b - lo))
         self.grad_scale = float(grad_scale)
         if pipeline and int(buffer_count) < 2:
             # the worker pins the layer it updates; with one slot the
@@ -704,9 +725,32 @@ class PartitionedParamSwapper:
         """Drop every stashed plane unapplied (an fp16 overflow skip)."""
         self._gplanes.clear()
 
-    def stashed_sq_norm(self) -> float:
-        """Σg² over every stashed plane (this rank's segments)."""
-        return sum(float(torch.dot(g, g)) for g in self._gplanes.values())
+    def sq_parts(self, grads: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(Σg² of the split leaves, Σg² of the whole ones)`` of a
+        layer's gradients (the leaves by name in one process, this rank's
+        segment on more; fp32 on their device)."""
+        if isinstance(grads, torch.Tensor):
+            g = grads.float()
+            return tuple(sum((g[a:b].square().sum() for a, b in
+                              self._ranges[split]),
+                             g.new_zeros(())) for split in (True, False))
+        out = [torch.zeros((), dtype=torch.float32,
+                           device=next(iter(grads.values())).device)
+               for _ in range(2)]
+        for name, g in grads.items():
+            k = 0 if name in self.split_leaves else 1
+            out[k] = out[k] + g.float().square().sum()
+        return out[0], out[1]
+
+    def stashed_sq_norm(self) -> Tuple[float, float]:
+        """``(Σg² of the split leaves, Σg² of the whole ones)`` over every
+        stashed plane (this rank's segments), kept apart: under tensor
+        parallelism the first is summed over ``tensor``, the second is
+        the same on every tensor rank."""
+        return tuple(sum(float(torch.dot(g[a:b], g[a:b]))
+                         for g in self._gplanes.values()
+                         for a, b in self._ranges[split])
+                     for split in (True, False))
 
     def apply_stashed(self, i: int, lr: Optional[float] = None,
                       scale: float = 1.0) -> None:

@@ -400,14 +400,47 @@ def test_opt_v2_tokens_equal_v1():
 
 
 def test_opt_tensor_parallel_is_refused():
-    """OPT is served under tensor parallelism now
-    (``test_torch_tensor_parallel``); its training there is refused, as
-    are BERT's and ResNet's (ROADMAP Queue 1 item 5c)."""
+    """OPT is served under tensor parallelism (``test_torch_tensor_
+    parallel``) and OPT, BERT and ResNet train there now (``test_torch_
+    tp_train``, against JAX on a tensor-2 mesh): nothing refuses them.
+    Each rank's split is the JAX ``param_specs``' (BERT's and OPT's q, k,
+    v and MLP input by output rows with their biases, the output
+    projections by input columns, their biases whole; ResNet whole), and
+    a tensor axis of 2 on a world of one is refused only for its size."""
+    from deepspeed_tpu_torch.parallel import MeshLayout as PortLayout
+    from deepspeed_tpu_torch.parallel.mesh import ProcessMesh
+
     _, _, tm = opt_pair()
-    assert callable(tm.shard_)
-    for model in (tm, dst.BertModel(dst.BertConfig.tiny(
-            dtype=torch.float32), device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 5c"):
+    bert = dst.BertModel(dst.BertConfig.tiny(dtype=torch.float32),
+                         device="cpu")
+    resnet = dst.ResNetModel(dst.ResNetConfig.tiny(dtype=torch.float32),
+                             device="cpu")
+    for model in (tm, bert, resnet):
+        assert model.tensor_parallel_training and callable(model.shard_)
+        with pytest.raises(ValueError, match="must divide the world 1"):
             dst.initialize(model=model, config={
                 "train_micro_batch_size_per_gpu": 1,
                 "tensor_parallel": {"autotp_size": 2}}, device="cpu")
+    whole = {k: v.clone() for k, v in bert.state_dict().items()}
+    for r in range(2):
+        part = dst.BertModel(dst.BertConfig.tiny(dtype=torch.float32),
+                             device="cpu")
+        part.shard_(ProcessMesh(PortLayout(tp=2), rank=r))
+        assert part.num_local_heads == 4
+        for k, v in part.state_dict().items():
+            dim = {"q_proj.weight": 0, "q_proj.bias": 0, "k_proj.weight": 0,
+                   "k_proj.bias": 0, "v_proj.weight": 0, "v_proj.bias": 0,
+                   "o_proj.weight": 1, "fc_in.weight": 0, "fc_in.bias": 0,
+                   "fc_out.weight": 1}.get(k.split(".", 2)[-1]) \
+                if k.startswith("layers.") else None
+            want = whole[k] if dim is None else whole[k].chunk(2, dim)[r]
+            assert torch.equal(v, want), k
+        # built on the mesh from the same seed: the same split
+        born = dst.BertModel(dst.BertConfig.tiny(dtype=torch.float32),
+                             device="cpu",
+                             mesh=ProcessMesh(PortLayout(tp=2), rank=r))
+        for k, v in born.state_dict().items():
+            assert torch.equal(v, part.state_dict()[k]), k
+    resnet.shard_(ProcessMesh(PortLayout(tp=2), rank=1))
+    assert resnet.tp == 2 and not any(
+        hasattr(p, "ds_tensor") for p in resnet.parameters())

@@ -29,6 +29,7 @@ from deepspeed_tpu.ops.pallas.paged_attention import \
 from deepspeed_tpu.parallel.mesh import MeshLayout as JaxMeshLayout
 from deepspeed_tpu.parallel.mesh import ProcessTopology as JaxTopology
 from deepspeed_tpu.parallel.mesh import build_mesh
+from deepspeed_tpu_torch import initialize as dst_initialize
 from deepspeed_tpu_torch import (DeepSpeedConfig, KVCacheConfig,
                                  LlamaConfig, LlamaModel, MixtralConfig,
                                  MixtralModel, OPTModel, build_engine_v2,
@@ -214,15 +215,23 @@ def test_what_tensor_parallelism_refuses():
         "autotp_size": 2}}).tensor_parallel.autotp_size == 2
     assert LlamaModel.tensor_parallel_training
     assert MixtralModel.tensor_parallel_training
-    assert not getattr(OPTModel, "tensor_parallel_training", False)
-    # ... but not with a seq axis, nor streamed (item 5c)
-    seq = LlamaModel(cfg, device="cpu",
-                     mesh=ProcessMesh(MeshLayout(tp=2, sp=2), rank=0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5c"):
-        seq.loss(torch.zeros(1, 4, dtype=torch.long))
+    # OPT trains under tensor parallelism too (test_torch_tp_train)
+    assert OPTModel.tensor_parallel_training
+    # with a seq axis Ulysses splits each rank's h/tp heads: a count that
+    # does not divide is named as h/tp (the ring takes any)
+    seq = LlamaModel(cfg, device="cpu", mesh=ProcessMesh(
+        MeshLayout(tp=2, sp=8), rank=0, groups={("seq",): None}))
+    with pytest.raises(ValueError, match=r"h/tp = 8/2 = 4 heads not "
+                       "divisible by sp=8"):
+        seq.loss(torch.zeros(1, 16, dtype=torch.long))
+    # an expert axis under it is refused (item 5d), before any mesh
+    with pytest.raises(NotImplementedError, match="an expert axis under "
+                       r"tensor parallelism is not ported yet \(ROADMAP "
+                       r"Queue 1 item 5d\)"):
+        dst_initialize(model=moe, device="cpu", config={
+            "train_micro_batch_size_per_gpu": 1,
+            "moe": {"expert_parallel_size": 2}})
     model = LlamaModel(cfg, device="cpu", mesh=_mesh(2, 1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5c"):
-        model.decoder_layer({}, torch.zeros(1, 4, cfg.hidden_size))
     with pytest.raises(ValueError, match="built for 2"):
         build_engine_v2(model, cache_config=KVCacheConfig(**CACHE),
                         device="cpu", mesh=_mesh(1, 0), **ENGINE)

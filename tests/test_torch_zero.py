@@ -293,9 +293,9 @@ def test_zero_init_and_gathered_parameters(port_runs):
 def test_mixtral_and_serving_a_cut_model_are_refused(port_runs):
     """Mixtral on a data axis of 2 trains now (its gate routes the global
     micro-batch: one loss on both ranks, and it moves), and so does
-    ZeRO-Infinity on two ranks; serving a model cut under ZeRO-3 is still
-    refused, and so is ZeRO-Infinity on a tensor axis (ROADMAP Queue 1
-    item 5c)."""
+    ZeRO-Infinity on two ranks, on a data axis and on a tensor axis (the
+    latter's parity: ``test_torch_tp_train``); serving a model cut under
+    ZeRO-3 is still refused."""
     got = [r["refusals"] for r in port_runs(2)]
     for v in got:
         assert np.all(np.isfinite(v["mixtral"]))
@@ -303,13 +303,12 @@ def test_mixtral_and_serving_a_cut_model_are_refused(port_runs):
         assert v["mixtral"][1] != v["mixtral"][0]
         for what in ("init_inference", "build_engine_v2"):
             assert "GatheredParameters" in v[what], v[what]
-        # ZeRO-Infinity on two ranks trains one model; a tensor axis
-        # under it is refused (item 5c)
-        assert np.all(np.isfinite(v["infinity_2_ranks"]))
-        assert v["infinity_2_ranks"] == got[0]["infinity_2_ranks"]
-        assert v["infinity_2_ranks"][1] < v["infinity_2_ranks"][0]
-        assert "ROADMAP Queue 1 item 5c" in v["infinity_tp"], \
-            v["infinity_tp"]
+        # ZeRO-Infinity on two ranks trains one model, on the data axis
+        # and on a tensor axis
+        for key in ("infinity_2_ranks", "infinity_tp"):
+            assert np.all(np.isfinite(v[key])), key
+            assert v[key] == got[0][key], key
+            assert v[key][1] < v[key][0], key
 
 
 def test_uneven_labels_per_rank_mean_beside_jax_global_mean(port_runs,

@@ -24,6 +24,7 @@ import torch
 from deepspeed_tpu_torch import (LlamaConfig, LlamaModel, MixtralConfig,
                                  MixtralModel, comm, init_distributed,
                                  initialize)
+from deepspeed_tpu_torch.models import shard_llama_params
 from deepspeed_tpu_torch.parallel import MeshLayout
 from deepspeed_tpu_torch.utils import groups
 
@@ -260,21 +261,31 @@ def _on_device_sp2(rank: int, weights) -> Dict[str, Any]:
     return steps(engine, name, global_batches(name))
 
 
-def _tp_refusal(weights) -> str:
-    """``offload_param`` on a tensor axis of 2: refused (item 5c)."""
-    mesh = groups.initialize_mesh(MeshLayout.infer(2, tp=2))
-    model = LlamaModel(LlamaConfig(**MODEL, dtype=torch.float32,
-                                   param_dtype=torch.float32), device="cpu",
-                       mesh=mesh)
-    try:
-        initialize(model=model, config=dict(case_config("dp2_fused"),
-                                            train_micro_batch_size_per_gpu=4),
-                   mesh=mesh, device="cpu")
-        return "accepted"
-    except NotImplementedError as e:
-        return str(e)
-    finally:
-        groups.reset_mesh()
+def _tp_refusal(weights) -> Dict[str, Any]:
+    """``offload_param`` on a tensor axis of 2 (no longer refused): the
+    dp2_fused case's config at tp 2, streamed and on the device, two steps
+    of the same four rows on both ranks each."""
+    out = {}
+    for where, zero in (("streamed", None), ("on_device", {"stage": 0})):
+        mesh = groups.initialize_mesh(MeshLayout.infer(2, tp=2))
+        model = LlamaModel(LlamaConfig(**MODEL, dtype=torch.float32,
+                                       param_dtype=torch.float32),
+                           device="cpu", mesh=mesh)
+        model.load_state_dict(shard_llama_params(
+            {k: torch.from_numpy(v) for k, v in weights.items()}, 2,
+            model.tp_rank))
+        config = dict(case_config("dp2_fused"),
+                      train_micro_batch_size_per_gpu=ROWS)
+        if zero is not None:
+            config["zero_optimization"] = zero
+        try:
+            engine, *_ = initialize(model=model, config=config, mesh=mesh,
+                                    device="cpu")
+            out[where] = steps(engine, "dp2_fused",
+                               global_batches("dp2_fused")[:2])
+        finally:
+            groups.reset_mesh()
+    return out
 
 
 def inf_rank(rank: int, weights: Dict[str, np.ndarray],

@@ -7,22 +7,33 @@ Every body joins a gloo process group on the CPU, builds its mesh, and
 returns plain values (lists and numpy arrays) to the test.
 """
 
+import os
+import sys
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.utils._python_dispatch
 
-from deepspeed_tpu_torch import (KVCacheConfig, LlamaConfig, LlamaModel,
-                                 MixtralConfig, MixtralModel, OPTConfig,
-                                 OPTModel, build_engine_v2,
+from torch import nn
+
+from deepspeed_tpu_torch import (BertConfig, BertModel, KVCacheConfig,
+                                 LlamaConfig, LlamaModel, MixtralConfig,
+                                 MixtralModel, OPTConfig, OPTModel,
+                                 ResNetConfig, ResNetModel, build_engine_v2,
                                  build_serving_frontend, comm,
                                  init_distributed, init_inference,
                                  initialize, tp_model_init)
 from deepspeed_tpu_torch.models import shard_llama_params
 from deepspeed_tpu_torch.parallel import MeshLayout
 from deepspeed_tpu_torch.utils import groups
+from torch_inf_ranks import streamed_state
+
+# the HF-shaped AutoTP client, shared with chip_smoke.py
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools"))
+from hf_client import CLIENT, ClientLM  # noqa: E402
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -365,29 +376,265 @@ def _hybrid(weights) -> List[List[int]]:
                            max_new_tokens=HYBRID_NEW).tolist()
 
 
-def _refusals_4(llama_w, mixtral_w) -> Dict[str, str]:
-    """On four ranks: a tensor axis with a seq axis, or with an expert
-    axis, is refused (item 5c)."""
-    out = {}
-    for what, name, extra in (
-            ("seq", "dp2tp2_z1", {"sequence_parallel": {"sp_size": 2}}),
-            ("expert", "tp2_mixtral", {"moe": {
-                "dispatch_impl": "sparse", "expert_parallel_size": 2}})):
+def _refusals_4(mixtral_w) -> Dict[str, str]:
+    """On four ranks: a tensor axis with an expert axis is refused (item
+    5d)."""
+    groups.reset_mesh()
+    try:
+        initialize(model=_whole_model("tp2_mixtral", mixtral_w),
+                   config=train_config("tp2_mixtral", moe={
+                       "dispatch_impl": "sparse",
+                       "expert_parallel_size": 2}), device="cpu")
+        return {"expert": "accepted"}
+    except NotImplementedError as e:
+        return {"expert": str(e)}
+
+
+# -- tensor x sequence parallelism (the 4-rank launch) -----------------------
+
+#: name -> (attention, loss tiles): Llama at tp 2 x sp 2 (dp 1), Ulysses
+#: on the flash route (the kernels' plain versions here) or the ring
+TPSP_CASES = {"tp2sp2_ulysses_t1": ("flash", 1),
+              "tp2sp2_ulysses_t2": ("flash", 2),
+              "tp2sp2_ring_t1": ("ring", 1), "tp2sp2_ring_t2": ("ring", 2)}
+
+
+def tpsp_model_config(name: str) -> LlamaConfig:
+    attn, tiles = TPSP_CASES[name]
+    return LlamaConfig(dtype=torch.float32, param_dtype=torch.float32,
+                       attn_impl=attn, loss_tiles=tiles, **TRAIN_MODEL)
+
+
+def tpsp_config() -> Dict[str, Any]:
+    return dict(TRAIN_BASE, zero_optimization={"stage": 0},
+                tensor_parallel={"autotp_size": 2},
+                sequence_parallel={"sp_size": 2})
+
+
+def _tpsp_engine(name: str, weights):
+    groups.reset_mesh()
+    model = LlamaModel(tpsp_model_config(name), device="cpu")
+    model.load_state_dict(_state_dict(weights))
+    engine, *_ = initialize(model=model, config=tpsp_config(),
+                            device="cpu")
+    return model, engine
+
+
+def _tpsp_case(name: str, weights) -> Tuple[Dict[str, Any], Any]:
+    """The case on this rank: the whole model split by ``initialize`` over
+    tensor and its row cut over seq, three AdamW steps with clipping on
+    the tp-2 cases' batches (one row, the same on every rank), the
+    all-to-alls they ran, the rank's masters."""
+    model, engine = _tpsp_engine(name, weights)
+    mesh = groups.get_mesh()
+    out: Dict[str, Any] = {"tp_rank": model.tp_rank,
+                           "seq_rank": mesh.axis_rank("seq"),
+                           "data_rank": mesh.axis_rank("data"),
+                           "local_heads": model.num_local_heads}
+    comm.all_to_all_in_graph.calls = 0
+    with _VocabWidths(model.config.vocab_size) as widths:
+        out.update(_steps(engine, "tp2_tiles1", 0))
+    out["all_to_all"] = comm.all_to_all_in_graph.calls
+    out["full_vocab_outputs"] = widths.hits
+    out["params"] = _local_whole(engine)
+    return out, engine
+
+
+def _tpsp_checkpoint(engine, weights, root: str) -> Dict[str, Any]:
+    """A tp-2 x sp-2 save loaded by a fresh tp-2 x sp-2 engine: the
+    rank's masters and moments bit for bit, one more step of each
+    equal."""
+    name = "tp2sp2_ulysses_t1"
+    engine.save_checkpoint(root)
+    _, again = _tpsp_engine(name, weights)
+    again.load_checkpoint(root)
+    a, b = _local_whole(engine), _local_whole(again)
+    ma, mb = _moments(engine), _moments(again)
+    nxt = {"input_ids": torch.from_numpy(train_batches("tp2_tiles1")[0])}
+    return {"equal": all(np.array_equal(a[k], b[k]) for k in a) and all(
+                np.array_equal(ma[k], mb[k]) for k in ma)
+            and again.optimizer.count == engine.optimizer.count,
+            "resumed_loss": float(again.train_step(nxt)["loss"]),
+            "original_loss": float(engine.train_step(nxt)["loss"])}
+
+
+# -- ZeRO-Infinity, the ladder models and AutoTP at tp 2 (the 2-rank launch) --
+
+def _split_dims(model) -> Dict[str, Optional[int]]:
+    """Each parameter's split dim (``ds_tensor``), None for a whole
+    leaf."""
+    return {n: (p.ds_tensor.dim if hasattr(p, "ds_tensor") else None)
+            for n, p in model.named_parameters()}
+
+
+#: ZeRO-Infinity at tp 2: the stash path (``tp2_tiles1``'s config: AdamW
+#: with clipping, the on-device run it is held to) and the fused path
+#: (no clipping, against an on-device run without it)
+INF_ZERO = {"stage": 3, "offload_param": {"device": "cpu"}}
+INF_FUSED_STEPS = 2
+
+
+def _infinity_tp(weights, root: str) -> Dict[str, Any]:
+    """Llama streamed from the cpu tier at tp 2, from the whole model
+    ``initialize`` splits: its steps, masters, trunk bytes and the module's
+    trunk; a save of it loaded by an on-device tp-2 engine (the rank's
+    blocks, bit for bit); the fused path beside an on-device run."""
+    groups.reset_mesh()
+    model = _whole_model("tp2_tiles1", weights)
+    engine, *_ = initialize(model=model, config=train_config(
+        "tp2_tiles1", zero_optimization=INF_ZERO), device="cpu")
+    sw = engine.infinity.swapper
+    out: Dict[str, Any] = {"tp_rank": model.tp_rank,
+                           "split": sorted(engine.infinity.layer_tensor),
+                           "n_elems": sw.n_elems,
+                           "layer_numel": sum(
+                               p.numel() for p in model.layers[0].parameters()),
+                           "device_param_bytes":
+                               engine.infinity.peak_device_param_bytes()}
+    out["stash"] = _steps(engine, "tp2_tiles1", 0)
+    out["stash"]["state"] = streamed_state(engine)
+    engine.save_checkpoint(root)
+    groups.reset_mesh()
+    dev_engine, *_ = initialize(model=_whole_model("tp2_tiles1", weights),
+                                config=train_config("tp2_tiles1"),
+                                device="cpu")
+    dev_engine.load_checkpoint(root)
+    got = _local_whole(dev_engine)
+    out["loaded_equal"] = set(got) == set(out["stash"]["state"]) and all(
+        np.array_equal(got[k], out["stash"]["state"][k]) for k in got)
+    out["loaded_count"] = dev_engine.optimizer.count
+    del dev_engine
+    fused = {}
+    for where, zero in (("streamed", INF_ZERO), ("on_device",
+                                                 {"stage": 0})):
         groups.reset_mesh()
-        weights = mixtral_w if what == "expert" else llama_w
-        try:
-            initialize(model=_whole_model(name, weights),
-                       config=train_config(name, **extra), device="cpu")
-            out[what] = "accepted"
-        except NotImplementedError as e:
-            out[what] = str(e)
+        eng, *_ = initialize(model=_whole_model("tp2_tiles1", weights),
+                             config=train_config("tp2_tiles1",
+                                                 gradient_clipping=0.0,
+                                                 zero_optimization=zero),
+                             device="cpu")
+        run = {"loss": [], "grad_norm": []}
+        for b in train_batches("tp2_tiles1")[:INF_FUSED_STEPS]:
+            m = eng.train_step({"input_ids": torch.from_numpy(b)})
+            run["loss"].append(float(m["loss"]))
+            run["grad_norm"].append(float(m["grad_norm"]))
+        fused[where] = run
+        del eng
+    out["fused"] = fused
     return out
 
 
-def tp_train_rank(rank: int, llama_w, mixtral_w, root: Dict[str, str]
-                  ) -> Dict[str, Any]:
+#: the ladder models at tp 2: tiny widths, 2 layers (ResNet ``tiny``),
+#: ``LADDER_ROWS`` rows a step, three steps
+LADDER_KINDS = ("opt", "bert", "resnet")
+LADDER_ROWS, LADDER_SEQ = 2, 16
+
+
+def ladder_config(tp: int = 2) -> Dict[str, Any]:
+    """The ladder models' and the client's config at ``tp``."""
+    cfg = dict(TRAIN_BASE, train_micro_batch_size_per_gpu=LADDER_ROWS,
+               zero_optimization={"stage": 0})
+    if tp > 1:
+        cfg["tensor_parallel"] = {"autotp_size": tp}
+    return cfg
+
+
+def ladder_model(kind: str):
+    if kind == "opt":
+        return OPTModel(OPTConfig.tiny(num_layers=2, dtype=torch.float32,
+                                       param_dtype=torch.float32),
+                        device="cpu")
+    if kind == "bert":
+        return BertModel(BertConfig.tiny(num_layers=2, dtype=torch.float32,
+                                         param_dtype=torch.float32,
+                                         attn_impl="flash"), device="cpu")
+    return ResNetModel(ResNetConfig.tiny(dtype=torch.float32,
+                                         param_dtype=torch.float32),
+                       device="cpu")
+
+
+def ladder_batches(kind: str) -> List[Dict[str, np.ndarray]]:
+    """Each step's batch (``LADDER_ROWS`` rows, every tensor rank the
+    same): OPT ids; BERT ids with a pad tail on row 1, token types and
+    ~30 % MLM labels; ResNet 8 x 8 images and labels."""
+    out = []
+    for i in range(TRAIN_STEPS):
+        r = np.random.RandomState(30 + i)
+        if kind == "resnet":
+            out.append({"images": r.randn(LADDER_ROWS, 8, 8, 3).astype(
+                np.float32), "labels": r.randint(0, 10, (LADDER_ROWS,))})
+            continue
+        ids = r.randint(0, 512, (LADDER_ROWS, LADDER_SEQ))
+        if kind == "opt":
+            out.append({"input_ids": ids})
+            continue
+        mask = np.ones_like(ids)
+        mask[1, LADDER_SEQ - 4:] = 0
+        labels = np.where((r.rand(*ids.shape) < 0.3) & (mask == 1), ids,
+                          -100)
+        labels[:, 0] = ids[:, 0]
+        out.append({"input_ids": ids, "attention_mask": mask,
+                    "token_type_ids": (np.arange(LADDER_SEQ)[None] >=
+                                       LADDER_SEQ // 2).astype(np.int64)
+                    .repeat(LADDER_ROWS, 0), "labels": labels})
+    return out
+
+
+def train_steps(engine, batches) -> Dict[str, list]:
+    out = {"loss": [], "grad_norm": []}
+    for b in batches:
+        m = engine.train_step({k: torch.from_numpy(v) for k, v in b.items()})
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    return out
+
+
+def _ladder_tp(kind: str, weights) -> Dict[str, Any]:
+    """A whole ladder model split by ``initialize`` at tp 2: its steps,
+    the rank's masters and split dims."""
+    groups.reset_mesh()
+    model = ladder_model(kind)
+    model.load_state_dict(_state_dict(weights))
+    engine, *_ = initialize(model=model, config=ladder_config(),
+                            device="cpu")
+    out = train_steps(engine, ladder_batches(kind))
+    out.update(tp_rank=model.tp_rank, dims=_split_dims(model),
+               params=_local_whole(engine))
+    return out
+
+
+def _autotp_client(weights, ids: np.ndarray) -> Dict[str, Any]:
+    """The client split by ``tp_model_init`` (AutoTP's name policy) and
+    trained through ``initialize`` at tp 2 on the OPT batches; then
+    ``init_inference(tensor_parallel=...)`` on a whole client: its
+    logits."""
+    groups.reset_mesh()
+    model = ClientLM()
+    model.load_state_dict(_state_dict(weights))
+    tp_model_init(model, tp_size=2)
+    attn = model.layers[0].self_attn
+    engine, *_ = initialize(model=model, config=ladder_config(),
+                            device="cpu")
+    out = train_steps(engine, ladder_batches("opt"))
+    out.update(tp_rank=model.tp_rank, dims=_split_dims(model),
+               params=_local_whole(engine),
+               heads=[attn.num_heads, attn.num_key_value_heads],
+               lm_head_gathers=model.lm_head.gather_output)
+    whole = ClientLM()
+    whole.load_state_dict(_state_dict(weights))
+    v1 = init_inference(whole, tensor_parallel={"tp_size": 2},
+                        device="cpu")
+    with torch.no_grad():
+        out["v1_logits"] = v1(torch.from_numpy(ids)).numpy()
+    return out
+
+
+def tp_train_rank(rank: int, llama_w, mixtral_w, root: Dict[str, str],
+                  more: Dict[str, Any]) -> Dict[str, Any]:
     """Every training case of this world size on this rank (two ranks:
-    also fp16, the checkpoints and the hybrid engine)."""
+    also fp16, the checkpoints, the hybrid engine, ZeRO-Infinity, the
+    ladder models and the AutoTP client at tp 2; four: tp 2 x sp 2 and its
+    checkpoint, and the expert-axis refusal)."""
     torch.set_num_threads(1)
     init_distributed(device="cpu")
     world = comm.get_world_size()
@@ -404,8 +651,18 @@ def tp_train_rank(rank: int, llama_w, mixtral_w, root: Dict[str, str]
     if world == 2:
         out["fp16"] = _fp16_skip(llama_w)
         out["hybrid"] = _hybrid(llama_w)
+        out["infinity"] = _infinity_tp(llama_w, root["inf_tp2"])
+        for kind in LADDER_KINDS:
+            out[kind] = _ladder_tp(kind, more[kind])
+        out["client"] = _autotp_client(more["client"], more["client_ids"])
     else:
-        out["refusals"] = _refusals_4(llama_w, mixtral_w)
+        for name in TPSP_CASES:
+            out[name], engine = _tpsp_case(name, llama_w)
+            if name == "tp2sp2_ulysses_t1":
+                out["tpsp_ckpt"] = _tpsp_checkpoint(engine, llama_w,
+                                                    root["tp2sp2"])
+            del engine
+        out["refusals"] = _refusals_4(mixtral_w)
     return out
 
 
@@ -415,7 +672,10 @@ def np_weights(model) -> dict:
     return {k: v.float().numpy() for k, v in model.state_dict().items()}
 
 
-__all__ = ["HYBRID_NEW", "HYBRID_PROMPT", "TRAIN_CASES", "TRAIN_MODEL",
-           "comm_rank", "engines_rank", "frontend_rank", "np_weights",
-           "serve_script", "stray_rank", "tp_train_rank",
-           "train_batches", "train_config", "train_model_config"]
+__all__ = ["CLIENT", "ClientLM", "HYBRID_NEW", "HYBRID_PROMPT",
+           "LADDER_KINDS", "TPSP_CASES", "TRAIN_CASES", "TRAIN_MODEL",
+           "comm_rank", "engines_rank", "frontend_rank", "ladder_batches",
+           "ladder_config", "ladder_model", "np_weights", "serve_script",
+           "stray_rank", "tp_train_rank", "tpsp_model_config",
+           "train_batches", "train_config", "train_model_config",
+           "train_steps"]

@@ -260,9 +260,9 @@ def _hybrid_z3(rank: int, world: int,
 
 def _refusals(rank: int) -> Dict[str, Any]:
     """Mixtral trains on the data axis (its routing is the global
-    micro-batch's: two steps' losses), and so does ZeRO-Infinity; serving
-    a model cut under ZeRO-3 is refused, and ZeRO-Infinity on a tensor
-    axis."""
+    micro-batch's: two steps' losses), and so does ZeRO-Infinity, on the
+    data axis and on a tensor axis; serving a model cut under ZeRO-3 is
+    refused."""
     out: Dict[str, Any] = {}
     moe = MixtralModel(MixtralConfig.tiny(num_layers=1, dtype=torch.float32,
                                           param_dtype=torch.float32),
@@ -294,18 +294,19 @@ def _refusals(rank: int) -> Dict[str, Any]:
     ids = torch.arange(16)[None] * 3 + 50 * rank
     out["infinity_2_ranks"] = [float(engine.train_step(
         {"input_ids": ids})["loss"]) for _ in range(2)]
-    # ... and is refused on a tensor axis (item 5c)
+    # ... and on a tensor axis of 2 (each rank streams its blocks): two
+    # steps on one batch, the same on both ranks
     mesh = groups.initialize_mesh(MeshLayout.infer(2, tp=2))
     try:
-        initialize(model=LlamaModel(LlamaConfig(
+        engine, *_ = initialize(model=LlamaModel(LlamaConfig(
             dtype=torch.float32, param_dtype=torch.float32, **MODEL),
             device="cpu", mesh=mesh),
-                   config=dict(BASE, zero_optimization={
-                       "stage": 3, "offload_param": {"device": "cpu"}}),
-                   mesh=mesh, device="cpu")
-        out["infinity_tp"] = "accepted"
-    except NotImplementedError as e:
-        out["infinity_tp"] = str(e)
+            config=dict(BASE, zero_optimization={
+                "stage": 3, "offload_param": {"device": "cpu"}}),
+            mesh=mesh, device="cpu")
+        ids = torch.arange(16)[None] * 3
+        out["infinity_tp"] = [float(engine.train_step(
+            {"input_ids": ids})["loss"]) for _ in range(2)]
     finally:
         groups.reset_mesh()
     return out
