@@ -1360,46 +1360,95 @@ def phase_moe_kernels(dev) -> dict:
     torch.cuda.empty_cache()
     out["moe_dispatch"]["crossover"] = moe_crossover(dev)
     out["moe_dispatch_ep"] = moe_ep_pattern(dev, gen, cycles)
+    out["moe_dispatch_sp"] = moe_sp_pattern(dev, gen, cycles)
     return out
 
 
 #: the expert-parallel pattern: train_moe_ep's global routing of 2 ranks'
 #: 2048 tokens (C 2048), seen from rank 0
 MOE_EP_TOKENS, MOE_EP_C = 2048, 2048
+#: the expert x seq pattern: train_moe_ep_sp's global routing of its
+#: [2, MOE_MESH_SEQ] batch at ep 2 x sp 2 (Mixtral-8x7B's capacity factor
+#: 2: C = 2 x 4096 x 2 / 8 = 2048), seen from a rank's MOE_MESH_SEQ / 2
+#: tokens; its global ids come from ``sharded_moe.global_token_ids``
+MOE_SP_RANKS = 4
 
 
-def moe_ep_inputs(dtype, gen, dev, rank: int = 0) -> tuple:
-    """One rank's view of a global routing (``sharded_moe.local_routing``):
-    its tokens ``[T, H]``, ``src_idx`` with every other rank's slot
-    empty, and its rows of ``flat_idx`` and the gates."""
+def moe_view_inputs(dtype, gen, dev, ids, T_glob: int, C: int) -> tuple:
+    """One rank's view of a global routing of ``T_glob`` tokens
+    (``sharded_moe.local_routing``), its own at global ``ids``: its
+    tokens ``[T, H]``, ``src_idx`` with every other rank's slot empty, and
+    its rows of ``flat_idx`` and the gates."""
     from deepspeed_tpu_torch.moe import top_k_gating_indices
     from deepspeed_tpu_torch.moe.sharded_moe import local_routing
     from deepspeed_tpu_torch.ops.kernels.moe_dispatch import \
         routing_to_indices
-    T, C = MOE_EP_TOKENS, MOE_EP_C
-    logits = torch.randn(MOE_EP * T, MOE_E, generator=gen, device=dev)
+    logits = torch.randn(T_glob, MOE_E, generator=gen, device=dev)
     logits[:, 0] += 1.5
     gi, _, _ = top_k_gating_indices(logits, MOE_K, C)
     src, flat = routing_to_indices(gi.expert_idx, gi.slot, gi.keep, MOE_E, C)
     src, flat, gates = local_routing(src, flat, gi.gate.t().contiguous(),
-                                     rank * T, T)
-    tokens = torch.randn(T, MOE_H, generator=gen, device=dev).to(dtype)
+                                     ids)
+    tokens = torch.randn(ids.numel(), MOE_H, generator=gen, device=dev).to(
+        dtype)
     eo = torch.randn(MOE_E, C, MOE_H, generator=gen, device=dev).to(dtype)
     return tokens, eo, src, flat, gates.contiguous()
 
 
+def moe_ep_inputs(dtype, gen, dev, rank: int = 0) -> tuple:
+    """Rank ``rank``'s view of train_moe_ep's routing."""
+    T = MOE_EP_TOKENS
+    return moe_view_inputs(dtype, gen, dev, torch.arange(
+        rank * T, (rank + 1) * T, device=dev), MOE_EP * T, MOE_EP_C)
+
+
+def moe_sp_inputs(dtype, gen, dev, rank: int = 0) -> tuple:
+    """Rank ``rank``'s view of train_moe_ep_sp's routing over expert x
+    seq: its chunk of its data coordinate's row."""
+    from deepspeed_tpu_torch.moe.sharded_moe import global_token_ids
+    from deepspeed_tpu_torch.parallel import MeshLayout
+    from deepspeed_tpu_torch.parallel.mesh import ProcessMesh
+    mesh = ProcessMesh(MeshLayout(ep=2, sp=2), rank=rank)
+    ids, _ = global_token_ids(mesh, (1, MOE_MESH_SEQ // 2, MOE_H))
+    T = 2 * MOE_MESH_SEQ
+    return moe_view_inputs(dtype, gen, dev, ids.to(dev), T,
+                           MOE_K * T * 2 // MOE_E)
+
+
 def moe_ep_pattern(dev, gen, cycles: float) -> dict:
-    """#11 (and #12) at the expert-parallel pattern, ranks 0 and 1, bf16
-    and fp32, against their plain versions (dispatch exact); #11 timed in
-    bf16 beside its plain version, ``index_select`` and its bound."""
+    """#11 (and #12) at the expert-parallel pattern (:func:`moe_view_
+    pattern` of :func:`moe_ep_inputs`, ranks 0 and 1)."""
+    return moe_view_pattern(dev, gen, cycles, moe_ep_inputs, (0, 1),
+                            f"rank 0 of {MOE_EP}: T {MOE_EP_TOKENS} of "
+                            f"{MOE_EP * MOE_EP_TOKENS}, E {MOE_E}, C "
+                            f"{MOE_EP_C}, H {MOE_H}")
+
+
+def moe_sp_pattern(dev, gen, cycles: float) -> dict:
+    """#11 (and #12) at the expert x seq pattern (:func:`moe_sp_inputs`,
+    the first and the last of the ``MOE_SP_RANKS``)."""
+    T = 2 * MOE_MESH_SEQ
+    return moe_view_pattern(dev, gen, cycles, moe_sp_inputs,
+                            (0, MOE_SP_RANKS - 1),
+                            f"rank 0 of ep 2 x sp 2: T {T // MOE_SP_RANKS} "
+                            f"of {T}, E {MOE_E}, C "
+                            f"{MOE_K * T * 2 // MOE_E}, H {MOE_H}")
+
+
+def moe_view_pattern(dev, gen, cycles: float, make, ranks: tuple,
+                     timed_at: str) -> dict:
+    """#11 (and #12) at one rank's view of a global routing (``make(dtype,
+    gen, dev, rank)``), ``ranks`` in bf16 and fp32, against their plain
+    versions (dispatch exact); #11 timed in bf16 at the first rank beside
+    its plain version, ``index_select`` and its bound."""
     from deepspeed_tpu_torch.ops.kernels import (combine_reference,
                                                  dispatch_reference,
                                                  moe_combine_fwd,
                                                  moe_dispatch_fwd)
     errs, empty = {}, {}
-    for rank, dtype in itertools.product((0, 1), (torch.bfloat16,
-                                                  torch.float32)):
-        tokens, eo, src, flat, gates = moe_ep_inputs(dtype, gen, dev, rank)
+    for rank, dtype in itertools.product(ranks, (torch.bfloat16,
+                                                 torch.float32)):
+        tokens, eo, src, flat, gates = make(dtype, gen, dev, rank)
         key = f"rank{rank}_{str(dtype).split('.')[-1]}"
         empty[key] = float((src < 0).float().mean())
         got = moe_dispatch_fwd(tokens, src)
@@ -1407,22 +1456,25 @@ def moe_ep_pattern(dev, gen, cycles: float) -> dict:
         want_y = combine_reference(eo, flat, gates).float()
         torch.cuda.synchronize()
         require(torch.equal(got, dispatch_reference(tokens, src)),
-                f"moe_dispatch (ep pattern) {key}: not equal to the plain "
+                f"moe_dispatch ({timed_at}) {key}: not equal to the plain "
                 "version")
         err = (y.float() - want_y).abs()
         require(bool((err <= TOL[dtype] * (1 + want_y.abs())).all()),
-                f"moe_combine (ep pattern) {key}: max error "
+                f"moe_combine ({timed_at}) {key}: max error "
                 f"{err.max().item()}")
         errs[key] = err.max().item()
+        del tokens, eo, src, flat, gates, got, y, want_y, err
     sets = []
     for _ in range(3):
-        tokens, _, src, flat, _ = moe_ep_inputs(torch.bfloat16, gen, dev)
+        tokens, _, src, flat, _ = make(torch.bfloat16, gen, dev, ranks[0])
+        T = tokens.shape[0]
         padded = torch.cat([tokens, tokens.new_zeros(1, MOE_H)])
-        rows = torch.where(src >= 0, src, MOE_EP_TOKENS).reshape(-1).long()
+        rows = torch.where(src >= 0, src, T).reshape(-1).long()
         sets.append((tokens, src, padded, rows))
     tokens, src, padded, rows = sets[0]
+    E, C = src.shape
     lib_err = (torch.index_select(padded, 0, rows).reshape(
-        MOE_E, MOE_EP_C, MOE_H).float() - dispatch_reference(
+        E, C, MOE_H).float() - dispatch_reference(
         tokens, src).float()).abs().max().item()
     b = moe_bounds(tokens, src, flat)["moe_dispatch"]
     out = dict(
@@ -1436,10 +1488,7 @@ def moe_ep_pattern(dev, gen, cycles: float) -> dict:
         library_max_abs_err_vs_plain=lib_err,
         bound_ms=b[0], bound_by=b[1], max_abs_err=0.0,
         combine_max_abs_err_by_case=errs, empty_slot_share=empty,
-        tolerance="exact",
-        timed_at=(f"bf16, rank 0 of {MOE_EP}: T {MOE_EP_TOKENS} of "
-                  f"{MOE_EP * MOE_EP_TOKENS}, E {MOE_E}, C {MOE_EP_C}, "
-                  f"H {MOE_H}"))
+        tolerance="exact", timed_at=f"bf16, {timed_at}")
     del sets, tokens, src, padded, rows
     torch.cuda.empty_cache()
     return out
@@ -5060,20 +5109,28 @@ def require_sp_launches(what: str, run: dict, attn: str, layers: int,
 def sp_tp_launch(dev, seed: int) -> dict:
     """The launch train_sp and train_tp share (``SP`` = ``TP`` ranks on
     card 0 over gloo): each rank runs :func:`sp_train_rank`, then
-    :func:`tp_train_rank`; train_bert_tp's one-process run here first."""
+    :func:`tp_train_rank`, then :func:`seq_models_rank`; the one-process
+    runs they are held against here first (train_bert_tp's BERT, which
+    train_bert_sp shares, OPT's and the seq agreement models')."""
     from deepspeed_tpu_torch.launcher import launch
     from deepspeed_tpu_torch.ops import op_builder
 
     op_builder.build()  # here, so the ranks do not both run nvcc
     one_bert = tp_bert_run(seed, dev)
+    one_opt = seq_model_run("opt", seed, dev, 1)
+    one_agree = {kind: seq_model_run(kind, seed, dev, 1, agree=True)
+                 for kind in SEQ_AGREE_KINDS}
     free_host_cache()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = launch(shared_rank, SP, ([("sp", sp_train_rank, (seed,)),
-                                      ("tp", tp_train_rank, (seed,))],),
+                                      ("tp", tp_train_rank, (seed,)),
+                                      ("seq_models", seq_models_rank,
+                                       (seed,))],),
                    timeout=SP_TIMEOUT + TP_TIMEOUT)
     return {"ranks": ranks, "wall": time.perf_counter() - t0,
-            "one_bert": one_bert}
+            "one_bert": one_bert, "one_opt": one_opt,
+            "one_agree": one_agree}
 
 
 def phase_train_sp(dev, seed: int) -> dict:
@@ -6049,6 +6106,9 @@ def tp_sp_train_rank(rank: int, seed: int) -> dict:
         out[label] = sp_steps(engine, sp_agree_ids(seed, dev),
                               SP_AGREE_STEPS)
         del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe_mesh"] = moe_mesh_rank(rank, seed, dev)
     return out
 
 
@@ -6081,9 +6141,11 @@ def phase_train_tp_sp(dev, seed: int) -> dict:
     del model, engine
     agree_one = sp_agree_run(sp_agree_config("flash", 1), seed, dev, 1)
     free_host_cache()
+    moe_one = moe_mesh_one_process(seed, dev)
+    free_host_cache()
     t0 = time.perf_counter()
     ranks = launch(tp_sp_train_rank, TP_SP_RANKS, (seed,),
-                   timeout=SP_TIMEOUT)
+                   timeout=SP_TIMEOUT + TP_TIMEOUT)
     wall = time.perf_counter() - t0
     L = cfg.num_layers
     base = ranks[0]["train"]
@@ -6142,7 +6204,7 @@ def phase_train_tp_sp(dev, seed: int) -> dict:
                                   f"{agree_one[what]} ({key} steps: rel "
                                   f"{e} > {tol})")
     step_ms = statistics.median(base["host_step_ms"][1:])
-    return {"train": dict(
+    return {"moe_mesh": check_moe_mesh(ranks, moe_one), "train": dict(
         layers=L, tp=TP, sp=SP, batch=[1, SP_SEQ],
         tokens_per_rank=SP_SEQ // SP, steps=TP_STEPS, dtype="bfloat16",
         attn_impl="flash", window=cfg.sliding_window, loss_tiles=SP_TILES,
@@ -6171,6 +6233,407 @@ def emit_train_tp_sp(out: dict) -> None:
               reduced=[f"num_layers 32 -> {SP_LAYERS}"] + reduced,
               comm=TP_SP_NOTE, card=nvidia_smi_line(), **out["train"]))
     emit(dict(phase="train_tp_sp_agree", dtype="float32", reduced=reduced,
+              comm=TP_SP_NOTE, **out["agree"]))
+    emit_moe_mesh(out["moe_mesh"])
+
+
+# -- the MoE and the other ladder models under seq; expert x tensor -----------
+
+#: train_bert_sp / train_opt_sp (train_sp's launch, a body of its own after
+#: train_sp's and train_tp's): BERT-large widths at BERT_TP_LAYERS of 24
+#: on train_bert's [8, 512] batch (train_bert_tp's one-process run is the
+#: reference) and OPT-1.3B widths at SEQ_OPT_LAYERS of 24 on one
+#: [1, SEQ_OPT_SEQ] row (its max_seq_len), at sp SP on the flash kernels
+#: (Ulysses: 8 of BERT's 16 heads, non-causal with the whole rows' pads as
+#: segments; 16 of OPT's 32, causal, d 64, at the full S), bf16 on fp32
+#: masters, remat, TP_STEPS steps; the first held against one process
+#: within SP_BF16_RTOL
+SEQ_OPT_LAYERS, SEQ_OPT_SEQ = 2, 2048
+#: their fp32 agreements at sp SP, SP_AGREE_STEPS AdamW steps with
+#: clipping on one batch, against one process: train_tp_ladder_agree's
+#: narrow BERT and an OPT of its widths (2 layers of 512, 8 heads of 64,
+#: flash); the losses and grad norms within SEQ_AGREE_RTOL.  Ulysses runs
+#: the same per-head attention and every other op per token, but cuBLAS
+#: may round a chunk's products otherwise than the whole rows' (and a ReLU
+#: pre-activation within rounding of 0 then takes the other branch:
+#: ``OPT_AGREE_RTOL``'s note); the bound is train_sp_agree's ring's
+SEQ_AGREE_KINDS = ("bert", "opt")
+SEQ_AGREE_RTOL = 1e-4
+#: train_moe_ep_sp / train_moe_ep_tp (train_tp_sp's launch, after its
+#: runs): Mixtral-8x7B widths at MOE_MESH_LAYERS of 32, bf16 on fp32
+#: masters, flash, remat, SP_TILES loss tiles, the dispatch kernels, ZeRO
+#: stage MOE_MESH_STAGE (the non-expert leaves' moments and gradients cut
+#: over the expert axis's two data-parallel ranks), MOE_MESH_STEPS steps
+#: on one [1, MOE_MESH_SEQ] row a data coordinate (the expert axis's two:
+#: a global [2, MOE_MESH_SEQ] batch routed together): at ep 2 x sp 2 (a
+#: rank's 4 experts and its chunk of its row) and at ep 2 x tp 2 (a
+#: rank's 4 experts by half their FFN columns); each run's engine freed
+#: before the next; the first step held against one process on the same
+#: batch within SP_BF16_RTOL.  The four ranks share card 0: at ep 2 x sp
+#: 2 a rank holds 1,008,775,168 parameters (16.1 GB of fp32 state at
+#: stage 0, 14.3 GB at stage 2), and a [1, 8192] row a coordinate would
+#: add ~5.5 GB a rank of transients (the global capacity's [E, C, H]
+#: buffers, the expert products and the experts' bf16 casts): ~80 GB for
+#: the four with their contexts; a [1, 2048] row adds ~3.7 GB.  Fused
+#: Adam updates the 14.3 GB in place (the plain step's ``_foreach``
+#: temporaries would hold a leaf group's size again), and the gradients
+#: are all-reduced in flat buckets of MOE_MESH_BUCKET elements (the
+#: default 500 M: a 1.75 GiB copy of the experts' gradients ran one rank
+#: out of memory at the first sum over ``seq``, my chip call 1, PR 19)
+MOE_MESH_LAYERS, MOE_MESH_STEPS, MOE_MESH_BUCKET = 1, 2, 50_000_000
+MOE_MESH_SEQ, MOE_MESH_STAGE = 2048, 2
+MOE_MESH_RUNS = {"ep2_sp2": dict(ep=2, sp=2), "ep2_tp2": dict(ep=2, tp=2)}
+#: their fp32 agreements: AGREE_TRAIN's widths with 4 experts, top-2, one
+#: [1, SP_AGREE_SEQ] row a data coordinate, SP_AGREE_STEPS steps, at each
+#: layout against one process: the first step within TP_AGREE_RTOL, every
+#: step within TP_SP_AGREE_RTOL
+MOE_MESH_AGREE = dict(AGREE_TRAIN, num_experts=4, top_k=2)
+
+
+def seq_model(kind: str, seed: int, dev, agree: bool = False):
+    """A ladder model for the seq bodies: train_bert_tp's BERT-large or
+    OPT-1.3B widths (bf16), or with ``agree`` the fp32 agreement ones."""
+    from deepspeed_tpu_torch import OPTConfig, OPTModel, BertModel
+
+    if agree:
+        if kind == "bert":
+            return ladder_agree_model("bert", seed, dev)
+        f32 = dict(dtype=torch.float32, param_dtype=torch.float32)
+        return OPTModel(OPTConfig.tiny(
+            num_layers=2, hidden_size=512, num_heads=8, ffn_dim=1024,
+            max_seq_len=256, attn_impl="flash", **f32), device=dev,
+            seed=seed + 5)
+    if kind == "bert":
+        return BertModel(bert_config(num_layers=BERT_TP_LAYERS), device=dev,
+                         seed=seed)
+    return OPTModel(OPTConfig.opt_1_3b(
+        num_layers=SEQ_OPT_LAYERS, dtype=torch.bfloat16,
+        param_dtype=torch.float32, attn_impl="flash"), device=dev,
+        seed=seed)
+
+
+def seq_batch(kind: str, seed: int, dev, vocab: int,
+              agree: bool = False) -> dict:
+    """A seq body's batch: train_bert_tp's (train_bert's ``[8, 512]``),
+    OPT's one row, or the agreement models' (train_tp_ladder_agree's)."""
+    if agree:
+        b = ladder_agree_batch(kind, seed, dev)
+        if kind == "opt":  # the narrow OPT's vocabulary
+            b["input_ids"] = b["input_ids"] % vocab
+        return b
+    if kind == "bert":
+        return bert_batch(vocab, BERT_BATCH, seed + 1, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    return {"input_ids": torch.randint(0, vocab, (1, SEQ_OPT_SEQ),
+                                       generator=gen, device=dev)}
+
+
+def seq_model_run(kind: str, seed: int, dev, sp: int,
+                  agree: bool = False) -> dict:
+    """A ladder model through ``initialize`` at sp ``sp`` on its batch
+    (every rank the whole rows): the steps' metrics and launches, state
+    bytes and peak memory."""
+    from deepspeed_tpu_torch import initialize
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = seq_model(kind, seed, dev, agree)
+    batch = seq_batch(kind, seed, dev, model.config.vocab_size, agree)
+    rows = next(iter(batch.values())).shape[0]
+    conf = dict(ds_config(model, rows), sequence_parallel={"sp_size": sp})
+    if agree:
+        conf.update(gradient_clipping=1.0, optimizer={
+            "type": "AdamW", "params": {"lr": 1e-3}})
+    engine = initialize(model=model, config=conf, device=dev)[0]
+    setup_s = time.perf_counter() - t0
+    out = dict(sp_steps(engine, batch, SP_AGREE_STEPS if agree
+                        else TP_STEPS), setup_s=setup_s,
+               sp_rank=engine.sp_rank, heads=model.num_local_heads,
+               state_bytes=zero_state_bytes(engine),
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def seq_models_rank(rank: int, seed: int) -> dict:
+    """One rank of train_bert_sp / train_opt_sp and their fp32
+    agreements (train_sp's launch)."""
+    dev = zero_rank_setup()
+    out = {kind: seq_model_run(kind, seed, dev, SP)
+           for kind in ("bert", "opt")}
+    out["agree"] = {kind: seq_model_run(kind, seed, dev, SP, agree=True)
+                    for kind in SEQ_AGREE_KINDS}
+    return out
+
+
+def check_seq_models(got: dict, one_bert: dict) -> dict:
+    """train_bert_sp, train_opt_sp and train_seq_models_agree from train_sp's
+    launch: finite, falling losses equal on both ranks, the flash launches
+    of the formula and 12 L all-to-alls a step; the first step within
+    ``SP_BF16_RTOL`` of one process (BERT: train_bert_tp's run); the fp32
+    runs within ``SEQ_AGREE_RTOL`` of theirs."""
+    ranks = [r["seq_models"] for r in got["ranks"]]
+    one = {"bert": one_bert, "opt": got["one_opt"]}
+    out = {}
+    for kind in ("bert", "opt"):
+        base = ranks[0][kind]
+        layers = BERT_TP_LAYERS if kind == "bert" else SEQ_OPT_LAYERS
+        for r, res in enumerate(ranks):
+            t = res[kind]
+            what = f"train_{kind}_sp rank {r}"
+            require(all(np.isfinite(t["loss"])) and
+                    t["loss"][-1] < t["loss"][0], f"{what}: {t['loss']}")
+            require(t["loss"] == base["loss"] and
+                    t["grad_norm"] == base["grad_norm"],
+                    f"{what}: metrics differ from rank 0's")
+            require_sp_launches(what, t, "flash", layers, TP_STEPS, SP)
+        rel = {}
+        for what, tol in zip(("loss", "grad_norm"), SP_BF16_RTOL):
+            rel[what] = e = _max_rel(base[what][:1], one[kind][what][:1])
+            require(e <= tol, f"train_{kind}_sp: sp {SP}'s first {what} "
+                              f"{base[what][0]} != one process's "
+                              f"{one[kind][what][0]} (rel {e} > {tol})")
+        out[kind] = dict(
+            layers=layers, sp=SP, steps=TP_STEPS, dtype="bfloat16",
+            attn_impl="flash", remat=True,
+            heads_per_rank_in_attention=base["heads"] // SP,
+            ranks=list(r[kind] for r in ranks),
+            one_process={k: one[kind][k] for k in ("loss", "grad_norm")},
+            rel_first_step_to_one_process=rel,
+            tolerance=dict(zip(("loss", "grad_norm"), SP_BF16_RTOL)),
+            host_step_ms=statistics.median(base["host_step_ms"][1:]))
+    agree = {}
+    for kind in SEQ_AGREE_KINDS:
+        run = ranks[0]["agree"][kind]
+        require(all(r["agree"][kind]["loss"] == run["loss"] for r in ranks),
+                f"train_seq_models_agree {kind}: the ranks' losses differ")
+        require_sp_launches(f"train_seq_models_agree {kind}", run, "flash",
+                            2, SP_AGREE_STEPS, SP)
+        ref = got["one_agree"][kind]
+        rel = {w: _max_rel(run[w], ref[w]) for w in ("loss", "grad_norm")}
+        for w, e in rel.items():
+            require(e <= SEQ_AGREE_RTOL,
+                    f"train_seq_models_agree {kind}: {w} {run[w]} != one "
+                    f"process's {ref[w]} (rel {e} > {SEQ_AGREE_RTOL})")
+        agree[kind] = dict(sp2={k: run[k] for k in ("loss", "grad_norm")},
+                           one_process={k: ref[k] for k in ("loss",
+                                                            "grad_norm")},
+                           max_rel=rel)
+    out["agree"] = dict(models={
+        "bert": "BertConfig.tiny at 2 x 512, 8 heads of 64, flash",
+        "opt": "OPTConfig.tiny at 2 x 512, 8 heads of 64, flash"},
+        sp=SP, steps=SP_AGREE_STEPS, dtype="float32",
+        tolerance=SEQ_AGREE_RTOL, runs=agree)
+    return out
+
+
+def emit_seq_models(out: dict) -> None:
+    reduced = ["cards 2 -> 1, NCCL -> gloo through the host",
+               f"steps -> {TP_STEPS} (the script's length)"]
+    for kind, model, layers in (("bert", "bert_large", BERT_TP_LAYERS),
+                                ("opt", "opt_1_3b", SEQ_OPT_LAYERS)):
+        emit(dict(phase=f"train_{kind}_sp", model=model,
+                  reduced=[f"num_layers 24 -> {layers}"] + reduced,
+                  comm=SP_NOTE, card=nvidia_smi_line(), **out[kind]))
+    emit(dict(phase="train_seq_models_agree", reduced=reduced[:1],
+              comm=SP_NOTE, **out["agree"]))
+
+
+def moe_mesh_config(agree: bool):
+    from deepspeed_tpu_torch import MixtralConfig
+    if agree:
+        return MixtralConfig(**MOE_MESH_AGREE)
+    return MixtralConfig.mixtral_8x7b(
+        num_layers=MOE_MESH_LAYERS, dtype=torch.bfloat16,
+        param_dtype=torch.float32, attn_impl="flash", loss_tiles=SP_TILES)
+
+
+def moe_mesh_ids(seed: int, vocab: int, seq: int, dev) -> torch.Tensor:
+    """The global batch: one row a data coordinate of the expert axis."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    return torch.randint(0, vocab, (2, seq), generator=gen, device=dev)
+
+
+def moe_mesh_run(seed: int, dev, agree: bool, ep: int = 1, sp: int = 1,
+                 tp: int = 1) -> dict:
+    """A Mixtral through ``initialize`` at ``ep x sp x tp`` (one process
+    at 1 x 1 x 1: both rows), built on the mesh from the seed (a rank's
+    experts and columns are slices of the one-process model), its data
+    coordinate's row: the steps' metrics and launches, the rung, state
+    bytes, the experts a rank holds and its peak memory."""
+    from deepspeed_tpu_torch import MixtralModel, comm, initialize
+    from deepspeed_tpu_torch.parallel import MeshLayout
+    from deepspeed_tpu_torch.utils import groups
+
+    cfg = moe_mesh_config(agree)
+    world = ep * sp * tp
+    mesh = (groups.initialize_mesh(MeshLayout.infer(world, ep=ep, sp=sp,
+                                                    tp=tp))
+            if world > 1 else None)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = MixtralModel(cfg, device=dev, seed=seed + (4 if agree else 0),
+                         mesh=mesh)
+    conf = dict(ds_config(model, 2 // ep, fused_adam=not agree,
+                          stage=0 if agree or ep == 1 else MOE_MESH_STAGE),
+                moe={"expert_parallel_size": ep},
+                sequence_parallel={"sp_size": sp},
+                tensor_parallel={"autotp_size": tp})
+    if not agree:
+        conf["zero_optimization"]["reduce_bucket_size"] = MOE_MESH_BUCKET
+    if agree:
+        conf["optimizer"] = {"type": "AdamW", "params": {"lr": 1e-3}}
+    engine = initialize(model=model, config=conf, device=dev, mesh=mesh)[0]
+    setup_s = time.perf_counter() - t0
+    ids = moe_mesh_ids(seed, cfg.vocab_size,
+                       SP_AGREE_SEQ if agree else MOE_MESH_SEQ, dev)
+    q = comm.get_rank(engine.dp_group) if engine.dp_world_size > 1 else 0
+    rows = ids[q * 2 // ep:(q + 1) * 2 // ep]
+    run = sp_steps(engine, rows, SP_AGREE_STEPS if agree
+                   else MOE_MESH_STEPS)
+    layer = model._moe_layer
+    out = dict(run, setup_s=setup_s, rung=layer.last_impl,
+               capacity=layer.last_capacity,
+               kept_share=float(layer.last_routing.keep.float().mean())
+               if layer.last_routing is not None else None,
+               coords={a: mesh.axis_rank(a) for a in ("expert", "seq",
+                                                      "tensor")}
+               if mesh is not None else None,
+               experts=tuple(model.layers[0].w_gate.shape),
+               params=sum(p.numel() for p in engine.params),
+               state_bytes=zero_state_bytes(engine),
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del model, engine, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    groups.reset_mesh()
+    return out
+
+
+def moe_mesh_rank(rank: int, seed: int, dev) -> dict:
+    """train_moe_ep_sp, train_moe_ep_tp and their fp32 agreements on one
+    rank of train_tp_sp's launch."""
+    out = {label: moe_mesh_run(seed, dev, False, **lay)
+           for label, lay in MOE_MESH_RUNS.items()}
+    out["agree"] = {label: moe_mesh_run(seed, dev, True, **lay)
+                    for label, lay in MOE_MESH_RUNS.items()}
+    return out
+
+
+def moe_mesh_one_process(seed: int, dev) -> dict:
+    """The one-process references of train_tp_sp's Mixtral bodies: the
+    first step at Mixtral-8x7B widths on the global batch, and the fp32
+    agreement model's steps."""
+    one = moe_mesh_run(seed, dev, False)
+    free_host_cache()
+    return {"train": one, "agree": moe_mesh_run(seed, dev, True)}
+
+
+def check_moe_mesh(ranks: list, one: dict) -> dict:
+    """train_moe_ep_sp, train_moe_ep_tp and train_moe_mesh_agree: per run,
+    each rank at its coordinates with its 4 experts (by half their columns
+    at tp 2), finite losses equal on the four, the flash and dispatch
+    launches of the formula (remat: dispatch and combine twice a layer a
+    step, on the kernel rung; the bf16 runs' Σg² and Adam kernels once a
+    step) and under ``seq`` 12 L all-to-alls a step,
+    the first step within ``SP_BF16_RTOL`` of one process; the fp32 runs
+    within ``TP_AGREE_RTOL`` (first step) and ``TP_SP_AGREE_RTOL`` of
+    theirs."""
+    cfg = moe_mesh_config(False)
+    out = {}
+    for agree in (False, True):
+        for label, lay in MOE_MESH_RUNS.items():
+            sp, tp = lay.get("sp", 1), lay.get("tp", 1)
+            runs = [r["moe_mesh"]["agree"][label] if agree
+                    else r["moe_mesh"][label] for r in ranks]
+            ref = one["agree" if agree else "train"]
+            base = runs[0]
+            name = f"train_moe_mesh_agree {label}" if agree else \
+                f"train_moe_{label.replace('2', '')}"
+            coords = sorted(tuple(x["coords"][a] for a in ("expert", "seq",
+                                                          "tensor"))
+                            for x in runs)
+            require(coords == sorted((e, s, t) for e in range(2)
+                                     for s in range(sp) for t in range(tp)),
+                    f"{name}: coordinates {coords}")
+            E = (MOE_MESH_AGREE["num_experts"] if agree
+                 else cfg.num_experts)
+            I = (MOE_MESH_AGREE["intermediate_size"] if agree
+                 else cfg.intermediate_size)
+            for r, x in enumerate(runs):
+                what = f"{name} rank {r}"
+                require(all(np.isfinite(x["loss"])), f"{what}: {x['loss']}")
+                require(x["loss"] == base["loss"] and
+                        x["grad_norm"] == base["grad_norm"],
+                        f"{what}: metrics differ from rank 0's")
+                require(x["experts"][0] == E // 2 and
+                        x["experts"][2] == I // tp,
+                        f"{what}: expert stack {x['experts']}")
+                require(x["rung"] == "pallas", f"{what}: rung {x['rung']}")
+                layers = (MOE_MESH_AGREE["num_layers"] if agree
+                          else MOE_MESH_LAYERS)
+                steps = SP_AGREE_STEPS if agree else MOE_MESH_STEPS
+                require_train_launches(what, dict(
+                    layers=layers, steps=steps, remat=True,
+                    fused_adam=not agree, launches=x["launches"]), moe=True)
+                want = steps * layers * SP_A2A_PER_LAYER_STEP if sp > 1 \
+                    else 0
+                require(x["all_to_all"] == want,
+                        f"{what}: {x['all_to_all']} all-to-alls, want {want}")
+            if agree:
+                rel = {}
+                for w in ("loss", "grad_norm"):
+                    for key, n, tol in (("first", 1, TP_AGREE_RTOL),
+                                        ("all", SP_AGREE_STEPS,
+                                         TP_SP_AGREE_RTOL)):
+                        rel[f"{w}_{key}"] = e = _max_rel(base[w][:n],
+                                                         ref[w][:n])
+                        require(e <= tol, f"{name}: {w} {base[w]} != one "
+                                          f"process's {ref[w]} ({key}: rel "
+                                          f"{e} > {tol})")
+                out.setdefault("agree", {})[label] = dict(
+                    mesh={k: base[k] for k in ("loss", "grad_norm")},
+                    one_process={k: ref[k] for k in ("loss", "grad_norm")},
+                    max_rel=rel)
+                continue
+            rel = {}
+            for w, tol in zip(("loss", "grad_norm"), SP_BF16_RTOL):
+                rel[w] = e = _max_rel(base[w][:1], ref[w][:1])
+                require(e <= tol, f"{name}: first {w} {base[w][0]} != one "
+                                  f"process's {ref[w][0]} (rel {e} > {tol})")
+            out[label] = dict(
+                layers=MOE_MESH_LAYERS, **lay, global_batch=[2, MOE_MESH_SEQ],
+                steps=MOE_MESH_STEPS, dtype="bfloat16", attn_impl="flash",
+                loss_tiles=SP_TILES, remat=True, rung=base["rung"],
+                capacity=base["capacity"],
+                experts_a_rank=list(base["experts"]),
+                ranks=[{k: v for k, v in x.items()} for x in runs],
+                one_process={k: ref[k] for k in (
+                    "loss", "grad_norm", "params", "state_bytes",
+                    "peak_mem_bytes")},
+                rel_first_step_to_one_process=rel,
+                tolerance=dict(zip(("loss", "grad_norm"), SP_BF16_RTOL)),
+                host_step_ms=statistics.median(base["host_step_ms"][1:]),
+                peak_mem_bytes_sum=sum(x["peak_mem_bytes"] for x in runs))
+    out["agree"] = dict(model=dict((k, v) for k, v in MOE_MESH_AGREE.items()
+                                   if k not in ("dtype", "param_dtype")),
+                        global_batch=[2, SP_AGREE_SEQ], steps=SP_AGREE_STEPS,
+                        dtype="float32", runs=out["agree"],
+                        tolerance=dict(first=TP_AGREE_RTOL,
+                                       all=TP_SP_AGREE_RTOL))
+    return out
+
+
+def emit_moe_mesh(out: dict) -> None:
+    reduced = ["cards 4 -> 1, NCCL -> gloo through the host",
+               f"num_layers 32 -> {MOE_MESH_LAYERS}"]
+    for label in MOE_MESH_RUNS:
+        emit(dict(phase=f"train_moe_{label.replace('2', '')}",
+                  model="mixtral_8x7b", reduced=reduced, comm=TP_SP_NOTE,
+                  card=nvidia_smi_line(), **out[label]))
+    emit(dict(phase="train_moe_mesh_agree", reduced=reduced[:1],
               comm=TP_SP_NOTE, **out["agree"]))
 
 
@@ -6269,11 +6732,16 @@ def main() -> int:
                          "train_infinity_tp_agree, train_bert_tp, "
                          "train_tp_ladder_agree (train_sp and train_moe "
                          "first when they are not named), train_tp_sp, "
-                         "train_tp_sp_agree; the phases of one rank launch "
-                         "run together: serve_tp's and serve_moe_tp's; "
-                         "train_zero's, train_ckpt's ZeRO part, "
-                         "train_moe_ep's and train_bert_zero's; train_sp's "
-                         "and train_tp's; train_tp_sp's)")
+                         "train_tp_sp_agree, train_moe_ep_sp, "
+                         "train_moe_ep_tp, train_moe_mesh_agree, "
+                         "train_bert_sp, train_opt_sp, "
+                         "train_seq_models_agree; the phases of one rank "
+                         "launch run together: serve_tp's and "
+                         "serve_moe_tp's; train_zero's, train_ckpt's ZeRO "
+                         "part, train_moe_ep's and train_bert_zero's; "
+                         "train_sp's, train_tp's, train_bert_sp's and "
+                         "train_opt_sp's; train_tp_sp's and the "
+                         "train_moe_ep_* ones)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU path "
@@ -6545,6 +7013,12 @@ def main() -> int:
         res["train_tp_sp"] = out = phase_train_tp_sp(dev, args.seed)
         emit_train_tp_sp(out)
 
+    def train_seq_models():  # in train_sp's launch
+        got = shared_launch("sp_tp", lambda: sp_tp_launch(dev, args.seed))
+        res["train_seq_models"] = out = check_seq_models(got,
+                                                         got["one_bert"])
+        emit_seq_models(out)
+
     def train_bert():
         res["train_bert"] = phase_train_bert(dev, args.seed)
         emit(dict(phase="train_bert", model="bert_large", reduced=[],
@@ -6621,7 +7095,11 @@ def main() -> int:
         "train_tp_hybrid": train_tp, "train_infinity_tp": train_tp,
         "train_infinity_tp_agree": train_tp, "train_bert_tp": train_tp,
         "train_tp_ladder_agree": train_tp,
-        "train_tp_sp": train_tp_sp, "train_tp_sp_agree": train_tp_sp}
+        "train_tp_sp": train_tp_sp, "train_tp_sp_agree": train_tp_sp,
+        "train_moe_ep_sp": train_tp_sp, "train_moe_ep_tp": train_tp_sp,
+        "train_moe_mesh_agree": train_tp_sp,
+        "train_bert_sp": train_seq_models, "train_opt_sp": train_seq_models,
+        "train_seq_models_agree": train_seq_models}
     only = [p for p in args.only.split(",") if p]
     unknown = set(only) - set(phases)
     if unknown:
@@ -6659,6 +7137,8 @@ def main() -> int:
     pallas = "deepspeed_tpu/ops/pallas/"
     (s, g), (sm, gm), t, tm = (res["serve"], res["serve_moe"], res["train"],
                                res["train_moe"])
+    # the headline's flash rows also count OPT-1.3B's at sp 2 (causal, d
+    # 64, S 2048: the headline's shape on 16 heads)
     timing, flash, moe, adam, bs = (res["timing"], res["flash"], res["moe"],
                                     res["adam"], res["sparse_kernels"])
 
@@ -6674,10 +7154,18 @@ def main() -> int:
     tti, ttb = ttp["infinity"]["ranks"][0], ttp["bert"]["ranks"][0]
     ttsp = res["train_tp_sp"]["train"]["ranks"][0]
     stp = res["serving_tp"]
+    # the seq slice, rank 0's counts: BERT-large and OPT-1.3B at sp 2
+    # (train_sp's launch), Mixtral at ep 2 x sp 2 and ep 2 x tp 2
+    # (train_tp_sp's)
+    tsm = res["train_seq_models"]
+    tbs, tos = tsm["bert"]["ranks"][0], tsm["opt"]["ranks"][0]
+    tmm = res["train_tp_sp"]["moe_mesh"]
+    tmes, tmet = tmm["ep2_sp2"]["ranks"][0], tmm["ep2_tp2"]["ranks"][0]
 
     def moe_launches(kernel):  # every MoE main path (a rank's on EP, TP)
         return sum(x["launches"][kernel] for x in (
-            sm, gm, tm, ep, smt["serve"], smt["generate"], ttm))
+            sm, gm, tm, ep, smt["serve"], smt["generate"], ttm, tmes,
+            tmet))
 
     def hybrid_decode():  # the hybrid engine's generates (train, train_tp)
         return (t["hybrid"]["launches"]["decode_attention"]
@@ -6701,12 +7189,15 @@ def main() -> int:
             + stp["serve_opt"]["launches"]["paged_decode_attention_tp"],
             res["tp_kernels"]["paged_decode_attention_tp"]),
         "flash_fwd": (flash_src, pallas + "flash_attention.py:260",
-                      t["launches"]["flash_fwd"], flash["flash_fwd"]),
+                      t["launches"]["flash_fwd"]
+                      + tos["launches"]["flash_fwd"], flash["flash_fwd"]),
         "flash_bwd_dq": (flash_src, pallas + "flash_attention.py:453",
-                         t["launches"]["flash_bwd_dq"],
+                         t["launches"]["flash_bwd_dq"]
+                         + tos["launches"]["flash_bwd_dq"],
                          flash["flash_bwd_dq"]),
         "flash_bwd_dkv": (flash_src, pallas + "flash_attention.py:472",
-                          t["launches"]["flash_bwd_dkv"],
+                          t["launches"]["flash_bwd_dkv"]
+                          + tos["launches"]["flash_bwd_dkv"],
                           flash["flash_bwd_dkv"]),
         "moe_dispatch": (moe_src, pallas + "moe_dispatch.py:194",
                          moe_launches("moe_dispatch"), moe["moe_dispatch"]),
@@ -6714,17 +7205,25 @@ def main() -> int:
         "moe_dispatch_ep": (moe_src, pallas + "moe_dispatch.py:194",
                             ep["launches"]["moe_dispatch"],
                             moe["moe_dispatch_ep"]),
+        # #11 at the expert x seq pattern; launches: train_moe_ep_sp's rank
+        "moe_dispatch_sp": (moe_src, pallas + "moe_dispatch.py:194",
+                            tmes["launches"]["moe_dispatch"],
+                            moe["moe_dispatch_sp"]),
         "moe_combine": (moe_src, pallas + "moe_dispatch.py:215",
                         moe_launches("moe_combine"), moe["moe_combine"]),
         "multi_tensor_sqsum": (adam_src, pallas + "fused_optimizer.py:91",
                                tm["launches"]["multi_tensor_sqsum"]
                                + ep["launches"]["multi_tensor_sqsum"]
-                               + ttm["launches"]["multi_tensor_sqsum"],
+                               + ttm["launches"]["multi_tensor_sqsum"]
+                               + tmes["launches"]["multi_tensor_sqsum"]
+                               + tmet["launches"]["multi_tensor_sqsum"],
                                adam["multi_tensor_sqsum"]),
         "fused_adam": (adam_src, pallas + "fused_optimizer.py:158",
                        tm["launches"]["fused_adam"]
                        + ep["launches"]["fused_adam"]
-                       + ttm["launches"]["fused_adam"], adam["fused_adam"]),
+                       + ttm["launches"]["fused_adam"]
+                       + tmes["launches"]["fused_adam"]
+                       + tmet["launches"]["fused_adam"], adam["fused_adam"]),
         # the forward replaces the gather (:335) and resident (:523) forwards
         "block_sparse_fwd": (sparse_src,
                              pallas + "block_sparse_attention.py:335",
@@ -6742,19 +7241,23 @@ def main() -> int:
                           res["quant"]["path"]["launches"]["quantize_int8"],
                           res["quant"]),
         # the ladder-model slice: the flash kernels at BERT-large's
-        # non-causal, padded shape (launches: train_bert), decode and paged
+        # non-causal, padded shape (launches: train_bert, and at h/tp and
+        # h/sp: train_bert_tp's and train_bert_sp's rank), decode and paged
         # at OPT-1.3B's MHA d 64 (launches: generate_opt, serve_opt)
         "flash_fwd_bert": (flash_src, pallas + "flash_attention.py:260",
                            tb["launches"]["flash_fwd"]
-                           + ttb["launches"]["flash_fwd"],
+                           + ttb["launches"]["flash_fwd"]
+                           + tbs["launches"]["flash_fwd"],
                            flash["flash_fwd"]),
         "flash_bwd_dq_bert": (flash_src, pallas + "flash_attention.py:453",
                               tb["launches"]["flash_bwd_dq"]
-                              + ttb["launches"]["flash_bwd_dq"],
+                              + ttb["launches"]["flash_bwd_dq"]
+                              + tbs["launches"]["flash_bwd_dq"],
                               flash["flash_bwd_dq"]),
         "flash_bwd_dkv_bert": (flash_src, pallas + "flash_attention.py:472",
                                tb["launches"]["flash_bwd_dkv"]
-                               + ttb["launches"]["flash_bwd_dkv"],
+                               + ttb["launches"]["flash_bwd_dkv"]
+                               + tbs["launches"]["flash_bwd_dkv"],
                                flash["flash_bwd_dkv"]),
         "decode_attention_opt": (decode_src, pallas + "decode_attention.py:98",
                                  go["launches"]["decode_attention"]
@@ -6777,20 +7280,28 @@ def main() -> int:
                               flash["flash_bwd_dkv"]),
         # the sequence-parallel slice: the flash kernels at the Ulysses
         # shape, the full S 8192 on h/sp heads (launches: train_sp, a
-        # rank); train_tp's Llama runs the same shape on h/tp heads
+        # rank); train_tp's Llama runs the same shape on h/tp heads, and
+        # Mixtral's at ep 2 x sp 2 and ep 2 x tp 2 (train_moe_ep_sp's and
+        # train_moe_ep_tp's rank)
         "flash_fwd_sp": (flash_src, pallas + "flash_attention.py:260",
                          tsp["launches"]["flash_fwd"]
                          + ttl["launches"]["flash_fwd"]
-                         + tti["launches"]["flash_fwd"], flash["flash_fwd"]),
+                         + tti["launches"]["flash_fwd"]
+                         + tmes["launches"]["flash_fwd"]
+                         + tmet["launches"]["flash_fwd"], flash["flash_fwd"]),
         "flash_bwd_dq_sp": (flash_src, pallas + "flash_attention.py:453",
                             tsp["launches"]["flash_bwd_dq"]
                             + ttl["launches"]["flash_bwd_dq"]
-                            + tti["launches"]["flash_bwd_dq"],
+                            + tti["launches"]["flash_bwd_dq"]
+                            + tmes["launches"]["flash_bwd_dq"]
+                            + tmet["launches"]["flash_bwd_dq"],
                             flash["flash_bwd_dq"]),
         "flash_bwd_dkv_sp": (flash_src, pallas + "flash_attention.py:472",
                              tsp["launches"]["flash_bwd_dkv"]
                              + ttl["launches"]["flash_bwd_dkv"]
-                             + tti["launches"]["flash_bwd_dkv"],
+                             + tti["launches"]["flash_bwd_dkv"]
+                             + tmes["launches"]["flash_bwd_dkv"]
+                             + tmet["launches"]["flash_bwd_dkv"],
                              flash["flash_bwd_dkv"]),
         # the tensor x sequence slice: the windowed kernels at h 8 and the
         # full S 8192 (launches: train_tp_sp, a rank)

@@ -4,7 +4,7 @@ Counterpart of ``deepspeed_tpu/models/bert.py``: the config and its presets
 (``tiny``, ``bert_large``), the seeded init, the post-LN encoder block
 (biased projections, exact GELU), word + position + token-type embeddings,
 the MLM head whose decoder is tied to the word embedding plus its own fp32
-bias, and the masked-LM loss over :func:`.llama.masked_cross_entropy`
+bias, and the masked-LM loss over :func:`.llama.masked_nll`
 (-100 = not masked).
 
 ``attn_impl="flash"`` runs the hand-written CUDA flash kernels
@@ -33,6 +33,18 @@ head are whole.  The layers run Megatron's *f* and *g*, the row-parallel
 biases added once after the sum; the flash kernels run on the rank's
 ``h/tp`` heads with the padding as segments.
 
+Sequence parallelism (training; JAX's ``(DP, seq)`` constraints at
+:202-204, 236, 245, 268): on a mesh whose ``seq`` axis has size ``sp``
+above 1 (``initialize`` hands the model its mesh) every rank of a ``seq``
+group feeds the same whole rows; :meth:`BertModel.loss` keeps the rank's
+``S/sp`` chunk of the ids, token types and labels, adds the position
+embeddings at the chunk's global positions, and runs each attention
+through Ulysses (``runtime/sequence_parallel/ulysses_sp.py``): the full
+sequence on ``h/sp`` heads, masked by the whole row's padding (the
+flash kernels' segment ids).  The loss is the chunk's Σ nll over the MLM
+count summed over ``seq`` (:func:`seq_share`), so the ranks' losses add
+up to the token mean of the whole batch.
+
 Not ported: random-LTD (JAX ``ltd_keep``, ROADMAP Queue 1 item 10) and the
 compression activation quantizer (``act_quant_bits``, item 10); each raises
 when set.  The numerics probes are telemetry (item 12) and are left out.
@@ -43,7 +55,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,14 +63,17 @@ from torch import nn
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..comm import comm
 from ..ops.kernels.flash_attention import flash_attention
-from ..parallel.mesh import AXIS_TENSOR, ProcessMesh
+from ..parallel.mesh import AXIS_SEQ, AXIS_TENSOR, ProcessMesh
+from ..runtime.sequence_parallel.ulysses_sp import (seq_group_of,
+                                                    ulysses_attention)
 from ..runtime.zero.init_ctx import active as zero_init_active
 from ..runtime.zero.init_ctx import materialize
 from ..runtime.zero.sharder import TensorShard, compute_weight
 from ..utils.device import DeviceLike, resolve_device
 from .llama import (TensorSplit, _attention, _save_weight_matmuls,
-                    masked_cross_entropy, split_block)
+                    masked_nll, split_block)
 
 #: a BERT or OPT layer's state-dict entry → the dim tensor parallelism
 #: splits (the JAX ``param_specs``' ``tensor`` entries: ``bert.py``
@@ -169,6 +184,56 @@ def refuse_unported(model: nn.Module) -> None:
                                   "(ROADMAP Queue 1 item 10)")
 
 
+class SeqSplit:
+    """A ladder model's cut over its mesh's ``seq`` axis (Llama's
+    protocol): the model sets ``mesh`` and ``num_local_heads``."""
+
+    mesh: Optional[ProcessMesh]
+    num_local_heads: int
+    #: trains on a mesh whose ``seq`` axis is above 1 (not with a
+    #: ``tensor`` axis too: ROADMAP Queue 1 item 7c)
+    sequence_parallel = True
+
+    def _seq(self) -> Tuple[Any, int]:
+        """``(the seq group or None, sp)`` of the model's mesh."""
+        if self.mesh is None:
+            return None, 1
+        return seq_group_of(self.mesh)
+
+    def _seq_span(self, S: int, sp: int) -> Tuple[int, int]:
+        """This ``seq`` rank's ``(first position, S/sp)``; Ulysses gives
+        it ``h/sp`` heads, so both must divide."""
+        if S % sp:
+            raise ValueError(f"sequence length {S} not divisible by sp={sp}")
+        if self.num_local_heads % sp:
+            raise ValueError(f"num_heads {self.num_local_heads} not "
+                             f"divisible by sp={sp}: Ulysses gives each seq "
+                             "rank a share of them")
+        n = S // sp
+        return self.mesh.axis_rank(AXIS_SEQ) * n, n
+
+    def _seq_attention(self, attn_fn: Callable[..., torch.Tensor],
+                       q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+        """``attn_fn`` over the whole sequence: directly at sp 1, else
+        around Ulysses' exchanges of this rank's chunk."""
+        group, sp = self._seq()
+        if sp == 1:
+            return attn_fn(q, k, v)
+        return ulysses_attention(attn_fn, q, k, v, group=group)
+
+
+def seq_share(logits: torch.Tensor, labels: torch.Tensor,
+              group: Any) -> torch.Tensor:
+    """The token-mean cross entropy of ``labels`` (-100 ignored), or
+    under ``seq`` (``group``) this chunk's share of it: its Σ nll over the
+    valid count summed over the group (no gradient through the count)."""
+    total, count = masked_nll(logits, labels)
+    if group is not None:
+        count = comm.all_reduce(count, group=group)
+    return total / count.clamp(min=1)
+
+
 def _linear(i: int, o: int, device: DeviceLike, dtype: torch.dtype
             ) -> nn.Linear:
     return nn.Linear(i, o, bias=True, device=device, dtype=dtype)
@@ -198,7 +263,7 @@ class BertLayer(nn.Module):
         self.mlp_ln_b = _vector(H, device, dt)
 
 
-class BertModel(TensorSplit, nn.Module):
+class BertModel(TensorSplit, SeqSplit, nn.Module):
     """BERT masked-LM encoder.  ``device`` defaults to ``"cuda"`` and raises
     without a CUDA device; weights are drawn from a ``torch.Generator``
     seeded with ``seed``.  ``mesh`` (a process mesh whose ``tensor`` axis
@@ -339,7 +404,8 @@ class BertModel(TensorSplit, nn.Module):
     def encoder_layer(self, layer: BertLayer, x: torch.Tensor,
                       pad_mask: torch.Tensor) -> torch.Tensor:
         """One post-LN block ``[B, S, H] → [B, S, H]``; ``pad_mask [B, S]``
-        True at real tokens.  Under tensor parallelism *f* precedes q, k, v
+        True at real tokens (under ``seq``: ``x`` this rank's chunk, the
+        mask the whole rows').  Under tensor parallelism *f* precedes q, k, v
         and the MLP's input projection (this rank's heads and columns), *g*
         sums the output projections, whose biases are added once after
         it."""
@@ -349,11 +415,14 @@ class BertModel(TensorSplit, nn.Module):
         h = self._tp_copy(x)
         q, k, v = (linear(lin, h, dt).view(B, S, self.num_local_heads, c.hd)
                    for lin in (layer.q_proj, layer.k_proj, layer.v_proj))
-        if c.attn_impl == "flash":
-            attn = flash_attention(q, k, v, causal=False,
-                                   segment_ids=pad_mask.to(torch.int32))
-        else:
-            attn = _attention(q, k, v, pad_mask[:, None, None, :])
+
+        def attend(q, k, v):  # the whole sequence
+            if c.attn_impl == "flash":
+                return flash_attention(q, k, v, causal=False,
+                                       segment_ids=pad_mask.to(torch.int32))
+            return _attention(q, k, v, pad_mask[:, None, None, :])
+
+        attn = self._seq_attention(attend, q, k, v)
         out = self._row_parallel(layer.o_proj, attn.reshape(B, S, -1))
         x = _layer_norm(x + out, layer.attn_ln_w, layer.attn_ln_b,
                         c.layer_norm_eps)
@@ -369,6 +438,15 @@ class BertModel(TensorSplit, nn.Module):
         """``[B, S]`` ids → ``[B, S, V]`` fp32 MLM logits (with a gradient
         when grad is enabled; under ``config.remat`` each layer is
         recomputed in the backward)."""
+        return self._logits(input_ids, attention_mask, token_type_ids)
+
+    def _logits(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor],
+                token_type_ids: Optional[torch.Tensor],
+                span: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """The MLM logits of the whole rows, or under ``seq`` of positions
+        ``span = (first, count)`` of them (attended over the whole rows
+        through Ulysses)."""
         refuse_unported(self)
         c = self.config
         dt = c.dtype
@@ -382,10 +460,12 @@ class BertModel(TensorSplit, nn.Module):
             pad_mask = attention_mask.to(torch.bool)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = (F.embedding(input_ids.long(),
+        lo, n = span if span is not None else (0, S)
+        ids, types = input_ids[:, lo:lo + n], token_type_ids[:, lo:lo + n]
+        x = (F.embedding(ids.long(),
                          compute_weight(self.word_embed.weight, dt))
-             + compute_weight(self.pos_embed.weight, dt)[None, :S]
-             + F.embedding(token_type_ids.long(),
+             + compute_weight(self.pos_embed.weight, dt)[None, lo:lo + n]
+             + F.embedding(types.long(),
                            compute_weight(self.type_embed.weight, dt)))
         x = _layer_norm(x, self.embed_ln_w, self.embed_ln_b,
                         c.layer_norm_eps)
@@ -404,7 +484,14 @@ class BertModel(TensorSplit, nn.Module):
 
     def loss(self, batch: Any) -> torch.Tensor:
         """Masked-LM cross entropy; ``batch = {"input_ids", "labels"[,
-        "attention_mask", "token_type_ids"]}`` with -100 = not masked."""
-        logits = self.forward(batch["input_ids"], batch.get("attention_mask"),
-                              batch.get("token_type_ids"))
-        return masked_cross_entropy(logits, batch["labels"])
+        "attention_mask", "token_type_ids"]}`` with -100 = not masked;
+        under ``seq`` this rank's share of it (whole rows in the batch)."""
+        ids, labels = batch["input_ids"], batch["labels"]
+        group, sp = self._seq()
+        span = None
+        if sp > 1:
+            span = self._seq_span(ids.shape[1], sp)
+            labels = labels[:, span[0]:span[0] + span[1]]
+        logits = self._logits(ids, batch.get("attention_mask"),
+                              batch.get("token_type_ids"), span)
+        return seq_share(logits, labels, group)

@@ -440,8 +440,10 @@ class LlamaModel(TensorSplit, nn.Module):
     ep = 1
     ep_rank = 0
     #: trains on a mesh whose ``seq`` axis is above 1 (``initialize``
-    #: refuses such a mesh for a model without this)
+    #: refuses such a mesh for a model without this), and on one whose
+    #: ``tensor`` axis is above 1 too
     sequence_parallel = True
+    sequence_tensor_parallel = True
     #: trains on a mesh whose ``tensor`` axis is above 1 (``initialize``
     #: refuses such a mesh for a model without this)
     tensor_parallel_training = True
@@ -720,13 +722,7 @@ class LlamaModel(TensorSplit, nn.Module):
         """``(the seq group or None, sp)`` of the model's mesh."""
         if self.mesh is None:
             return None, 1
-        group, sp = seq_group_of(self.mesh)
-        if sp > 1 and not self.sequence_parallel:
-            raise NotImplementedError(
-                f"{type(self).__name__} under a seq axis is not ported yet "
-                "(ROADMAP Queue 1 item 7b: a MoE layer's capacity and aux "
-                "loss are over the global tokens)")
-        return group, sp
+        return seq_group_of(self.mesh)
 
     def _attention(self, q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> torch.Tensor:
@@ -920,7 +916,11 @@ class LlamaModel(TensorSplit, nn.Module):
         router aux losses (fp32 scalar), with a gradient.  ``batch`` holds
         whole rows; under a ``seq`` axis this rank's share: its chunk's Σ
         nll over the valid labels of the whole sequence (the count summed
-        over ``seq``, without a gradient)."""
+        over ``seq``, without a gradient), and ``1/sp`` of the aux losses,
+        which are the global micro-batch's and equal on every ``seq``
+        rank: the engine sums the shares over ``seq``, so the aux loss
+        counts once in the loss and its gradient, as JAX's one ``l_aux``
+        of the global micro-batch does."""
         input_ids, labels = self.batch_labels(batch)
         group, sp = self._seq()
         offset = 0
@@ -932,7 +932,7 @@ class LlamaModel(TensorSplit, nn.Module):
         if sp > 1:
             count = comm.all_reduce(count, group=group)
         return (total / count.clamp(min=1)
-                + self.config.aux_loss_coef * aux)
+                + self.config.aux_loss_coef * aux / sp)
 
 
 class _LayerCall(nn.Module):

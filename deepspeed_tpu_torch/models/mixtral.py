@@ -26,11 +26,17 @@ is built with ``expert_tensor_parallel``): the gate values multiply
 partial outputs, so their gradient is a sum over ``tensor``, and *f* makes
 the router's gradient (and the aux loss's share in it, counted once) whole
 and equal on every rank (JAX ``param_specs`` :100-113 leaves the router
-whole).  On data-parallel axes above 1 the MoE layer
-routes the global micro-batch and exchanges the experts' buffers over
-``expert`` (``moe/sharded_moe.py``).  The expert stacks carry
-``ds_expert`` (``runtime/zero/sharder.ExpertShard``): the engine reduces
-their gradients, and ZeRO cuts them, over the ``data`` axis alone.
+whole).  On data-parallel axes or ``seq`` above 1 the MoE layer
+routes the global micro-batch (under ``seq`` each rank's ``S/sp`` chunk
+of its rows, put in JAX's global ``(b, s)`` order) and exchanges the
+experts' buffers over ``expert`` (``moe/sharded_moe.py``); ``loss``
+then counts the aux loss ``1/sp`` a ``seq`` rank.  With both an
+``expert`` and a ``tensor`` axis (JAX ``P(pipe, expert, None, tensor)``)
+a rank holds its ``E/ep`` experts by its ``I/tp`` columns and the
+exchange runs over the ``expert`` group of its tensor coordinate.  The
+expert stacks carry ``ds_expert`` (``runtime/zero/sharder.ExpertShard``):
+the engine reduces their gradients, and ZeRO cuts them, over the
+``data`` axis of their expert and tensor coordinates alone.
 """
 
 from __future__ import annotations
@@ -129,9 +135,10 @@ class MixtralModel(LlamaModel):
     """Llama backbone + top-k routed SwiGLU experts."""
 
     layer_cls = MixtralDecoderLayer
-    #: the router's capacity and aux loss are over the global tokens
-    #: (ROADMAP Queue 1 item 7b)
-    sequence_parallel = False
+    #: under ``seq`` the MoE layer routes the global tokens over the data
+    #: axes and ``seq``; at tensor x ``seq`` it is not ported yet (ROADMAP
+    #: Queue 1 item 7c)
+    sequence_tensor_parallel = False
 
     def __init__(self, config: MixtralConfig, device: DeviceLike = "cuda",
                  seed: int = 0, mesh: Optional[ProcessMesh] = None,

@@ -5,8 +5,10 @@ embeddings (HF's table keeps two legacy rows, so positions start at
 ``POSITION_OFFSET``), pre-LN blocks with LayerNorm (fp32 statistics,
 :func:`.bert._layer_norm`), biased projections, a ReLU MLP, a final norm
 and the head tied to the token embedding.  ``forward`` / ``loss`` run the
-causal LM (per-layer remat under a gradient); ``init_cache`` / ``prefill``
-/ ``decode_step`` are the KV-cache path that ``init_inference(...)
+causal LM (per-layer remat under a gradient; ``attn_impl="flash"`` runs
+the hand-written CUDA flash kernels, causal at head dim 64 for OPT-1.3B,
+where JAX's model keeps the plain masked softmax); ``init_cache`` /
+``prefill`` / ``decode_step`` are the KV-cache path that ``init_inference(...)
 .generate`` runs, its decode attention the hand-written CUDA kernel
 (``ops/kernels/decode_attention.py``, multi-head: ``num_kv_heads ==
 num_heads``); ``inference/v2/adapters.OPTV2Adapter`` serves it over the
@@ -30,6 +32,14 @@ logits and the loss on every rank from the whole tied head; the
 embedding's gradient is then equal on the tensor ranks (*f* summed it
 into the residual stream) and is not reduced again, and so are the
 row-parallel biases', which count as whole leaves.
+
+Sequence parallelism (training; JAX's ``(DP, seq)`` constraints at
+:166-168, 184, 204): on a mesh whose ``seq`` axis has size ``sp`` above
+1, :meth:`OPTModel.loss` makes the labels from the whole rows, keeps this
+rank's ``S/sp`` chunk, reads the position table at the chunk's global
+positions (plus ``POSITION_OFFSET``), runs each attention through Ulysses
+(causal over the full sequence on ``h/sp`` heads) and returns the chunk's
+Σ nll over the valid count summed over ``seq`` (``bert.seq_share``).
 """
 
 from __future__ import annotations
@@ -43,15 +53,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.decode_attention import decode_attention
+from ..ops.kernels.flash_attention import flash_attention
 from ..parallel.mesh import AXIS_TENSOR, ProcessMesh
 from ..runtime.zero.init_ctx import active as zero_init_active
 from ..runtime.zero.init_ctx import materialize
 from ..runtime.zero.sharder import TensorShard, compute_weight
 from ..utils.device import DeviceLike, resolve_device
-from .bert import (_layer_norm, _linear, _vector, biased_tp_split_dim,
-                   linear, refuse_unported, remat)
-from .llama import (LlamaModel, TensorSplit, _attention, masked_cross_entropy,
-                    split_block)
+from .bert import (SeqSplit, _layer_norm, _linear, _vector,
+                   biased_tp_split_dim, linear, refuse_unported, remat,
+                   seq_share)
+from .llama import LlamaModel, TensorSplit, _attention, split_block
 
 #: HF OPT reserves positions 0/1 (pad/bos legacy): positions start here
 POSITION_OFFSET = 2
@@ -70,6 +81,9 @@ class OPTConfig:
     #: storage dtype of the weights (None: ``dtype``)
     param_dtype: Optional[torch.dtype] = None
     remat: bool = True
+    #: training attention: "xla" the plain masked softmax (JAX's),
+    #: "flash" the CUDA flash kernels, causal
+    attn_impl: str = "xla"
 
     @property
     def hd(self) -> int:
@@ -139,7 +153,7 @@ class OPTLayer(nn.Module):
         self.fc_out = _linear(Fd // tp, H, device, dt)
 
 
-class OPTModel(TensorSplit, nn.Module):
+class OPTModel(TensorSplit, SeqSplit, nn.Module):
     """OPT causal LM with a KV cache.  ``device`` defaults to ``"cuda"``
     and raises without a CUDA device; weights are drawn from a
     ``torch.Generator`` seeded with ``seed``."""
@@ -155,6 +169,9 @@ class OPTModel(TensorSplit, nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.config = c = config
+        if c.attn_impl not in ("flash", "xla"):
+            raise ValueError(f"attn_impl {c.attn_impl!r} is not ported (use "
+                             "'flash' or 'xla')")
         self._set_mesh(mesh)
         H, dt = c.hidden_size, c.storage_dtype
         self.embed = nn.Embedding(c.vocab_size, H, device="meta", dtype=dt)
@@ -305,33 +322,54 @@ class OPTModel(TensorSplit, nn.Module):
 
     # -- full forward and training -------------------------------------------
 
-    def _layer(self, layer: OPTLayer, x: torch.Tensor,
-               mask: torch.Tensor) -> torch.Tensor:
+    def _layer(self, layer: OPTLayer, x: torch.Tensor) -> torch.Tensor:
+        """One block over ``x [B, S, H]`` (under ``seq`` this rank's
+        chunk), its attention causal over the whole sequence."""
         q, k, v = self.qkv(layer, x)
-        return self.post_attn(layer, x, _attention(q, k, v, mask))
+        return self.post_attn(layer, x, self._seq_attention(
+            self._attend, q, k, v))
+
+    def _attend(self, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+        """Causal attention over a whole sequence ``[B, S, h, d]``."""
+        if self.config.attn_impl == "flash":
+            return flash_attention(q, k, v, True)
+        S = q.shape[1]
+        return _attention(q, k, v, torch.tril(torch.ones(
+            S, S, dtype=torch.bool, device=q.device)))
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """``[B, S]`` ids → ``[B, S, V]`` fp32 logits (with a gradient when
         grad is enabled; under ``config.remat`` each layer is recomputed in
         the backward)."""
+        return self._logits(input_ids, 0)
+
+    def _logits(self, input_ids: torch.Tensor, lo: int) -> torch.Tensor:
+        """The logits of ``input_ids`` at positions ``lo ..`` (under
+        ``seq``: this rank's chunk of the rows)."""
         refuse_unported(self)
-        S = input_ids.shape[1]
-        self._check_len(S)
-        pos = torch.arange(S, device=self.device)
-        mask = torch.tril(torch.ones(S, S, dtype=torch.bool,
-                                     device=self.device))
+        n = input_ids.shape[1]
+        self._check_len(lo + n)
+        pos = lo + torch.arange(n, device=self.device)
         x = self.embed_tokens(input_ids, pos[None])
         use_remat = self.config.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = (remat(self._layer, layer, x, mask) if use_remat
-                 else self._layer(layer, x, mask))
+            x = (remat(self._layer, layer, x) if use_remat
+                 else self._layer(layer, x))
         return self.logits(self.finalize(x))
 
     def loss(self, batch: Any) -> torch.Tensor:
         """Next-token cross entropy (labels default to the inputs shifted
-        left, ``LlamaModel.batch_labels``)."""
+        left, ``LlamaModel.batch_labels``); under ``seq`` this rank's share
+        of it, the labels made from the whole rows."""
         input_ids, labels = LlamaModel.batch_labels(batch)
-        return masked_cross_entropy(self.forward(input_ids), labels)
+        group, sp = self._seq()
+        lo = 0
+        if sp > 1:
+            lo, n = self._seq_span(input_ids.shape[1], sp)
+            input_ids, labels = (input_ids[:, lo:lo + n],
+                                 labels[:, lo:lo + n])
+        return seq_share(self._logits(input_ids, lo), labels, group)
 
     # -- KV-cache inference path (inference/engine.py) ---------------------
 

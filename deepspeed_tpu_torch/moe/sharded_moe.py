@@ -20,34 +20,44 @@ and random token selection draw from a ``torch.Generator`` passed as
 ``noise_rng`` (the same generator: the noise first, then the priority
 permutation), so their bits differ from ``jax.random``'s.
 
-Expert and data parallelism (``MOELayer(mesh=...)`` on a process mesh whose
-data-parallel axes ``(expert, data)`` exceed 1): JAX routes the global
-micro-batch under GSPMD, so capacity, slots, drops and ``l_aux`` are
-functions of every rank's tokens.  The port runs one process a rank and
-makes that decision explicit:
+Expert, data and sequence parallelism (``MOELayer(mesh=...)`` on a
+process mesh whose data-parallel axes ``(expert, data)`` or ``seq`` exceed
+1): JAX routes the global micro-batch under GSPMD, so capacity, slots,
+drops and ``l_aux`` are functions of every rank's tokens, in the global
+``(b, s)`` order.  The port runs one process a rank and makes that
+decision explicit:
 
 1. this rank's fp32 router logits ``[T_loc, E]`` are all-gathered over the
-   data-parallel group in its rank order (expert-major: the order in which
-   JAX shards the batch over ``("expert", "data")``) and the one routing
-   core runs on ``[T_glob, E]``: every rank holds the same capacity
-   (padded to a multiple of the expert axis), slots, drops and ``l_aux``;
-2. the global indices become this rank's view: a slot filled by another
-   rank's token is ``EMPTY_SLOT``, a local token's id loses the rank's
-   offset, and the combine reads this rank's rows of ``flat_idx``;
+   data-parallel axes and ``seq`` (:func:`routing_group`) and put in the
+   global order by :func:`global_token_ids`: a rank holds its data
+   coordinate's rows (expert-major: the order in which JAX shards the
+   batch over ``("expert", "data")``), and under ``seq`` only its
+   ``S/sp`` chunk of each, so its tokens are not contiguous in that
+   order.  The one routing core runs on ``[T_glob, E]``: every rank holds
+   the same capacity (padded to a multiple of the expert axis), slots,
+   drops and ``l_aux``;
+2. the global indices become this rank's view (:func:`local_routing`,
+   through the rank's global token ids): a slot filled by another rank's
+   token is ``EMPTY_SLOT``, a local token's id is its row on this rank,
+   and the combine reads this rank's rows of ``flat_idx``;
 3. the dispatch fills a local ``[E, C, H]``, which is reduce-scattered over
    the ``expert`` group along E (each slot has one writer, so the sum is
    exact): ``[E/ep, C, H]``, this coordinate's experts over the tokens of
-   its data group; the experts run on it and their output is all-gathered
-   back over the ``expert`` group before the combine.
+   its expert group (the ranks that share its data, ``seq`` and
+   ``tensor`` coordinates); the experts run on it and their output is
+   all-gathered back over the ``expert`` group before the combine.
 
 The collectives are autograd Functions, each the other's backward; the
-logits' all-gather sums its cotangents back, so every rank's copy of
-``l_aux`` contributes and the engine's division by ``gas x dp`` leaves the
-global gradient.  The rows of other data groups' slots are zeros that the
-experts still compute, as JAX's GSPMD plan does on its data replicas.  The
-memory-ledger registration (telemetry) is not ported; where JAX's
-``_constrain`` would drop a constraint and warn, an E that does not divide
-over the expert axis raises.
+logits' all-gather sums its cotangents back (the permutation into the
+global order is an index, whose backward autograd undoes), so every
+rank's copy of ``l_aux`` contributes: the engine's division by ``gas x
+dp`` leaves the global gradient, and a model under ``seq`` counts its
+``l_aux`` ``1/sp`` a rank (``LlamaModel.loss``).  The rows of other
+groups' slots are zeros that the experts still compute, as JAX's GSPMD
+plan does on its data replicas.  The memory-ledger registration
+(telemetry) is not ported; where JAX's ``_constrain`` would drop a
+constraint and warn, an E that does not divide over the expert axis
+raises.
 """
 
 from __future__ import annotations
@@ -64,7 +74,9 @@ from ..ops.kernels.moe_dispatch import (EMPTY_SLOT, choose_dispatch_impl,
                                         combine_reference,
                                         dispatch_reference, moe_combine,
                                         moe_dispatch, routing_to_indices)
-from ..parallel.mesh import AXIS_EXPERT, AXIS_TENSOR, DP_AXES
+from ..parallel.mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_SEQ, AXIS_TENSOR,
+                             DP_AXES)
+from ..utils import groups
 
 Tensor = torch.Tensor
 
@@ -340,8 +352,9 @@ class MOELayer:
     ``dispatch_impl``: ``auto`` | ``dense`` | ``sparse`` | ``pallas`` (see
     ``choose_dispatch_impl``; chosen from the global token count, so every
     rank takes the same rung).  ``mesh``: a process mesh; when its
-    data-parallel axes exceed 1 the gate routes the global micro-batch and
-    the experts are exchanged over the ``expert`` axis (module docstring).
+    data-parallel axes or ``seq`` exceed 1 the gate routes the global
+    micro-batch and the experts are exchanged over the ``expert`` axis
+    (module docstring).
     ``expert_tensor_parallel``: the owner splits the experts' FFN dim over
     the mesh's ``tensor`` axis and sums their outputs over it (Megatron's
     *g*); the tokens into the dispatch and the gates into the combine then
@@ -359,14 +372,21 @@ class MOELayer:
             gate.mesh = mesh  # the capacity's pad sees the expert axis
         self.dispatch_impl = dispatch_impl
         self.expert_tensor_parallel = expert_tensor_parallel
-        #: the rung and the capacity of the last call
+        #: the rung and the capacity of the last call, and its routing
+        #: over the global tokens (the index rungs; None after a dense one)
         self.last_impl: Optional[str] = None
         self.last_capacity: Optional[int] = None
+        self.last_routing: Optional[GateIndices] = None
 
     def _dp_size(self) -> int:
         if self.mesh is None:
             return 1
         return math.prod(int(self.mesh.shape.get(a, 1)) for a in DP_AXES)
+
+    def _sp_size(self) -> int:
+        if self.mesh is None:
+            return 1
+        return int(self.mesh.shape.get(AXIS_SEQ, 1))
 
     def _experts(self, expert_params: Any, expert_in: Tensor) -> Tensor:
         """The experts over ``[E, C, H]``: with an ``expert`` axis above 1,
@@ -396,21 +416,23 @@ class MOELayer:
                  noise_rng: Optional[torch.Generator] = None
                  ) -> Tuple[Tensor, Tensor, GateMeta]:
         """``x [..., H]`` (every leading position a token; this rank's rows
-        on a mesh) → ``(y [..., H], l_aux, meta)``; on a mesh ``l_aux`` and
-        ``meta`` are the global micro-batch's, equal on every rank."""
+        on a mesh, under ``seq`` ``[..., S/sp, H]``: its chunk of them) →
+        ``(y [..., H], l_aux, meta)``; on a mesh ``l_aux`` and ``meta`` are
+        the global micro-batch's, equal on every rank."""
         H = x.shape[-1]
         tokens = x.reshape(-1, H)
-        T_loc, E = tokens.shape[0], self.gate.num_experts
+        E = self.gate.num_experts
         ep = self.gate._ep_size()
         if E % ep:
             raise ValueError(f"num_experts ({E}) does not split over the "
                              f"expert axis ({ep})")
         logits = self.gate._logits(wg, tokens)
-        off = 0
-        if self._dp_size() > 1:
-            group = self.mesh.group(*DP_AXES)
-            off = comm.get_rank(group) * T_loc
-            logits = _AllGather.apply(logits, group)
+        ids = None  # this rank's tokens' places in the global order
+        if self._dp_size() * self._sp_size() > 1:
+            ids, order = global_token_ids(self.mesh, x.shape)
+            logits = _AllGather.apply(logits, routing_group(self.mesh))
+            logits = logits.index_select(0, order.to(logits.device))
+            ids = ids.to(x.device)
         T = logits.shape[0]
         C = self.gate.capacity(T, train)
         f = self._tensor_copy()
@@ -420,7 +442,8 @@ class MOELayer:
         if impl == "dense":
             combine, dispatch, l_aux, meta = self.gate.gating(
                 logits, train, noise_rng)
-            rows = slice(off, off + T_loc)
+            self.last_routing = None
+            rows = ids if ids is not None else slice(None)
             expert_in = torch.einsum("tec,th->ech",
                                      dispatch[rows].to(dtype), f(tokens))
             expert_out = self._experts(expert_params, expert_in)
@@ -429,12 +452,13 @@ class MOELayer:
         else:
             gi, l_aux, meta = self.gate.route_logits(logits, train,
                                                      noise_rng)
+            self.last_routing = gi
             src_idx, flat_idx = routing_to_indices(
                 gi.expert_idx, gi.slot, gi.keep, E, C)
             gates_tk = gi.gate.t()  # [T, K]
-            if T != T_loc:  # this rank's view of the global routing
+            if ids is not None:  # this rank's view of the global routing
                 src_idx, flat_idx, gates_tk = local_routing(
-                    src_idx, flat_idx, gates_tk, off, T_loc)
+                    src_idx, flat_idx, gates_tk, ids)
             gates_tk, disp = f(gates_tk), f(tokens)
             if impl == "pallas":
                 expert_in = moe_dispatch(disp.contiguous(), src_idx)
@@ -449,15 +473,61 @@ class MOELayer:
         return y.reshape(x.shape), l_aux, GateMeta(meta)
 
 
+def routing_group(mesh: Any) -> Any:
+    """The group a MoE layer routes over: the data-parallel axes and, on
+    a mesh whose ``seq`` axis exceeds 1, ``seq`` (the ranks that share
+    this rank's ``tensor`` and ``pipe`` coordinates)."""
+    if int(mesh.shape.get(AXIS_SEQ, 1)) > 1:
+        return groups.axes_group(DP_AXES + (AXIS_SEQ,), mesh)
+    return mesh.group(*DP_AXES)
+
+
+def global_token_ids(mesh: Any, shape: Tuple[int, ...]
+                     ) -> Tuple[Tensor, Tensor]:
+    """``(ids, order)`` for activations of ``shape [..., H]`` on ``mesh``:
+    ``ids`` the places of this rank's tokens in the global ``(b, s)``
+    order, ``order`` the rows of the :func:`routing_group` all-gather (its
+    ranks' blocks in rank order: expert, data, then ``seq``) that put it in
+    that order.  A rank's data-parallel index ``q = expert·dp + data``
+    holds global rows ``[q·B, (q+1)·B)``; under ``seq`` (``shape [..., n,
+    H]``, ``n = S/sp``) its ``seq`` index ``s`` holds their positions
+    ``[s·n, (s+1)·n)``."""
+    sp = int(mesh.shape.get(AXIS_SEQ, 1))
+    dp = math.prod(int(mesh.shape.get(a, 1)) for a in DP_AXES)
+    n = shape[-2] if sp > 1 else 1
+    if sp > 1 and len(shape) < 3:
+        raise ValueError("under a seq axis the MoE layer takes [..., S/sp, "
+                         f"H] activations, got {tuple(shape)}")
+    rows = math.prod(shape[:-1]) // n
+
+    def ids_of(q: int, s: int) -> Tensor:
+        b = torch.arange(rows) + q * rows
+        j = torch.arange(n) + s * n
+        return (b[:, None] * (n * sp) + j[None, :]).reshape(-1)
+
+    coords = mesh.coords
+    q = coords[AXIS_EXPERT] * int(mesh.shape[AXIS_DATA]) + coords[AXIS_DATA]
+    mine = ids_of(q, coords[AXIS_SEQ] if sp > 1 else 0)
+    gathered = torch.cat([ids_of(qq, ss) for qq in range(dp)
+                          for ss in range(sp)])
+    order = torch.empty_like(gathered)
+    order[gathered] = torch.arange(gathered.numel())
+    return mine, order
+
+
 def local_routing(src_idx: Tensor, flat_idx: Tensor, gates: Tensor,
-                  offset: int, num_local: int
-                  ) -> Tuple[Tensor, Tensor, Tensor]:
-    """One rank's view of a routing over the global tokens, whose own are
-    ``[offset, offset + num_local)``: ``src_idx [E, C]`` with every other
-    rank's slot ``EMPTY_SLOT`` and local token ids, and this rank's rows
-    of ``flat_idx`` and ``gates [T, K]``."""
-    mine = (src_idx >= offset) & (src_idx < offset + num_local)
-    src = torch.where(mine, src_idx - offset,
-                      torch.full_like(src_idx, EMPTY_SLOT))
-    rows = slice(offset, offset + num_local)
-    return src, flat_idx[rows].contiguous(), gates[rows]
+                  ids: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """One rank's view of a routing over the global tokens, whose own
+    are at ``ids`` (its local token ``i`` is global token ``ids[i]``):
+    ``src_idx [E, C]`` with every other rank's slot ``EMPTY_SLOT`` and
+    local token ids, and this rank's rows of ``flat_idx`` and ``gates [T,
+    K]``."""
+    T = flat_idx.shape[0]
+    ids = ids.to(device=src_idx.device, dtype=torch.long)
+    # one spare entry past the end: EMPTY_SLOT (-1) indexes it
+    local = torch.full((T + 1,), EMPTY_SLOT, dtype=src_idx.dtype,
+                       device=src_idx.device)
+    local[ids] = torch.arange(ids.numel(), dtype=src_idx.dtype,
+                              device=src_idx.device)
+    return (local[src_idx.long()], flat_idx[ids].contiguous(),
+            gates[ids])

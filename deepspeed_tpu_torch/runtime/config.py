@@ -42,8 +42,8 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` for the keys
   tier's file I/O engine).
 
 What the port cannot do yet raises ``NotImplementedError`` ("not ported
-yet", naming its ``ROADMAP.md`` Queue 1 item): an ``expert`` axis under
-a tensor axis (item 5d; ``initialize`` checks), MiCS, ZeRO++
+yet", naming its ``ROADMAP.md`` Queue 1 item): the compositions with
+``seq`` that ``initialize`` checks (items 7c, 7d, 9c), MiCS, ZeRO++
 (quantized weights or gradients, hpZ) and
 ``kernels.overlap_collectives``, a pipeline
 dimension above 1, random-LTD (``data_efficiency.data_routing.

@@ -60,7 +60,13 @@ that routed to it (the MoE layer's exchange), so the division leaves the
 global batch's mean.  In the norm each expert coordinate's Σg² counts once:
 a whole expert leaf is added by its ``data`` rank 0, a whole other leaf by
 the group's rank 0, and the partial sums are all-reduced over the group;
-the overflow flag is max-reduced over it.
+the overflow flag is max-reduced over it.  Under ``seq`` too an expert
+leaf's gradient, reduced over ``data``, is then summed over ``seq`` (each
+``seq`` rank's experts saw its chunk's tokens).  With a ``tensor`` axis
+(below) the ``data`` group is that of the rank's expert and tensor
+coordinates: an expert stack, split over ``tensor`` by its FFN columns,
+adds its Σg² on every tensor rank of its ``data`` rank 0, so each (expert,
+tensor) block counts once.
 
 Tensor parallelism (``tp_group``, the mesh's ``tensor`` axis, and
 ``dp_tp_group``, its data axes and ``tensor`` together): a leaf the model

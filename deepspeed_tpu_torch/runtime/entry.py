@@ -135,22 +135,27 @@ def _apply_moe_config(cfg: DeepSpeedConfig, model: Any, mesh: Any) -> None:
         gate.eval_capacity_factor = float(moe.capacity_factor)
 
 
-def _apply_sequence_parallel(model: Any, mesh: Any) -> None:
-    """Hand a model built without a mesh the one with the ``seq`` axis;
-    refuse a model that cannot train under it."""
-    if getattr(model, "sequence_parallel", False):
-        if model.mesh is None:
-            model.mesh = mesh
+def _refuse_unported_seq(model: Any, sp: int, tp: int,
+                         infinity: bool) -> None:
+    """Before any mesh is built: refuse, naming its ROADMAP Queue 1 item,
+    a composition with ``seq`` that no test holds against JAX yet."""
+    if sp == 1:
         return
-    if getattr(model, "_moe_layer", None) is not None or \
-            getattr(model, "moe_layer", None) is not None:
-        why = ("a MoE layer's capacity and aux loss are over the global "
-               "tokens")
-    else:
-        why = "its attention and loss are not cut over seq"
-    raise NotImplementedError(
-        f"{type(model).__name__} under a seq axis is not ported yet "
-        f"(ROADMAP Queue 1 item 7b: {why})")
+    name = type(model).__name__
+    if not getattr(model, "sequence_parallel", False):
+        raise NotImplementedError(
+            f"{name} under a seq axis is not ported yet (ROADMAP Queue 1 "
+            "item 7d: it has no sequence to cut; JAX replicates it over "
+            "seq)")
+    moe = getattr(model, "_moe_layer", None) is not None
+    if tp > 1 and not getattr(model, "sequence_tensor_parallel", False):
+        raise NotImplementedError(
+            f"{name} at tensor x seq is not ported yet (ROADMAP Queue 1 "
+            f"item 7c{': with an expert axis too' if moe else ''})")
+    if infinity and moe:
+        raise NotImplementedError(
+            f"{name} under offload_param with a seq axis is not ported yet "
+            "(ROADMAP Queue 1 item 9c)")
 
 
 def _apply_tensor_parallel(model: Any, mesh: Any, tp: int) -> None:
@@ -200,16 +205,20 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     ``get_sequence_parallel_world_size``, or a ``mesh`` whose ``seq`` axis
     is) above 1 cuts every row's sequence over that many ranks: each rank
     of a ``seq`` group feeds ``train_step`` the same whole rows (its data
-    coordinate's), and the model (a ``LlamaModel``, which ``initialize``
-    hands the mesh) keeps its ``S/sp`` chunk, runs Ulysses or the ring at
-    each attention and returns its share of the token mean; the engine
-    sums every gradient over ``seq``.  ZeRO still cuts over the data axes
-    alone.  ZeRO-Infinity (``offload_param``) runs on the data axes and
-    ``seq`` (and ``tensor``): each rank's host planes hold its share of
-    every layer.
-    Not ported under ``seq`` (ROADMAP Queue 1): MoE and the other ladder
-    models (item 7b); not ported under ``offload_param``: a pipe axis
-    (layer streaming is itself layer-sequential, as JAX refuses it).
+    coordinate's), and the model (Llama, Mixtral, BERT or OPT, which
+    ``initialize`` hands the mesh when it was built without one) keeps
+    its ``S/sp`` chunk, runs Ulysses (or Llama's ring) at each attention
+    and returns its share of the token mean; a Mixtral routes the global
+    tokens over the data axes and ``seq`` and counts its aux loss
+    ``1/sp`` a rank.  The engine sums every gradient over ``seq``.  ZeRO
+    still cuts over the data axes alone.  ZeRO-Infinity
+    (``offload_param``) runs on the data axes and ``seq`` (and
+    ``tensor``): each rank's host planes hold its share of every layer.
+    Not ported under ``seq`` (ROADMAP Queue 1, refused before any mesh is
+    built): Mixtral, BERT and OPT at tensor x ``seq`` (item 7c), a model
+    with no sequence such as ResNet (7d), Mixtral under ``offload_param``
+    (9c); not ported under ``offload_param``: a pipe axis (layer streaming
+    is itself layer-sequential, as JAX refuses it).
 
     Tensor parallelism: ``tensor_parallel.autotp_size`` (or a ``mesh``
     whose ``tensor`` axis is) above 1 builds the mesh with that ``tensor``
@@ -229,8 +238,11 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     tensor and ``seq`` coordinates.  With ``sequence_parallel.sp_size``
     too, a rank holds its ``h/tp`` heads of its ``S/sp`` chunk and Ulysses
     (or the ring) runs over its ``seq`` group; under ``offload_param``
-    each tensor coordinate streams its own planes.  Not ported under a
-    tensor axis: an ``expert`` axis (ROADMAP Queue 1 item 5d).
+    each tensor coordinate streams its own planes.  With an ``expert``
+    axis too (a Mixtral, JAX's ``P(pipe, expert, None, tensor)``), a rank
+    holds its expert coordinate's ``E/ep`` experts by their ``I/tp``
+    columns, and the expert exchange runs over the ``expert`` group of its
+    tensor coordinate.
 
     ``hybrid_engine.enabled`` returns a
     :class:`~.hybrid_engine.DeepSpeedHybridEngine` around the engine (its
@@ -288,12 +300,10 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
         mesh = model.mesh
     ep_cfg = int(cfg.moe.expert_parallel_size)
     axes = getattr(mesh, "shape", None) or {}
-    if max(tp_cfg, model_tp, int(axes.get(AXIS_TENSOR, 1))) > 1 and \
-            max(ep_cfg, int(axes.get(AXIS_EXPERT, 1))) > 1:
-        # before a mesh is built for it
-        raise NotImplementedError(
-            "an expert axis under tensor parallelism is not ported yet "
-            "(ROADMAP Queue 1 item 5d)")
+    infinity = zero.offload_param_device() != "none"
+    _refuse_unported_seq(
+        model, max(sp, int(axes.get(AXIS_SEQ, 1))),
+        max(tp_cfg, model_tp, int(axes.get(AXIS_TENSOR, 1))), infinity)
     dp_group, dp, others, mesh = _data_parallel(mesh, mpu, ep_cfg, sp,
                                                 max(tp_cfg, model_tp))
     tp, pp, sp = (others.get(a, 1) for a in (AXIS_TENSOR, AXIS_PIPE,
@@ -304,7 +314,6 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     if model_tp > 1 and tp != model_tp:
         raise ValueError(f"the model is split over {model_tp} tensor ranks, "
                          f"the mesh's tensor axis is {tp}")
-    infinity = zero.offload_param_device() != "none"
     if infinity and pp > 1:
         raise NotImplementedError(
             "layer streaming is itself layer-sequential; combine "
@@ -324,7 +333,8 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
                        if dp > 1 else tp_group)
     seq_group = dp_seq_group = None
     if sp > 1:
-        _apply_sequence_parallel(model, mesh)
+        if getattr(model, "mesh", mesh) is None:
+            model.mesh = mesh  # a model built without one cuts over seq
         seq_group = mesh.group(AXIS_SEQ)
         dp_seq_group = groups.axes_group(DP_AXES + (AXIS_SEQ,), mesh)
     # a checkpoint's commit waits for every rank of the data axes, seq and

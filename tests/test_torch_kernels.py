@@ -563,7 +563,8 @@ def test_cuda_moe_kernels_at_one_ranks_view_of_global_routing(cuda, dtype,
     world, T, E, C, H, k = 4, 96, 8, 64, 256, 2
     _, eo, src, flat, gates = _moe_case(world * T, E, C, H, k, dtype, 17,
                                         cuda)
-    src, flat, gates = local_routing(src, flat, gates, rank * T, T)
+    src, flat, gates = local_routing(src, flat, gates,
+                                     torch.arange(rank * T, (rank + 1) * T))
     tokens = torch.randn(T, H, generator=torch.Generator().manual_seed(
         rank)).to(device=cuda, dtype=dtype)
     assert (src < 0).float().mean() > 0.6 and (src >= 0).any()

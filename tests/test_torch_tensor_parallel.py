@@ -224,12 +224,14 @@ def test_what_tensor_parallelism_refuses():
     with pytest.raises(ValueError, match=r"h/tp = 8/2 = 4 heads not "
                        "divisible by sp=8"):
         seq.loss(torch.zeros(1, 16, dtype=torch.long))
-    # an expert axis under it is refused (item 5d), before any mesh
-    with pytest.raises(NotImplementedError, match="an expert axis under "
-                       r"tensor parallelism is not ported yet \(ROADMAP "
-                       r"Queue 1 item 5d\)"):
+    # an expert axis under it trains (test_torch_expert_mesh); a MoE at
+    # tensor x seq is refused (item 7c), before any mesh
+    with pytest.raises(NotImplementedError, match="MixtralModel at tensor "
+                       r"x seq is not ported yet \(ROADMAP Queue 1 item "
+                       "7c"):
         dst_initialize(model=moe, device="cpu", config={
             "train_micro_batch_size_per_gpu": 1,
+            "sequence_parallel": {"sp_size": 2},
             "moe": {"expert_parallel_size": 2}})
     model = LlamaModel(cfg, device="cpu", mesh=_mesh(2, 1))
     with pytest.raises(ValueError, match="built for 2"):

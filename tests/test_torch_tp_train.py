@@ -523,14 +523,14 @@ def test_hybrid_engine_at_tp2_equals_one_process(launched, weights):
 
 
 def test_tensor_with_seq_or_expert_axis_is_refused(launched):
-    """A tensor axis with an expert axis is refused (item 5d); with a seq
-    axis it trains (the tp 2 x sp 2 parity cases below): every rank took
-    the same steps."""
+    """A tensor axis with an expert axis trains (test_torch_expert_mesh),
+    and with a seq axis (the tp 2 x sp 2 parity cases below: every rank
+    took the same steps); with both, a Mixtral is refused (item 7c)."""
     got = launched["get"](4)
     for r in got:
         msg = r["refusals"]["expert"]
-        assert "an expert axis under tensor parallelism is not ported yet " \
-            "(ROADMAP Queue 1 item 5d)" in msg, msg
+        assert "MixtralModel at tensor x seq is not ported yet (ROADMAP " \
+            "Queue 1 item 7c: with an expert axis too)" in msg, msg
         for name in ranks.TPSP_CASES:
             assert r[name]["loss"] == got[0][name]["loss"], name
             assert np.all(np.isfinite(r[name]["loss"])), name

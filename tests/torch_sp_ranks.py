@@ -17,8 +17,8 @@ import torch
 
 from deepspeed_tpu_torch import (BertConfig, BertModel, DistributedAttention,
                                  LlamaConfig, LlamaModel, MixtralConfig,
-                                 MixtralModel, comm, init_distributed,
-                                 initialize, zero)
+                                 MixtralModel, ResNetConfig, ResNetModel,
+                                 comm, init_distributed, initialize, zero)
 from deepspeed_tpu_torch.parallel import MeshLayout
 from deepspeed_tpu_torch.runtime.sequence_parallel import (
     UlyssesSPAttentionHF, ring_attention, ulysses_attention)
@@ -194,7 +194,8 @@ def _with_grads(fn, inputs, sp: int, r: int) -> Dict[str, np.ndarray]:
 
 def _refusals() -> Dict[str, Any]:
     """What sp 2 refuses, each by its message (and the losses of
-    ZeRO-Infinity at sp 2, which trains now)."""
+    ZeRO-Infinity at sp 2, and Mixtral and BERT, which ``initialize``
+    accepts now: ``test_torch_seq_models`` trains them)."""
     out = {}
     tiny = dict(dtype=torch.float32, param_dtype=torch.float32)
 
@@ -231,6 +232,10 @@ def _refusals() -> Dict[str, Any]:
     attempt("bert", lambda: initialize(
         model=BertModel(BertConfig.tiny(dtype=torch.float32),
                         device="cpu"),
+        config=case_config("sp2"), device="cpu"))
+    attempt("resnet", lambda: initialize(
+        model=ResNetModel(ResNetConfig.tiny(dtype=torch.float32),
+                          device="cpu"),
         config=case_config("sp2"), device="cpu"))
     return out
 

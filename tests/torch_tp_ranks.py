@@ -377,14 +377,16 @@ def _hybrid(weights) -> List[List[int]]:
 
 
 def _refusals_4(mixtral_w) -> Dict[str, str]:
-    """On four ranks: a tensor axis with an expert axis is refused (item
-    5d)."""
+    """On four ranks: a tensor axis with an expert axis trains
+    (``test_torch_expert_mesh``); with a ``seq`` axis too it is refused
+    (item 7c), before any mesh is built."""
     groups.reset_mesh()
     try:
         initialize(model=_whole_model("tp2_mixtral", mixtral_w),
                    config=train_config("tp2_mixtral", moe={
                        "dispatch_impl": "sparse",
-                       "expert_parallel_size": 2}), device="cpu")
+                       "expert_parallel_size": 2},
+                       sequence_parallel={"sp_size": 2}), device="cpu")
         return {"expert": "accepted"}
     except NotImplementedError as e:
         return {"expert": str(e)}
