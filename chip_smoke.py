@@ -319,13 +319,25 @@ What tensor-parallel training refused before adds:
   parameters and state those of the tensor split, the launch formula and
   12 L all-to-alls a step, the first step within the bf16 bounds of one
   process; ``train_tp_sp_agree``: ``AGREE_TRAIN`` fp32 at tp 2 x sp 2,
-  Ulysses and the ring, against one process.
+  Ulysses and the ring, against one process;
+- ZeRO++ at Llama-3-8B widths (2 layers, one ``[1, 2048]`` row a rank,
+  fused Adam, 2 steps a run): ``train_zeropp`` in train_zero's launch
+  (exact stage 3, stage 3 with qwZ and qgZ, stage 2 with qgZ: the
+  quantized runs within JAX's 5e-2 of the exact one) and
+  ``train_zeropp_agree`` (``AGREE_TRAIN`` fp32 under qwZ on the two ranks
+  against one process, 1e-4); ``train_hpz`` in train_tp_sp's launch (hpZ
+  at ep 2 x dp 2 beside stage 3 without it, both under qwZ and qgZ,
+  within ``ZERO_STAGE_RTOL``); in
+  each run the ranks' losses equal, the launch formula, the state bytes
+  and the bytes of the last step by collective and dtype equal to the
+  count from the shapes; the plain quantizer's round trip timed.
 
 Each rank process costs about 20 s to start and stop, so the two-rank
 phases share three launches (``shared_launch``; each rank runs the phases'
 bodies in turn, ``shared_rank``): serve_tp's with serve_moe_tp's;
-train_zero's with train_ckpt's ZeRO part, train_moe_ep's and
-train_bert_zero's; train_sp's with train_tp's; the first of them to run
+train_zero's with train_ckpt's ZeRO part, train_moe_ep's,
+train_bert_zero's and train_zeropp's; train_sp's with train_tp's (and
+train_tp_sp's four ranks run train_hpz's); the first of them to run
 starts the launch and the others read its result.  Ranks report to this
 process through a queue; only it prints.  Then a
 ``kernels`` line (every kernel's launches on the main paths: the
@@ -2766,11 +2778,12 @@ def offload_one_process(seed: int, dev) -> list:
 
 
 def zero_family_launch(dev, seed: int) -> dict:
-    """The launch train_zero, train_ckpt's ZeRO part, train_moe_ep and
-    train_bert_zero share (``ZERO_RANKS`` = ``MOE_EP`` ranks on card 0 over
-    gloo): each rank runs :func:`zero_train_rank`, :func:`ckpt_zero_rank`,
-    :func:`moe_ep_rank` and :func:`bert_zero_rank` in turn; the
-    one-process runs of train_zero_agree and train_moe_ep_agree run here
+    """The launch train_zero, train_ckpt's ZeRO part, train_moe_ep,
+    train_bert_zero and train_zeropp share (``ZERO_RANKS`` = ``MOE_EP``
+    ranks on card 0 over gloo): each rank runs :func:`zero_train_rank`,
+    :func:`ckpt_zero_rank`, :func:`moe_ep_rank`, :func:`bert_zero_rank`
+    and :func:`zeropp_rank` in turn; the one-process runs of
+    train_zero_agree, train_zeropp_agree and train_moe_ep_agree run here
     first."""
     import os
 
@@ -2779,6 +2792,8 @@ def zero_family_launch(dev, seed: int) -> dict:
 
     op_builder.build()  # here, so the ranks do not both run nvcc
     zero_want = zero_agree_one_process(dev, seed)
+    zeropp_want = zeropp_agree_run(seed, dev, None)
+    torch.cuda.empty_cache()
     moe_in = moe_ep_agree_inputs(dev, seed)
     root = ckpt_root()
     _SHARED_DIRS.extend([root, moe_in["save_dir"]])
@@ -2789,11 +2804,12 @@ def zero_family_launch(dev, seed: int) -> dict:
         ("zero", zero_train_rank, (seed,)),
         ("ckpt", ckpt_zero_rank, (seed, zdir)),
         ("moe_ep", moe_ep_rank, (seed, moe_in["save_dir"])),
-        ("bert_zero", bert_zero_rank, (seed,))],),
+        ("bert_zero", bert_zero_rank, (seed,)),
+        ("zeropp", zeropp_rank, (seed,))],),
         timeout=ZERO_TIMEOUT + MOE_EP_TIMEOUT)
     return {"ranks": ranks, "wall": time.perf_counter() - t0,
             "zero_agree_want": zero_want, "moe_agree_in": moe_in,
-            "ckpt_dir": zdir}
+            "zeropp_agree_want": zeropp_want, "ckpt_dir": zdir}
 
 
 def phase_train_zero(dev, seed: int) -> dict:
@@ -2953,6 +2969,359 @@ def check_zero_agree(ranks: list, want: dict) -> dict:
     return {"one_process": want, "ranks": ranks, "max_rel": rel,
             "layers": ZERO_AGREE_LAYERS, "rows": ZERO_AGREE_ROWS,
             "steps": ZERO_AGREE_STEPS}
+
+
+# -- ZeRO++: qwZ, qgZ and hpZ -------------------------------------------------
+
+#: train_zeropp (in train_zero's launch): Llama-3-8B widths at
+#: ZEROPP_LAYERS of 32, one [1, TRAIN_SEQ] row a rank on ZERO_RANKS ranks
+#: of card 0 over gloo, bf16 on fp32 masters, AdamW under
+#: kernels.fused_adam, flash, remat, ZEROPP_STEPS steps a run: (label,
+#: stage, ZeRO++ keys); the exact stage 3 is the comparator
+ZEROPP_LAYERS, ZEROPP_STEPS = 2, 2
+ZEROPP_RUNS = (("stage3", 3, {}),
+               ("stage3_qwz_qgz", 3, {"zero_quantized_weights": True,
+                                      "zero_quantized_gradients": True}),
+               ("stage2_qgz", 2, {"zero_quantized_gradients": True}))
+#: the quantized runs' losses against the exact run's: JAX's own ZeRO++
+#: bound (tests/unit/runtime/test_zeropp.py:77, 122, 215)
+ZEROPP_RTOL = 5e-2
+#: the persistence threshold of the runs (the config's default): every
+#: matrix is cut and quantized, the norms stay whole
+ZEROPP_THRESHOLD = 100_000
+#: train_hpz (in train_tp_sp's launch): the same model on HPZ_RANKS ranks
+#: at ep HPZ_EP x dp 2, one row a rank, hpZ over the data axis beside
+#: stage 3 without it on the same ranks (within ZERO_STAGE_RTOL); both
+#: runs move the int8 wire of qwZ and qgZ (hpZ composes with them, and
+#: four ranks' bf16 gathers and fp32 reduce-scatters through the host
+#: take 22 s a step, a third of the script's added time)
+HPZ_RANKS, HPZ_EP = 4, 2
+_QWZ_QGZ = {"zero_quantized_weights": True, "zero_quantized_gradients": True}
+HPZ_RUNS = (("stage3_qwz_qgz", _QWZ_QGZ),
+            ("stage3_hpz_qwz_qgz", dict(_QWZ_QGZ,
+                                        zero_hpz_partition_size=2)))
+#: train_zeropp_agree: AGREE_TRAIN in fp32 under qwZ at stage 3 on the two
+#: ranks against qwZ in one process, ZERO_AGREE_STEPS steps (train_zero_
+#: agree's bound, 1e-4); qgZ at a world of one is the identity
+ZEROPP_NOTE = ("ranks on card 0 over gloo, every collective through pinned "
+               "host memory: the bytes are the wire's, the step time on "
+               "the host clock is not a speed")
+
+
+def zeropp_model_config():
+    from deepspeed_tpu_torch import LlamaConfig
+    return LlamaConfig.llama3_8b(num_layers=ZEROPP_LAYERS,
+                                 dtype=torch.bfloat16,
+                                 param_dtype=torch.float32,
+                                 attn_impl="flash")
+
+
+def zeropp_config(model, stage: int, keys: dict, micro: int = 1) -> dict:
+    cfg = ds_config(model, micro, fused_adam=True, stage=stage)
+    cfg["zero_optimization"].update(
+        keys, stage3_param_persistence_threshold=ZEROPP_THRESHOLD)
+    return cfg
+
+
+def zeropp_wire_want(model, stage: int, keys: dict, world: int,
+                     data: Optional[int] = None) -> dict:
+    """The bytes of a step's collectives by ``verb/dtype`` from the shapes
+    alone (``comm.wire_counts``' units: an all-gather's result, a
+    reduce-scatter's and an all-to-all's input, twice an all-reduce's
+    tensor), for ``model``'s leaves under remat (a layer's weights read
+    twice a step, the embedding and the head once), one microbatch,
+    ``world`` data-parallel ranks and ``data`` (hpZ: the ranks a master
+    is cut over)."""
+    from deepspeed_tpu_torch.runtime.zero import dp_shardable_dim
+    from deepspeed_tpu_torch.runtime.zero.qwz import GROUP, qwz_axis
+
+    q_w = keys.get("zero_quantized_weights", False)
+    q_g = keys.get("zero_quantized_gradients", False)
+    data = data or world
+    el = torch.finfo(model.config.dtype).bits // 8
+    want: dict = {}
+
+    def add(key: str, n: int) -> None:
+        want[key] = want.get(key, 0) + int(n)
+
+    def two_hop(n: int) -> None:
+        n_pad = -(-n // (world * GROUP)) * world * GROUP
+        for verb in ("all_to_all", "all_gather"):
+            add(f"{verb}/int8", n_pad)
+            add(f"{verb}/float32", n_pad // GROUP * 4)
+
+    for name, p in model.named_parameters():
+        n, shape = p.numel(), tuple(p.shape)
+        reads = 2 if name.startswith("layers.") else 1
+        cut = (dp_shardable_dim(shape, world) if n > ZEROPP_THRESHOLD
+               else None)
+        if stage < 3 or cut is None:
+            if q_g:
+                two_hop(n)
+            elif stage == 2 and cut is not None:
+                add("reduce_scatter/float32", 4 * n)
+            else:
+                add("all_reduce/float32", 8 * n)
+            continue
+        axis = qwz_axis(*model.qwz_view(name), ZEROPP_THRESHOLD) \
+            if q_w else None
+        if axis is not None:
+            add("all_gather/int8", n * reads)
+            straddle = cut == axis.dim and (shape[cut] // data) % axis.run
+            add("all_reduce/float32" if straddle else "all_gather/float32",
+                n // axis.run * 4 * (2 if straddle else 1) * reads)
+        else:
+            add(f"all_gather/{str(model.config.dtype)[6:]}", el * n * reads)
+        if q_g:
+            per = -(-(n // world) // GROUP) * GROUP
+            add("all_to_all/int8", world * per)
+            add("all_to_all/float32", world * per // GROUP * 4)
+        else:
+            add("reduce_scatter/float32", 4 * n)
+        if data < world:  # hpZ: the updated pieces into each master chunk
+            add("all_gather/float32", 4 * n // data)
+    if stage == 2:  # the updated chunks into the whole masters
+        add("all_gather/float32", sum(
+            4 * p.numel() for p in model.parameters()
+            if p.numel() > ZEROPP_THRESHOLD
+            and dp_shardable_dim(tuple(p.shape), world) is not None))
+    add("all_reduce/float32", 16)  # the loss and the norm's partial sum
+    return want
+
+
+def zeropp_run(cfg, seed: int, dev, rows, stage: int, keys: dict,
+               world: int, mesh=None) -> dict:
+    """One run: ``initialize`` at ``stage`` with ``keys``, ZEROPP_STEPS
+    steps on ``rows``: losses, launches, state and peak bytes, host step
+    times, the last step's bytes by verb and dtype beside the count from
+    the shapes."""
+    from deepspeed_tpu_torch import LlamaModel, initialize
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaModel(cfg, device=dev, seed=seed)
+    data = world // HPZ_EP if keys.get("zero_hpz_partition_size") else None
+    wire_want = zeropp_wire_want(model, stage, keys, world, data)
+    state_want = predicted_state_bytes(
+        [tuple(p.shape) for p in model.parameters()], stage, world, data,
+        ZEROPP_THRESHOLD)
+    engine, *_ = initialize(model=model, config=zeropp_config(
+        model, stage, keys), device=dev, mesh=mesh)
+    reset_counts()
+    metrics, marks = [], []
+    for _ in range(ZEROPP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(engine.train_step({"input_ids": rows}))
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter() - t0) * 1e3)
+    out = {"stage": stage, **keys,
+           "loss": [float(m["loss"]) for m in metrics],
+           "grad_norm": [float(m["grad_norm"]) for m in metrics],
+           "launches": train_launches(),
+           "state_bytes": zero_state_bytes(engine),
+           "state_bytes_predicted": state_want,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "host_step_ms": marks, "wire": dict(engine.last_wire),
+           "wire_predicted": wire_want,
+           "cut_leaves": sum(p is not None for p in engine.placements)}
+    del model, engine, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zeropp_agree_inputs(seed: int, dev) -> tuple:
+    from deepspeed_tpu_torch import LlamaConfig
+    return (LlamaConfig(**AGREE_TRAIN),
+            zero_batch(seed + 13, AGREE_TRAIN["vocab_size"], ZERO_RANKS,
+                       dev)[:, :AGREE_TRAIN["max_seq_len"]])
+
+
+def zeropp_agree_run(seed: int, dev, rank: Optional[int]) -> dict:
+    """AGREE_TRAIN in fp32 under qwZ: at stage 3 on rank ``rank``'s row, or
+    (``rank`` None) in one process on both rows."""
+    from deepspeed_tpu_torch import LlamaModel, initialize
+
+    cfg, ids = zeropp_agree_inputs(seed, dev)
+    model = LlamaModel(cfg, device=dev, seed=seed + 4 + (rank or 0))
+    one = rank is None
+    engine, *_ = initialize(model=model, config=zeropp_config(
+        model, 0 if one else 3, {"zero_quantized_weights": True},
+        ZERO_RANKS if one else 1), device=dev)
+    rows = ids if one else ids[rank:rank + 1]
+    ms = [engine.train_step({"input_ids": rows})
+          for _ in range(ZERO_AGREE_STEPS)]
+    out = {"loss": [float(m["loss"]) for m in ms],
+           "grad_norm": [float(m["grad_norm"]) for m in ms],
+           "quantized_leaves": sum(p.ds_qwz is not None
+                                   for p in engine.params)}
+    del model, engine
+    return out
+
+
+def zeropp_rank(rank: int, seed: int) -> dict:
+    """One rank of train_zeropp (train_zero's launch): every ZEROPP_RUNS
+    entry on this rank's row of a ``[ZERO_RANKS, TRAIN_SEQ]`` global batch
+    (a fresh model from this rank's seed each: the engine broadcasts rank
+    0's), then the fp32 qwZ agreement."""
+    dev = zero_rank_setup()
+    cfg = zeropp_model_config()
+    ids = zero_batch(seed + 11, cfg.vocab_size, ZERO_RANKS, dev)
+    out = {label: zeropp_run(cfg, seed + rank, dev, ids[rank:rank + 1],
+                             stage, keys, ZERO_RANKS)
+           for label, stage, keys in ZEROPP_RUNS}
+    out["agree"] = zeropp_agree_run(seed, dev, rank)
+    return out
+
+
+def hpz_rank(rank: int, seed: int, dev) -> dict:
+    """One rank of train_hpz (train_tp_sp's launch): HPZ_RUNS on an ep
+    HPZ_EP x dp mesh, this rank's row of a ``[HPZ_RANKS, TRAIN_SEQ]``
+    global batch."""
+    from deepspeed_tpu_torch.parallel import MeshLayout
+    from deepspeed_tpu_torch.utils import groups
+
+    cfg = zeropp_model_config()
+    ids = zero_batch(seed + 12, cfg.vocab_size, HPZ_RANKS, dev)
+    out = {}
+    for label, keys in HPZ_RUNS:
+        mesh = groups.initialize_mesh(MeshLayout.infer(HPZ_RANKS, ep=HPZ_EP))
+        out[label] = zeropp_run(cfg, seed + rank, dev, ids[rank:rank + 1],
+                                3, keys, HPZ_RANKS, mesh)
+        groups.reset_mesh()
+    return out
+
+
+def check_zeropp_runs(what: str, ranks: list, runs: tuple,
+                      tol: float) -> dict:
+    """Every run of ``runs`` on every rank: finite, falling losses equal
+    on the ranks; the launch formula (flash, and the norm and Adam kernels
+    once a step); the state bytes and the last step's bytes by verb and
+    dtype equal to the count from the shapes; each run's losses within
+    ``tol`` of the first run's (the exact one)."""
+    base = ranks[0][runs[0][0]]["loss"]
+    rel = {}
+    for run in runs:
+        label = run[0]
+        for r, res in enumerate(ranks):
+            row = res[label]
+            losses = row["loss"]
+            require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                    f"{what} {label} rank {r}: losses {losses}")
+            require(losses == ranks[0][label]["loss"],
+                    f"{what} {label}: rank {r}'s losses {losses} != rank "
+                    f"0's {ranks[0][label]['loss']}")
+            require_train_launches(f"{what} {label} rank {r}", dict(
+                layers=ZEROPP_LAYERS, steps=ZEROPP_STEPS, remat=True,
+                fused_adam=True, launches=row["launches"]))
+            require(row["state_bytes"]["total"] ==
+                    row["state_bytes_predicted"],
+                    f"{what} {label} rank {r}: state "
+                    f"{row['state_bytes']['total']} B, predicted "
+                    f"{row['state_bytes_predicted']} B")
+            require(row["wire"] == row["wire_predicted"],
+                    f"{what} {label} rank {r}: bytes a step {row['wire']}, "
+                    f"from the shapes {row['wire_predicted']}")
+        rel[label] = e = _max_rel(ranks[0][label]["loss"], base)
+        require(e <= tol, f"{what} {label}: losses "
+                          f"{ranks[0][label]['loss']} against the exact "
+                          f"{base} (rel {e} > {tol})")
+    return rel
+
+
+def time_zeropp_quantizer(dev, elements: int) -> dict:
+    """The plain-PyTorch int8 round trip (``quant_runs`` then
+    ``dequant_runs``, groups of 256) of a ``QUANT_TIMED`` bf16 weight in
+    fp32, CUDA events over 5 calls after a warm-up; ``step_ms_estimate``
+    scales it to ``elements`` round-tripped a step."""
+    from deepspeed_tpu_torch.runtime.zero.qwz import (GROUP, dequant_runs,
+                                                      quant_runs)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn(QUANT_TIMED, generator=gen, device=dev).to(
+        torch.bfloat16)
+
+    def round_trip():
+        q, s = quant_runs(w.float(), GROUP)
+        return dequant_runs(q, s, GROUP)
+    round_trip()
+    start, end = event_pair()
+    start.record()
+    for _ in range(5):
+        round_trip()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 5
+    del w
+    return {"shape": list(QUANT_TIMED), "ms": ms,
+            "elements_a_step": elements,
+            "step_ms_estimate": ms * elements / int(np.prod(QUANT_TIMED))}
+
+
+def phase_train_zeropp(dev, seed: int) -> dict:
+    """train_zeropp and train_zeropp_agree (train_zero's launch, its
+    ``zeropp`` body): :func:`check_zeropp_runs` with ZEROPP_RTOL; the
+    quantized run moves int8 where the exact one moves bf16 gathers and
+    fp32 reduce-scatters; then qwZ on two ranks against one process."""
+    got = shared_launch("zero", lambda: zero_family_launch(dev, seed))
+    ranks = [r["zeropp"] for r in got["ranks"]]
+    rel = check_zeropp_runs("train_zeropp", ranks, ZEROPP_RUNS, ZEROPP_RTOL)
+    exact, quant = ranks[0]["stage3"]["wire"], \
+        ranks[0]["stage3_qwz_qgz"]["wire"]
+    require("all_gather/bfloat16" not in quant and
+            "reduce_scatter/float32" not in quant and
+            quant.get("all_gather/int8", 0) > 0 and
+            quant.get("all_to_all/int8", 0) > 0,
+            f"train_zeropp: the quantized run's wire {quant}")
+    want = got["zeropp_agree_want"]
+    agree_rel = {}
+    for r, res in enumerate(ranks):
+        for what in ("loss", "grad_norm"):
+            agree_rel[f"rank{r}_{what}"] = e = _max_rel(
+                res["agree"][what], want[what])
+            require(e <= 1e-4, f"train_zeropp_agree rank {r}: {what} "
+                               f"{res['agree'][what]} != one process's "
+                               f"{want[what]} (rel {e})")
+    cfg = zeropp_model_config()
+    # a step round-trips every gathered element (qwZ) and every gradient
+    # element (qgZ) once
+    q = ranks[0]["stage3_qwz_qgz"]["wire"]
+    quantizer = time_zeropp_quantizer(dev, q["all_gather/int8"]
+                                      + q["all_to_all/int8"])
+    return {"ranks": [{k: v for k, v in x.items() if k != "agree"}
+                      for x in ranks], "quantizer": quantizer,
+            "loss_rel_to_exact": rel, "params": cfg.num_params(),
+            "wire_exact": exact, "wire_quantized": quant,
+            "agree": {"one_process": want,
+                      "ranks": [x["agree"] for x in ranks],
+                      "max_rel": agree_rel, "steps": ZERO_AGREE_STEPS,
+                      "tolerance": 1e-4}}
+
+
+def check_hpz(ranks: list) -> dict:
+    """train_hpz: :func:`check_zeropp_runs` on the four ranks with
+    ZERO_STAGE_RTOL (hpZ changes no number, under qwZ and qgZ too)."""
+    got = [r["hpz"] for r in ranks]
+    rel = check_zeropp_runs("train_hpz", got, HPZ_RUNS, ZERO_STAGE_RTOL)
+    return {"ranks": got, "loss_rel_to_stage3": rel,
+            "params": zeropp_model_config().num_params()}
+
+
+def emit_zeropp(phase: str, out: dict, runs: tuple, ranks: int,
+                **extra) -> None:
+    for run in runs:
+        label = run[0]
+        emit(dict(phase=phase, run=label, model="llama3_8b widths",
+                  layers=ZEROPP_LAYERS, params=out["params"], ranks=ranks,
+                  global_batch=[ranks, TRAIN_SEQ], dtype="bfloat16",
+                  fused_adam=True, steps=ZEROPP_STEPS,
+                  reduced=[f"num_layers 32 -> {ZEROPP_LAYERS}",
+                           f"cards {ranks} -> 1, NCCL -> gloo"],
+                  comm=ZEROPP_NOTE, card=nvidia_smi_line(), **extra,
+                  **{f"rank{r}": x[label]
+                     for r, x in enumerate(out["ranks"])}))
 
 
 # -- the checkpoint slice ------------------------------------------------------
@@ -4259,20 +4628,26 @@ def phase_train_bert(dev, seed: int) -> dict:
     return t
 
 
-def predicted_state_bytes(shapes: list, stage: int, dp: int) -> int:
+def predicted_state_bytes(shapes: list, stage: int, dp: int,
+                          data: Optional[int] = None,
+                          threshold: int = 100_000) -> int:
     """A rank's fp32 training state under the placement rule
-    (``runtime/zero/sharder.py``): masters whole below stage 3; Adam's m
-    and v a cut leaf's chunk from stage 1; gradients a cut leaf's chunk
+    (``runtime/zero/sharder.py``, persistence ``threshold``): masters
+    whole below stage 3 (under hpZ a cut leaf's ``1/data`` chunk); Adam's
+    m and v a cut leaf's chunk from stage 1; gradients a cut leaf's chunk
     from stage 2; a leaf the rule keeps whole is whole in each."""
     from deepspeed_tpu_torch.runtime.config import ZeroConfig
     from deepspeed_tpu_torch.runtime.zero import ZeroShardingPolicy
 
-    policy = ZeroShardingPolicy.from_config(ZeroConfig(stage=stage), dp)
+    policy = ZeroShardingPolicy.from_config(ZeroConfig(
+        stage=stage, stage3_param_persistence_threshold=threshold), dp)
     total = 0
     for shape in shapes:
         n = int(np.prod(shape))
-        chunk = n if policy.shard_dim(tuple(shape)) is None else n // dp
-        total += 4 * ((chunk if stage >= 3 else n)
+        cut = policy.shard_dim(tuple(shape)) is not None
+        chunk = n // dp if cut else n
+        master = n // (data or dp) if cut else n
+        total += 4 * ((master if stage >= 3 else n)
                       + 2 * (chunk if stage >= 1 else n)
                       + (chunk if stage >= 2 else n))
     return total
@@ -6109,6 +6484,9 @@ def tp_sp_train_rank(rank: int, seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["moe_mesh"] = moe_mesh_rank(rank, seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["hpz"] = hpz_rank(rank, seed, dev)  # train_hpz
     return out
 
 
@@ -6123,6 +6501,8 @@ def phase_train_tp_sp(dev, seed: int) -> dict:
     launch formula at the ``tpsp`` flash shape and 12 L all-to-alls a
     step, the first step within ``SP_BF16_RTOL`` of one process; the fp32
     agreements (``TP_SP_AGREE_RUNS``) against one process's flash run."""
+    import os
+
     from deepspeed_tpu_torch import LlamaModel, initialize
     from deepspeed_tpu_torch.launcher import launch
     from deepspeed_tpu_torch.ops import op_builder
@@ -6143,9 +6523,22 @@ def phase_train_tp_sp(dev, seed: int) -> dict:
     free_host_cache()
     moe_one = moe_mesh_one_process(seed, dev)
     free_host_cache()
+    gc.collect()
+    torch.cuda.empty_cache()  # four ranks share the card after this
     t0 = time.perf_counter()
-    ranks = launch(tp_sp_train_rank, TP_SP_RANKS, (seed,),
-                   timeout=SP_TIMEOUT + TP_TIMEOUT)
+    # the ranks' allocators grow segments in place: four ranks' int8
+    # transients (train_hpz) left 4.3 GiB a rank stranded in fixed ones
+    alloc_key = "PYTORCH_CUDA_ALLOC_CONF"
+    saved = os.environ.get(alloc_key)
+    os.environ[alloc_key] = "expandable_segments:True"
+    try:
+        ranks = launch(tp_sp_train_rank, TP_SP_RANKS, (seed,),
+                       timeout=SP_TIMEOUT + TP_TIMEOUT)
+    finally:
+        if saved is None:
+            os.environ.pop(alloc_key)
+        else:
+            os.environ[alloc_key] = saved
     wall = time.perf_counter() - t0
     L = cfg.num_layers
     base = ranks[0]["train"]
@@ -6204,7 +6597,8 @@ def phase_train_tp_sp(dev, seed: int) -> dict:
                                   f"{agree_one[what]} ({key} steps: rel "
                                   f"{e} > {tol})")
     step_ms = statistics.median(base["host_step_ms"][1:])
-    return {"moe_mesh": check_moe_mesh(ranks, moe_one), "train": dict(
+    return {"moe_mesh": check_moe_mesh(ranks, moe_one),
+            "hpz": check_hpz(ranks), "train": dict(
         layers=L, tp=TP, sp=SP, batch=[1, SP_SEQ],
         tokens_per_rank=SP_SEQ // SP, steps=TP_STEPS, dtype="bfloat16",
         attn_impl="flash", window=cfg.sliding_window, loss_tiles=SP_TILES,
@@ -6235,6 +6629,10 @@ def emit_train_tp_sp(out: dict) -> None:
     emit(dict(phase="train_tp_sp_agree", dtype="float32", reduced=reduced,
               comm=TP_SP_NOTE, **out["agree"]))
     emit_moe_mesh(out["moe_mesh"])
+    emit_zeropp("train_hpz", out["hpz"], HPZ_RUNS, HPZ_RANKS, ep=HPZ_EP,
+                dp=HPZ_RANKS // HPZ_EP, hpz=HPZ_RANKS // HPZ_EP,
+                loss_rel_to_stage3=out["hpz"]["loss_rel_to_stage3"],
+                tolerance=ZERO_STAGE_RTOL)
 
 
 # -- the MoE and the other ladder models under seq; expert x tensor -----------
@@ -6735,13 +7133,14 @@ def main() -> int:
                          "train_tp_sp_agree, train_moe_ep_sp, "
                          "train_moe_ep_tp, train_moe_mesh_agree, "
                          "train_bert_sp, train_opt_sp, "
-                         "train_seq_models_agree; the phases of one rank "
-                         "launch run together: serve_tp's and "
+                         "train_seq_models_agree, train_zeropp, "
+                         "train_zeropp_agree, train_hpz; the phases of one "
+                         "rank launch run together: serve_tp's and "
                          "serve_moe_tp's; train_zero's, train_ckpt's ZeRO "
-                         "part, train_moe_ep's and train_bert_zero's; "
-                         "train_sp's, train_tp's, train_bert_sp's and "
-                         "train_opt_sp's; train_tp_sp's and the "
-                         "train_moe_ep_* ones)")
+                         "part, train_moe_ep's, train_bert_zero's and "
+                         "train_zeropp's; train_sp's, train_tp's, "
+                         "train_bert_sp's and train_opt_sp's; train_tp_sp's, "
+                         "the train_moe_ep_* ones and train_hpz)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the GPU path "
@@ -6859,6 +7258,18 @@ def main() -> int:
                   reduced=[f"num_layers 12 -> {ZERO_AGREE_LAYERS}",
                            "cards 2 -> 1, NCCL -> gloo through the host"],
                   comm=ZERO_NOTE, **out["agree"]))
+
+    def train_zeropp():
+        res["train_zeropp"] = out = phase_train_zeropp(dev, args.seed)
+        emit_zeropp("train_zeropp", out, ZEROPP_RUNS, ZERO_RANKS,
+                    loss_rel_to_exact=out["loss_rel_to_exact"],
+                    tolerance=ZEROPP_RTOL, wire_exact=out["wire_exact"],
+                    wire_quantized=out["wire_quantized"],
+                    quantizer=out["quantizer"])
+        emit(dict(phase="train_zeropp_agree", model="AGREE_TRAIN widths",
+                  dtype="float32", reduced=[
+                      "cards 2 -> 1, NCCL -> gloo through the host"],
+                  comm=ZEROPP_NOTE, **out["agree"]))
 
     def serving_moe_tp():
         out = phase_serving_moe_tp(dev, args.seed)
@@ -7059,6 +7470,7 @@ def main() -> int:
         "sparse": sparse, "serve_tp": serving_tp, "generate_tp": serving_tp,
         "agree_tp": serving_tp,
         "train_zero": train_zero, "train_zero_agree": train_zero,
+        "train_zeropp": train_zeropp, "train_zeropp_agree": train_zeropp,
         "train_ckpt": lambda: emit(dict(
             phase="train_ckpt", model="bench.py headline", reduced=[
                 "zero: cards 2 -> 1, NCCL -> gloo through the host"],
@@ -7097,7 +7509,7 @@ def main() -> int:
         "train_tp_ladder_agree": train_tp,
         "train_tp_sp": train_tp_sp, "train_tp_sp_agree": train_tp_sp,
         "train_moe_ep_sp": train_tp_sp, "train_moe_ep_tp": train_tp_sp,
-        "train_moe_mesh_agree": train_tp_sp,
+        "train_moe_mesh_agree": train_tp_sp, "train_hpz": train_tp_sp,
         "train_bert_sp": train_seq_models, "train_opt_sp": train_seq_models,
         "train_seq_models_agree": train_seq_models}
     only = [p for p in args.only.split(",") if p]
@@ -7167,6 +7579,16 @@ def main() -> int:
             sm, gm, tm, ep, smt["serve"], smt["generate"], ttm, tmes,
             tmet))
 
+    # the ZeRO++ slice at Llama-3-8B widths (B 1, h 32, d 128, S 2048):
+    # train_zeropp's and train_hpz's rank 0, every run
+    zpp = ([res["train_zeropp"]["ranks"][0][label]
+            for label, _, _ in ZEROPP_RUNS]
+           + [res["train_tp_sp"]["hpz"]["ranks"][0][label]
+              for label, _ in HPZ_RUNS])
+
+    def zeropp_launches(kernel):
+        return sum(x["launches"][kernel] for x in zpp)
+
     def hybrid_decode():  # the hybrid engine's generates (train, train_tp)
         return (t["hybrid"]["launches"]["decode_attention"]
                 + ttp["hybrid"]["launches"]["decode_attention"])
@@ -7190,14 +7612,17 @@ def main() -> int:
             res["tp_kernels"]["paged_decode_attention_tp"]),
         "flash_fwd": (flash_src, pallas + "flash_attention.py:260",
                       t["launches"]["flash_fwd"]
-                      + tos["launches"]["flash_fwd"], flash["flash_fwd"]),
+                      + tos["launches"]["flash_fwd"]
+                      + zeropp_launches("flash_fwd"), flash["flash_fwd"]),
         "flash_bwd_dq": (flash_src, pallas + "flash_attention.py:453",
                          t["launches"]["flash_bwd_dq"]
-                         + tos["launches"]["flash_bwd_dq"],
+                         + tos["launches"]["flash_bwd_dq"]
+                         + zeropp_launches("flash_bwd_dq"),
                          flash["flash_bwd_dq"]),
         "flash_bwd_dkv": (flash_src, pallas + "flash_attention.py:472",
                           t["launches"]["flash_bwd_dkv"]
-                          + tos["launches"]["flash_bwd_dkv"],
+                          + tos["launches"]["flash_bwd_dkv"]
+                          + zeropp_launches("flash_bwd_dkv"),
                           flash["flash_bwd_dkv"]),
         "moe_dispatch": (moe_src, pallas + "moe_dispatch.py:194",
                          moe_launches("moe_dispatch"), moe["moe_dispatch"]),
@@ -7216,14 +7641,16 @@ def main() -> int:
                                + ep["launches"]["multi_tensor_sqsum"]
                                + ttm["launches"]["multi_tensor_sqsum"]
                                + tmes["launches"]["multi_tensor_sqsum"]
-                               + tmet["launches"]["multi_tensor_sqsum"],
+                               + tmet["launches"]["multi_tensor_sqsum"]
+                               + zeropp_launches("multi_tensor_sqsum"),
                                adam["multi_tensor_sqsum"]),
         "fused_adam": (adam_src, pallas + "fused_optimizer.py:158",
                        tm["launches"]["fused_adam"]
                        + ep["launches"]["fused_adam"]
                        + ttm["launches"]["fused_adam"]
                        + tmes["launches"]["fused_adam"]
-                       + tmet["launches"]["fused_adam"], adam["fused_adam"]),
+                       + tmet["launches"]["fused_adam"]
+                       + zeropp_launches("fused_adam"), adam["fused_adam"]),
         # the forward replaces the gather (:335) and resident (:523) forwards
         "block_sparse_fwd": (sparse_src,
                              pallas + "block_sparse_attention.py:335",

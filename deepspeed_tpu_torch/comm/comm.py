@@ -34,7 +34,14 @@ ranks sharing one card, where NCCL refuses); gloo's CUDA support covers
 only some collectives and dtypes and goes through the host anyway, so
 every verb on a CUDA tensor over a gloo group copies it through pinned
 host memory itself.  Asking for NCCL with two ranks on one card raises;
-nothing switches backends on its own.  The comms logger, the census and
+nothing switches backends on its own.
+
+:func:`wire_counts` counts the bytes each collective covers, by verb and
+dtype, since :func:`reset_wire` (never for a group of one): the result of
+an all-gather, the input of a reduce-scatter and of an all-to-all, the
+tensor of a broadcast and of a ppermute's send, and twice the tensor of
+an all-reduce (a ring's reduce-scatter and all-gather, the fp32 count of
+JAX's ``qgz.wire_bytes``).  The comms logger, the census and
 ``monitored_barrier`` are not ported yet.
 """
 
@@ -43,7 +50,7 @@ from __future__ import annotations
 import datetime
 import os
 import socket
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -65,6 +72,26 @@ class ReduceOp:
 _TORCH_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.MAX: dist.ReduceOp.MAX,
               ReduceOp.MIN: dist.ReduceOp.MIN,
               ReduceOp.PROD: dist.ReduceOp.PRODUCT}
+
+
+_WIRE: Dict[str, int] = {}
+
+
+def _count(verb: str, tensor: torch.Tensor, group: Any,
+           times: int = 1) -> None:
+    if dist.get_world_size(group) > 1:
+        key = f"{verb}/{str(tensor.dtype).replace('torch.', '')}"
+        _WIRE[key] = _WIRE.get(key, 0) + times * tensor.numel() \
+            * tensor.element_size()
+
+
+def wire_counts() -> Dict[str, int]:
+    """Bytes by ``"verb/dtype"`` since the last :func:`reset_wire`."""
+    return dict(_WIRE)
+
+
+def reset_wire() -> None:
+    _WIRE.clear()
 
 
 def is_initialized() -> bool:
@@ -183,6 +210,7 @@ def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM,
     if op == ReduceOp.AVG:
         all_reduce(tensor, ReduceOp.SUM, group)
         return tensor.div_(dist.get_world_size(group))
+    _count("all_reduce", tensor, group, 2)
     if _through_host(tensor, group):
         host = _pinned_copy(tensor)
         dist.all_reduce(host, _TORCH_OPS[op], group=group)
@@ -201,6 +229,7 @@ def all_gather(tensor: torch.Tensor, group: GroupLike = None,
     if _through_host(src, group):
         src = _pinned_copy(src)
     parts = [torch.empty_like(src) for _ in range(n)]
+    _count("all_gather", src, group, n)
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(tensor.device)
 
@@ -212,6 +241,7 @@ def all_gather_into(out: torch.Tensor, tensor: torch.Tensor,
     this rank's block of ``out`` itself.  Returns ``out``."""
     group = _resolve(group)
     src = tensor.reshape(-1)
+    _count("all_gather", out, group)
     if _through_host(out, group):
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         dist.all_gather_into_tensor(host, _pinned_copy(src), group=group)
@@ -236,6 +266,7 @@ def reduce_scatter(tensor: torch.Tensor, op: str = ReduceOp.SUM,
     if op == ReduceOp.AVG:
         return reduce_scatter(tensor, ReduceOp.SUM, group, dim).div_(n)
     src = tensor.movedim(dim, 0).contiguous()
+    _count("reduce_scatter", src, group)
     if _through_host(src, group):
         src = _pinned_copy(src)
     out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
@@ -255,6 +286,7 @@ def all_to_all_single(tensor: torch.Tensor,
                          f"{tuple(tensor.shape)} does not split over {n} "
                          "ranks")
     src = tensor.contiguous()
+    _count("all_to_all", src, group)
     if _through_host(src, group):
         src = _pinned_copy(src)
     out = torch.empty_like(src)
@@ -268,6 +300,7 @@ def broadcast(tensor: torch.Tensor, src: int = 0,
     it."""
     group = _resolve(group)
     root = src if group is None else dist.get_global_rank(group, src)
+    _count("broadcast", tensor, group)
     if _through_host(tensor, group):
         host = _pinned_copy(tensor)
         dist.broadcast(host, root, group=group)
@@ -341,6 +374,8 @@ def _ppermute(tensor: torch.Tensor, perm: Sequence[Tuple[int, int]],
     pairs run as one batch of ``isend`` / ``irecv``."""
     me = dist.get_rank(group)
     src = tensor.contiguous()
+    if any(s == me and d != me for s, d in perm):
+        _count("ppermute", src, group)
     if _through_host(src, group):
         src = _pinned_copy(src)
     out = torch.zeros_like(src)

@@ -447,6 +447,9 @@ class LlamaModel(TensorSplit, nn.Module):
     #: trains on a mesh whose ``tensor`` axis is above 1 (``initialize``
     #: refuses such a mesh for a model without this)
     tensor_parallel_training = True
+    #: trains under ZeRO++ (``initialize`` refuses qwZ, qgZ and hpZ for a
+    #: model without this); :meth:`qwz_view` gives qwZ each leaf's groups
+    zero_pp = True
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = "cuda",
                  seed: int = 0, mesh: Optional[ProcessMesh] = None,
@@ -529,6 +532,31 @@ class LlamaModel(TensorSplit, nn.Module):
     @property
     def device(self) -> torch.device:
         return self.final_norm.device
+
+    def qwz_view(self, name: str) -> Tuple[int, int, int]:
+        """qwZ's view of parameter ``name`` in the JAX model's layout
+        (``models/convert.py``): ``(the port dim along which the JAX
+        leaf's last dim runs, that dim's length, the JAX leaf's
+        elements)``; a layer's leaf counts every layer of JAX's stack.
+        ``q_proj.weight [nh·hd, H]`` is ``wq [L, H, nh, hd]``: its last dim
+        ``hd`` runs along dim 0, inside each head."""
+        c = self.config
+        L, H, V, I, hd = (c.num_layers, c.hidden_size, c.vocab_size,
+                          c.intermediate_size, c.hd)
+        leaf = name.split(".")[-2] if name.endswith(".weight") \
+            else name.split(".")[-1]
+        whole = {"embed": (1, H, V * H), "lm_head": (0, V, H * V),
+                 "final_norm": (0, H, H)}
+        if leaf in whole:
+            return whole[leaf]
+        heads = {"q_proj": c.num_heads, "k_proj": c.num_kv_heads,
+                 "v_proj": c.num_kv_heads}
+        if leaf in heads:
+            return 0, hd, L * H * heads[leaf] * hd
+        return {"attn_norm": (0, H, L * H), "mlp_norm": (0, H, L * H),
+                "o_proj": (0, H, L * c.num_heads * hd * H),
+                "gate_proj": (0, I, L * H * I), "up_proj": (0, I, L * H * I),
+                "down_proj": (0, H, L * I * H)}[leaf]
 
     @torch.no_grad()
     def init_params(self, seed: int = 0,

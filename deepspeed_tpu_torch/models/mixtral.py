@@ -139,6 +139,9 @@ class MixtralModel(LlamaModel):
     #: axes and ``seq``; at tensor x ``seq`` it is not ported yet (ROADMAP
     #: Queue 1 item 7c)
     sequence_tensor_parallel = False
+    #: ZeRO++ over the expert stacks is not ported yet (ROADMAP Queue 1
+    #: item 4c)
+    zero_pp = False
 
     def __init__(self, config: MixtralConfig, device: DeviceLike = "cuda",
                  seed: int = 0, mesh: Optional[ProcessMesh] = None,

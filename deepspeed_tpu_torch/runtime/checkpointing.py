@@ -81,6 +81,7 @@ import torch
 
 from ..comm import comm
 from ..utils.logging import log_dist, logger
+from .zero.sharder import placement_of
 from .checkpoint_engine import (SIDECAR_MANIFEST, CheckpointCorruptionError,
                                 CheckpointEngine, join_inflight_save,
                                 verify_sidecar_manifest,
@@ -460,8 +461,12 @@ def _held_boxes(engine) -> List[Tuple[Box, Box]]:
         full, shard = leaf_shape(engine, i), engine._experts[i]
         tensor = engine._tensor[i]
         state = box_of(full, placement_values(pl, shard, tensor))
-        master = state if engine.zero_stage == 3 else box_of(
-            full, placement_values(None, shard, tensor))
+        # stage 3: the parameter's own chunk (under hpZ coarser than the
+        # state's piece)
+        held = engine.params[i] if engine.infinity is None else None
+        master = box_of(full, placement_values(
+            placement_of(held) if engine.zero_stage == 3 and held is not None
+            else None, shard, tensor))
         out.append((master, state))
     return out
 

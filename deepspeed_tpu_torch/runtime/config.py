@@ -40,12 +40,17 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` for the keys
   tier), typed as :class:`OffloadOptimizerConfig` and
   :class:`OffloadParamConfig`, and ``aio`` (:class:`AioConfig`: the NVMe
   tier's file I/O engine).
+* ZeRO++: ``zero_quantized_weights`` (qwZ), ``zero_quantized_gradients``
+  (qgZ) and ``zero_hpz_partition_size`` (hpZ) run in
+  ``runtime/engine.py``; ``zero_quantized_nontrainable_weights`` is
+  parsed and read nowhere, as in the JAX package.
 
 What the port cannot do yet raises ``NotImplementedError`` ("not ported
 yet", naming its ``ROADMAP.md`` Queue 1 item): the compositions with
-``seq`` that ``initialize`` checks (items 7c, 7d, 9c), MiCS, ZeRO++
-(quantized weights or gradients, hpZ) and
-``kernels.overlap_collectives``, a pipeline
+``seq`` that ``initialize`` checks (items 7c, 7d, 9c), ZeRO++ under a
+tensor or ``seq`` axis or on a model other than the Llama family (4c,
+also checked by ``initialize``), MiCS (10),
+``kernels.overlap_collectives`` (4b), a pipeline
 dimension above 1, random-LTD (``data_efficiency.data_routing.
 random_ltd``).  The groups of :data:`ACCEPTED_WITHOUT_EFFECT`
 (telemetry, tuning, comms_logger, ...) are accepted and have no effect;
@@ -211,7 +216,11 @@ class ZeroConfig:
     ``stage3_gather_16bit_weights_on_model_save``) are recorded and
     advisory, as in the JAX package: the engine gathers one weight at a
     time where it is read and reduce-scatters it where its gradient
-    forms."""
+    forms.  ZeRO++'s ``zero_quantized_weights``,
+    ``zero_quantized_gradients`` and ``zero_hpz_partition_size`` (stage 3,
+    equal to the mesh's ``data`` axis) run in the engine;
+    ``zero_quantized_nontrainable_weights`` is read nowhere, as in the JAX
+    package."""
 
     stage: int = 0
     reduce_bucket_size: Union[int, str] = 500_000_000
@@ -480,18 +489,11 @@ class DeepSpeedConfig:
             raise NotImplementedError("MiCS sharding (mics_shard_size) is "
                                       "not ported yet (ROADMAP Queue 1 item "
                                       "10)")
-        zpp = [k for k in ("zero_quantized_weights",
-                           "zero_quantized_nontrainable_weights",
-                           "zero_quantized_gradients") if getattr(z, k)]
-        if int(z.zero_hpz_partition_size or 1) > 1:
-            zpp.append(f"zero_hpz_partition_size="
-                       f"{z.zero_hpz_partition_size}")
         if self.kernels.overlap_collectives:
-            zpp.append("kernels.overlap_collectives")
-        if zpp:
             raise NotImplementedError(
-                f"{', '.join(zpp)}: ZeRO++ and the overlapped collectives "
-                "are not ported yet (ROADMAP Queue 1 item 4)")
+                "kernels.overlap_collectives: the chunked ring overlap of "
+                "the ZeRO-3 collectives is not ported yet (ROADMAP Queue 1 "
+                "item 4b)")
         kind = str((self.checkpoint.checkpoint_engine or {}).get(
             "type", "sync")).lower()
         if kind not in ("sync", "async", "decoupled"):

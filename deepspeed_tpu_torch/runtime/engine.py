@@ -130,6 +130,35 @@ clipped gradients go to the host, the C++ optimizer steps, and the
 updated values come back (all-gathered at stages 1-2, as the masters
 are).  fp16 skips the step on an overflow, as the JAX engine does.
 
+ZeRO++ (JAX ``engine.py:264-289``, ``:1135-1316``; a Llama-family model,
+on the data axes alone: ``initialize`` refuses the rest):
+
+* qwZ (``zero_quantized_weights``, any stage): each parameter the JAX
+  engine quantizes (``qwz_compress_tree``'s threshold, counted on JAX's
+  stacked leaf) carries its ``QwzAxis`` and the model reads it through the
+  int8 round trip (``sharder.compute_weight``; gathered as int8 at
+  stage 3), straight-through;
+* qgZ (``zero_quantized_gradients``): at stages 0-2 every gradient, summed
+  over the microbatches, takes the int8 two-hop all-reduce at the boundary
+  (``qgz.quantized_allreduce``; stage 2 too, as JAX cuts the gradient only
+  after its second hop: no reduce-scatter in the backward); at stage 3 a
+  cut leaf's whole gradient goes one int8 hop
+  (``qgz.quantized_reduce_scatter``) from the backward at gas 1, or summed
+  over the microbatches in fp32 and sent at the boundary (JAX quantizes
+  the step's sum), and a whole leaf's takes the two hops.  Under fp16 a
+  gradient that is not finite on some rank before the int8 wire skips the
+  step (the wire would zero or hide it: ROADMAP Queue 3);
+* hpZ (``zero_hpz_partition_size`` at stage 3, equal to the ``data``
+  axis): a cut leaf's master is this rank's ``1/hpz`` chunk over the
+  ``data`` group (what the model gathers), its gradient is reduce-scattered
+  and its m and v held over the whole data-parallel group (``1/dp``: a
+  piece inside the chunk), and after the update the pieces are
+  all-gathered over ``expert`` into each chunk.
+
+``last_wire`` holds the bytes of the last step's collectives by verb and
+dtype (``comm.wire_counts``), from its first microbatch's forward to the
+end of its ``step``.
+
 ZeRO-Infinity (``zero_optimization.offload_param``): the model must
 provide the layer-streaming protocol (``embed_fwd``, ``decoder_layer``,
 ``head_loss``, ``batch_labels``; JAX ``engine.py:116-140``), and its
@@ -165,6 +194,8 @@ from .lr_schedules import (LRScheduler, Schedule, constant_lr,
 from .optimizers import Adam, base_lr, build_optimizer
 from .precision import (DynamicLossScaler, clip_grads_by_global_norm,
                         global_grad_norm, has_overflow)
+from .zero.qgz import quantized_allreduce, quantized_reduce_scatter
+from .zero.qwz import qwz_axis
 from .zero.sharder import (Placement, ZeroShardingPolicy, all_gather_flat,
                            all_reduce_flat, expert_of, placement_of,
                            tensor_of)
@@ -184,7 +215,7 @@ class DeepSpeedEngine:
                  dp_group: Any = None, expert_data_group: Any = None,
                  seq_group: Any = None, dp_seq_group: Any = None,
                  tp_group: Any = None, dp_tp_group: Any = None,
-                 commit_group: Any = None):
+                 commit_group: Any = None, expert_group: Any = None):
         self.device = resolve_device(device)
         self.config = config
         self.loss_fn = loss_fn
@@ -227,6 +258,7 @@ class DeepSpeedEngine:
         #: the data axes, ``seq`` and ``tensor`` together: the group a
         #: checkpoint's commit waits for
         self._commit_group = commit_group
+        self._refuse_zeropp(zero)
         if zero.offload_param_device() != "none":
             self._init_infinity(dp_group, seq_group, dp_seq_group)
             return
@@ -257,7 +289,20 @@ class DeepSpeedEngine:
         self._data_rank = (comm.get_rank(self.expert_data_group)
                            if self.expert_data_group is not None else 0)
         self.zero_policy = ZeroShardingPolicy.from_config(
-            zero, self.dp_world_size)
+            zero, self.dp_world_size, comm.get_world_size(
+                self.expert_data_group) if self.expert_data_group
+            is not None else None)
+        #: hpZ: the group the updated pieces are gathered over into each
+        #: rank's master chunk (the ``expert`` axis)
+        self._hpz_group = (expert_group if self.zero_stage == 3
+                           and self.zero_policy.secondary else None)
+        if self.zero_stage == 3 and self.zero_policy.secondary and \
+                expert_group is None:
+            raise ValueError("zero_hpz_partition_size: the engine needs the "
+                             "mesh's expert group (initialize passes it)")
+        self.qwz_enabled = bool(zero.zero_quantized_weights)
+        self.qgz_enabled = bool(zero.zero_quantized_gradients) and \
+            self.dp_world_size > 1
         self._expert_policy = ZeroShardingPolicy.from_config(
             zero, comm.get_world_size(self.expert_data_group)
             if self.expert_data_group is not None else self.dp_world_size)
@@ -285,10 +330,18 @@ class DeepSpeedEngine:
         #: stage 2: each cut leaf's reduce-scattered gradient chunk
         self._grad_chunks: List[Optional[torch.Tensor]] = \
             [None] * len(self.params)
-        if self.zero_stage == 2:
+        #: per parameter, its fp32 gradient summed over the microbatches
+        #: when the card's parameters are 16-bit (the offload wire) or a
+        #: stage-3 qgZ leaf waits for the boundary
+        self._grad_acc: List[Optional[torch.Tensor]] = \
+            [None] * len(self.params)
+        #: fp16 under qgZ: a local gradient not finite before the int8 wire
+        self._qgz_bad: List[Optional[torch.Tensor]] = [None]
+        if self.zero_stage == 2 and not self.qgz_enabled:
             for i in self._cut:
                 self.params[i].register_post_accumulate_grad_hook(
                     self._reduce_scatter_hook(i))
+        self._init_zeropp(module)
 
         self.optimizer = build_optimizer(config, self._masters())
         self.fused_adam_enabled = False
@@ -306,10 +359,6 @@ class DeepSpeedEngine:
                          "AdamW: keeping the plain step")
         self.loss_scaler = (DynamicLossScaler.from_config(config.fp16)
                             if self.fp16_enabled else None)
-        #: per parameter, its fp32 gradient summed over the microbatches
-        #: when the card's parameters are 16-bit (the offload wire)
-        self._grad_acc: List[Optional[torch.Tensor]] = \
-            [None] * len(self.params)
         self._fp32_grad_hooks = False
         if self.offload_enabled:
             self._init_offload()
@@ -328,6 +377,70 @@ class DeepSpeedEngine:
                            else self.dp_group if self.dp_world_size > 1
                            else None)
 
+    def _refuse_zeropp(self, zero: Any) -> None:
+        """JAX's refusals of ZeRO++ with offload or Infinity
+        (``engine.py:267-289``), in its words; hpZ with them names its
+        ROADMAP item."""
+        offload = (zero.offload_optimizer_device() != "none"
+                   or zero.offload_param_device() != "none")
+        if not offload:
+            return
+        if zero.zero_quantized_weights:
+            raise NotImplementedError(
+                "zero_quantized_weights + offload/infinity not supported "
+                "(those paths own their own param movement)")
+        if zero.zero_quantized_gradients:
+            raise NotImplementedError(
+                "zero_quantized_gradients + offload not supported yet")
+        if int(zero.zero_hpz_partition_size or 1) > 1 and zero.stage >= 3:
+            raise NotImplementedError(
+                "zero_hpz_partition_size with offload_optimizer or "
+                "offload_param is not ported yet (ROADMAP Queue 1 item 4c)")
+
+    def _init_zeropp(self, module: Any) -> None:
+        """qwZ: each parameter's ``QwzAxis`` (None: read as it is) from the
+        model's JAX view (``qwz_view``); qgZ and hpZ at stage 3: each cut
+        leaf's gradient sink."""
+        view = getattr(module, "qwz_view", None)
+        if self.qwz_enabled and view is None:
+            raise NotImplementedError(
+                f"zero_quantized_weights: {type(module).__name__} has no "
+                "qwz_view (its leaves' JAX layout); ROADMAP Queue 1 item 4c")
+        threshold = self.zero_policy.persistence_threshold
+        self._qgz_at_boundary = self.qgz_enabled and (
+            self.gradient_accumulation_steps > 1 or bool(getattr(getattr(
+                module, "config", None), "tie_embeddings", False)))
+        sinks = self.zero_stage == 3 and (self.qgz_enabled or
+                                          self._hpz_group is not None)
+        for i, (name, p) in enumerate(zip(self.param_names, self.params)):
+            p.ds_qwz = (qwz_axis(*view(name), threshold)
+                        if self.qwz_enabled else None)
+            p.ds_grad_sink = (self._grad_sink(i) if sinks and
+                              self.placements[i] is not None else None)
+
+    def _grad_sink(self, i: int) -> Callable[[torch.Tensor], None]:
+        """Stage 3 under qgZ or hpZ: what the backward does with cut leaf
+        ``i``'s whole fp32 gradient: the int8 reduce-scatter (qgZ at gas
+        1), the sum over the microbatches (qgZ at a later boundary), or
+        the reduce-scatter into this rank's ``1/dp`` piece (hpZ)."""
+        place, chunks, acc = self.placements[i], self._grad_chunks, \
+            self._grad_acc
+        qgz, boundary = self.qgz_enabled, self._qgz_at_boundary
+        bad = self._qgz_bad if self.fp16_enabled and qgz else None
+
+        def sink(g: torch.Tensor) -> None:  # holds no engine: no cycle
+            if boundary:
+                acc[i] = g.clone() if acc[i] is None else acc[i].add_(g)
+                return
+            if bad is not None:
+                _mark_bad(bad, g)
+            chunk = (quantized_reduce_scatter(g, place.group, place.dim,
+                                              average=False,
+                                              order=place.order)
+                     if qgz else place.reduce_scatter(g))
+            chunks[i] = chunk if chunks[i] is None else chunks[i].add_(chunk)
+        return sink
+
     def _init_counters(self) -> None:
         self.global_steps = 0     # train steps taken, skipped ones included
         self.micro_steps = 0
@@ -336,6 +449,9 @@ class DeepSpeedEngine:
         self._loss_sum: Optional[torch.Tensor] = None
         self._accumulation_boundary_forced: Optional[bool] = None
         self.last_metrics: Dict[str, Any] = {}
+        #: bytes of the last step's collectives by ``"verb/dtype"``
+        self.last_wire: Dict[str, int] = {}
+        self._wire_mark = comm.wire_counts()
         self.checkpoint_engine = make_checkpoint_engine(self.config)
         #: the seqlen curriculum's scheduler when ``initialize`` built one
         self.curriculum_scheduler = None
@@ -406,6 +522,7 @@ class DeepSpeedEngine:
                               if dp_group is not None else 1)
         self._init_seq(seq_group, dp_seq_group)
         self.expert_data_group, self._data_rank = None, 0
+        self.qwz_enabled = self.qgz_enabled = False  # refused with offload
         self.infinity = LayerStreamingEngine(
             module, config, self._schedule, self.device,
             group=self._sum_group, seq_group=self.seq_group,
@@ -450,8 +567,14 @@ class DeepSpeedEngine:
         already is).  An expert leaf is cut over the ``data`` group, the
         threshold counting its every expert."""
         places: List[Optional[Placement]] = []
+        hpz = self.zero_policy.hpz if self._hpz_group is not None else 1
         for i, p in enumerate(self.params):
             have = placement_of(p)
+            if have is not None and hpz > 1:
+                raise ValueError(
+                    "zero_hpz_partition_size: build the model whole (outside "
+                    "zero.Init); the engine cuts its masters over the data "
+                    "axis")
             if have is not None:
                 if self.zero_stage != 3 or have.dp != self.dp_world_size:
                     raise ValueError(
@@ -476,22 +599,51 @@ class DeepSpeedEngine:
             if dim is None:
                 places.append(None)
                 continue
-            place = Placement.of(tuple(p.shape), dim, group)
+            if hpz > 1:  # each rank's 1/dp piece inside its 1/hpz chunk
+                place, master = self._hpz_placements(tuple(p.shape), dim,
+                                                     hpz)
+            else:
+                place = master = Placement.of(tuple(p.shape), dim, group)
             if self.zero_stage == 3:
                 with torch.no_grad():
-                    p.data = place.cut(p.data)
-                p.ds_placement = place
+                    p.data = master.cut(p.data)
+                p.ds_placement = master
             places.append(place)
         return places
+
+    def _hpz_placements(self, shape: Tuple[int, ...], dim: int, hpz: int
+                        ) -> Tuple[Placement, Placement]:
+        """hpZ: (the gradient and optimizer-state piece, the master chunk)
+        of a leaf cut along ``dim``.  Data-parallel rank ``g = e x hpz + d``
+        (the mesh's expert-major order) holds master chunk ``d`` of ``hpz``
+        over the ``data`` group and piece ``d x ep + e`` of ``dp`` over the
+        whole group: piece ``e`` of its chunk."""
+        dp = self.dp_world_size
+        ep = dp // hpz
+        order = [(g % hpz) * ep + g // hpz for g in range(dp)]
+        place = Placement.of(shape, dim, self.dp_group, order)
+        master = Placement.of(shape, dim, self.expert_data_group)
+        if master.rank != comm.get_rank(self.dp_group) % hpz:
+            raise ValueError("hpZ needs the mesh's (expert, data) layout: "
+                             "build it with utils.groups.initialize_mesh")
+        return place, master
 
     def _masters(self) -> List[torch.Tensor]:
         """What the optimizer updates, per parameter: the whole fp32 master
         of a replicated leaf, this rank's chunk of a cut one (the
         parameter itself at stage 3, a view of the whole master at stages
         1-2)."""
-        return [p if pl is None or self.zero_stage == 3
-                else pl.view(p.detach())
-                for p, pl in zip(self.params, self.placements)]
+        out = []
+        for p, pl in zip(self.params, self.placements):
+            if pl is None or (self.zero_stage == 3 and pl.order is None):
+                out.append(p)
+            elif self.zero_stage == 3:  # hpZ: the piece inside the chunk
+                n = pl.chunk_shape[pl.dim]
+                out.append(p.detach().narrow(
+                    pl.dim, pl.offset_in(placement_of(p)), n))
+            else:
+                out.append(pl.view(p.detach()))
+        return out
 
     def _work_masters(self) -> List[torch.Tensor]:
         """:meth:`_masters` as the kernels take them: a chunk view that is
@@ -521,9 +673,12 @@ class DeepSpeedEngine:
         """Per parameter, its gradient summed over the group (and over
         ``seq``): this rank's chunk of a cut leaf, the whole of a
         replicated one (all-reduced in flat buckets)."""
+        if self.qgz_enabled:
+            return self._qgz_reduced_grads()
         grads: List[torch.Tensor] = []
         for i, (p, pl) in enumerate(zip(self.params, self.placements)):
-            if pl is not None and self.zero_stage == 2:
+            if pl is not None and (self.zero_stage == 2 or (
+                    self.zero_stage == 3 and self._hpz_group is not None)):
                 g = self._grad_chunks[i]
                 grads.append(g if g is not None else p.new_zeros(
                     pl.chunk_shape))
@@ -547,6 +702,49 @@ class DeepSpeedEngine:
             all_reduce_flat([grads[i] for i in rest], self.seq_group,
                             self._bucket)
         return grads
+
+    def _qgz_reduced_grads(self) -> List[torch.Tensor]:
+        """qgZ at the boundary (the data axes alone): each whole gradient
+        through the int8 two hops, then cut at stages 1-2; at stage 3 a cut
+        leaf's chunk from the backward's one hop, or its microbatches' sum
+        sent now."""
+        group, bad = self.dp_group, (self._qgz_bad if self.fp16_enabled
+                                     else None)
+        grads: List[torch.Tensor] = []
+        for i, (p, pl) in enumerate(zip(self.params, self.placements)):
+            if pl is not None and self.zero_stage == 3:
+                g, full = self._grad_chunks[i], self._grad_acc[i]
+                if full is not None:
+                    if bad is not None:
+                        _mark_bad(bad, full)
+                    g = quantized_reduce_scatter(full, group, pl.dim,
+                                                 average=False,
+                                                 order=pl.order)
+                grads.append(g if g is not None else p.new_zeros(
+                    pl.chunk_shape))
+                continue
+            g = p.grad if p.grad is not None else torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device)
+            if bad is not None:
+                _mark_bad(bad, g)
+            g = quantized_allreduce(g.float(), group, average=False)
+            if pl is not None:
+                g = pl.cut(g)
+            p.grad = None
+            grads.append(g)
+        return grads
+
+    def _qgz_overflow(self) -> bool:
+        """fp16 under qgZ: whether a gradient was not finite on some rank
+        before the int8 wire (max-reduced over the group)."""
+        if not (self.fp16_enabled and self.qgz_enabled):
+            return False
+        flag = self._qgz_bad[0]
+        self._qgz_bad[0] = None
+        flag = (flag.float() if flag is not None else torch.zeros(
+            (), device=self.device))
+        comm.all_reduce(flag, comm.ReduceOp.MAX, group=self.dp_group)
+        return bool(flag > 0)
 
     def _dp_split(self) -> bool:
         """Whether the gradients differ across the data-parallel group
@@ -580,10 +778,19 @@ class DeepSpeedEngine:
                      or self.leaf_group_rank(i) == 0)]
 
     def _gather_masters(self, work: List[torch.Tensor]) -> None:
-        """Stages 1-2: every rank's updated chunks into the whole masters."""
+        """Stages 1-2: every rank's updated chunks into the whole masters;
+        hpZ: every ``expert`` rank's pieces into this rank's master
+        chunk."""
         if self.zero_stage in (1, 2) and self._cut:
             all_gather_flat([work[i] for i in self._cut],
                             [self.placements[i] for i in self._cut],
+                            [self.params[i].data for i in self._cut],
+                            self._bucket)
+        elif self._hpz_group is not None and self._cut:
+            pieces = [Placement.of(tuple(self.params[i].shape),
+                                   self.placements[i].dim, self._hpz_group)
+                      for i in self._cut]
+            all_gather_flat([work[i] for i in self._cut], pieces,
                             [self.params[i].data for i in self._cut],
                             self._bucket)
 
@@ -606,6 +813,8 @@ class DeepSpeedEngine:
         if self.infinity is not None:
             self._pending_batch = batch
             return self.infinity.eval_loss(batch)
+        if self._micro_in_step == 0:  # a step's collectives count from here
+            self._wire_mark = comm.wire_counts()
         return self.loss_fn(self._to_device(batch))
 
     __call__ = forward
@@ -663,6 +872,7 @@ class DeepSpeedEngine:
             finally:
                 self.infinity.gas = saved
         grads = self._reduced_grads()
+        forced = self._qgz_overflow()
         mean_loss = self._loss_sum
         if self._sum_group is not None:
             comm.all_reduce(mean_loss, group=self._sum_group)
@@ -675,9 +885,11 @@ class DeepSpeedEngine:
         if self.offload_opt is not None:
             overflow, grad_norm = self._offload_step(grads, unscale, lr)
         elif self.fused_adam_enabled:
-            overflow, grad_norm = self._fused_step(grads, unscale, lr)
+            overflow, grad_norm = self._fused_step(grads, unscale, lr,
+                                                   forced)
         else:
-            overflow, grad_norm = self._plain_step(grads, unscale, lr)
+            overflow, grad_norm = self._plain_step(grads, unscale, lr,
+                                                   forced)
         if overflow:
             self._skipped_steps += 1
         if self.loss_scaler is not None:
@@ -686,6 +898,11 @@ class DeepSpeedEngine:
         self._micro_in_step, self._loss_sum = 0, None
         self.global_steps += 1
         self.lr_scheduler.last_step = self.optimizer.count
+        wire = comm.wire_counts()
+        self.last_wire = {k: v - self._wire_mark.get(k, 0)
+                          for k, v in wire.items()
+                          if v != self._wire_mark.get(k, 0)}
+        self._wire_mark = wire
         self.last_metrics = {"loss": mean_loss, "grad_norm": grad_norm,
                              "lr": lr, "loss_scale": scale,
                              "overflow": overflow}
@@ -697,14 +914,16 @@ class DeepSpeedEngine:
         return self.last_metrics
 
     def _plain_step(self, grads: List[torch.Tensor], unscale: float,
-                    lr: float) -> Tuple[bool, torch.Tensor]:
-        """Unscale, overflow test, clip, then the optimizer's own step on
-        this rank's chunk lists."""
+                    lr: float, forced: bool = False
+                    ) -> Tuple[bool, torch.Tensor]:
+        """Unscale, overflow test (``forced``: qgZ saw one before its
+        wire), clip, then the optimizer's own step on this rank's chunk
+        lists."""
         if unscale != 1.0:
             torch._foreach_mul_(grads, unscale)
         group = self._norm_group()
-        overflow = (bool(has_overflow(grads, group)) if self.fp16_enabled
-                    else False)
+        overflow = forced or (bool(has_overflow(grads, group))
+                              if self.fp16_enabled else False)
         if overflow:
             torch._foreach_zero_(grads)
         grad_norm = global_grad_norm(self._norm_terms(grads), group)
@@ -740,7 +959,8 @@ class DeepSpeedEngine:
         return overflow, grad_norm
 
     def _fused_step(self, grads: List[torch.Tensor], unscale: float,
-                    lr: float) -> Tuple[bool, torch.Tensor]:
+                    lr: float, forced: bool = False
+                    ) -> Tuple[bool, torch.Tensor]:
         """The norm of the still-scaled gradients (this rank's partial,
         all-reduced), then one fused Adam launch on this rank's chunk lists
         with ``mult = clip factor x unscale``, updating the optimizer's
@@ -758,7 +978,8 @@ class DeepSpeedEngine:
         raw_norm = raw_sq.sqrt()
         finite = torch.isfinite(raw_norm)
         # fp16 only: the host reads the overflow flag to skip the step
-        overflow = (not bool(finite)) if self.fp16_enabled else False
+        overflow = forced or ((not bool(finite)) if self.fp16_enabled
+                              else False)
         grad_norm = torch.where(finite, raw_norm,
                                 torch.zeros_like(raw_norm)) * unscale
         mult: Any = unscale
@@ -888,10 +1109,9 @@ class DeepSpeedEngine:
         """Every parameter whole, in bf16, on the host (a ZeRO-3 chunk is
         gathered: every rank calls it)."""
         out = {}
-        for name, p, pl in zip(self.param_names, self.params,
-                               self.placements):
-            whole = pl.gather(p.data) if pl is not None and \
-                self.zero_stage == 3 else p.data
+        for name, p in zip(self.param_names, self.params):
+            pl = placement_of(p)
+            whole = pl.gather(p.data) if pl is not None else p.data
             out[name] = whole.to(torch.bfloat16).cpu()
         return out
 
@@ -906,6 +1126,13 @@ class DeepSpeedEngine:
 
     def eval(self) -> "DeepSpeedEngine":
         return self
+
+
+def _mark_bad(cell: List[Optional[torch.Tensor]], g: torch.Tensor) -> None:
+    """Record in ``cell[0]`` (a 0-dim bool, no host sync) whether ``g`` has
+    an entry that is not finite."""
+    bad = ~torch.isfinite(g).all()
+    cell[0] = bad if cell[0] is None else cell[0] | bad
 
 
 def _rows(batch: Any) -> int:

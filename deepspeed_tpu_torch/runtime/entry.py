@@ -158,6 +158,27 @@ def _refuse_unported_seq(model: Any, sp: int, tp: int,
             "(ROADMAP Queue 1 item 9c)")
 
 
+def _refuse_unported_zeropp(model: Any, zero: Any, sp: int,
+                            tp: int) -> None:
+    """Before any mesh is built: refuse ZeRO++ (qwZ, qgZ, hpZ) where no
+    test holds it against JAX yet, naming ROADMAP Queue 1 item 4c: under a
+    tensor or ``seq`` axis, or on a model other than the Llama family."""
+    keys = [k for k in ("zero_quantized_weights", "zero_quantized_gradients")
+            if getattr(zero, k)]
+    if int(zero.zero_hpz_partition_size or 1) > 1 and int(zero.stage) >= 3:
+        keys.append("zero_hpz_partition_size")
+    if not keys:
+        return
+    where = (f"{type(model).__name__}" if not getattr(model, "zero_pp", False)
+             else "a tensor axis" if tp > 1 else "a seq axis" if sp > 1
+             else None)
+    if where is not None:
+        raise NotImplementedError(
+            f"{', '.join(keys)} on {where} is not ported yet (ROADMAP "
+            "Queue 1 item 4c: ZeRO++ trains the Llama family on the data "
+            "axes)")
+
+
 def _apply_tensor_parallel(model: Any, mesh: Any, tp: int) -> None:
     """Split a whole model over the mesh's ``tensor`` axis (its own
     ``shard_``, else AutoTP's name policy: ``tensor_parallel.
@@ -244,6 +265,15 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     columns, and the expert exchange runs over the ``expert`` group of its
     tensor coordinate.
 
+    ZeRO++ (``zero_quantized_weights``, ``zero_quantized_gradients``,
+    ``zero_hpz_partition_size``; ``runtime/engine.py``) trains a Llama-family
+    model on the data axes: hpZ's ``hpz`` is the mesh's ``data`` axis, and
+    the rest of the data-parallel world its ``expert`` axis
+    (``moe.expert_parallel_size``, or a mesh built with ``ep``).  Under a
+    tensor or ``seq`` axis, and on Mixtral, BERT, OPT, ResNet or a bare
+    loss function, it is refused before any mesh is built (ROADMAP Queue 1
+    item 4c).
+
     ``hybrid_engine.enabled`` returns a
     :class:`~.hybrid_engine.DeepSpeedHybridEngine` around the engine (its
     ``generate`` runs the model's KV-cache path on the live weights).
@@ -304,6 +334,9 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     _refuse_unported_seq(
         model, max(sp, int(axes.get(AXIS_SEQ, 1))),
         max(tp_cfg, model_tp, int(axes.get(AXIS_TENSOR, 1))), infinity)
+    _refuse_unported_zeropp(
+        model, zero, max(sp, int(axes.get(AXIS_SEQ, 1))),
+        max(tp_cfg, model_tp, int(axes.get(AXIS_TENSOR, 1))))
     dp_group, dp, others, mesh = _data_parallel(mesh, mpu, ep_cfg, sp,
                                                 max(tp_cfg, model_tp))
     tp, pp, sp = (others.get(a, 1) for a in (AXIS_TENSOR, AXIS_PIPE,
@@ -376,7 +409,9 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
         dp_group=dp_group, expert_data_group=data_group,
         seq_group=seq_group, dp_seq_group=dp_seq_group,
         tp_group=tp_group, dp_tp_group=dp_tp_group,
-        commit_group=commit_group)
+        commit_group=commit_group,
+        expert_group=mesh.group(AXIS_EXPERT) if mesh is not None and dp > 1
+        else None)
     dataloader = None
     if training_data is not None:
         dataloader = DeepSpeedDataLoader(

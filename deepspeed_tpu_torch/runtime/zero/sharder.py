@@ -36,6 +36,25 @@ Tensor-parallel leaves (marked ``ds_tensor`` with their
 leaves alone (JAX: the base spec's dim is taken); ZeRO cuts the rank's
 block over the data-parallel group of its tensor coordinate, the
 threshold counting the whole leaf.
+
+ZeRO++ (JAX ``runtime/zero/qwz.py``, ``qgz.py`` and the hpZ branch of
+``ZeroShardingPolicy``): under qwZ a parameter carries its
+``qwz.QwzAxis`` (``ds_qwz``) and :func:`compute_weight` reads it through
+the int8 round trip, straight-through; at stage 3 :class:`_GatherWeight`
+gathers the int8 codes and the fp32 scales.  A chunk that cuts a group
+takes the group's amax from a max all-reduce of the chunks' partial
+amaxes (a small fp32 vector, which then gives every rank every scale)
+before it makes its codes, so the weights equal JAX's, which quantizes
+the whole leaf.  hpZ (``zero_hpz_partition_size``, stage 3): the master
+of a cut leaf is cut over the ``data`` group alone (``hpz`` ranks), its
+gradient and optimizer state over the whole data-parallel group (``dp``
+ranks), each rank's ``1/dp`` piece inside its ``1/hpz`` chunk (a
+:class:`Placement` with an ``order``); JAX cuts its parameters over
+``data`` and the rest over ``(expert, data)``, which do not nest, but the
+placement is the port's own and the numbers do not depend on it.  A
+parameter's ``ds_grad_sink`` (set by the engine under hpZ and qgZ)
+receives the whole fp32 gradient of its gathered weight in place of the
+reduce-scatter into ``.grad``.
 """
 
 from __future__ import annotations
@@ -45,9 +64,12 @@ import math
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ...comm import comm
 from ..config import ZeroConfig
+from .qwz import (QwzAxis, codes_of, dequant_runs, group_amax, qwz,
+                  quant_runs, scales_of)
 
 Tensor = torch.Tensor
 
@@ -94,12 +116,36 @@ class ZeroShardingPolicy:
     stage: int
     dp_size: int
     persistence_threshold: int = 0
+    #: hpZ: the ranks a stage-3 master is cut over (the ``data`` axis);
+    #: 1 when it is cut over all ``dp_size``
+    hpz: int = 1
 
     @classmethod
-    def from_config(cls, config: ZeroConfig,
-                    dp_size: int) -> "ZeroShardingPolicy":
+    def from_config(cls, config: ZeroConfig, dp_size: int,
+                    data_size: Optional[int] = None
+                    ) -> "ZeroShardingPolicy":
+        """The stage's policy over ``dp_size`` ranks; ``data_size``: the
+        mesh's ``data`` axis, which ``zero_hpz_partition_size`` above 1
+        must equal at stage 3 (JAX ``from_config``)."""
+        hpz = int(config.zero_hpz_partition_size or 1)
+        if hpz > 1 and int(config.stage) >= 3:
+            inner = int(dp_size if data_size is None else data_size)
+            if hpz != inner:
+                raise ValueError(
+                    f"zero_hpz_partition_size={hpz} must equal the inner "
+                    f"'data' mesh axis size ({inner}) — the secondary "
+                    "partition maps onto the ICI-local axis (lay the mesh "
+                    "out so data=hpz and expert carries the rest of DP)")
+        else:
+            hpz = 1
         return cls(stage=int(config.stage), dp_size=int(dp_size),
-                   persistence_threshold=config.persistence_threshold)
+                   persistence_threshold=config.persistence_threshold,
+                   hpz=hpz if hpz < dp_size else 1)
+
+    @property
+    def secondary(self) -> bool:
+        """hpZ is on and differs from plain stage 3 (``hpz < dp``)."""
+        return self.hpz > 1
 
     def shard_dim(self, shape: Tuple[int, ...],
                   numel: Optional[int] = None,
@@ -184,13 +230,18 @@ class Placement:
     rank: int
     full_shape: Tuple[int, ...]
     group: Any = None
+    #: the chunk each group rank holds (None: group rank ``r`` holds chunk
+    #: ``r``); ``rank`` is this process's chunk
+    order: Optional[Tuple[int, ...]] = None
 
     @classmethod
-    def of(cls, shape: Tuple[int, ...], dim: int, group: Any
-           ) -> "Placement":
+    def of(cls, shape: Tuple[int, ...], dim: int, group: Any,
+           order: Optional[Sequence[int]] = None) -> "Placement":
+        r = comm.get_rank(group)
         return cls(dim=dim, dp=comm.get_world_size(group),
-                   rank=comm.get_rank(group), full_shape=tuple(shape),
-                   group=group)
+                   rank=r if order is None else int(order[r]),
+                   full_shape=tuple(shape), group=group,
+                   order=None if order is None else tuple(order))
 
     @property
     def chunk_shape(self) -> Tuple[int, ...]:
@@ -210,11 +261,29 @@ class Placement:
 
     def gather(self, chunk: Tensor) -> Tensor:
         """Every rank's chunk, concatenated along ``dim``: the full leaf."""
-        return comm.all_gather(chunk, group=self.group, dim=self.dim)
+        full = comm.all_gather(chunk, group=self.group, dim=self.dim)
+        if self.order is None:
+            return full
+        parts = full.chunk(self.dp, dim=self.dim)
+        by_chunk = sorted(range(self.dp), key=self.order.__getitem__)
+        return torch.cat([parts[r] for r in by_chunk], dim=self.dim)
 
     def reduce_scatter(self, full: Tensor) -> Tensor:
         """``full`` summed over the group; this rank's chunk of the sum."""
+        if self.order is not None:
+            parts = full.chunk(self.dp, dim=self.dim)
+            full = torch.cat([parts[k] for k in self.order], dim=self.dim)
         return comm.reduce_scatter(full, group=self.group, dim=self.dim)
+
+    def offset_in(self, outer: "Placement") -> int:
+        """Where this chunk starts along ``dim`` inside ``outer``'s chunk
+        (the same leaf and dim, ``outer`` cut coarser)."""
+        n, m = (self.full_shape[self.dim] // self.dp,
+                self.full_shape[self.dim] // outer.dp)
+        off = self.rank * n - outer.rank * m
+        if self.dim != outer.dim or not 0 <= off <= m - n:
+            raise ValueError("the chunk does not lie inside the outer one")
+        return off
 
 
 def placement_of(t: Tensor) -> Optional[Placement]:
@@ -235,30 +304,75 @@ def refuse_cut(module: torch.nn.Module, what: str) -> None:
             "or from a model built whole")
 
 
+def _qwz_gather(chunk: Tensor, place: Placement, dtype: torch.dtype,
+                axis: QwzAxis) -> Tensor:
+    """The whole weight in ``dtype`` after the int8 round trip, gathered as
+    int8 codes: this rank's chunk cast to ``dtype`` and to fp32 and
+    quantized in JAX's groups (runs of ``axis.run`` along ``axis.dim``);
+    the codes all-gathered along the chunk's dim, and the scales too,
+    unless the chunk cuts a group: then the groups' amaxes are max-reduced
+    over the ranks first (every rank then holds every scale)."""
+    d, c, run = axis.dim, place.dim, axis.run
+    x = chunk.to(dtype).float().movedim(d, -1)
+    if c != d or x.shape[-1] % run == 0:
+        q, s = quant_runs(x, run)
+        # the scales' dim that the chunk cuts, in the moved layout
+        sdim = -1 if c == d else (c if c < d else c - 1)
+        s_full = comm.all_gather(s, group=place.group, dim=sdim)
+    else:
+        n = x.shape[-1]
+        lo = place.rank * n
+        g0, g1 = lo // run, (lo + n - 1) // run
+        left = lo - g0 * run
+        g = F.pad(x, (left, (g1 + 1) * run - lo - n)).reshape(
+            *x.shape[:-1], g1 - g0 + 1, run)
+        amax = x.new_zeros(*x.shape[:-1], place.full_shape[c] // run)
+        amax[..., g0:g1 + 1] = group_amax(g)
+        comm.all_reduce(amax, comm.ReduceOp.MAX, group=place.group)
+        s_full = scales_of(amax)
+        q = codes_of(g, s_full[..., g0:g1 + 1, None]).reshape(
+            *x.shape[:-1], -1)[..., left:left + n]
+    q_full = place.gather(q.movedim(-1, d).contiguous())
+    return dequant_runs(q_full.movedim(d, -1), s_full, run).movedim(
+        -1, d).to(dtype)
+
+
 class _GatherWeight(torch.autograd.Function):
     """Forward: this rank's fp32 chunk, cast to the compute dtype, then
-    all-gathered along its dim.  Backward: the weight's gradient in fp32,
-    reduce-scattered (summed over the ranks) into the chunk's gradient."""
+    all-gathered along its dim (under qwZ as int8 codes and scales,
+    :func:`_qwz_gather`).  Backward (straight-through under qwZ): the
+    weight's gradient in fp32, reduce-scattered (summed over the ranks)
+    into the chunk's gradient, or handed whole to the parameter's
+    ``ds_grad_sink``."""
 
     @staticmethod
-    def forward(ctx, chunk: Tensor, place: Placement,
-                dtype: torch.dtype) -> Tensor:
-        ctx.place = place
+    def forward(ctx, chunk: Tensor, place: Placement, dtype: torch.dtype,
+                axis: Optional[QwzAxis], sink: Any) -> Tensor:
+        ctx.place, ctx.sink = place, sink
+        if axis is not None:
+            return _qwz_gather(chunk, place, dtype, axis)
         return place.gather(chunk.to(dtype))
 
     @staticmethod
     def backward(ctx, grad: Tensor):
-        return ctx.place.reduce_scatter(grad.float()), None, None
+        g = grad.float()
+        if ctx.sink is not None:
+            ctx.sink(g)
+            return None, None, None, None, None
+        return ctx.place.reduce_scatter(g), None, None, None, None
 
 
 def compute_weight(w: Tensor, dtype: torch.dtype) -> Tensor:
     """The model's one read of a weight: ``w`` cast to ``dtype``, or, for
     a chunk cut under ZeRO-3, the whole weight gathered in ``dtype``
-    (every rank must read its weights in the same order)."""
-    place = placement_of(w)
+    (every rank must read its weights in the same order); under qwZ
+    through the int8 round trip."""
+    place, axis = placement_of(w), getattr(w, "ds_qwz", None)
     if place is None:
-        return w.to(dtype)
-    return _GatherWeight.apply(w, place, dtype)
+        out = w.to(dtype)
+        return out if axis is None else qwz(out, axis)
+    return _GatherWeight.apply(w, place, dtype, axis,
+                               getattr(w, "ds_grad_sink", None))
 
 
 def _buckets(numels: Sequence[int], limit: int) -> Iterator[List[int]]:

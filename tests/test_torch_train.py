@@ -340,13 +340,19 @@ def test_eval_loss_has_no_graph_and_equals_the_loss():
 
 def test_initialize_refuses_what_is_not_ported():
     _, _, tm = training_pair(num_layers=1)
-    for bad in ({"zero_optimization": {"stage": 2,
-                                       "zero_quantized_gradients": True}},
+    for bad in ({"kernels": {"overlap_collectives": True}},
                 {"zero_optimization": {"stage": 1, "mics_shard_size": 2}},
                 {"pipeline": {"stages": 2}},
                 {"optimizer": {"type": "Lamb", "params": {}}}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             dst.initialize(model=tm, config=dict(BASE, **bad), device="cpu")
+    # ZeRO++ is ported (tests/test_torch_zeropp.py): qwZ applies in a world
+    # of one, qgZ's wire is the identity there
+    engine, *_ = dst.initialize(model=tm, config=dict(
+        BASE, zero_optimization={"stage": 2, "zero_quantized_weights": True,
+                                 "zero_quantized_gradients": True}),
+        device="cpu")
+    assert engine.qwz_enabled and not engine.qgz_enabled
     # the dataloader is ported (tests/test_torch_dataloader.py)
     data = [{"input_ids": np.arange(16)}] * 4
     _, _, loader, _ = dst.initialize(model=tm, config=BASE,
